@@ -1,0 +1,213 @@
+"""Batch inference API: forecasting over preprocessed datasets.
+
+Counterpart of ``multimodal_timesfm_tpu/inference.py``. A ``Forecaster``
+serves a decoder on one device in batches of a fixed size (the final ragged
+batch is padded by repeating its last row), decodes horizons beyond one
+output patch autoregressively, and can denormalize predictions with the
+per-sample z-score ``mean``/``std`` metadata the Time-MMD loader records.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from multimodal_timesfm_torch.data.collate import StackedDataset, stack_samples
+from multimodal_timesfm_torch.models.decoder import MultimodalDecoder
+from multimodal_timesfm_torch.utils.platform import resolve_device
+
+
+def _pad_rows(arr: np.ndarray, size: int) -> np.ndarray:
+    """Pad ``arr`` to ``size`` rows by repeating its last row."""
+    real = arr.shape[0]
+    if real == size:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[-1:], size - real, 0)])
+
+
+class Forecaster:
+    """A decoder, in eval mode on one device, serving batched forecasts.
+
+    The decoder is moved to ``device``: CUDA by default, where its absence
+    raises; pass ``device="cpu"`` to serve on the CPU. ``mesh`` and
+    ``shard_params_fn`` (multi-device serving in the JAX package) are not
+    ported yet and raise.
+    """
+
+    def __init__(
+        self,
+        model: MultimodalDecoder,
+        batch_size: int = 64,
+        device: str | torch.device | None = None,
+        mesh: Any = None,
+        shard_params_fn: Any = None,
+    ) -> None:
+        if mesh is not None or shard_params_fn is not None:
+            raise NotImplementedError(
+                "sharded serving (mesh, shard_params_fn) is not ported yet (ROADMAP queue A, item 10)"
+            )
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.batch_size = batch_size
+        self._warned_ar_text = False
+
+    def _stage(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _batched(
+        self,
+        fn: Callable[..., torch.Tensor],
+        context: np.ndarray,
+        masks: np.ndarray,
+        text_embeddings: np.ndarray | None,
+    ) -> np.ndarray:
+        """Run ``fn(context, masks, text)`` over fixed-size batches, padding the last."""
+        outs = []
+        b = self.batch_size
+        with torch.inference_mode():
+            for i in range(0, context.shape[0], b):
+                ctx = context[i : i + b]
+                real = ctx.shape[0]
+                txt = None
+                if text_embeddings is not None:
+                    txt = self._stage(_pad_rows(text_embeddings[i : i + b], b))
+                out = fn(
+                    self._stage(_pad_rows(ctx, b)), self._stage(_pad_rows(masks[i : i + b], b)), txt
+                )
+                outs.append(out.cpu().numpy()[:real])
+        return np.concatenate(outs, axis=0)
+
+    def forecast(
+        self,
+        horizon: int,
+        context: np.ndarray,
+        masks: np.ndarray | None = None,
+        text_embeddings: np.ndarray | None = None,
+        full: bool = False,
+    ) -> np.ndarray:
+        """Forecast (N, horizon) point values (or (N, horizon, Q) with ``full``)."""
+        if masks is None:
+            masks = np.zeros_like(context, dtype=bool)
+        method = self.model.forward_full if full else self.model
+        return self._batched(
+            lambda x, m, t: method(horizon, x, m, t),
+            np.asarray(context, np.float32), np.asarray(masks, bool), text_embeddings,
+        )
+
+    def forecast_autoregressive(
+        self,
+        horizon: int,
+        context: np.ndarray,
+        masks: np.ndarray | None = None,
+        text_embeddings: np.ndarray | None = None,
+        text_mode: str = "first_window",
+    ) -> np.ndarray:
+        """Point forecasts beyond one output patch via autoregressive decode.
+
+        The context window slides: each round forecasts one chunk, appends
+        it to the fixed-length context and drops as many of the oldest steps.
+        Text fusion applies to the FIRST window only; ``text_mode`` makes
+        that visible to the caller:
+
+          * ``"first_window"`` (default): fuse the first window, and warn once
+            per Forecaster when the decode spans more than one window;
+          * ``"error"``: raise when text is passed and the decode needs more
+            than one window.
+
+        Args:
+            horizon: total steps; may exceed the backbone's single-shot cap.
+            context: (N, C) with C a multiple of the patch length.
+            text_embeddings: optional (N, num_patches, T) for the first window.
+            text_mode: "first_window" | "error".
+
+        Returns:
+            (N, horizon) point forecasts.
+        """
+        if text_mode not in ("first_window", "error"):
+            raise ValueError(
+                f"Unsupported text_mode: {text_mode!r} (expected 'first_window' or 'error')"
+            )
+        adapter = self.model.adapter
+        patch = adapter.patch_len
+        # largest single-shot chunk that keeps the context patch-aligned
+        chunk = max((adapter.config.output_patch_len // patch) * patch, patch)
+        rounds = -(-horizon // chunk)
+
+        if text_embeddings is not None and rounds > 1:
+            if text_mode == "error":
+                raise ValueError(
+                    f"forecast_autoregressive with text_mode='error': horizon {horizon} "
+                    f"needs {rounds} windows, but text fusion only applies to the first "
+                    "window — drop the text, shorten the horizon, or use "
+                    "text_mode='first_window' to accept first-window-only fusion."
+                )
+            if not self._warned_ar_text:
+                warnings.warn(
+                    "forecast_autoregressive: text fusion applies to the FIRST window "
+                    f"only; the remaining {rounds - 1} window(s) decode without text. "
+                    "Pass text_mode='error' to forbid this.",
+                    UserWarning,
+                    stacklevel=2,
+                )
+                self._warned_ar_text = True
+
+        if masks is None:
+            masks = np.zeros_like(context, dtype=bool)
+
+        def decode(ctx: torch.Tensor, msk: torch.Tensor, text: torch.Tensor | None) -> torch.Tensor:
+            preds = [self.model(chunk, ctx, msk, text)]
+            for _ in range(rounds - 1):
+                ctx = torch.cat([ctx[:, chunk:], preds[-1].to(ctx.dtype)], dim=1)
+                msk = torch.cat([msk[:, chunk:], torch.zeros_like(preds[-1], dtype=torch.bool)], dim=1)
+                preds.append(self.model(chunk, ctx, msk, None))
+            return torch.cat(preds, dim=1)
+
+        out = self._batched(
+            decode, np.asarray(context, np.float32), np.asarray(masks, bool), text_embeddings
+        )
+        return out[:, :horizon]
+
+    def forecast_dataset(
+        self,
+        horizon: int,
+        dataset: Any,
+        multimodal: bool | None = None,
+        denormalize: bool = False,
+        full: bool = False,
+        autoregressive: bool = False,
+        text_mode: str = "first_window",
+    ) -> np.ndarray:
+        """Forecast every sample of a (preprocessed) dataset.
+
+        With ``denormalize``, predictions are mapped back to the original
+        scale via each sample's recorded ``mean``/``std`` metadata.
+        ``autoregressive`` routes through :meth:`forecast_autoregressive`
+        (point forecasts only), with ``text_mode`` forwarded.
+        """
+        if autoregressive and full:
+            raise ValueError("autoregressive decode produces point forecasts only; drop full=True")
+        if isinstance(dataset, StackedDataset):
+            data = dataset
+            if multimodal is None:
+                multimodal = data.text_embeddings is not None
+        else:
+            if multimodal is None:
+                multimodal = len(dataset) > 0 and "text_embeddings" in dataset[0]
+            data = stack_samples(dataset, multimodal)
+
+        text = data.text_embeddings if multimodal else None
+        if autoregressive:
+            preds = self.forecast_autoregressive(
+                horizon, data.context, text_embeddings=text, text_mode=text_mode
+            )
+        else:
+            preds = self.forecast(horizon, data.context, text_embeddings=text, full=full)
+        if denormalize:
+            mean = np.array([m.get("mean", 0.0) for m in data.metadata], np.float32)
+            std = np.array([m.get("std", 1.0) for m in data.metadata], np.float32)
+            shape = (-1,) + (1,) * (preds.ndim - 1)
+            preds = preds * std.reshape(shape) + mean.reshape(shape)
+        return preds
