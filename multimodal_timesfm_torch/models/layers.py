@@ -48,7 +48,40 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = Non
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(x, 0)
+    """ReLU whose backward reads the mask from the saved output (JAX ``relu``'s custom VJP).
+
+    ``torch.relu`` already saves only its output and takes the gradient at 0
+    as 0, which is what the JAX package's custom VJP adds to ``jnp.maximum``:
+    the output is a residual of the down projection anyway, so no separate
+    ``x > 0`` mask is kept.
+    """
+    return torch.relu(x)
+
+
+class _Swish(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` rounded as ``jax.nn.swish`` rounds it on the CPU.
+
+    Every elementwise op runs in fp32 and rounds to x's dtype, in JAX's order:
+    ``x * (1 / (1 + exp(-x)))``; in bf16 this is bit-equal to JAX on every
+    bf16 value (``F.silu`` rounds once and differs on a quarter of them). The
+    backward is JAX's logistic rule, ``g * s + (g * x) * (s * (1 - s))`` with
+    the same per-op rounding; differentiating the forward's ops instead would
+    give ``0 * inf`` below x = -88, where ``exp(-x)`` overflows.
+    """
+    return _Swish.apply(x)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -121,7 +154,7 @@ class ResidualBlock(nn.Module):
         self.residual = Dense(in_dim, out_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output(F.silu(self.hidden(x))) + self.residual(x)
+        return self.output(swish(self.hidden(x))) + self.residual(x)
 
 
 class Attention(nn.Module):
@@ -158,10 +191,18 @@ class Attention(nn.Module):
             return self.out(out.to(x.dtype))
 
         qkv = self.qkv(x)  # (B, S, 3*H*D), column blocks q|k|v
-        # Per-dim query scale on the q column block, fp32 multiply and one
-        # cast, written in place: the projection output is a fresh tensor.
+        # Per-dim query scale on the q column block, fp32 multiply and one cast.
         scale = (_R_SOFTPLUS_0 / math.sqrt(dim)) * F.softplus(self.per_dim_scale.float())
-        qkv[..., :hd] = (qkv[..., :hd].float() * scale.repeat(heads)).to(qkv.dtype)
+        q = (qkv[..., :hd].float() * scale.repeat(heads)).to(qkv.dtype)
+        if qkv.requires_grad:
+            # A new tensor, as JAX's concatenate: writing into the projection
+            # output would overwrite what the backward of the scale and of the
+            # projection read.
+            qkv = torch.cat([q, qkv[..., hd:]], dim=-1)
+        else:
+            # Nothing differentiates through it (serving): in place, which
+            # saves a copy of qkv per layer.
+            qkv[..., :hd] = q
         key_valid = ~paddings
 
         if supports_qkv_fused(qkv, seq, dim):

@@ -38,6 +38,8 @@ class TimesFMConfig:
     num_heads: int = 16
     num_output_channels: int = 10  # point + 9 quantiles
     decode_index: int = 5  # median channel: the point forecast
+    # Level per quantile channel (channels 1..; channel 0 is the mean).
+    quantiles: tuple[float, ...] = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
     # Continuous quantile head (upstream ``output_projection_quantiles``).
     use_quantile_head: bool = False
     quantile_horizon: int = 1024
@@ -96,6 +98,16 @@ class TimesFM2p5Adapter(TsfmAdapter):
     @property
     def point_forecast_index(self) -> int:
         return self.config.decode_index
+
+    @property
+    def quantile_loss_spec(self) -> tuple[tuple[float, ...], int | None]:
+        """(quantile levels, mean channel): the mean at channel 0, the levels on channels 1.."""
+        if 1 + len(self.config.quantiles) != self.config.num_output_channels:
+            raise ValueError(
+                f"num_output_channels ({self.config.num_output_channels}) must be "
+                f"1 + len(quantiles) ({len(self.config.quantiles)}) for quantile loss"
+            )
+        return self.config.quantiles, 0
 
     def preprocess(self, inputs: torch.Tensor, masks: torch.Tensor) -> PreprocessResult:
         """Patch, RevIN-normalize with causal running stats, and tokenize.

@@ -1,15 +1,19 @@
 """Data schemas shared between layers (framework-free copy of the JAX package's).
 
 The ``text_embeddings`` key is optional: its presence selects multimodal over
-baseline behaviour downstream.
+baseline behaviour downstream. Checkpoint payloads keep the JAX package's
+keys; their parameter trees are numpy arrays in JAX layout
+(``models/bridge.export_jax_params``).
 """
 
 from __future__ import annotations
 
-from typing import Any, NotRequired, TypedDict
+from typing import Any, Literal, NotRequired, TypedDict
 
 import numpy as np
 import numpy.typing as npt
+
+TrainingMode = Literal["multimodal", "baseline"]
 
 
 class PreprocessedSample(TypedDict):
@@ -19,3 +23,33 @@ class PreprocessedSample(TypedDict):
     horizon: npt.NDArray[np.float32]
     text_embeddings: NotRequired[npt.NDArray[np.float32]]
     metadata: dict[str, Any]
+
+
+class CheckpointBase(TypedDict):
+    """Fields shared by both checkpoint kinds."""
+
+    epoch: int
+    global_step: int
+    optimizer_state: Any
+    best_val_loss: float
+
+
+class MultimodalCheckpoint(CheckpointBase):
+    """Multimodal mode: the fusion parameters only."""
+
+    fusion_params: Any
+
+
+class BaselineCheckpoint(CheckpointBase):
+    """Baseline mode: the adapter parameters only."""
+
+    adapter_params: Any
+
+
+class EvaluationMetrics(TypedDict):
+    """MSE and MAE; ``wql``/``mean_pinball`` when quantile metrics are asked for."""
+
+    mse: float
+    mae: float
+    wql: NotRequired[float]
+    mean_pinball: NotRequired[float]

@@ -5,8 +5,8 @@ into the port through ``models/bridge.py``) and the same numpy inputs; the
 port runs on the CPU through its plain attention path, as JAX does off the
 TPU. Tolerances are absolute, in units of the reference forecasts' standard
 deviation: fp32 differs in summation order only (measured 1.6e-6); bf16 rounds
-activations in both packages but at other places, notably the residual
-blocks' swish (measured 0.035, ROADMAP queue C).
+activations at the same places in both packages (swish included), a few ulps
+apart through the norms and the softmax (measured 0.026).
 """
 
 import dataclasses
@@ -28,7 +28,7 @@ from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, Multimoda
 from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
 
 TEXT = 6
-STD_TOL = {"float32": 2e-5, "bfloat16": 0.1}
+STD_TOL = {"float32": 2e-5, "bfloat16": 0.04}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
