@@ -7,17 +7,23 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile ``multimodal_timesfm_torch/csrc/attention_fwd.cu`` and
-   ``attention_bwd.cu`` with nvcc for sm_90a, one nvcc per source started
-   together; print the build seconds, the compiler's register and
-   shared-memory report, and the card's name and power limit;
+1. build: compile the three sources under ``multimodal_timesfm_torch/csrc/``
+   (``attention_fwd.cu``, ``attention_bwd.cu``, ``chronos_attention.cu``)
+   with nvcc for sm_90a, one nvcc per source started together; print the
+   build seconds, the compiler's register and shared-memory report, and the
+   card's name and power limit;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   in fp32 and bf16, with left-padded key masks (and, for the backward, the
-   cotangent zeroed on padded query rows, as the model path leaves it), at
-   the shapes the serving and training paths give it; the kernel, the plain
-   version and ``torch.nn.functional.scaled_dot_product_attention`` (forward,
-   or its backward under autograd; a yardstick only, the port never calls
-   it) are timed (device time from torch.profiler, and CUDA events around
+   in fp32 and bf16: the causal kernels (B1f/B1b, B2f/B2b, and the same
+   kernels behind the flash entry point, B3f/B3b, at S = 2100 and 4096) with
+   left-padded key masks (and, for the backward, the cotangent zeroed on
+   padded query rows, as the model path leaves it), compared on valid query
+   rows; the Chronos kernels (B4f/B4b) with one segment, and three segments
+   with padded tokens, compared on every row, dbias included, two launches
+   bit-equal; all at the shapes the serving and training paths give them,
+   and at edge shapes. The kernel, the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
+   backward under autograd; a yardstick only, the port never calls it) are
+   timed (device time from torch.profiler, and CUDA events around
    back-to-back calls) beside the least time the card could take for the
    same work;
 3. serving: TimesFM-2.5 200M at full width (weights drawn from ``--seed``
@@ -38,9 +44,29 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    ``per_dim_scale``; train series/s after a warm-up epoch and one profiled
    epoch per multimodal cell; and one optimizer step on the card against
    the same port on the CPU in fp32 (gradients, loss and updated
-   parameters; at context 16384 both sides cut depth to 4 layers).
+   parameters; at context 16384 both sides cut depth to 4 layers);
+5. TimesFM past 2,048 tokens: context 67,200 (2,100 tokens) served at batch
+   2 and trained for one step (multimodal, fp32) through the flash entry
+   point: 20 B3 forward and 20 B3 backward launches, finite forecasts and
+   loss;
+6. Chronos-2 serving: the 120M geometry (768 wide, 16 layers, 12 x 64
+   heads, 64 future patches) with the same fusion MLP, served at horizon 128
+   through ``Forecaster.forecast_dataset`` at contexts 512, 2048 and 8192
+   (97, 193 and 577 tokens) in fp32 and bf16, as in phase 3: 16 B4f
+   launches per batch, a profiled call, and the card against the port on
+   the CPU in fp32;
+7. Chronos-2 training through ``MultimodalTrainer`` at the JAX bench's
+   geometries (``bench.py:388-403``, context 32, horizon 32): multimodal at
+   batch 128 (67 tokens) in fp32 and bf16, baseline at batch 128 in fp32
+   (dbias on the path), and multimodal with 2 future patches packed 16 to a
+   row at batch 512 (segment masking on the path); 16 B4f and 16 B4b
+   launches per micro-batch; a profiled epoch per cell; and a one-step twin
+   on the CPU in both modes, the baseline one holding the ``rel_pos_bias``
+   gradient to the stated tolerance.
 
-The line before the last names the card and its power limit; the last line
+The ``kernels`` line lists every kernel with its launches on the main-path
+phases (3 to 7; each starts its counters at 0) and its numbers at its
+main-path shape in bf16. The line before the last names the card and its power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is present or the port cannot be imported.
 """
@@ -94,12 +120,54 @@ TRAIN_LR = 1e-4
 # Baseline mode updates all 200M random weights: at 1e-4 one Adam step,
 # about lr * sign(g) on every weight, raised the loss from 15.6 to 283.
 BASELINE_LR = 1e-5
-B1_SOURCE = "multimodal_timesfm_tpu/ops/qkv_attention.py:111"
-B2_SOURCE = "multimodal_timesfm_tpu/ops/attention.py:174"
-B1B_SOURCE = "multimodal_timesfm_tpu/ops/qkv_attention.py:141"
-B2B_SOURCE = "multimodal_timesfm_tpu/ops/attention.py:189"
 CU_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd.cu"
 CU_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd.cu"
+CU_CHRONOS_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention.cu"
+# Every kernel of the port: (key, wrapper, CUDA source, the TPU kernel it
+# replaces, (B, S, H, D) of the main-path shape it is timed at in bf16).
+# B1f at serving context 2048 (64 tokens, batch 64) and B2f at context 16384
+# (512 tokens, batch 8); B1b at training context 512 (16 tokens, batch 256)
+# and B2b at context 16384 (512 tokens, batch 16); B3 at context 67,200
+# (2,100 tokens, batch 2); B4 at Chronos-2's fine-tune (67 tokens, batch 128).
+KERNELS = (
+    ("B1f", "fused_qkv_causal_attention", CU_SOURCE,
+     "multimodal_timesfm_tpu/ops/qkv_attention.py:111", (64, 64, 16, 80)),
+    ("B1b", "fused_qkv_causal_attention_bwd", CU_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/qkv_attention.py:141", (256, 16, 16, 80)),
+    ("B2f", "fused_causal_attention", CU_SOURCE,
+     "multimodal_timesfm_tpu/ops/attention.py:174", (8, 512, 16, 80)),
+    ("B2b", "fused_causal_attention_bwd", CU_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/attention.py:189", (16, 512, 16, 80)),
+    ("B3f", "flash_causal_attention", CU_SOURCE,
+     "multimodal_timesfm_tpu/ops/attention.py:322", (2, 2100, 16, 80)),
+    ("B3b", "flash_causal_attention_bwd", CU_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/attention.py:322", (2, 2100, 16, 80)),
+    ("B4f", "fused_chronos_attention", CU_CHRONOS_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
+    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (128, 67, 12, 64)),
+)
+KERNELS_BY_KEY = tuple((key, shape) for key, _, _, _, shape in KERNELS)
+CHRONOS_HORIZON = 32  # the JAX bench's Chronos fine-tune horizon
+
+
+def row_key(key: str, shape: tuple[int, int, int, int], dtype: torch.dtype) -> str:
+    """Where a kernel phase files the measured row of kernel ``key`` at (B, S, H, D) and dtype."""
+    return f"{key} {shape} {dtype}"
+
+
+def kernel_entries(rows: dict[str, dict], launches: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line: one entry per kernel of KERNELS, with its launches on the
+    main-path phases and its measured row at its own main-path shape in bf16."""
+    entries = []
+    for key, name, cu, replaces, shape in KERNELS:
+        batch, seq, heads, dim = shape
+        entries.append({
+            "name": name, "route": "cuda", "source": cu, "replaces": replaces,
+            "launches": launches[key], "shape": f"B={batch} S={seq} H={heads} D={dim} bfloat16",
+            **rows[row_key(key, shape, torch.bfloat16)],
+        })
+    return entries
 
 
 def gpu_line() -> str:
@@ -192,34 +260,34 @@ def compare(what: str, out: torch.Tensor, ref: torch.Tensor, valid: torch.Tensor
     return (err * rows).amax().item()
 
 
+def time_kernel(name: str, shape: tuple[int, int, int, int], dtype: torch.dtype, err: float,
+                tol: tuple[float, float], kernel, plain, library, bound: tuple[float, str], iters: int,
+                library_name: str) -> dict:
+    """Device and event times of a kernel, its plain version and the library yardstick; the
+    row of the ``kernels`` line, with ``err`` (checked against ``tol``) and the bound."""
+    batch, seq, heads, dim = shape
+    bound_ms, bound_by = bound
+    ms, ms_ev = device_ms(kernel, iters)
+    plain_ms, plain_ev = device_ms(plain, max(2, iters // 4))
+    library_ms, library_ev = device_ms(library, iters)
+    print(
+        f"[kernels] {name} B={batch} S={seq} H={heads} D={dim} {str(dtype)[6:]}: max_abs_err {err:.3g} "
+        f"(atol {tol[0]}, rtol {tol[1]}) | device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
+        f"{library_name} {library_ms:.4f} | event ms: "
+        f"kernel {ms_ev:.4f}, plain {plain_ev:.4f}, {library_name} {library_ev:.4f} | bound "
+        f"{bound_ms:.4f} ms ({bound_by})",
+        flush=True,
+    )
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_kernel(name: str, kernel, plain, sdpa, valid: torch.Tensor, dtype: torch.dtype,
                  shape: tuple[int, int, int, int], iters: int) -> dict:
     """Kernel vs plain version on the card; returns the measured row."""
-    batch, seq, heads, dim = shape
-    out = kernel()
-    ref = plain()
-    diff = compare(f"{name} {shape}", out, ref, valid)
-    atol, rtol = KERNEL_TOL[dtype]
-    bound_ms, bound_by = attention_bound(batch, seq, heads, dim, valid, dtype)
-    ms, ms_ev = device_ms(kernel, iters)
-    plain_ms, plain_ev = device_ms(plain, max(2, iters // 4))
-    library_ms, library_ev = device_ms(sdpa, iters)
-    row = {
-        "max_abs_err": diff,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-    }
-    print(
-        f"[kernels] {name} B={batch} S={seq} H={heads} D={dim} {str(dtype)[6:]}: "
-        f"max_abs_err {diff:.3g} (atol {atol}, rtol {rtol}) | device ms: kernel {ms:.4f}, "
-        f"plain {plain_ms:.4f}, sdpa {library_ms:.4f} | event ms: kernel {ms_ev:.4f}, "
-        f"plain {plain_ev:.4f}, sdpa {library_ev:.4f} | bound {bound_ms:.4f} ms ({bound_by})",
-        flush=True,
-    )
-    return row
+    diff = compare(f"{name} {shape}", kernel(), plain(), valid)
+    return time_kernel(name, shape, dtype, diff, KERNEL_TOL[dtype], kernel, plain, sdpa,
+                       attention_bound(*shape, valid, dtype), iters, "sdpa")
 
 
 def sdpa_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor):
@@ -253,7 +321,7 @@ def kernel_phase(seed: int) -> dict[str, dict]:
             qkv = qkv.to(dtype)
             valid = left_padded_valid(batch, seq, gen)
             q, k, v = (t.unflatten(-1, (heads, dim)) for t in qkv.chunk(3, dim=-1))
-            rows[f"B1f S={seq} {dtype}"] = check_kernel(
+            rows[row_key("B1f", (batch, seq, heads, dim), dtype)] = check_kernel(
                 "fused_qkv_causal_attention",
                 lambda: fused_qkv_causal_attention(qkv, valid, heads, dim),
                 lambda: plain_qkv_causal_attention(qkv, valid, heads, dim),
@@ -266,7 +334,7 @@ def kernel_phase(seed: int) -> dict[str, dict]:
             q = (q / math.sqrt(dim)).to(dtype)
             k, v = k.to(dtype), v.to(dtype)
             valid = left_padded_valid(batch, seq, gen)
-            rows[f"B2f S={seq} {dtype}"] = check_kernel(
+            rows[row_key("B2f", (batch, seq, heads, dim), dtype)] = check_kernel(
                 "fused_causal_attention",
                 lambda: fused_causal_attention(q, k, v, valid),
                 lambda: plain_causal_attention(q, k, v, valid),
@@ -328,24 +396,9 @@ def sdpa_bwd_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.
 def check_bwd_kernel(name: str, kernel, plain, sdpa_bwd, valid: torch.Tensor, dtype: torch.dtype,
                      shape: tuple[int, int, int, int], iters: int) -> dict:
     """Backward kernel vs its plain version on the card; returns the measured row."""
-    batch, seq, heads, dim = shape
     diff = compare_bwd(f"{name} {shape}", kernel(), plain())
-    atol, rtol = BWD_TOL[dtype]
-    bound_ms, bound_by = backward_bound(batch, seq, heads, dim, valid, dtype)
-    ms, ms_ev = device_ms(kernel, iters)
-    plain_ms, plain_ev = device_ms(plain, max(2, iters // 4))
-    library_ms, library_ev = device_ms(sdpa_bwd, iters)
-    print(
-        f"[kernels] {name} B={batch} S={seq} H={heads} D={dim} {str(dtype)[6:]}: "
-        f"max_abs_err {diff:.3g} (atol {atol}, rtol {rtol}) | device ms: kernel {ms:.4f}, "
-        f"plain {plain_ms:.4f}, sdpa backward {library_ms:.4f} | event ms: kernel {ms_ev:.4f}, "
-        f"plain {plain_ev:.4f}, sdpa backward {library_ev:.4f} | bound {bound_ms:.4f} ms ({bound_by})",
-        flush=True,
-    )
-    return {
-        "max_abs_err": diff, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    return time_kernel(name, shape, dtype, diff, BWD_TOL[dtype], kernel, plain, sdpa_bwd,
+                       backward_bound(*shape, valid, dtype), iters, "sdpa backward")
 
 
 def padded_cotangent(shape: tuple[int, ...], valid: torch.Tensor, dtype: torch.dtype,
@@ -374,7 +427,7 @@ def backward_kernel_phase(seed: int) -> dict[str, dict]:
             valid = left_padded_valid(batch, seq, gen)
             g = padded_cotangent((batch, seq, heads * dim), valid, dtype, gen)
             q, k, v = split_heads(qkv, heads, dim)
-            rows[f"B1b S={seq} {dtype}"] = check_bwd_kernel(
+            rows[row_key("B1b", (batch, seq, heads, dim), dtype)] = check_bwd_kernel(
                 "fused_qkv_causal_attention_bwd",
                 lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim),
                 lambda: plain_qkv_attention_bwd(qkv, valid, g, heads, dim),
@@ -389,7 +442,7 @@ def backward_kernel_phase(seed: int) -> dict[str, dict]:
             k, v = k.to(dtype), v.to(dtype)
             valid = left_padded_valid(batch, seq, gen)
             g = padded_cotangent((batch, seq, heads, dim), valid, dtype, gen)
-            rows[f"B2b S={seq} {dtype}"] = check_bwd_kernel(
+            rows[row_key("B2b", (batch, seq, heads, dim), dtype)] = check_bwd_kernel(
                 "fused_causal_attention_bwd",
                 lambda: fused_causal_attention_bwd(q, k, v, valid, g),
                 lambda: plain_attention_bwd(q, k, v, valid, g),
@@ -440,23 +493,173 @@ def edge_checks(seed: int) -> None:
           "fp32 and bf16: kernel == plain within tolerance")
 
 
-def flash_gate_check() -> None:
-    """S > 2048 on CUDA must raise (the flash kernel, ROADMAP B3, is not ported)."""
-    from multimodal_timesfm_torch.models.layers import Attention
+def chronos_bound(batch: int, seq: int, heads: int, dim: int, seg: torch.Tensor,
+                  dtype: torch.dtype, backward: bool, dbias: bool = False) -> tuple[float, str]:
+    """Least time for the Chronos attention: max(bytes / HBM rate, flops / peak).
 
-    attn = Attention(32, 2, 16, torch.Generator().manual_seed(0)).cuda()
-    x = torch.zeros(1, 2056, 32, device="cuda")
-    try:
-        attn(x, torch.zeros(1, 2056, dtype=torch.bool, device="cuda"))
-    except NotImplementedError as exc:
-        print(f"[gate] S=2056 on CUDA raises NotImplementedError: {exc}")
-        return
-    raise AssertionError("S=2056 on CUDA ran without the flash kernel instead of raising")
+    Bytes, forward: q, k, v read and the output written once (4 B S H D
+    elements), the (H, S, S) fp32 bias and the (B, S) int32 segment ids read
+    once; backward: q, k, v and g read and dq, dk, dv written once (7 B S H D
+    elements), the bias and the segment ids, and the (H, S, S) fp32 dbias
+    written once when it is computed. Flops: 4 D H (forward: QK^T, PV) or
+    10 D H (backward: QK^T, G V^T, dV, dQ, dK) per (row, key) pair of one
+    segment; the attention is bidirectional, so every pair of a segment counts.
+    """
+    elt = torch.finfo(dtype).bits // 8
+    pairs = int((seg[:, :, None] == seg[:, None, :]).sum())
+    nbytes = (7 if backward else 4) * batch * seq * heads * dim * elt + heads * seq * seq * 4 + batch * seq * 4
+    if dbias:
+        nbytes += heads * seq * seq * 4
+    flops = (10 if backward else 4) * dim * heads * pairs
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def make_samples(context: int, count: int, seed: int, horizon: int = HORIZON) -> list[dict]:
-    """Synthetic Time-MMD-like samples: seasonal series with per-patch text embeddings;
-    the horizon is the series' continuation."""
+def chronos_segments(batch: int, seq: int, segments: int, padded: bool, gen: torch.Generator) -> torch.Tensor:
+    """(B, S) int32 ids as the encoder builds them: ``segments`` contiguous segments per
+    row; with ``padded``, a random fifth of the tokens padded, each with an id of its own."""
+    seg = (torch.arange(seq, device="cuda") * segments // seq).int()[None].repeat(batch, 1)
+    if padded:
+        pad = torch.rand(batch, seq, generator=gen, device="cuda") < 0.2
+        pad[:, -1] = False
+        own = -1 - torch.arange(seq, dtype=torch.int32, device="cuda")
+        seg = torch.where(pad, own[None], seg)
+    return seg.contiguous()
+
+
+def chronos_sdpa_mask(seg: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The float SDPA mask of the same function: bias + finfo.min across segments, (B, H, S, S)."""
+    from multimodal_timesfm_torch.ops.attention import NEG_INF
+
+    same = seg[:, :, None] == seg[:, None, :]
+    return (bias[None] + torch.where(same, 0.0, NEG_INF)[:, None]).to(dtype)
+
+
+def chronos_kernel_phase(seed: int) -> dict[str, dict]:
+    """B4f and B4b against their plain versions on every element, fp32 and bf16."""
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        fused_chronos_attention_bwd,
+        plain_chronos_attention,
+        plain_chronos_attention_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    rows: dict[str, dict] = {}
+    main_shape = dict(KERNELS_BY_KEY)["B4f"]
+    # (B, S, H, D, segments, padded): the Chronos-2 shapes (67 tokens at context 32, 97 at
+    # 512, 193 at 2048, 577 at 8192), each with one segment and with three segments and
+    # padded tokens; 80 = 16 packed rows of 5; then edge shapes.
+    cases = [(batch, seq, 12, 64, *variant)
+             for batch, seq in ((128, 67), (64, 97), (64, 193), (16, 577))
+             for variant in ((1, False), (3, True))]
+    cases += [(32, 80, 12, 64, 16, False), (3, 70, 2, 32, 1, True), (3, 70, 2, 128, 3, True),
+              (2, 70, 2, 256, 3, True), (4, 5, 2, 64, 1, False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch, seq, heads, dim, segments, padded in cases:
+            shape = (batch, seq, heads, dim)
+            qkv = (torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+                   / dim ** 0.25).to(dtype)
+            bias = torch.randn(heads, seq, seq, generator=gen, device="cuda")
+            seg = chronos_segments(batch, seq, segments, padded, gen)
+            g = torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(dtype)
+            what = f"B4 {shape} {segments} segment(s){' padded' if padded else ''}"
+            err_f = compare(f"{what} forward", fused_chronos_attention(qkv, seg, bias),
+                            plain_chronos_attention(qkv, seg, bias),
+                            torch.ones(batch, seq, dtype=torch.bool, device="cuda"))
+            dqkv, dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, True)
+            ref_dqkv, ref_dbias = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
+            err_b = compare_bwd(f"{what} backward", dqkv, ref_dqkv)
+            err_db = compare_bwd(f"{what} dbias", dbias, ref_dbias)
+            again_dqkv, again_dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, True)
+            frozen_dqkv, none = fused_chronos_attention_bwd(qkv, seg, bias, g, False)
+            torch.cuda.synchronize()
+            if not (torch.equal(again_dbias, dbias) and torch.equal(again_dqkv, dqkv)):
+                raise AssertionError(f"{what} {dtype}: two backward launches differ")
+            if none is not None or not torch.equal(frozen_dqkv, dqkv):
+                raise AssertionError(f"{what} {dtype}: the backward without dbias differs")
+            print(f"[kernels] {what} {str(dtype)[6:]}: max |kernel - plain| forward {err_f:.3g}, dqkv "
+                  f"{err_b:.3g}, dbias {err_db:.3g} (|dbias| <= {ref_dbias.abs().max().item():.3g}); "
+                  "two launches bit-equal; without dbias: dqkv bit-equal", flush=True)
+            if shape != main_shape or segments != 1:
+                continue
+            mask = chronos_sdpa_mask(seg, bias, dtype)
+            qh, kh, vh = (t.unflatten(-1, (heads, dim)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, attn_mask=mask, scale=1.0)
+            rows[row_key("B4f", shape, dtype)] = time_kernel(
+                "fused_chronos_attention", shape, dtype, err_f, KERNEL_TOL[dtype],
+                lambda: fused_chronos_attention(qkv, seg, bias),
+                lambda: plain_chronos_attention(qkv, seg, bias), sdpa,
+                chronos_bound(*shape, seg, dtype, backward=False), 20, "sdpa",
+            )
+            qd, kd, vd = (t.detach().requires_grad_() for t in (qh, kh, vh))
+            out = torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=1.0)
+            gh = g.unflatten(-1, (heads, dim)).transpose(1, 2)
+            sdpa_bwd = lambda: torch.autograd.grad(out, (qd, kd, vd), gh, retain_graph=True)  # noqa: E731
+            # The main path's backward: multimodal mode, the bias frozen (no dbias).
+            rows[row_key("B4b", shape, dtype)] = time_kernel(
+                "fused_chronos_attention_bwd (no dbias)", shape, dtype, err_b, BWD_TOL[dtype],
+                lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
+                lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, False), sdpa_bwd,
+                chronos_bound(*shape, seg, dtype, backward=True), 10, "sdpa backward",
+            )
+            time_kernel(
+                "fused_chronos_attention_bwd (with dbias)", shape, dtype, max(err_b, err_db), BWD_TOL[dtype],
+                lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True),
+                lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, True), sdpa_bwd,
+                chronos_bound(*shape, seg, dtype, backward=True, dbias=True), 10, "sdpa backward",
+            )
+    return rows
+
+
+def flash_kernel_phase(seed: int) -> dict[str, dict]:
+    """B3 (the causal kernels behind the flash entry point) at S = 2100 and 4096, B=2,
+    H=16, D=80, left-padded, against plain causal attention on valid rows."""
+    from multimodal_timesfm_torch.ops.attention import (
+        flash_causal_attention,
+        flash_causal_attention_bwd,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    heads, dim = 16, 80
+    rows: dict[str, dict] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch, seq in ((2, 2100), (2, 4096)):
+            shape = (batch, seq, heads, dim)
+            q, k, v = (torch.randn(batch, seq, heads, dim, generator=gen, device="cuda") for _ in range(3))
+            q = (q / math.sqrt(dim)).to(dtype)
+            k, v = k.to(dtype), v.to(dtype)
+            valid = left_padded_valid(batch, seq, gen)
+            g = padded_cotangent(shape, valid, dtype, gen)
+            timed = shape == dict(KERNELS_BY_KEY)["B3f"] and dtype == torch.bfloat16
+            if timed:
+                rows[row_key("B3f", shape, dtype)] = check_kernel(
+                    "flash_causal_attention", lambda: flash_causal_attention(q, k, v, valid),
+                    lambda: plain_causal_attention(q, k, v, valid), sdpa_fn(q, k, v, valid),
+                    valid, dtype, shape, 5,
+                )
+                rows[row_key("B3b", shape, dtype)] = check_bwd_kernel(
+                    "flash_causal_attention_bwd", lambda: flash_causal_attention_bwd(q, k, v, valid, g),
+                    lambda: plain_attention_bwd(q, k, v, valid, g), sdpa_bwd_fn(q, k, v, valid, g),
+                    valid, dtype, shape, 3,
+                )
+                continue
+            err_f = compare(f"B3 {shape}", flash_causal_attention(q, k, v, valid),
+                            plain_causal_attention(q, k, v, valid), valid)
+            err_b = compare_bwd(f"B3 backward {shape}", flash_causal_attention_bwd(q, k, v, valid, g),
+                                plain_attention_bwd(q, k, v, valid, g))
+            print(f"[kernels] flash_causal_attention B={batch} S={seq} H={heads} D={dim} "
+                  f"{str(dtype)[6:]}: max |kernel - plain| forward {err_f:.3g} (valid rows), "
+                  f"backward {err_b:.3g}", flush=True)
+    return rows
+
+
+def make_samples(context: int, count: int, seed: int, horizon: int = HORIZON, patch: int = 32) -> list[dict]:
+    """Synthetic Time-MMD-like samples: seasonal series with per-patch text embeddings
+    (``patch`` steps each); the horizon is the series' continuation."""
     rng = np.random.default_rng(seed + context)
     t = np.arange(context + horizon, dtype=np.float64)
     samples = []
@@ -467,13 +670,13 @@ def make_samples(context: int, count: int, seed: int, horizon: int = HORIZON) ->
         samples.append({
             "context": series[:context],
             "horizon": series[context:],
-            "text_embeddings": rng.normal(size=(context // 32, 384)).astype(np.float32),
+            "text_embeddings": rng.normal(size=(context // patch, 384)).astype(np.float32),
             "metadata": {"mean": float(rng.uniform(-50, 50)), "std": float(rng.uniform(0.5, 5.0))},
         })
     return samples
 
 
-def slice_phase(seed: int) -> tuple[dict[str, int], dict, dict, object]:
+def slice_phase(seed: int) -> tuple[dict, dict, object]:
     from multimodal_timesfm_torch.inference import Forecaster
     from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
@@ -537,7 +740,6 @@ def slice_phase(seed: int) -> tuple[dict[str, int], dict, dict, object]:
             f"| launches B1 {delta[0]}, B2 {delta[1]}",
             flush=True,
         )
-    launches = {"B1f": counters[0].launches, "B2f": counters[1].launches}
 
     for (dtype, ctx), fc in forecasters.items():
         wall, kernels = device_profile(
@@ -565,7 +767,7 @@ def slice_phase(seed: int) -> tuple[dict[str, int], dict, dict, object]:
             )
             if not err <= tol:
                 raise AssertionError(f"context {ctx} {dtype}: card and CPU disagree")
-    return launches, tree, decoders, reference
+    return tree, decoders, reference
 
 
 def _leaves(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -587,7 +789,9 @@ def _input_grad_hooks(decoder, store: dict) -> list:
     backward they arrive in that order: a departure between the first two lies in
     the FFN (down projection, ReLU, up projection, LayerNorm)."""
     handles = []
-    for i, layer in enumerate(decoder.adapter.stacked_xf.layers):
+    adapter = decoder.adapter
+    stack = adapter.stacked_xf if hasattr(adapter, "stacked_xf") else adapter.encoder
+    for i, layer in enumerate(stack.layers):
         for name, module in ((f"layer {i} FFN down input", layer.ffn_down),
                              (f"layer {i} attention output", layer.attn.out),
                              (f"layer {i} input", layer)):
@@ -612,15 +816,16 @@ def first_departure(card: dict, cpu: dict, threshold: float = 1e-4) -> str:
 
 
 def twin_check(label: str, mode: str, context: int, decoders: dict, tree: dict, seed: int,
-               workdir: str) -> None:
+               workdir: str, patch: int = 32, report: tuple[str, ...] = ()) -> None:
     """One optimizer step of the same port on the card and on the CPU, fp32: the gradient of
-    the first micro-batch, the step's loss and the updated trained parameters."""
+    the first micro-batch, the step's loss and the updated trained parameters. Each leaf
+    named in ``report`` must also hold its own gradient to TWIN_GRAD_RTOL."""
     from multimodal_timesfm_torch.models.bridge import export_jax_params, load_jax_params
     from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
     from multimodal_timesfm_torch.training_args import TrainingArguments
 
     n = 4
-    data = make_samples(context, n, seed + 3, TRAIN_HORIZON)
+    data = make_samples(context, n, seed + 3, TRAIN_HORIZON, patch)
     args = TrainingArguments(
         output_dir=workdir, per_device_train_batch_size=n, num_train_epochs=1,
         learning_rate=TRAIN_LR, weight_decay=0.01, eval_strategy="epoch", save_strategy="no",
@@ -650,6 +855,12 @@ def twin_check(label: str, mode: str, context: int, decoders: dict, tree: dict, 
     grad_err = float(np.linalg.norm(grad_diff) / np.linalg.norm(grad_ref))
     if not grad_err <= TWIN_GRAD_RTOL:
         raise AssertionError(f"{label}: gradient norm rel err {grad_err:.3g} > {TWIN_GRAD_RTOL}")
+    for leaf in report:
+        leaf_err = float(np.linalg.norm(grads_g[leaf] - grads_c[leaf]) / np.linalg.norm(grads_c[leaf]))
+        print(f"[train] {label}: gradient of {leaf} ||diff|| / ||CPU|| {leaf_err:.3g} "
+              f"(tol {TWIN_GRAD_RTOL}), ||CPU|| {np.linalg.norm(grads_c[leaf]):.4g}", flush=True)
+        if not leaf_err <= TWIN_GRAD_RTOL:
+            raise AssertionError(f"{label}: gradient of {leaf} differs by {leaf_err:.3g}")
     diffs = np.concatenate([np.abs(params_g[k] - params_c[k]).ravel() for k in params_c])
     frac = float(np.mean(diffs > 1e-2 * TRAIN_LR))
     if not (frac <= TWIN_PARAM_FRAC and diffs.max() <= 2.01 * TRAIN_LR):
@@ -664,8 +875,8 @@ def twin_check(label: str, mode: str, context: int, decoders: dict, tree: dict, 
     )
 
 
-def training_phase(seed: int, tree: dict, decoders: dict, reference) -> dict[str, int]:
-    """MultimodalTrainer at full width on the card; returns the kernels' launch counts."""
+def training_phase(seed: int, tree: dict, decoders: dict, reference) -> None:
+    """MultimodalTrainer at full width on the card."""
     from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
     from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
@@ -746,7 +957,6 @@ def training_phase(seed: int, tree: dict, decoders: dict, reference) -> dict[str
                 f"warm-up on {kind} | launches {delta} | layer-0 per_dim_scale moved {moved:.3g}",
                 flush=True,
             )
-        launches = {key: fn.launches for key, fn in counters.items()}
 
         twin_check("multimodal context 512", "multimodal", 512,
                    {"cuda": decoders[torch.float32], "cpu": reference}, tree, seed, workdir)
@@ -760,7 +970,239 @@ def training_phase(seed: int, tree: dict, decoders: dict, reference) -> dict[str
         }
         twin_check("multimodal context 16384 (4 layers)", "multimodal", 16384, shallow,
                    random_jax_params(shallow["cpu"], seed), seed, workdir)
-    return launches
+
+
+def launch_counters() -> dict[str, object]:
+    """Every kernel wrapper of the port, by key: each counts its own launches."""
+    from multimodal_timesfm_torch.ops.attention import (
+        flash_causal_attention,
+        flash_causal_attention_bwd,
+        fused_causal_attention,
+        fused_causal_attention_bwd,
+    )
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        fused_chronos_attention_bwd,
+    )
+    from multimodal_timesfm_torch.ops.qkv_attention import (
+        fused_qkv_causal_attention,
+        fused_qkv_causal_attention_bwd,
+    )
+
+    return {
+        "B1f": fused_qkv_causal_attention, "B1b": fused_qkv_causal_attention_bwd,
+        "B2f": fused_causal_attention, "B2b": fused_causal_attention_bwd,
+        "B3f": flash_causal_attention, "B3b": flash_causal_attention_bwd,
+        "B4f": fused_chronos_attention, "B4b": fused_chronos_attention_bwd,
+    }
+
+
+def launch_counts() -> dict[str, int]:
+    return {key: fn.launches for key, fn in launch_counters().items()}
+
+
+def expect_launches(label: str, before: dict[str, int], want: dict[str, int]) -> dict[str, int]:
+    """The launches since ``before`` must be ``want`` for the keys named there and 0 elsewhere."""
+    delta = {key: n - before[key] for key, n in launch_counts().items()}
+    full = {key: want.get(key, 0) for key in delta}
+    if delta != full:
+        raise AssertionError(f"{label}: launches {delta}, expected {full}")
+    return {key: n for key, n in delta.items() if n}
+
+
+def long_context_phase(seed: int, tree: dict, decoders: dict) -> None:
+    """TimesFM at context 67,200 (2,100 tokens): serving and one training step through B3."""
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models.bridge import load_jax_params
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    ctx, n = 67200, 2
+    decoder = decoders[torch.float32]
+    load_jax_params(decoder, tree)
+    data = make_samples(ctx, n, seed)
+    fc = Forecaster(decoder, batch_size=n, device="cuda")
+    before = launch_counts()
+    start = time.perf_counter()
+    out = fc.forecast_dataset(HORIZON, data, denormalize=True)
+    rate = n / (time.perf_counter() - start)
+    if out.shape != (n, HORIZON) or not np.isfinite(out).all():
+        raise AssertionError(f"context {ctx}: bad forecasts, shape {out.shape}")
+    seen = expect_launches(f"context {ctx} serving", before, {"B3f": 20})
+    print(f"[long] TimesFM context {ctx} (2,100 tokens) fp32, batch {n}: {rate:.2f} series/s "
+          f"(one call, first at this length) | launches {seen}", flush=True)
+    train = make_samples(ctx, n, seed + 1, TRAIN_HORIZON)
+    with tempfile.TemporaryDirectory() as workdir:
+        args = TrainingArguments(
+            output_dir=workdir, per_device_train_batch_size=n, per_device_eval_batch_size=n,
+            num_train_epochs=1, learning_rate=TRAIN_LR, weight_decay=0.01, eval_strategy="epoch",
+            save_strategy="no", logging_strategy="no", seed=seed,
+        )
+        trainer = MultimodalTrainer(decoder, args, train, train, "multimodal", device="cuda")
+        before = launch_counts()
+        loss = trainer.train_epoch()
+        seen = expect_launches(f"context {ctx} training", before, {"B3f": 20, "B3b": 20})
+    if not np.isfinite(loss):
+        raise AssertionError(f"context {ctx}: non-finite training loss {loss}")
+    print(f"[long] TimesFM context {ctx} multimodal fp32, one step of {n} series: loss {loss:.5f}, "
+          f"{trainer.last_throughput:.2f} train series/s | launches {seen}", flush=True)
+
+
+def chronos_decoders(seed: int, cfg) -> tuple[dict, dict, object]:
+    """(weights tree, {dtype: decoder on the card}, fp32 decoder on the CPU) for a Chronos-2
+    configuration with the 384 -> 768 fusion MLP, weights drawn from ``seed``."""
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.chronos import Chronos2Adapter
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+
+    def build(device: str, dtype: torch.dtype):
+        decoder = MultimodalDecoder(
+            Chronos2Adapter(dataclasses.replace(cfg, compute_dtype=dtype)), dec_cfg, device=device
+        )
+        load_jax_params(decoder, tree)
+        return decoder
+
+    tree = random_jax_params(MultimodalDecoder(Chronos2Adapter(cfg), dec_cfg, device="cpu"), seed)
+    decoders = {dtype: build("cuda", dtype) for dtype in (torch.float32, torch.bfloat16)}
+    return tree, decoders, build("cpu", torch.float32)
+
+
+def chronos_serving_phase(seed: int) -> tuple[dict, dict, object]:
+    """Chronos-2 120M served through Forecaster.forecast_dataset at horizon 128."""
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models.chronos import Chronos2Config
+
+    kind = torch.cuda.get_device_name(0)
+    cfg = Chronos2Config()  # 768 wide, 16 layers, 12 x 64 heads, ffn 3072, patch 16, 64 future patches
+    t0 = time.perf_counter()
+    tree, decoders, reference = chronos_decoders(seed, cfg)
+    n_params = sum(p.numel() for p in reference.parameters())
+    print(f"[chronos] {n_params:,} parameters from seed {seed} in {time.perf_counter() - t0:.1f} s")
+    # context -> (series, batch size, series checked against the CPU); tokens = context / 16 + 1 + 64
+    plan = {512: (200, 64, 8), 2048: (200, 64, 8), 8192: (16, 16, 2)}
+    data = {ctx: make_samples(ctx, n, seed, HORIZON, patch=16) for ctx, (n, _, _) in plan.items()}
+    forecasters = {
+        (dtype, ctx): Forecaster(dec, batch_size=bs, device="cuda")
+        for dtype, dec in decoders.items() for ctx, (_, bs, _) in plan.items()
+    }
+    for (dtype, ctx), fc in forecasters.items():  # warm-up: cuBLAS handles, allocator
+        fc.forecast_dataset(HORIZON, data[ctx][: plan[ctx][1]], denormalize=True)
+    torch.cuda.synchronize()
+    preds = {}
+    for (dtype, ctx), fc in forecasters.items():
+        n, bs, _ = plan[ctx]
+        before = launch_counts()
+        rates = []
+        for _ in range(SERVE_REPEATS):
+            start = time.perf_counter()
+            out = fc.forecast_dataset(HORIZON, data[ctx], denormalize=True)
+            rates.append(n / (time.perf_counter() - start))
+            if out.shape != (n, HORIZON) or not np.isfinite(out).all():
+                raise AssertionError(f"chronos context {ctx} {dtype}: bad forecasts, shape {out.shape}")
+            if (dtype, ctx) in preds and not np.array_equal(out, preds[(dtype, ctx)]):
+                raise AssertionError(f"chronos context {ctx} {dtype}: forecasts differ between calls")
+            preds[(dtype, ctx)] = out
+        seen = expect_launches(f"chronos context {ctx} {dtype}", before,
+                               {"B4f": 16 * -(-n // bs) * SERVE_REPEATS})
+        print(
+            f"[chronos] context {ctx} ({ctx // 16 + 65} tokens) {str(dtype)[6:]}: {n} series, median of "
+            f"{SERVE_REPEATS} calls {float(np.median(rates)):.1f} series/s "
+            f"({', '.join(f'{r:.1f}' for r in rates)}) on {kind} | launches {seen}",
+            flush=True,
+        )
+    for (dtype, ctx), fc in forecasters.items():
+        wall, kernels = device_profile(lambda: fc.forecast_dataset(HORIZON, data[ctx], denormalize=True))
+        busy = sum(ms for _, ms in kernels)
+        attn = sum(ms for name, ms in kernels if "chronos_fwd_kernel" in name)
+        top = ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in kernels[:5])
+        print(
+            f"[profile] chronos context {ctx} {str(dtype)[6:]}: wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms, idle {1 - busy / wall:.3f}, B4f {attn:.3f} ms ({attn / busy:.3f} of busy) "
+            f"| {top}",
+            flush=True,
+        )
+    for ctx, (_, _, n_ref) in plan.items():
+        ref_fc = Forecaster(reference, batch_size=n_ref, device="cpu")
+        ref = ref_fc.forecast_dataset(HORIZON, data[ctx][:n_ref], denormalize=True)
+        scale = float(ref.std())
+        for dtype in decoders:
+            err = float(np.abs(preds[(dtype, ctx)][:n_ref] - ref).max())
+            tol = SLICE_TOL[dtype] * scale
+            print(
+                f"[chronos] context {ctx} {str(dtype)[6:]} vs CPU fp32 ({n_ref} series): "
+                f"max abs err {err:.4g}, tolerance {tol:.4g} ({SLICE_TOL[dtype]} x std {scale:.4g})"
+            )
+            if not err <= tol:
+                raise AssertionError(f"chronos context {ctx} {dtype}: card and CPU disagree")
+    return tree, decoders, reference
+
+
+def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> None:
+    """Chronos-2 through MultimodalTrainer at the JAX bench's geometries, and CPU twins."""
+    from multimodal_timesfm_torch.models.bridge import load_jax_params
+    from multimodal_timesfm_torch.models.chronos import Chronos2Config
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    kind = torch.cuda.get_device_name(0)
+    _, packed, _ = chronos_decoders(seed, dataclasses.replace(Chronos2Config(), max_output_patches=2, pack=16))
+    # (bench workload, mode, dtype, decoder, batch, steps per epoch); context 32, horizon 32
+    cells = (
+        ("chronos_mm_h32", "multimodal", torch.float32, decoders[torch.float32], 128, 3),
+        ("chronos_mm_h32", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 128, 3),
+        ("chronos_baseline_h32", "baseline", torch.float32, decoders[torch.float32], 128, 3),
+        ("chronos_mm_h32_mop2", "multimodal", torch.float32, packed[torch.float32], 512, 3),
+    )
+    with tempfile.TemporaryDirectory() as workdir:
+        for name, mode, dtype, decoder, batch, steps in cells:
+            label = f"{name} {mode} {str(dtype)[6:]}"
+            load_jax_params(decoder, tree)
+            train = make_samples(32, steps * batch, seed, CHRONOS_HORIZON, patch=16)
+            val = make_samples(32, batch, seed + 1, CHRONOS_HORIZON, patch=16)
+            args = TrainingArguments(
+                output_dir=workdir, per_device_train_batch_size=batch,
+                per_device_eval_batch_size=batch, num_train_epochs=3,
+                learning_rate=TRAIN_LR if mode == "multimodal" else BASELINE_LR,
+                weight_decay=0.01, eval_strategy="epoch", save_strategy="no",
+                logging_strategy="no", seed=seed,
+            )
+            trainer = MultimodalTrainer(decoder, args, train, val, mode, device="cuda")
+            table = decoder.adapter.encoder.rel_pos_bias.detach().clone()
+            before = launch_counts()
+            warm = trainer.train_epoch()  # first epoch: cuBLAS handles, allocator
+            loss = trainer.train_epoch()
+            series_per_s = trainer.last_throughput
+            val_loss = trainer.validate_epoch()
+            wall, kernels = device_profile(trainer.train_epoch)
+            busy = sum(ms for _, ms in kernels)
+            fwd = sum(ms for k, ms in kernels if "chronos_fwd_kernel" in k)
+            bwd = sum(ms for k, ms in kernels if "chronos_bwd" in k)
+            top = ", ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in kernels[:5])
+            print(
+                f"[profile] train {label}: one epoch of {steps} steps, wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms, idle {1 - busy / wall:.3f}, B4f {fwd:.3f} ms ({fwd / busy:.3f} of busy), "
+                f"B4b {bwd:.3f} ms ({bwd / busy:.3f} of busy) | {top}",
+                flush=True,
+            )
+            seen = expect_launches(label, before, {"B4f": 16 * (3 * steps + 1), "B4b": 16 * 3 * steps})
+            if not all(np.isfinite(x) for x in (warm, loss, val_loss)):
+                raise AssertionError(f"{label}: non-finite loss {warm}, {loss}, {val_loss}")
+            moved = float((decoder.adapter.encoder.rel_pos_bias.detach() - table).abs().max())
+            if (mode == "baseline") != (moved > 0):
+                raise AssertionError(f"{label}: rel_pos_bias moved by {moved} in {mode} mode")
+            print(
+                f"[train] {label}: batch {batch}, {steps} steps per epoch | train loss {warm:.5f} -> "
+                f"{loss:.5f}, val loss {val_loss:.5f} | {series_per_s:.1f} train series/s after "
+                f"warm-up on {kind} | launches {seen} (16 per micro-batch each way, 16 per "
+                f"validation batch) | rel_pos_bias moved {moved:.3g}",
+                flush=True,
+            )
+        pair = {"cuda": decoders[torch.float32], "cpu": reference}
+        twin_check("chronos multimodal context 32", "multimodal", 32, pair, tree, seed, workdir, patch=16)
+        twin_check("chronos baseline context 32", "baseline", 32, pair, tree, seed, workdir, patch=16,
+                   report=("/encoder/rel_pos_bias",))
 
 
 def main() -> int:
@@ -798,31 +1240,32 @@ def main() -> int:
     rows = phase("forward kernels", kernel_phase, args.seed)
     rows.update(phase("backward kernels", backward_kernel_phase, args.seed))
     phase("edge shapes", edge_checks, args.seed)
-    phase("flash gate", flash_gate_check)
-    launches, tree, decoders, reference = phase("serving", slice_phase, args.seed)
-    train_launches = phase("training", training_phase, args.seed, tree, decoders, reference)
+    rows.update(phase("chronos kernels", chronos_kernel_phase, args.seed))
+    rows.update(phase("flash kernels", flash_kernel_phase, args.seed))
 
-    # One entry per kernel, timed at its main-path shape in bf16: B1f at
-    # context 2048 (64 tokens, batch 64) and B2f at context 16384 (512 tokens,
-    # batch 8) of the serving path; B1b at context 512 (16 tokens, batch 256)
-    # and B2b at context 16384 (512 tokens, batch 16) of the training path.
-    # Launches: B1f and B2f from the serving run, B1b and B2b from the
-    # training run.
-    entries = []
-    for key, name, cu, source, batch, seq, count in (
-        ("B1f", "fused_qkv_causal_attention", CU_SOURCE, B1_SOURCE, 64, 64, launches["B1f"]),
-        ("B2f", "fused_causal_attention", CU_SOURCE, B2_SOURCE, 8, 512, launches["B2f"]),
-        ("B1b", "fused_qkv_causal_attention_bwd", CU_BWD_SOURCE, B1B_SOURCE, 256, 16,
-         train_launches["B1b"]),
-        ("B2b", "fused_causal_attention_bwd", CU_BWD_SOURCE, B2B_SOURCE, 16, 512,
-         train_launches["B2b"]),
-    ):
-        entries.append({
-            "name": name, "route": "cuda", "source": cu, "replaces": source,
-            "launches": count, "shape": f"B={batch} S={seq} H=16 D=80 bfloat16",
-            **rows[f"{key} S={seq} {torch.bfloat16}"],
-        })
-    print(json.dumps({"kernels": entries}))
+    # The main paths: every launch counter starts at 0 just before each and is read
+    # just after; the kernels line reports their sum.
+    launches = {key: 0 for key, *_ in KERNELS}
+
+    def main_path(name: str, fn, *a):
+        for counter in launch_counters().values():
+            counter.launches = 0
+        out = phase(name, fn, *a)
+        for key, n in launch_counts().items():
+            launches[key] += n
+        return out
+
+    tree, decoders, reference = main_path("serving", slice_phase, args.seed)
+    main_path("training", training_phase, args.seed, tree, decoders, reference)
+    main_path("timesfm past 2048 tokens", long_context_phase, args.seed, tree, decoders)
+    del decoders, reference
+    c_tree, c_decoders, c_reference = main_path("chronos serving", chronos_serving_phase, args.seed)
+    main_path("chronos training", chronos_training_phase, args.seed, c_tree, c_decoders, c_reference)
+    idle = [key for key, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main paths: {idle}")
+    print(f"[launches] main paths: {launches}")
+    print(json.dumps({"kernels": kernel_entries(rows, launches)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({
         "ok": True,

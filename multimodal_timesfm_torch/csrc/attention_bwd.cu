@@ -5,7 +5,10 @@
 //       (fused_qkv_causal_attention's VJP, 8 <= S < 256 patch tokens)
 //   multimodal_timesfm_tpu/ops/attention.py      _attn_bwd_kernel
 //       (fused_causal_attention's VJP, 256 <= S <= 1024 patch tokens)
-// Both recompute, per (batch, head), from the saved q, k, v and key mask:
+// and the backward of the library flash kernel behind
+//   multimodal_timesfm_tpu/ops/attention.py      flash_causal_attention
+//       (S > 2048; B3, the port's flash_causal_attention_bwd).
+// All recompute, per (batch, head), from the saved q, k, v and key mask:
 //   W  = softmax(mask(Q K^T))          fp32, NOT rounded to the compute dtype
 //   dV = W^T G,   dW = G V^T,   dL = W o (dW - rowsum(dW o W)),
 //   dQ = dL K,    dK = dL^T Q,
@@ -15,7 +18,8 @@
 // key therefore has uniform weights over all S keys. No residual beyond what
 // JAX saves (q, k, v, mask) comes from the forward: the row max, row sum and
 // the row term r_i = rowsum(dW o W)_i = g_i . (sum_j W_ij v_j) are recomputed
-// here and kept in a (3, B, H, S) fp32 scratch that lives for one call.
+// here and kept in a (3, B, H, S) fp32 scratch that lives for one call
+// (indexed with 64-bit offsets, as every other array here: S = 4096 holds).
 //
 // Where q, k, v, g and the outputs sit: element (b, s, h, d) of q is
 // q[(b * S + s) * ld_in + h * D + d], likewise k and v; g has row stride ld_g;

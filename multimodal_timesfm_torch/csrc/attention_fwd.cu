@@ -5,7 +5,9 @@
 //       (fused_qkv_causal_attention, 8 <= S < 256 patch tokens)
 //   multimodal_timesfm_tpu/ops/attention.py      _attn_fwd_kernel
 //       (fused_causal_attention, 256 <= S <= 1024 patch tokens)
-// Both compute, per (batch, head), softmax(mask(Q K^T)) V with q pre-scaled:
+// and the forward of the library flash kernel that
+//   multimodal_timesfm_tpu/ops/attention.py      flash_causal_attention
+// wraps for S > 2048 (B3, the port's flash_causal_attention). All compute, per (batch, head), softmax(mask(Q K^T)) V with q pre-scaled:
 //   mask = (col <= row) & valid[col]; a masked logit is finfo(float32).min
 //   (never -inf, so a query row with no valid key gets uniform weights over
 //   all S keys, as in the JAX plain path); logits and softmax in fp32; the
@@ -23,7 +25,10 @@
 // twice: pass 1 keeps a running row max and sum of exp(l - max), pass 2
 // recomputes the logits, forms exp(l - max) / sum, rounds it and accumulates
 // W V. The (S, S) logits never leave the block and are never held whole: at
-// S = 1024 they would be 4 MiB per (batch, head). Each thread owns a 4 x 4
+// S = 1024 they would be 4 MiB per (batch, head), at S = 2100 17 MiB. Offsets
+// into q, k, v, out and the mask are 64-bit, so any S the card's memory
+// holds is addressed; JAX's padding of S to a multiple of 128 is a TPU tile
+// rule and is not needed here. Each thread owns a 4 x 4
 // micro-tile of the 64 x 64 logit tile (rows ty + 16 i, keys tx + 16 j) and,
 // for W V, 8 query rows x ceil(D / 32) output columns. Shared rows are padded
 // to D + 1 floats so the K reads of the 16 key columns fall in distinct banks.

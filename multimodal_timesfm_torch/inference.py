@@ -5,6 +5,7 @@ serves a decoder on one device in batches of a fixed size (the final ragged
 batch is padded by repeating its last row), decodes horizons beyond one
 output patch autoregressively, and can denormalize predictions with the
 per-sample z-score ``mean``/``std`` metadata the Time-MMD loader records.
+It serves any adapter: TimesFM-2.5 and Chronos-2.
 """
 
 from __future__ import annotations
@@ -131,9 +132,14 @@ class Forecaster:
                 f"Unsupported text_mode: {text_mode!r} (expected 'first_window' or 'error')"
             )
         adapter = self.model.adapter
+        output_patch_len = getattr(adapter.config, "output_patch_len", None)
+        if output_patch_len is None:
+            # Chronos-2 decodes long horizons natively (up to max_output_patches
+            # x output_patch_size); its single shot is the forecast.
+            return self.forecast(horizon, context, masks, text_embeddings)
         patch = adapter.patch_len
         # largest single-shot chunk that keeps the context patch-aligned
-        chunk = max((adapter.config.output_patch_len // patch) * patch, patch)
+        chunk = max((output_patch_len // patch) * patch, patch)
         rounds = -(-horizon // chunk)
 
         if text_embeddings is not None and rounds > 1:

@@ -1,1 +1,1 @@
-"""Model modules: layers, the TimesFM 2.5 adapter, the fusion MLP and the decoder."""
+"""Model modules: layers, the TimesFM 2.5 and Chronos-2 adapters, the fusion MLP and the decoder."""

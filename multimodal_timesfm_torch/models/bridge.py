@@ -6,9 +6,15 @@ pairs with the child module of that name. Two layout rules differ from the
 modules:
 
   * a JAX dense kernel is (in, out); ``Dense.weight`` is (out, in);
-  * the transformer stack is one tree whose leaves carry a leading layer
-    axis (``stacked_xf/...``, shape (L, ...)); the port holds L layer
-    modules.
+  * a transformer stack is one tree whose leaves carry a leading layer
+    axis, shape (L, ...); the port holds L layer modules. TimesFM's stack is
+    ``stacked_xf/...`` (the port's ``stacked_xf.layers.<i>``), Chronos-2's
+    ``encoder/layers/...`` (the port's ``encoder.layers.<i>``). Any other
+    ``layers`` list, such as the fusion MLP's, stays a list.
+
+Leaves that are not dense kernels keep their layout: a table held as a plain
+``nn.Parameter`` (Chronos-2's ``shared`` [REG] table and ``rel_pos_bias``) is
+not named ``weight`` and so is not transposed.
 
 ``load_jax_params`` reads a tree into a module; ``export_jax_params`` writes
 a module's parameters (or tensors paired with them, such as optimizer
@@ -27,7 +33,11 @@ import numpy as np
 import torch
 from torch import nn
 
-_STACK = ("stacked_xf", "layers")
+from multimodal_timesfm_torch.models.layers import LayerNorm
+
+# (parent, "layers") -> how many of the two names the JAX path keeps: the
+# module list's index is always dropped, "layers" only under ``stacked_xf``.
+_STACKS = {("stacked_xf", "layers"): 1, ("encoder", "layers"): 2}
 
 
 @dataclasses.dataclass
@@ -52,10 +62,11 @@ def _slots(module: nn.Module) -> dict[str, _Slot]:
         transpose = parts[-1] == "weight"
         if transpose:
             parts[-1] = "kernel"
-        at = next((i for i in range(len(parts) - 2) if tuple(parts[i : i + 2]) == _STACK), None)
+        at = next((i for i in range(len(parts) - 2) if tuple(parts[i : i + 2]) in _STACKS), None)
         stacked = at is not None
         if stacked:
-            parts = [*parts[: at + 1], *parts[at + 3 :]]
+            keep = _STACKS[tuple(parts[at : at + 2])]
+            parts = [*parts[: at + keep], *parts[at + 3 :]]
         path = "/".join(parts)
         slot = slots.setdefault(path, _Slot([], transpose, stacked))
         slot.params.append(param)
@@ -139,19 +150,24 @@ def _put(tree: dict[str, Any], path: str, leaf: Any) -> None:
 def random_jax_params(module: nn.Module, seed: int) -> dict[str, Any]:
     """A JAX-layout params tree for ``module``, drawn with numpy from ``seed``.
 
-    Kernels are Xavier-uniform over their (in, out) fans; the LayerNorm gain
-    is ``1 + N(0, 0.05^2)``; every other leaf (biases, RMS gains, per-dim
-    query scales) is ``N(0, 0.05^2)``.
+    Kernels are Xavier-uniform over their (in, out) fans; the gain of a
+    ``layers.LayerNorm`` is ``1 + N(0, 0.05^2)``; every other leaf (biases,
+    RMS gains, which apply ``1 + scale`` themselves, per-dim query scales,
+    tables) is ``N(0, 0.05^2)``.
     """
+    layer_norm_gains = {
+        id(sub.scale) for sub in module.modules() if isinstance(sub, LayerNorm)
+    }
     rng = np.random.default_rng(seed)
     tree: dict[str, Any] = {}
-    for path, shape in expected_shapes(module).items():
+    for path, slot in _slots(module).items():
+        shape = slot.shape
         if path.endswith("/kernel"):
             limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
             leaf = rng.uniform(-limit, limit, shape)
         else:
             leaf = rng.normal(0.0, 0.05, shape)
-            if path.endswith("ffn_norm/scale"):
+            if id(slot.params[0]) in layer_norm_gains:
                 leaf += 1.0
         _put(tree, path, leaf.astype(np.float32))
     return _lists(tree)

@@ -13,12 +13,14 @@ Weights are stored as ``nn.Linear`` does, (out, in); the JAX package stores
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from multimodal_timesfm_torch.ops.attention import (
+    flash_causal_attention,
     fused_causal_attention,
     needs_flash,
     plain_causal_attention,
@@ -143,18 +145,21 @@ class LayerNorm(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Residual MLP: ``output(swish(hidden(x))) + residual(x)``."""
+    """Residual MLP: ``output(act(hidden(x))) + residual(x)``; ``act`` is swish unless given
+    (Chronos-2's patch embeddings use :func:`relu`)."""
 
     def __init__(
-        self, in_dim: int, hidden_dim: int, out_dim: int, generator: torch.Generator
+        self, in_dim: int, hidden_dim: int, out_dim: int, generator: torch.Generator,
+        act: Callable[[torch.Tensor], torch.Tensor] = swish,
     ) -> None:
         super().__init__()
+        self.act = act
         self.hidden = Dense(in_dim, hidden_dim, generator)
         self.output = Dense(hidden_dim, out_dim, generator)
         self.residual = Dense(in_dim, out_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output(swish(self.hidden(x))) + self.residual(x)
+        return self.output(self.act(self.hidden(x))) + self.residual(x)
 
 
 class Attention(nn.Module):
@@ -179,8 +184,8 @@ class Attention(nn.Module):
 
         Dispatch: one token -> the v projection alone (softmax over one key
         is the identity); on CUDA 8 <= S < 256 -> the fused-qkv kernel,
-        256 <= S <= 1024 -> the whole-sequence kernel, S > 2048 -> not yet
-        ported (raises); everything else, and every CPU tensor, the plain path.
+        256 <= S <= 1024 -> the whole-sequence kernel, S > 2048 -> the flash
+        entry point; everything else, and every CPU tensor, the plain path.
         """
         batch, seq, _ = x.shape
         heads, dim = self.num_heads, self.head_dim
@@ -212,10 +217,7 @@ class Attention(nn.Module):
             if supports_fused(qkv, seq, dim):
                 out = fused_causal_attention(q, k, v, key_valid)
             elif needs_flash(qkv, seq, dim):
-                raise NotImplementedError(
-                    f"{seq} patch tokens need the tiled flash attention kernel (S > 2048), "
-                    "which is not ported to CUDA yet (ROADMAP queue B, item B3)"
-                )
+                out = flash_causal_attention(q, k, v, key_valid)
             else:
                 out = plain_causal_attention(q, k, v, key_valid)
             out = out.reshape(batch, seq, hd)

@@ -1,1 +1,1 @@
-"""Tensor ops: patching, RevIN and causal attention (plain versions and CUDA kernels)."""
+"""Tensor ops: patching, RevIN, causal and Chronos-2 attention (plain versions and CUDA kernels)."""

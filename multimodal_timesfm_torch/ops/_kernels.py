@@ -23,7 +23,9 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "attention_fwd.cu", _PKG / "csrc" / "attention_bwd.cu")
+SOURCES = tuple(
+    _PKG / "csrc" / name for name in ("attention_fwd.cu", "attention_bwd.cu", "chronos_attention.cu")
+)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -108,6 +110,10 @@ def library() -> ctypes.CDLL:
     lib.attention_fwd.restype = i32
     lib.attention_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 3 + [ptr]
     lib.attention_bwd.restype = i32
+    lib.chronos_attention_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.chronos_attention_fwd.restype = i32
+    lib.chronos_attention_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+    lib.chronos_attention_bwd.restype = i32
     return lib
 
 
@@ -124,36 +130,45 @@ def _check_heads_view(name: str, x: torch.Tensor, shape: tuple[int, ...], row_st
         raise ValueError(f"{name} batch stride {x.stride(0)} != S*ld = {s * row_stride}")
 
 
+def _check_aux(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple[int, ...]) -> None:
+    """A side input (mask, segment ids, bias) must have this dtype and shape, contiguous."""
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name} must be {dtype} of shape {shape}, got {t.dtype} {tuple(t.shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def _check_inputs(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    aux: tuple[tuple[str, torch.Tensor], ...],
     others: tuple[tuple[str, torch.Tensor], ...],
 ) -> tuple[int, int, int, int]:
-    """Device, dtype and layout checks shared by both launches; returns (B, S, H, D)."""
+    """Device, dtype and layout checks shared by every launch; returns (B, S, H, D).
+
+    ``aux`` tensors are only checked for their device (the caller checks
+    their dtype and shape with :func:`_check_aux`); ``others`` must have q's
+    dtype.
+    """
     shape = tuple(q.shape)
     if len(shape) != 4:
         raise ValueError(f"q must be (B, S, H, D), got shape {shape}")
     batch, seq, heads, dim = shape
     dev = q.device
-    tensors = (("q", q), ("k", k), ("v", v), ("key_valid", key_valid), *others)
-    for name, t in tensors:
+    floats = (("q", q), ("k", k), ("v", v), *others)
+    for name, t in (*floats, *aux):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name} is on {t.device}; the kernel needs every input on {dev} (CUDA)")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}; the kernel takes float32 or bfloat16")
-    for name, t in tensors:
-        if name != "key_valid" and t.dtype != q.dtype:
+    for name, t in floats:
+        if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
     if not 0 < dim <= 256:
         raise ValueError(f"head_dim {dim} outside the kernel's range 1..256")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_heads_view(name, t, shape, q.stride(1))
-    if key_valid.dtype != torch.bool or tuple(key_valid.shape) != (batch, seq):
-        raise ValueError(
-            f"key_valid must be bool of shape {(batch, seq)}, got {key_valid.dtype} "
-            f"{tuple(key_valid.shape)}"
-        )
-    if not key_valid.is_contiguous():
-        raise ValueError("key_valid must be contiguous")
     return batch, seq, heads, dim
 
 
@@ -172,7 +187,8 @@ def attention_fwd(
     strides, and raises ``RuntimeError`` if the launch is refused.
     """
     lib = library()
-    batch, seq, heads, dim = _check_inputs(q, k, v, key_valid, (("out", out),))
+    batch, seq, heads, dim = _check_inputs(q, k, v, (("key_valid", key_valid),), (("out", out),))
+    _check_aux("key_valid", key_valid, torch.bool, (batch, seq))
     _check_heads_view("out", out, tuple(q.shape), out.stride(1))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -204,7 +220,8 @@ def attention_bwd(
     """
     lib = library()
     outs = (("dq", dq), ("dk", dk), ("dv", dv))
-    batch, seq, heads, dim = _check_inputs(q, k, v, key_valid, (("g", g), *outs))
+    batch, seq, heads, dim = _check_inputs(q, k, v, (("key_valid", key_valid),), (("g", g), *outs))
+    _check_aux("key_valid", key_valid, torch.bool, (batch, seq))
     shape = tuple(q.shape)
     _check_heads_view("g", g, shape, g.stride(1))
     for name, t in outs:
@@ -220,3 +237,87 @@ def attention_bwd(
         )
     if err != 0:
         raise RuntimeError(f"attention_bwd launch failed with CUDA error {err}")
+
+
+def _check_chronos(
+    qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor, num_heads: int, head_dim: int,
+    others: tuple[tuple[str, torch.Tensor], ...],
+) -> tuple[int, int, int, int]:
+    """Checks of the Chronos launches: qkv (B, S, 3*H*D) contiguous, seg int32 (B, S) and
+    bias fp32 (H, S, S) contiguous, ``others`` contiguous in qkv's dtype. Returns
+    (B, S, H, D)."""
+    if qkv.dim() != 3 or qkv.shape[-1] != 3 * num_heads * head_dim:
+        raise ValueError(
+            f"qkv must be (B, S, 3*H*D) with H*D = {num_heads * head_dim}, got {tuple(qkv.shape)}"
+        )
+    for name, t in (("qkv", qkv), *others):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    hd = num_heads * head_dim
+    q, k, v = (qkv[..., i * hd : (i + 1) * hd].unflatten(-1, (num_heads, head_dim)) for i in range(3))
+    batch, seq, heads, dim = _check_inputs(q, k, v, (("seg", seg), ("bias", bias)), others)
+    _check_aux("seg", seg, torch.int32, (batch, seq))
+    _check_aux("bias", bias, torch.float32, (heads, seq, seq))
+    return batch, seq, heads, dim
+
+
+def chronos_attention_fwd(
+    qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
+    num_heads: int, head_dim: int,
+) -> None:
+    """Launch the Chronos attention forward kernel (B4f) on the current stream.
+
+    qkv: (B, S, 3*H*D) contiguous, q unscaled; seg: (B, S) int32; bias:
+    (H, S, S) fp32; out: (B, S, H*D) contiguous in qkv's dtype. Validates
+    device, dtype, shape and layout, and raises ``RuntimeError`` if the
+    launch is refused.
+    """
+    lib = library()
+    batch, seq, heads, dim = _check_chronos(qkv, seg, bias, num_heads, head_dim, (("out", out),))
+    if tuple(out.shape) != (batch, seq, heads * dim):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected {(batch, seq, heads * dim)}")
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.chronos_attention_fwd(
+            qkv.data_ptr(), seg.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[qkv.dtype], batch, seq, heads, dim, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"chronos_attention_fwd launch failed with CUDA error {err}")
+
+
+def chronos_attention_bwd(
+    qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+    dqkv: torch.Tensor, dbias: torch.Tensor | None, num_heads: int, head_dim: int,
+) -> None:
+    """Launch the Chronos attention backward kernels (B4b) on the current stream.
+
+    qkv, seg, bias as for :func:`chronos_attention_fwd`; g: (B, S, H*D) and
+    dqkv: (B, S, 3*H*D), contiguous in qkv's dtype, dqkv written whole;
+    dbias: (H, S, S) fp32, written whole, or None to skip the bias gradient.
+    Allocates a (3, B, H, S) fp32 scratch for the row statistics and, with
+    dbias, a (B, H, S, S) fp32 scratch for the per-batch partials. Raises
+    ``RuntimeError`` if a launch is refused.
+    """
+    lib = library()
+    outs = (("g", g), ("dqkv", dqkv))
+    batch, seq, heads, dim = _check_chronos(qkv, seg, bias, num_heads, head_dim, outs)
+    if tuple(g.shape) != (batch, seq, heads * dim) or dqkv.shape != qkv.shape:
+        raise ValueError(f"g {tuple(g.shape)} or dqkv {tuple(dqkv.shape)} does not match qkv")
+    stats = torch.empty(3 * batch * heads * seq, dtype=torch.float32, device=qkv.device)
+    partials = None
+    if dbias is not None:
+        if dbias.device != qkv.device:
+            raise ValueError(f"dbias is on {dbias.device}; the kernel needs it on {qkv.device}")
+        _check_aux("dbias", dbias, torch.float32, (heads, seq, seq))
+        partials = torch.empty(batch * heads * seq * seq, dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.chronos_attention_bwd(
+            qkv.data_ptr(), seg.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            _DTYPE_CODES[qkv.dtype], batch, seq, heads, dim, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"chronos_attention_bwd launch failed with CUDA error {err}")

@@ -1,15 +1,19 @@
-"""Causal attention with key padding: the plain path and the whole-sequence kernel.
+"""Causal attention with key padding: the plain path, the whole-sequence and the flash entry points.
 
 Counterpart of ``multimodal_timesfm_tpu/ops/attention.py``. Layout (B, S, H, D)
 with q pre-scaled and ``key_valid`` (B, S) bool, True = valid key. Masked
 logits are ``finfo(float32).min``, never ``-inf``: a query row with no valid
 key then gets uniform weights and stays finite.
 
-``fused_causal_attention`` is differentiable. On a CUDA tensor its forward
-launches the hand-written kernel ``csrc/attention_fwd.cu`` and its backward
-``csrc/attention_bwd.cu``; on a CPU tensor each runs its plain version. There
-is no other fallback. As in JAX's custom VJP, the only residuals are q, k, v
-and the mask: the backward recomputes the weights.
+``fused_causal_attention`` (B2, 256 <= S <= 1024) and
+``flash_causal_attention`` (B3, S > 2048) are differentiable. On a CUDA
+tensor their forwards launch the hand-written kernel ``csrc/attention_fwd.cu``
+and their backwards ``csrc/attention_bwd.cu``; on a CPU tensor each runs its
+plain version. There is no other fallback. Both kernels walk the keys and the
+query rows in shared-memory tiles and keep no (S, S) buffer, so one pair of
+kernels serves both lengths, each entry point with its own launch counters.
+As in JAX's custom VJP, the only residuals are q, k, v and the mask: the
+backward recomputes the weights.
 """
 
 from __future__ import annotations
@@ -101,23 +105,47 @@ def plain_attention_bwd(
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-class _FusedCausalAttention(torch.autograd.Function):
+def _kernel_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor, counter
+) -> torch.Tensor:
+    """The forward of both entry points: plain on the CPU, else the kernel, counted on ``counter``."""
+    if q.device.type == "cpu":
+        return plain_causal_attention(q, k, v, key_valid)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _kernels.attention_fwd(q, k, v, key_valid, out)
+    counter.launches += 1
+    return out
+
+
+def _kernel_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor, g: torch.Tensor,
+    counter,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of both entry points: plain on the CPU, else the kernels, counted on ``counter``."""
+    if q.device.type == "cpu":
+        return plain_attention_bwd(q, k, v, key_valid, g)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    _kernels.attention_bwd(q, k, v, key_valid, g.contiguous(), dq, dk, dv)
+    counter.launches += 1
+    return dq, dk, dv
+
+
+class _CausalAttention(torch.autograd.Function):
+    """Both entry points: ``entry`` counts the forward launches, ``entry_bwd`` is the backward."""
+
     @staticmethod
     def forward(
-        ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor
+        ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
+        entry, entry_bwd,
     ) -> torch.Tensor:
         ctx.save_for_backward(q, k, v, key_valid)
-        if q.device.type == "cpu":
-            return plain_causal_attention(q, k, v, key_valid)
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _kernels.attention_fwd(q, k, v, key_valid, out)
-        fused_causal_attention.launches += 1
-        return out
+        ctx.entry_bwd = entry_bwd
+        return _kernel_fwd(q, k, v, key_valid, entry)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
         q, k, v, key_valid = ctx.saved_tensors
-        return (*fused_causal_attention_bwd(q, k, v, key_valid, g), None)
+        return (*ctx.entry_bwd(q, k, v, key_valid, g), None, None, None)
 
 
 def fused_causal_attention(
@@ -130,7 +158,7 @@ def fused_causal_attention(
     copy); key_valid: (B, S) bool. Returns a new contiguous (B, S, H, D).
     ``fused_causal_attention.launches`` counts forward kernel launches.
     """
-    return _FusedCausalAttention.apply(q, k, v, key_valid)
+    return _CausalAttention.apply(q, k, v, key_valid, fused_causal_attention, fused_causal_attention_bwd)
 
 
 fused_causal_attention.launches = 0
@@ -145,15 +173,44 @@ def fused_causal_attention_bwd(
     backward kernel or raises. ``fused_causal_attention_bwd.launches`` counts
     kernel launches.
     """
-    if q.device.type == "cpu":
-        return plain_attention_bwd(q, k, v, key_valid, g)
-    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
-    _kernels.attention_bwd(q, k, v, key_valid, g.contiguous(), dq, dk, dv)
-    fused_causal_attention_bwd.launches += 1
-    return dq, dk, dv
+    return _kernel_bwd(q, k, v, key_valid, g, fused_causal_attention_bwd)
 
 
 fused_causal_attention_bwd.launches = 0
+
+
+def flash_causal_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor
+) -> torch.Tensor:
+    """Causal attention past 2,048 tokens (JAX ``flash_causal_attention``), differentiable.
+
+    The same function and layout as :func:`fused_causal_attention`, q
+    pre-scaled. JAX pads S to a multiple of 128 for its TPU flash kernel's
+    tiles and slices the output back; the CUDA kernels take any S, so nothing
+    is padded here. As in JAX, the valid query rows are the contract (a row
+    with no valid key gets uniform weights here). Returns a new contiguous
+    (B, S, H, D); ``flash_causal_attention.launches`` counts forward kernel
+    launches.
+    """
+    return _CausalAttention.apply(q, k, v, key_valid, flash_causal_attention, flash_causal_attention_bwd)
+
+
+flash_causal_attention.launches = 0
+
+
+def flash_causal_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`flash_causal_attention`: (dq, dk, dv), each a new (B, S, H, D).
+
+    A CPU tensor runs :func:`plain_attention_bwd`; any other launches the
+    backward kernels or raises. ``flash_causal_attention_bwd.launches``
+    counts kernel launches.
+    """
+    return _kernel_bwd(q, k, v, key_valid, g, flash_causal_attention_bwd)
+
+
+flash_causal_attention_bwd.launches = 0
 
 
 def supports_fused(x: torch.Tensor, seq: int, dim: int) -> bool:
@@ -162,5 +219,5 @@ def supports_fused(x: torch.Tensor, seq: int, dim: int) -> bool:
 
 
 def needs_flash(x: torch.Tensor, seq: int, dim: int) -> bool:
-    """Where JAX runs its library flash kernel (S > 2048), which is not ported yet."""
+    """Gate of :func:`flash_causal_attention`: where JAX runs its flash kernel (S > 2048)."""
     return x.is_cuda and seq > 2048 and dim <= 256

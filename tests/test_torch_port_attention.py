@@ -105,7 +105,8 @@ def test_kernel_gates_hold_only_cuda_tensors():
 
 def test_long_sequence_on_cpu_takes_the_plain_path():
     """Beyond 2048 tokens JAX needs its flash kernel on the TPU; on CPU tensors the port
-    (like JAX off the TPU) runs the plain path. On CUDA it raises (chip_smoke.py)."""
+    (like JAX off the TPU) runs the plain path. On CUDA it takes the flash entry point
+    (tests/test_torch_port_chronos_attention.py, chip_smoke.py)."""
     attn = Attention(8, 2, 4, torch.Generator().manual_seed(0))
     x = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 2056, 8)).astype(np.float32))
     with torch.inference_mode():
