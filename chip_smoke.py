@@ -8,19 +8,24 @@ Run from the repository root, on a host with one CUDA card:
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
 1. build: compile the three sources under ``multimodal_timesfm_torch/csrc/``
-   (``attention_fwd.cu``, ``attention_bwd.cu``, ``chronos_attention.cu``)
-   with nvcc for sm_90a, one nvcc per source started together; print the
+   (``attention_fwd.cu``, ``attention_bwd.cu``, ``chronos_attention.cu``;
+   the first two share ``attention_common.cuh``) with nvcc for sm_90a, one nvcc per source started together; print the
    build seconds, the compiler's register and shared-memory report, and the
    card's name and power limit;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   in fp32 and bf16: the causal kernels (B1f/B1b, B2f/B2b, and the same
-   kernels behind the flash entry point, B3f/B3b, at S = 2100 and 4096) with
-   left-padded key masks (and, for the backward, the cotangent zeroed on
-   padded query rows, as the model path leaves it), compared on valid query
-   rows; the Chronos kernels (B4f/B4b) with one segment, and three segments
-   with padded tokens, compared on every row, dbias included, two launches
-   bit-equal; all at the shapes the serving and training paths give them,
-   and at edge shapes. The kernel, the plain version and
+   in fp32 and bf16, on every query row (rows with no valid key included):
+   the causal kernels (B1f/B1b, B2f/B2b, and the same kernels behind the
+   flash entry point, B3f/B3b, at S = 2100 and 4096) with left-padded key
+   masks (and, for the backward, the cotangent zeroed on padded query rows,
+   as the model path leaves it), then, with a random cotangent on every row,
+   under masks that exercise the kernels' skip rule (pads of 128 up to
+   S - 1, random holes after the first valid key, a row with no valid key)
+   at S = 300, 600 and 2100 and at the small-S tiles (S = 8, 16, 24), both
+   entry points; the Chronos kernels (B4f/B4b) with one segment, and three
+   segments with padded tokens, dbias included; every backward launched
+   twice and held bit-equal; all at the shapes the serving and training
+   paths give them, and at edge shapes. The route and tiles of each causal
+   kernel are printed (``[route]``). The kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
    timed (device time from torch.profiler, and CUDA events around
@@ -66,7 +71,12 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
 
 The ``kernels`` line lists every kernel with its launches on the main-path
 phases (3 to 7; each starts its counters at 0) and its numbers at its
-main-path shape in bf16. The line before the last names the card and its power limit; the last line
+main-path shape in bf16.
+
+``python3 chip_smoke.py --kernel-times [--root DIR]`` only checks and times
+the six causal kernels at their main-path shapes in fp32 and bf16, with the
+port imported from DIR (another checkout, such as the parent commit's) when
+given, so that two trees compare on one card. The line before the last names the card and its power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is present or the port cannot be imported.
 """
@@ -242,22 +252,21 @@ def attention_bound(batch: int, seq: int, heads: int, dim: int, valid: torch.Ten
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def compare(what: str, out: torch.Tensor, ref: torch.Tensor, valid: torch.Tensor) -> float:
-    """Kernel output vs plain output: every row finite, valid query rows within
-    KERNEL_TOL. Returns the max abs difference on valid rows."""
+def compare(what: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Kernel output vs plain output on every query row, those with no valid key (uniform
+    weights over all S keys) included: finite, within KERNEL_TOL. Returns the max abs
+    difference."""
     torch.cuda.synchronize()
     if not bool(torch.isfinite(out.float()).all()):
         raise AssertionError(f"{what} {out.dtype}: non-finite output")
-    # Valid query rows: with left padding, row s sees a valid key iff s is valid.
-    rows = valid.reshape(*valid.shape, *([1] * (out.dim() - 2)))
     err = (out.float() - ref.float()).abs()
     atol, rtol = KERNEL_TOL[out.dtype]
-    if ((err - atol - rtol * ref.float().abs()) * rows).amax().item() > 0:
+    if (err - atol - rtol * ref.float().abs()).amax().item() > 0:
         raise AssertionError(
-            f"{what} {out.dtype}: max |kernel - plain| {(err * rows).amax().item():.3g} "
+            f"{what} {out.dtype}: max |kernel - plain| {err.amax().item():.3g} "
             f"exceeds atol {atol} + rtol {rtol} * |plain|"
         )
-    return (err * rows).amax().item()
+    return err.amax().item()
 
 
 def time_kernel(name: str, shape: tuple[int, int, int, int], dtype: torch.dtype, err: float,
@@ -285,7 +294,7 @@ def time_kernel(name: str, shape: tuple[int, int, int, int], dtype: torch.dtype,
 def check_kernel(name: str, kernel, plain, sdpa, valid: torch.Tensor, dtype: torch.dtype,
                  shape: tuple[int, int, int, int], iters: int) -> dict:
     """Kernel vs plain version on the card; returns the measured row."""
-    diff = compare(f"{name} {shape}", kernel(), plain(), valid)
+    diff = compare(f"{name} {shape}", kernel(), plain())
     return time_kernel(name, shape, dtype, diff, KERNEL_TOL[dtype], kernel, plain, sdpa,
                        attention_bound(*shape, valid, dtype), iters, "sdpa")
 
@@ -381,6 +390,16 @@ def compare_bwd(what: str, outs, refs) -> float:
     return worst
 
 
+def same_twice(what: str, kernel) -> None:
+    """Two launches of a backward kernel must give bit-equal gradients."""
+    first, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{what}: two backward launches differ")
+
+
 def sdpa_bwd_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
                 g: torch.Tensor):
     """The backward of torch SDPA under autograd, same inputs, as a timing yardstick."""
@@ -395,8 +414,10 @@ def sdpa_bwd_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.
 
 def check_bwd_kernel(name: str, kernel, plain, sdpa_bwd, valid: torch.Tensor, dtype: torch.dtype,
                      shape: tuple[int, int, int, int], iters: int) -> dict:
-    """Backward kernel vs its plain version on the card; returns the measured row."""
+    """Backward kernel vs its plain version on the card, and two launches bit-equal;
+    returns the measured row."""
     diff = compare_bwd(f"{name} {shape}", kernel(), plain())
+    same_twice(f"{name} {shape} {dtype}", kernel)
     return time_kernel(name, shape, dtype, diff, BWD_TOL[dtype], kernel, plain, sdpa_bwd,
                        backward_bound(*shape, valid, dtype), iters, "sdpa backward")
 
@@ -451,46 +472,98 @@ def backward_kernel_phase(seed: int) -> dict[str, dict]:
     return rows
 
 
-def edge_checks(seed: int) -> None:
-    """Kernel vs plain version at shapes off the main path: a ragged last key tile,
-    head dims that are not multiples of 32, and the largest head dim (256)."""
-    from multimodal_timesfm_torch.ops.attention import fused_causal_attention, plain_causal_attention
+def skip_rule_masks(batch: int, seq: int, gen: torch.Generator) -> dict[str, torch.Tensor]:
+    """(B, S) bool key masks that exercise the causal kernels' skip rule. "left-padded": a
+    pad in [0, S/2). "deep padding": a pad in [min(128, S - 1), S - 1], so whole query tiles
+    have no valid key (row 0 keeps only its last key). "holes": left-padded, then every later
+    key invalid with probability 0.3 (the first valid key kept); the last row has no valid
+    key at all."""
+    ar = torch.arange(seq, device="cuda")[None, :]
+    deep = torch.randint(min(128, seq - 1), seq, (batch,), generator=gen, device="cuda")
+    deep[0] = seq - 1
+    holes = left_padded_valid(batch, seq, gen)
+    first = holes.int().argmax(dim=1)
+    keep = torch.rand(batch, seq, generator=gen, device="cuda") >= 0.3
+    holes = holes & (keep | (ar == first[:, None]))
+    holes[-1] = False
+    return {"left-padded": left_padded_valid(batch, seq, gen), "deep padding": ar >= deep[:, None],
+            "holes": holes}
 
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    for batch, seq, heads, dim in ((3, 264, 3, 20), (2, 40, 2, 40), (2, 300, 2, 256)):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (
-                torch.randn(batch, seq, heads, dim, generator=gen, device="cuda").to(dtype)
-                for _ in range(3)
-            )
-            valid = left_padded_valid(batch, seq, gen)
-            compare(
-                f"edge case {(batch, seq, heads, dim)}",
-                fused_causal_attention(q, k, v, valid), plain_causal_attention(q, k, v, valid), valid,
-            )
-    print("[kernels] edge shapes (B,S,H,D) (3,264,3,20) (2,40,2,40) (2,300,2,256), fp32 and bf16: "
-          "kernel == plain within tolerance")
 
-    from multimodal_timesfm_torch.ops.attention import fused_causal_attention_bwd, plain_attention_bwd
+def check_causal_masks(label: str, shape: tuple[int, int, int, int], dtype: torch.dtype,
+                       gen: torch.Generator, flash: bool = False) -> None:
+    """Both entry points of one length (fused-qkv and whole-sequence, or the flash entry
+    point), forward and backward, against the plain versions on every query row under each
+    mask of :func:`skip_rule_masks`, with a random cotangent on every row; two backward
+    launches bit-equal."""
+    from multimodal_timesfm_torch.ops.attention import (
+        flash_causal_attention,
+        flash_causal_attention_bwd,
+        fused_causal_attention,
+        fused_causal_attention_bwd,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
     from multimodal_timesfm_torch.ops.qkv_attention import (
+        fused_qkv_causal_attention,
         fused_qkv_causal_attention_bwd,
-        plain_qkv_attention_bwd,
+        split_heads,
     )
 
-    for batch, seq, heads, dim in ((2, 40, 2, 40), (2, 300, 2, 256)):
+    batch, seq, heads, dim = shape
+    worst_f = worst_b = 0.0
+    for name, valid in skip_rule_masks(batch, seq, gen).items():
+        qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+        qkv[..., : heads * dim] /= math.sqrt(dim)
+        qkv = qkv.to(dtype)
+        q, k, v = split_heads(qkv, heads, dim)
+        g = torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(dtype)
+        g4 = g.unflatten(-1, (heads, dim))
+        what = f"{label} {shape} {name}"
+        ref, ref_b = plain_causal_attention(q, k, v, valid), plain_attention_bwd(q, k, v, valid, g4)
+        if flash:
+            runs = [(flash_causal_attention(q, k, v, valid), ref,
+                     lambda: flash_causal_attention_bwd(q, k, v, valid, g4), ref_b)]
+        else:
+            runs = [(fused_causal_attention(q, k, v, valid), ref,
+                     lambda: fused_causal_attention_bwd(q, k, v, valid, g4), ref_b),
+                    (fused_qkv_causal_attention(qkv, valid, heads, dim), ref.flatten(-2),
+                     lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim),
+                     torch.cat([d.flatten(-2) for d in ref_b], dim=-1))]
+        for out, want, backward, want_b in runs:
+            worst_f = max(worst_f, compare(what, out, want))
+            worst_b = max(worst_b, compare_bwd(f"{what} backward", backward(), want_b))
+            same_twice(f"{what} {dtype}", backward)
+    entries = "flash entry point" if flash else "both entry points"
+    print(f"[kernels] {label} (B,S,H,D) {shape} {str(dtype)[6:]}, {entries}, masks "
+          f"left-padded / deep padding / holes: max |kernel - plain| on every row forward "
+          f"{worst_f:.3g}, backward {worst_b:.3g}; two backward launches bit-equal", flush=True)
+
+
+def edge_checks(seed: int) -> None:
+    """The causal kernels against their plain versions off the main path, every row, both
+    entry points, fp32 and bf16, under the skip-rule masks: a ragged last key tile, head
+    dims 20, 40 and 256, S = 300 and 600 with whole 64-row tiles of padding, and the
+    small-S tiles at S = 8, 16 and 24 with H = 5 (a head count their blocks do not divide)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    shapes = ((3, 264, 3, 20), (2, 40, 2, 40), (2, 300, 2, 256), (3, 300, 2, 80), (3, 600, 2, 80),
+              (3, 8, 5, 80), (3, 16, 5, 80), (3, 24, 5, 80))
+    for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda").to(dtype)
-            valid = left_padded_valid(batch, seq, gen)
-            g = padded_cotangent((batch, seq, heads * dim), valid, dtype, gen)
-            what = f"backward edge case {(batch, seq, heads, dim)}"
-            compare_bwd(what, fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim),
-                        plain_qkv_attention_bwd(qkv, valid, g, heads, dim))
-            q, k, v = (t.unflatten(-1, (heads, dim)) for t in qkv.chunk(3, dim=-1))
-            g4 = g.unflatten(-1, (heads, dim))
-            compare_bwd(what, fused_causal_attention_bwd(q, k, v, valid, g4),
-                        plain_attention_bwd(q, k, v, valid, g4))
-    print("[kernels] backward edge shapes (B,S,H,D) (2,40,2,40) (2,300,2,256), both entry points, "
-          "fp32 and bf16: kernel == plain within tolerance")
+            check_causal_masks("edge case", shape, dtype, gen)
+
+
+def print_routes() -> None:
+    """The route and tiles of every causal kernel at its main-path shape, fp32 and bf16, as
+    the library's dispatch reports them."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    for key, name, _, _, (_, seq, _, dim) in KERNELS:
+        if key.startswith("B4"):
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            route = _kernels.attention_route(key.endswith("b"), dtype, seq, dim)
+            print(f"[route] {key} {name} S={seq} D={dim} {str(dtype)[6:]}: {route}")
 
 
 def chronos_bound(batch: int, seq: int, heads: int, dim: int, seg: torch.Tensor,
@@ -565,8 +638,7 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
             g = torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(dtype)
             what = f"B4 {shape} {segments} segment(s){' padded' if padded else ''}"
             err_f = compare(f"{what} forward", fused_chronos_attention(qkv, seg, bias),
-                            plain_chronos_attention(qkv, seg, bias),
-                            torch.ones(batch, seq, dtype=torch.bool, device="cuda"))
+                            plain_chronos_attention(qkv, seg, bias))
             dqkv, dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, True)
             ref_dqkv, ref_dbias = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
             err_b = compare_bwd(f"{what} backward", dqkv, ref_dqkv)
@@ -615,7 +687,8 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
 
 def flash_kernel_phase(seed: int) -> dict[str, dict]:
     """B3 (the causal kernels behind the flash entry point) at S = 2100 and 4096, B=2,
-    H=16, D=80, left-padded, against plain causal attention on valid rows."""
+    H=16, D=80, left-padded, against plain causal attention on every row (timed at 2100,
+    fp32 and bf16), and at 2100 under every skip-rule mask."""
     from multimodal_timesfm_torch.ops.attention import (
         flash_causal_attention,
         flash_causal_attention_bwd,
@@ -634,7 +707,7 @@ def flash_kernel_phase(seed: int) -> dict[str, dict]:
             k, v = k.to(dtype), v.to(dtype)
             valid = left_padded_valid(batch, seq, gen)
             g = padded_cotangent(shape, valid, dtype, gen)
-            timed = shape == dict(KERNELS_BY_KEY)["B3f"] and dtype == torch.bfloat16
+            timed = shape == dict(KERNELS_BY_KEY)["B3f"]
             if timed:
                 rows[row_key("B3f", shape, dtype)] = check_kernel(
                     "flash_causal_attention", lambda: flash_causal_attention(q, k, v, valid),
@@ -648,13 +721,70 @@ def flash_kernel_phase(seed: int) -> dict[str, dict]:
                 )
                 continue
             err_f = compare(f"B3 {shape}", flash_causal_attention(q, k, v, valid),
-                            plain_causal_attention(q, k, v, valid), valid)
+                            plain_causal_attention(q, k, v, valid))
             err_b = compare_bwd(f"B3 backward {shape}", flash_causal_attention_bwd(q, k, v, valid, g),
                                 plain_attention_bwd(q, k, v, valid, g))
+            same_twice(f"B3 backward {shape} {dtype}", lambda: flash_causal_attention_bwd(q, k, v, valid, g))
             print(f"[kernels] flash_causal_attention B={batch} S={seq} H={heads} D={dim} "
-                  f"{str(dtype)[6:]}: max |kernel - plain| forward {err_f:.3g} (valid rows), "
-                  f"backward {err_b:.3g}", flush=True)
+                  f"{str(dtype)[6:]}: max |kernel - plain| forward {err_f:.3g} (every row), "
+                  f"backward {err_b:.3g}; two backward launches bit-equal", flush=True)
+        check_causal_masks("flash", (2, 2100, heads, dim), dtype, gen, flash=True)
     return rows
+
+
+def kernel_times(seed: int) -> None:
+    """The six causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) at their main-path shapes, fp32
+    and bf16, left-padded: checked against their plain versions and timed beside the plain
+    version, SDPA and the bound (``[kernels]`` lines). With ``--root`` the port comes from
+    another checkout (the parent commit, say), so that two trees compare on one card."""
+    from multimodal_timesfm_torch.ops.attention import (
+        flash_causal_attention,
+        flash_causal_attention_bwd,
+        fused_causal_attention,
+        fused_causal_attention_bwd,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
+    from multimodal_timesfm_torch.ops.qkv_attention import (
+        fused_qkv_causal_attention,
+        fused_qkv_causal_attention_bwd,
+        plain_qkv_attention_bwd,
+        plain_qkv_causal_attention,
+        split_heads,
+    )
+
+    forward = {"B2f": fused_causal_attention, "B3f": flash_causal_attention}
+    backward = {"B2b": fused_causal_attention_bwd, "B3b": flash_causal_attention_bwd}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    for key, name, _, _, shape in KERNELS:
+        if key.startswith("B4"):
+            continue
+        batch, seq, heads, dim = shape
+        iters = 5 if seq > 1000 else 20
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+            qkv[..., : heads * dim] /= math.sqrt(dim)
+            qkv = qkv.to(dtype)
+            valid = left_padded_valid(batch, seq, gen)
+            q, k, v = split_heads(qkv, heads, dim)
+            g = padded_cotangent((batch, seq, heads * dim), valid, dtype, gen)
+            g4 = g.unflatten(-1, (heads, dim))
+            if key == "B1f":
+                check_kernel(name, lambda: fused_qkv_causal_attention(qkv, valid, heads, dim),
+                             lambda: plain_qkv_causal_attention(qkv, valid, heads, dim),
+                             sdpa_fn(q, k, v, valid), valid, dtype, shape, iters)
+            elif key == "B1b":
+                check_bwd_kernel(name, lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim),
+                                 lambda: plain_qkv_attention_bwd(qkv, valid, g, heads, dim),
+                                 sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
+            elif key in forward:
+                check_kernel(name, lambda: forward[key](q, k, v, valid),
+                             lambda: plain_causal_attention(q, k, v, valid), sdpa_fn(q, k, v, valid),
+                             valid, dtype, shape, iters)
+            else:
+                check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
+                                 lambda: plain_attention_bwd(q, k, v, valid, g4),
+                                 sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
 
 
 def make_samples(context: int, count: int, seed: int, horizon: int = HORIZON, patch: int = 32) -> list[dict]:
@@ -746,7 +876,7 @@ def slice_phase(seed: int) -> tuple[dict, dict, object]:
             lambda: fc.forecast_dataset(HORIZON, data[ctx], denormalize=True)
         )
         busy = sum(ms for _, ms in kernels)
-        attn = sum(ms for name, ms in kernels if "attention_fwd_kernel" in name)
+        attn = sum(ms for name, ms in kernels if "attention_fwd_" in name)
         top = ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in kernels[:5])
         print(
             f"[profile] context {ctx} {str(dtype)[6:]}: wall {wall:.3f} ms, device busy "
@@ -930,7 +1060,7 @@ def training_phase(seed: int, tree: dict, decoders: dict, reference) -> None:
                 epochs += 1
                 busy = sum(ms for _, ms in kernels)
                 bwd = sum(ms for name, ms in kernels if "attention_bwd" in name)
-                fwd = sum(ms for name, ms in kernels if "attention_fwd_kernel" in name)
+                fwd = sum(ms for name, ms in kernels if "attention_fwd_" in name)
                 top = ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in kernels[:5])
                 print(
                     f"[profile] train {label}: one epoch of {steps} steps, wall {wall:.3f} ms, "
@@ -1208,7 +1338,15 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="only check and time the six causal kernels at their main-path shapes")
+    parser.add_argument("--root", default=None,
+                        help="with --kernel-times: import the port from this checkout instead")
     args = parser.parse_args()
+    if args.root is not None:
+        if not args.kernel_times:
+            parser.error("--root needs --kernel-times")
+        sys.path.insert(0, args.root)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1229,7 +1367,16 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}")
     gpu = gpu_line()
-    print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+    print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda} | port from "
+          f"{_kernels.CSRC.parent if hasattr(_kernels, 'CSRC') else _kernels.SOURCES[0].parent.parent}",
+          flush=True)
+    if args.kernel_times:
+        if hasattr(_kernels, "attention_route"):
+            print_routes()
+        kernel_times(args.seed)
+        print(f"[gpu] {gpu}")
+        return 0
+    print_routes()
 
     def phase(name: str, fn, *a):
         start = time.perf_counter()

@@ -2,110 +2,113 @@
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   multimodal_timesfm_tpu/ops/qkv_attention.py  _fwd_kernel
-//       (fused_qkv_causal_attention, 8 <= S < 256 patch tokens)
+//       (fused_qkv_causal_attention, 8 <= S < 256 patch tokens; B1f)
 //   multimodal_timesfm_tpu/ops/attention.py      _attn_fwd_kernel
-//       (fused_causal_attention, 256 <= S <= 1024 patch tokens)
+//       (fused_causal_attention, 256 <= S <= 1024 patch tokens; B2f)
 // and the forward of the library flash kernel that
 //   multimodal_timesfm_tpu/ops/attention.py      flash_causal_attention
-// wraps for S > 2048 (B3, the port's flash_causal_attention). All compute, per (batch, head), softmax(mask(Q K^T)) V with q pre-scaled:
+// wraps for S > 2048 (B3f, the port's flash_causal_attention). All compute,
+// per (batch, head), softmax(mask(Q K^T)) V with q pre-scaled:
 //   mask = (col <= row) & valid[col]; a masked logit is finfo(float32).min
 //   (never -inf, so a query row with no valid key gets uniform weights over
 //   all S keys, as in the JAX plain path); logits and softmax in fp32; the
 //   weights are rounded to the compute dtype before the PV product (JAX's
 //   w.astype(v.dtype)); PV accumulates in fp32; the output is written once
 //   in the compute dtype.
-// The two entry points differ only in where q, k and v sit in memory. Element
+// The entry points differ only in where q, k and v sit in memory. Element
 // (b, s, h, d) of q is q[(b * S + s) * ld_in + h * D + d], and likewise for k
 // and v from their own base pointers; the output row stride is ld_out. For
 // the fused-qkv layout (B, S, 3*H*D) the bases are offset by 0, H*D and 2*H*D
-// columns and ld_in = 3*H*D; for (B, S, H, D) tensors ld_in = H*D.
+// columns and ld_in = 3*H*D; for (B, S, H, D) tensors ld_in = H*D. Offsets
+// are 64-bit; any S the card's memory holds is addressed, head_dim 1..256.
 //
-// Design, simple first. One block of 256 threads per (tile of 64 query rows,
-// head, batch). Keys are visited in tiles of 64 rows held in shared memory,
-// twice: pass 1 keeps a running row max and sum of exp(l - max), pass 2
-// recomputes the logits, forms exp(l - max) / sum, rounds it and accumulates
-// W V. The (S, S) logits never leave the block and are never held whole: at
-// S = 1024 they would be 4 MiB per (batch, head), at S = 2100 17 MiB. Offsets
-// into q, k, v, out and the mask are 64-bit, so any S the card's memory
-// holds is addressed; JAX's padding of S to a multiple of 128 is a TPU tile
-// rule and is not needed here. Each thread owns a 4 x 4
-// micro-tile of the 64 x 64 logit tile (rows ty + 16 i, keys tx + 16 j) and,
-// for W V, 8 query rows x ceil(D / 32) output columns. Shared rows are padded
-// to D + 1 floats so the K reads of the 16 key columns fall in distinct banks.
-// head_dim is a runtime value up to 256 (80 on the main path, 5 x 16); no
-// load assumes a power of two.
+// Both routes take two passes over the key tiles: pass 1 keeps a running row
+// max m and sum s of exp(l - m), pass 2 recomputes the logits, forms
+// W = exp(l - m) / s, rounds it to the compute dtype and accumulates W V. A
+// one-pass online softmax would round the unnormalised weights instead, a
+// different result. Both visit only the key tiles the skip rule of
+// attention_common.cuh keeps (tiles above the causal diagonal and fully
+// padded left tiles are not loaded; a query tile holding a row with no valid
+// key walks them all), and both load the next key (and value) tile with
+// cp.async into a two-stage ring while the current one computes.
 //
-// What bounds it on an H100: every multiply-add runs on the fp32 CUDA cores
-// (67 TFLOP/s), fed by scalar shared-memory loads (8 loads for 16 FMAs in the
-// logit loop), so at best about half that rate; causal tiles above the
-// diagonal are computed and masked, not skipped. At the main-path shapes the
-// least time of the work itself is set by the bytes moved in bf16 and by the
-// fp32 rate in fp32 (chip_smoke.py prints both bounds); this kernel is far
-// from either. wgmma tiles, TMA loads and skipping fully-masked causal tiles
-// are later work.
+// bf16 route, on the tensor cores. 128 threads, 4 warps; each warp owns 16
+// query rows. mma.sync m16n8k16 (bf16 in, fp32 accumulate) with fragments
+// from ldmatrix: S = Q K^T per 64-key tile; in pass 2 W is rounded to bf16
+// in the accumulator registers and fed straight back as the A operand of
+// W V (ldmatrix.trans for V), never through shared memory. Tiles stay bf16
+// in shared memory, D padded with zeros to DP, a multiple of 16 (80 = 5 x 16;
+// 20 -> 32, 40 -> 64, 256), rows DP + 8 elements apart so the eight row
+// addresses of an ldmatrix fall in distinct banks. Small S (B1: 16 or 32
+// tokens) fits the tile to S: 16 * QW rows of queries and keys per head with
+// 4 / QW heads in one block (QW = 1, 2 or 4), so a 16-token row does not pay
+// for a 64-row tile. For DP > 80 a block writes NKO * 16 of the output
+// columns, to keep the accumulators in registers (D = 256: four blocks per
+// query tile, each recomputing pass 1). The exponentials run on the SFU
+// (mtt::fast_exp: ex2.approx, about 2^-22 relative, against the plain
+// version's exp; W is then rounded to bf16, 2^-9), and a key tile that no
+// mask touches for a warp's rows (every key valid, below the diagonal)
+// skips the mask (mtt::tile_unmasked).
+//
+// fp32 route, on the CUDA cores, so that it keeps the fp32 tolerance (plain
+// TF32 rounds to 2^-11): 256 threads, TB = 16 TM query rows per block (64;
+// 32 for head_dim > 96 or S <= 32; 16 for S <= 16), each thread a TM x TM
+// micro-tile of the logit tile, shared rows padded to D + 1 floats, 4-byte
+// cp.async into the ring.
+//
+// What bounds it on an H100: at the main-path shapes the work is small
+// against the bytes (chip_smoke.py prints both bounds), but each block
+// re-reads its key tiles from L2, and the bf16 route runs mma.sync, which
+// reaches about half of the card's bf16 rate (wgmma needs 64-row warpgroup
+// tiles and, with TMA, a 128-byte swizzle a 160-byte row does not fit). The
+// exponentials (two per logit) run on the SFU. The fp32 route is bound by
+// the CUDA cores' 67 TFLOP/s.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <float.h>
+#include "attention_common.cuh"
+
 #include <math.h>
-#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 64;   // keys per shared-memory tile
-constexpr int kThreads = 256;
+using mtt::bf16;
+
 constexpr int kMaxDim = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------- fp32 route
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+constexpr int kThreadsF32 = 256;
 
-// dst[r * dp + d] = src[r * ld + d] for 64 rows; rows at or past `rows_left`
-// are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows_left, int D, int dp,
-                                          long long ld) {
-  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    dst[r * dp + d] = r < rows_left ? to_f32(src[(long long)r * ld + d]) : 0.f;
-  }
-}
-
-// Masked logits of this thread's micro-tile: rows q0 + ty + 16 i, keys
-// k0 + tx + 16 j. Keys past the sequence end get -inf (no term at all);
-// causal-future and padded keys get finfo(float32).min (a term that
-// vanishes unless the whole row is masked).
+// Masked logits of this thread's micro-tile (rows q0 + ty + 16 i, keys
+// k0 + tx + 16 j) from two (TB, dp) tiles. Keys past the sequence end get
+// -inf (no term at all); causal-future and padded keys get finfo(float32).min
+// (a term that vanishes unless the whole row is masked).
+template <int TM>
 __device__ __forceinline__ void tile_logits(const float* Qs, const float* Ks, const int* Vm, int D,
                                             int dp, int q0, int k0, int S, int tx, int ty,
-                                            float l[4][4]) {
+                                            float l[TM][TM]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) l[i][j] = 0.f;
+    for (int j = 0; j < TM; ++j) l[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qv[4], kv[4];
+    float qv[TM], kv[TM];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * dp + d];
+    for (int i = 0; i < TM; ++i) qv[i] = Qs[(ty + 16 * i) * dp + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * dp + d];
+    for (int j = 0; j < TM; ++j) kv[j] = Ks[(tx + 16 * j) * dp + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) l[i][j] = fmaf(qv[i], kv[j], l[i][j]);
+      for (int j = 0; j < TM; ++j) l[i][j] = fmaf(qv[i], kv[j], l[i][j]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < TM; ++i) {
     const int row = q0 + ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < TM; ++j) {
       const int c = tx + 16 * j;
       const int col = k0 + c;
       if (col >= S) {
@@ -118,154 +121,444 @@ __device__ __forceinline__ void tile_logits(const float* Qs, const float* Ks, co
 }
 
 // Reductions over the 16 lanes that share a micro-tile row (tx = lane & 15).
-__device__ __forceinline__ float row_max(float x) {
+__device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
-__device__ __forceinline__ float row_sum(float x) {
+__device__ __forceinline__ float row_sum16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
-template <typename T, int NDS>
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const uint8_t* __restrict__ valid,
-                         T* __restrict__ out, int S, int D, long long ld_in, long long ld_out) {
+template <int TM, int NDS>
+__global__ void __launch_bounds__(kThreadsF32)
+    attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const uint8_t* __restrict__ valid,
+                             float* __restrict__ out, int S, int D, long long ld_in,
+                             long long ld_out) {
+  constexpr int TB = 16 * TM;
+  constexpr int RPW = TB / 8;  // output rows per warp
   extern __shared__ float smem[];
   const int dp = D + 1;
-  float* Qs = smem;                  // kBQ x dp
-  float* Ks = Qs + kBQ * dp;         // kBK x dp
-  float* Vs = Ks + kBK * dp;         // kBK x dp
-  float* Ws = Vs + kBK * dp;         // kBQ x (kBK + 1)
-  int* Vm = reinterpret_cast<int*>(Ws + kBQ * (kBK + 1));  // kBK key-valid flags
+  const int ts = TB * max(dp, TB + 1);  // a K or V slot; in pass 2 K's slot then holds W
+  float* Qs = smem;                 // TB x dp
+  float* Ks = Qs + TB * dp;         // 2 slots: K tiles, then the W tile, TB x (TB + 1)
+  float* Vs = Ks + 2 * ts;          // 2 slots: V tiles
+  int* Vm = reinterpret_cast<int*>(Vs + 2 * ts);  // 2 x TB key-valid flags
+  int* red = Vm + 2 * TB;                                // one int per warp
 
-  const int q0 = blockIdx.x * kBQ;
+  const int nq = (S + TB - 1) / TB;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * TB;  // the longest key walks first
+  const int qlast = min(q0 + TB, S) - 1;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const long long in_off = (long long)b * S * ld_in + (long long)h * D;
-  const T* qb = q + in_off;
-  const T* kb = k + in_off;
-  const T* vb = v + in_off;
+  const float* kb = k + in_off;
+  const float* vb = v + in_off;
   const uint8_t* valid_b = valid + (long long)b * S;
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
 
-  load_tile(Qs, qb + (long long)q0 * ld_in, S - q0, D, dp, ld_in);
+  int kt0, nkt;
+  mtt::key_tiles(q0, qlast, mtt::first_valid(valid_b, qlast + 1, red), S, TB, &kt0, &nkt);
+  const int items = 2 * nkt;  // pass 1: K tiles; pass 2: K and V tiles
+  auto prefetch = [&](int it) {
+    const int buf = it & 1;
+    const int k0 = (kt0 + (it < nkt ? it : it - nkt)) * TB;
+    mtt::load_tile_f32<TB, kThreadsF32>(Ks + buf * ts, kb, k0, S, D, dp, ld_in);
+    if (it >= nkt) mtt::load_tile_f32<TB, kThreadsF32>(Vs + buf * ts, vb, k0, S, D, dp, ld_in);
+    if (tid < TB) Vm[buf * TB + tid] = k0 + tid < S ? (int)valid_b[k0 + tid] : 0;
+    mtt::cp_async_commit();
+  };
+  mtt::load_tile_f32<TB, kThreadsF32>(Qs, q + in_off, q0, S, D, dp, ld_in);
+  prefetch(0);
 
-  // Pass 1: running row max and sum of exp, in fp32.
-  float m[4], s[4];
+  float m[TM], s[TM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < TM; ++i) {
     m[i] = -FLT_MAX;
     s[i] = 0.f;
   }
-  for (int k0 = 0; k0 < S; k0 += kBK) {
-    __syncthreads();
-    load_tile(Ks, kb + (long long)k0 * ld_in, S - k0, D, dp, ld_in);
-    if (tid < kBK) Vm[tid] = (k0 + tid < S) ? (int)valid_b[k0 + tid] : 0;
-    __syncthreads();
-    float l[4][4];
-    tile_logits(Qs, Ks, Vm, D, dp, q0, k0, S, tx, ty, l);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float tmax = row_max(fmaxf(fmaxf(l[i][0], l[i][1]), fmaxf(l[i][2], l[i][3])));
-      const float nm = fmaxf(m[i], tmax);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps += expf(l[i][j] - nm);
-      s[i] = s[i] * expf(m[i] - nm) + row_sum(ps);
-      m[i] = nm;
-    }
-  }
-
-  // Pass 2: normalized weights, rounded to the compute dtype, times V.
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float acc[8][NDS];
+  float acc[RPW][NDS];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RPW; ++i)
 #pragma unroll
     for (int c = 0; c < NDS; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
+  for (int it = 0; it < items; ++it) {
+    mtt::cp_async_wait_all();
     __syncthreads();
-    load_tile(Ks, kb + (long long)k0 * ld_in, S - k0, D, dp, ld_in);
-    load_tile(Vs, vb + (long long)k0 * ld_in, S - k0, D, dp, ld_in);
-    if (tid < kBK) Vm[tid] = (k0 + tid < S) ? (int)valid_b[k0 + tid] : 0;
-    __syncthreads();
-    float l[4][4];
-    tile_logits(Qs, Ks, Vm, D, dp, q0, k0, S, tx, ty, l);
+    if (it + 1 < items) prefetch(it + 1);
+    const int buf = it & 1;
+    const int k0 = (kt0 + (it < nkt ? it : it - nkt)) * TB;
+    float* Kt = Ks + buf * ts;
+    float l[TM][TM];
+    tile_logits<TM>(Qs, Kt, Vm + buf * TB, D, dp, q0, k0, S, tx, ty, l);
+    if (it < nkt) {
+      // Pass 1: running row max and sum of exp, in fp32.
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TM; ++i) {
+        float tmax = l[i][0];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float w = expf(l[i][j] - m[i]) / s[i];
-        Ws[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = to_f32(from_f32<T>(w));
+        for (int j = 1; j < TM; ++j) tmax = fmaxf(tmax, l[i][j]);
+        const float nm = fmaxf(m[i], row_max16(tmax));
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < TM; ++j) ps += expf(l[i][j] - nm);
+        s[i] = s[i] * expf(m[i] - nm) + row_sum16(ps);
+        m[i] = nm;
       }
+      continue;
+    }
+    // Pass 2: normalized weights (fp32: rounding is the identity), written over
+    // the K tile once every thread has its logits, times V.
     __syncthreads();
-    const int kn = min(kBK, S - k0);
+    float* Ws = Kt;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j)
+        Ws[(ty + 16 * i) * (TB + 1) + tx + 16 * j] = expf(l[i][j] - m[i]) / s[i];
+    __syncthreads();
+    const float* Vt = Vs + buf * ts;
+    const int kn = min(TB, S - k0);
     for (int j = 0; j < kn; ++j) {
       float vv[NDS];
 #pragma unroll
       for (int c = 0; c < NDS; ++c) {
         const int d = lane + 32 * c;
-        vv[c] = d < D ? Vs[j * dp + d] : 0.f;
+        vv[c] = d < D ? Vt[j * dp + d] : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float w = Ws[(warp + 8 * i) * (kBK + 1) + j];
+      for (int i = 0; i < RPW; ++i) {
+        const float w = Ws[(warp + 8 * i) * (TB + 1) + j];
 #pragma unroll
         for (int c = 0; c < NDS; ++c) acc[i][c] = fmaf(w, vv[c], acc[i][c]);
       }
     }
   }
 
-  T* ob = out + (long long)b * S * ld_out + (long long)h * D;
+  float* ob = out + (long long)b * S * ld_out + (long long)h * D;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RPW; ++i) {
     const int row = q0 + warp + 8 * i;
     if (row >= S) continue;
 #pragma unroll
     for (int c = 0; c < NDS; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) ob[(long long)row * ld_out + d] = from_f32<T>(acc[i][c]);
+      if (d < D) ob[(long long)row * ld_out + d] = acc[i][c];
     }
   }
 }
 
-template <typename T, int NDS>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-                   int B, int S, int H, int D, long long ld_in, long long ld_out,
-                   cudaStream_t stream) {
+template <int TM, int NDS>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* valid, void* out,
+                       int B, int S, int H, int D, long long ld_in, long long ld_out,
+                       cudaStream_t stream) {
+  constexpr int TB = 16 * TM;
   const int dp = D + 1;
-  const size_t smem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * dp + (size_t)kBQ * (kBK + 1)) +
-                      sizeof(int) * kBK;
-  auto kernel = attention_fwd_kernel<T, NDS>;
+  const size_t smem = sizeof(float) * ((size_t)TB * dp + (size_t)4 * TB * std::max(dp, TB + 1)) +
+                      sizeof(int) * (2 * TB + kThreadsF32 / 32);
+  auto kernel = attention_fwd_f32_kernel<TM, NDS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), S, D, ld_in, ld_out);
+  const dim3 grid((S + TB - 1) / TB, H, B);
+  kernel<<<grid, kThreadsF32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(valid), static_cast<float*>(out), S, D, ld_in, ld_out);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const void* valid, void* out,
-                     int B, int S, int H, int D, long long ld_in, long long ld_out,
-                     cudaStream_t stream) {
-  // Output columns per lane: ceil(D / 32), rounded up to an instantiated count.
+// fp32 tiles: TB = 16 TM rows, fitted to small S (TM = 1 for S <= 16, 2 for
+// S <= 32), else 64 up to head_dim 96 and 32 above (so five (TB, D + 1) fp32
+// tiles fit in shared memory at D = 256); output columns per lane
+// ceil(D / 32), rounded up to an instantiated count.
+int f32_tm(int S, int D) {
+  if (S <= 16) return 1;
+  if (S <= 32 || D > 96) return 2;
+  return 4;
+}
+
+template <int TM>
+cudaError_t launch_f32_nds(const void* q, const void* k, const void* v, const void* valid,
+                           void* out, int B, int S, int H, int D, long long ld_in,
+                           long long ld_out, cudaStream_t stream) {
   const int nds = (D + 31) / 32;
-  if (nds == 1) return launch<T, 1>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
-  if (nds == 2) return launch<T, 2>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
-  if (nds == 3) return launch<T, 3>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
-  if (nds == 4) return launch<T, 4>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
-  return launch<T, 8>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+  if (nds == 1) return launch_f32<TM, 1>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+  if (nds == 2) return launch_f32<TM, 2>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+  if (nds == 3) return launch_f32<TM, 3>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+  if constexpr (TM < 4) {
+    if (nds == 4) return launch_f32<TM, 4>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+    return launch_f32<TM, 8>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+  }
+  return cudaErrorInvalidValue;  // TM = 4 only up to head_dim 96
+}
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, const void* valid,
+                         void* out, int B, int S, int H, int D, long long ld_in, long long ld_out,
+                         cudaStream_t stream) {
+  const int tm = f32_tm(S, D);
+  if (tm == 1) return launch_f32_nds<1>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+  if (tm == 2) return launch_f32_nds<2>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+  return launch_f32_nds<4>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, stream);
+}
+
+// ---------------------------------------------------------------- bf16 route
+
+constexpr int kThreadsMma = 128;
+
+// sc = A B^T for one warp: A is 16 rows of a (rows, LDS) bf16 tile, B the NT
+// * 8 rows of another; NK k-steps of 16 columns.
+template <int NK, int NT, int LDS>
+__device__ __forceinline__ void mma_abt(float sc[NT][4], const bf16* A, const bf16* B, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t a[4];
+    mtt::ldsm_x4(a, A + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t bb[4];
+      mtt::ldsm_x4(bb, B + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+      mtt::mma_bf16(sc[n], a, bb);
+      mtt::mma_bf16(sc[n + 1], a, bb + 2);
+    }
+  }
+}
+
+template <int NK, int NKO, int QW>
+__global__ void __launch_bounds__(kThreadsMma)
+    attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
+                             bf16* __restrict__ out, int S, int H, int D, long long ld_in,
+                             long long ld_out, int vec_in, int pair_out) {
+  constexpr int DP = 16 * NK;
+  constexpr int LDS = DP + 8;
+  constexpr int HPB = 4 / QW;     // heads per block
+  constexpr int BQ = 16 * QW;     // query rows per head
+  constexpr int BK = 16 * QW;     // keys per tile
+  constexpr int NT = BK / 8;      // n-tiles of the logit tile
+  constexpr int NO = 2 * NKO;     // n-tiles of this block's output columns
+  constexpr int SPLIT = NK / NKO; // blocks per query tile
+  constexpr int KV = HPB * BK * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // HPB x BQ x LDS
+  bf16* Ks = Qs + HPB * BQ * LDS;                // 2 x HPB x BK x LDS
+  bf16* Vs = Ks + 2 * KV;                        // 2 x HPB x BK x LDS
+  uint8_t* Vm = reinterpret_cast<uint8_t*>(Vs + 2 * KV);  // 2 x BK
+  int* red = reinterpret_cast<int*>(Vm + 2 * BK);         // one int per warp
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x / SPLIT) * BQ;  // the longest key walks first
+  const int col0 = ((int)blockIdx.x % SPLIT) * NKO * 16;   // this block's output columns
+  const int qlast = min(q0 + BQ, S) - 1;
+  const int h0 = blockIdx.y * HPB;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int hs = warp / QW;          // this warp's head slot
+  const int wr = (warp % QW) * 16;   // its first row in the query tile
+  const long long in_off = (long long)b * S * ld_in + (long long)h0 * D;
+  const uint8_t* valid_b = valid + (long long)b * S;
+
+  int kt0, nkt;
+  mtt::key_tiles(q0, qlast, mtt::first_valid(valid_b, qlast + 1, red), S, BK, &kt0, &nkt);
+  const int items = 2 * nkt;
+  auto prefetch = [&](int it) {
+    const int buf = it & 1;
+    const int k0 = (kt0 + (it < nkt ? it : it - nkt)) * BK;
+    mtt::load_tile_bf16<HPB, BK, DP, LDS, kThreadsMma>(Ks + buf * KV, BK * LDS, k + in_off, ld_in,
+                                                       D, h0, H, k0, S, vec_in);
+    if (it >= nkt)
+      mtt::load_tile_bf16<HPB, BK, DP, LDS, kThreadsMma>(Vs + buf * KV, BK * LDS, v + in_off,
+                                                         ld_in, D, h0, H, k0, S, vec_in);
+    if ((int)threadIdx.x < BK)
+      Vm[buf * BK + threadIdx.x] = k0 + (int)threadIdx.x < S ? valid_b[k0 + threadIdx.x] : 0;
+    mtt::cp_async_commit();
+  };
+  mtt::load_tile_bf16<HPB, BQ, DP, LDS, kThreadsMma>(Qs, BQ * LDS, q + in_off, ld_in, D, h0, H,
+                                                     q0, S, vec_in);
+  prefetch(0);
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float m[2] = {-FLT_MAX, -FLT_MAX};
+  float s[2] = {0.f, 0.f};
+  float inv[2] = {0.f, 0.f};
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  const bf16* Qw = Qs + hs * BQ * LDS + wr * LDS;
+
+  for (int it = 0; it < items; ++it) {
+    mtt::cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < items) prefetch(it + 1);
+    const int buf = it & 1;
+    const int k0 = (kt0 + (it < nkt ? it : it - nkt)) * BK;
+    const uint8_t* vm = Vm + buf * BK;
+    float sc[NT][4];
+    mma_abt<NK, NT, LDS>(sc, Qw, Ks + buf * KV + hs * BK * LDS, lane);
+    if (!mtt::tile_unmasked<BK>(vm, k0, q0 + wr, S, lane)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1);
+          const int col = k0 + c;
+          if (col >= S) {
+            sc[n][e] = -INFINITY;
+          } else if (col > rows[e >> 1] || !vm[c]) {
+            sc[n][e] = -FLT_MAX;
+          }
+        }
+    }
+    if (it < nkt) {
+      // Pass 1: running row max and sum of exp over the quad that holds a row.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float nm = fmaxf(m[r], mx);
+        float ps = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          ps += mtt::fast_exp(sc[n][2 * r] - nm) + mtt::fast_exp(sc[n][2 * r + 1] - nm);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        s[r] = s[r] * mtt::fast_exp(m[r] - nm) + ps;
+        m[r] = nm;
+      }
+      if (it + 1 == nkt) {
+        inv[0] = 1.f / s[0];
+        inv[1] = 1.f / s[1];
+      }
+      continue;
+    }
+    // Pass 2: W rounded to bf16 in registers is the A operand of W V.
+    const bf16* Vw = Vs + buf * KV + hs * BK * LDS;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // n-tiles 2 kk (keys 0..7) and 2 kk + 1 (8..15)
+        const float* p = sc[2 * kk + h];
+        a[2 * h] = mtt::pack_bf16(mtt::fast_exp(p[0] - m[0]) * inv[0],
+                                  mtt::fast_exp(p[1] - m[0]) * inv[0]);
+        a[2 * h + 1] = mtt::pack_bf16(mtt::fast_exp(p[2] - m[1]) * inv[1],
+                                      mtt::fast_exp(p[3] - m[1]) * inv[1]);
+      }
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bb[4];
+        mtt::ldsm_x4_t(bb, Vw + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + col0 +
+                               n * 8 + (lane >> 4) * 8);
+        mtt::mma_bf16(o[n], a, bb);
+        mtt::mma_bf16(o[n + 1], a, bb + 2);
+      }
+    }
+  }
+
+  if (h0 + hs >= H) return;
+  bf16* ob = out + (long long)b * S * ld_out + (long long)(h0 + hs) * D;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int d = col0 + n * 8 + 2 * t;
+      if (rows[r] >= S || d >= D) continue;
+      bf16* p = ob + (long long)rows[r] * ld_out + d;
+      if (pair_out) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
+      } else {
+        p[0] = __float2bfloat16_rn(o[n][2 * r]);
+        if (d + 1 < D) p[1] = __float2bfloat16_rn(o[n][2 * r + 1]);
+      }
+    }
+}
+
+template <int NK, int NKO, int QW>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* valid, void* out,
+                       int B, int S, int H, int D, long long ld_in, long long ld_out, int vec_in,
+                       int pair_out, cudaStream_t stream) {
+  constexpr int LDS = 16 * NK + 8;
+  constexpr int HPB = 4 / QW;
+  constexpr int BQ = 16 * QW;
+  const size_t smem = sizeof(bf16) * (size_t)5 * HPB * BQ * LDS + 2 * BQ +
+                      sizeof(int) * (kThreadsMma / 32);
+  auto kernel = attention_fwd_mma_kernel<NK, NKO, QW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + BQ - 1) / BQ * (NK / NKO), (H + HPB - 1) / HPB, B);
+  kernel<<<grid, kThreadsMma, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), S, H, D, ld_in, ld_out, vec_in,
+      pair_out);
+  return cudaGetLastError();
+}
+
+// bf16 tiles: k-steps NK = DP / 16 from head_dim, rounded up to an
+// instantiated count; output k-steps per block NKO; query rows per head 16 QW.
+int mma_nk(int D) {
+  const int nk = (D + 15) / 16;
+  if (nk <= 2) return nk;
+  if (nk <= 5) return nk <= 4 ? 4 : 5;
+  return nk <= 8 ? 8 : 16;
+}
+int mma_nko(int nk) { return nk <= 5 ? nk : 4; }
+int mma_qw(int S, int nk) {
+  if (nk > 5 || S > 32) return 4;
+  return S <= 16 ? 1 : 2;
+}
+
+template <int NK>
+cudaError_t launch_mma_qw(int qw, const void* q, const void* k, const void* v, const void* valid,
+                          void* out, int B, int S, int H, int D, long long ld_in, long long ld_out,
+                          int vec_in, int pair_out, cudaStream_t stream) {
+  constexpr int NKO = NK <= 5 ? NK : 4;
+  if constexpr (NK <= 5) {
+    if (qw == 1)
+      return launch_mma<NK, NKO, 1>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, vec_in,
+                                    pair_out, stream);
+    if (qw == 2)
+      return launch_mma<NK, NKO, 2>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, vec_in,
+                                    pair_out, stream);
+  }
+  return launch_mma<NK, NKO, 4>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, vec_in, pair_out,
+                                stream);
+}
+
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v, const void* valid, void* out,
+                         int B, int S, int H, int D, long long ld_in, long long ld_out,
+                         cudaStream_t stream) {
+  // 16-byte cp.async needs every row of q, k and v to start 16-byte aligned.
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int vec_in = D % 8 == 0 && ld_in % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
+  const int pair_out = D % 2 == 0 && ld_out % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  const int nk = mma_nk(D);
+  const int qw = mma_qw(S, nk);
+#define MTT_LAUNCH(NK) \
+  return launch_mma_qw<NK>(qw, q, k, v, valid, out, B, S, H, D, ld_in, ld_out, vec_in, pair_out, stream)
+  if (nk == 1) MTT_LAUNCH(1);
+  if (nk == 2) MTT_LAUNCH(2);
+  if (nk == 4) MTT_LAUNCH(4);
+  if (nk == 5) MTT_LAUNCH(5);
+  if (nk == 8) MTT_LAUNCH(8);
+  MTT_LAUNCH(16);
+#undef MTT_LAUNCH
 }
 
 }  // namespace
@@ -279,8 +572,27 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, const 
   if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
+  if (dtype == 0) return (int)dispatch_f32(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
+  if (dtype == 1) return (int)dispatch_mma(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The route and tiles attention_fwd takes for (dtype, S, D), for reports:
+// cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync m16n8k16), threads,
+// query rows per head and block, keys per tile, heads per block, padded
+// head_dim, output columns per block}. Returns 0, or cudaErrorInvalidValue.
+extern "C" int attention_fwd_config(int dtype, int S, int D, int* cfg) {
+  if (S <= 0 || D <= 0 || D > kMaxDim) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const int tb = 16 * f32_tm(S, D);
+    const int c[7] = {0, kThreadsF32, tb, tb, 1, D, D};
+    for (int i = 0; i < 7; ++i) cfg[i] = c[i];
+    return 0;
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int nk = mma_nk(D);
+  const int qw = mma_qw(S, nk);
+  const int c[7] = {1, kThreadsMma, 16 * qw, 16 * qw, 4 / qw, 16 * nk, 16 * mma_nko(nk)};
+  for (int i = 0; i < 7; ++i) cfg[i] = c[i];
+  return 0;
 }

@@ -4,8 +4,9 @@ The sources under ``multimodal_timesfm_torch/csrc/`` are compiled with
 ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together, and
 linked into one shared library with a plain C interface, at first use, into
 ``build/torch_kernels/`` at the repository root, and bound with ``ctypes``.
-The library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt. Nothing here runs at import: the CPU tests import every
+The library's file name carries a hash of every file under ``csrc/`` (the
+sources and the headers they include) and of the flags, so an edited source
+or header is rebuilt. Nothing here runs at import: the CPU tests import every
 module of the port on hosts without ``nvcc`` or a card.
 """
 
@@ -23,9 +24,8 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(
-    _PKG / "csrc" / name for name in ("attention_fwd.cu", "attention_bwd.cu", "chronos_attention.cu")
-)
+CSRC = _PKG / "csrc"
+SOURCES = tuple(CSRC / name for name in ("attention_fwd.cu", "attention_bwd.cu", "chronos_attention.cu"))
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -48,9 +48,12 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
+    """Where the library of the current sources lives: named by a hash of every file
+    under :data:`CSRC` (names and contents) and of the nvcc flags."""
     digest = hashlib.sha256()
-    for src in SOURCES:
-        digest.update(src.read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(path.relative_to(CSRC).as_posix().encode() + b"\0")
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libmtt_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -114,7 +117,30 @@ def library() -> ctypes.CDLL:
     lib.chronos_attention_fwd.restype = i32
     lib.chronos_attention_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
     lib.chronos_attention_bwd.restype = i32
+    for fn in (lib.attention_fwd_config, lib.attention_bwd_config):
+        fn.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+        fn.restype = i32
     return lib
+
+
+_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16")
+
+
+def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> str:
+    """The route and tiles the causal attention kernels take for (dtype, S, head_dim), as the
+    library's own dispatch reports them (``attention_fwd_config`` / ``attention_bwd_config``)."""
+    cfg = (ctypes.c_int * 8)()
+    fn = library().attention_bwd_config if backward else library().attention_fwd_config
+    err = fn(_DTYPE_CODES[dtype], seq, dim, cfg)
+    if err != 0:
+        raise RuntimeError(f"no attention route for {dtype} S={seq} D={dim} (CUDA error {err})")
+    route, threads, rows, keys, heads, padded, cols = cfg[:7]
+    text = (f"{_ROUTES[route]}, {threads} threads, {rows} query rows x {keys} keys per tile, "
+            f"{heads} head(s) per block, head_dim {dim} padded to {padded}, {cols} output "
+            f"columns per block")
+    if backward and route == 1:
+        text += ", dL as " + ("a hi + lo bf16 pair" if cfg[7] else "one bf16 operand")
+    return text
 
 
 def _check_heads_view(name: str, x: torch.Tensor, shape: tuple[int, ...], row_stride: int) -> None:

@@ -2,9 +2,11 @@
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU, as its own
 tests do. Inputs are drawn with numpy from a seed, with left-padded key masks.
-Valid query rows are compared; padded query rows have no valid key and their
-output depends on the JAX kernel's row-tile packing (uniform weights over the
-tile), so there only finiteness is checked.
+Valid query rows are compared against the kernels; padded query rows have no
+valid key and their output depends on the JAX kernel's row-tile packing
+(uniform weights over the tile), so there only finiteness is checked. Against
+JAX's XLA path every row is compared, under masks with whole 64-row tiles of
+padding and with holes.
 """
 
 import jax.numpy as jnp
@@ -94,6 +96,45 @@ def test_plain_path_matches_xla_path_on_a_fully_masked_row():
     out = plain_causal_attention(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(valid))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(out.numpy()[0, 0], v.mean(axis=1)[0], atol=1e-5)
+
+
+def _skip_rule_mask(rng, kind, batch, seq):
+    """Masks that exercise the CUDA kernels' skip rule. "deep": a left pad in [64, S - 1],
+    so whole 64-row query tiles have no valid key (row 0 keeps only its last key).
+    "holes": left-padded, then each later key invalid with probability 0.3 (the first
+    valid key kept); the last row has no valid key at all."""
+    ar = np.arange(seq)[None, :]
+    if kind == "deep":
+        pads = rng.integers(64, seq, size=batch)
+        pads[0] = seq - 1
+        return ar >= pads[:, None]
+    valid = _left_padded(rng, batch, seq)
+    first = valid.argmax(axis=1)
+    valid &= (rng.random((batch, seq)) >= 0.3) | (ar == first[:, None])
+    valid[-1] = False
+    return valid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["deep", "holes"])
+def test_plain_matches_xla_path_on_every_row_under_skip_rule_masks(kind, dtype):
+    """Every query row, those with no valid key included, against JAX's XLA path; a row
+    with no valid key is the mean of V over all S keys (uniform weights)."""
+    rng = np.random.default_rng(21 if kind == "deep" else 22)
+    batch, seq, heads, dim = 3, 200, 2, 8
+    q, k, v = (rng.normal(size=(batch, seq, heads, dim)).astype(np.float32) for _ in range(3))
+    q /= np.sqrt(dim)
+    valid = _skip_rule_mask(rng, kind, batch, seq)
+    assert (~valid[:, :64]).all(axis=1).any()  # a whole 64-row tile without a valid key
+    ref = xla_causal_attention(*(jnp.asarray(x, JDT[dtype]) for x in (q, k, v)), jnp.asarray(valid))
+    tq, tk, tv = (torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v))
+    out = plain_causal_attention(tq, tk, tv, torch.from_numpy(valid))
+    _compare(out, ref, np.ones_like(valid), dtype)
+    first = np.where(valid.any(axis=1), valid.argmax(axis=1), seq)
+    mean = tv.float().mean(dim=1).numpy()  # (B, H, D)
+    for b in range(batch):
+        rows = out[b, : first[b]].float().numpy()
+        np.testing.assert_allclose(rows, np.broadcast_to(mean[b], rows.shape), **TOL[dtype])
 
 
 def test_kernel_gates_hold_only_cuda_tensors():

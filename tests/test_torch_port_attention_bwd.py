@@ -91,6 +91,44 @@ def test_plain_whole_sequence_bwd_matches_jax_kernel_vjp(dtype):
         np.testing.assert_allclose(_np(out), _np(ref), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["deep", "holes"])
+def test_plain_bwd_matches_jax_kernel_vjp_under_skip_rule_masks(kind, dtype):
+    """Masks that exercise the CUDA kernels' skip rule: "deep" left pads in [64, S - 1]
+    (whole 64-row query tiles with no valid key), "holes" (random invalid keys after the
+    first valid one, and a batch row with no valid key). The cotangent is zero on the rows
+    with no valid key, as on the model path."""
+    rng = np.random.default_rng(31 if kind == "deep" else 32)
+    batch, seq, heads, dim = 3, 256, 2, 8
+    q, k, v = (rng.normal(size=(batch, seq, heads, dim)).astype(np.float32) for _ in range(3))
+    q /= np.sqrt(dim)
+    ar = np.arange(seq)[None, :]
+    if kind == "deep":
+        pads = rng.integers(64, seq, size=batch)
+        pads[0] = seq - 1
+        valid = ar >= pads[:, None]
+    else:
+        valid = _left_padded(rng, batch, seq)
+        first = valid.argmax(axis=1)
+        valid &= (rng.random((batch, seq)) >= 0.3) | (ar == first[:, None])
+        valid[-1] = False
+    first = np.where(valid.any(axis=1), valid.argmax(axis=1), seq)
+    sees_a_key = ar >= first[:, None]
+    g = (rng.normal(size=(batch, seq, heads, dim)) * sees_a_key[..., None, None]).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda a, b, c: j_fused(a, b, c, jnp.asarray(valid), True),
+        *(jnp.asarray(x, JDT[dtype]) for x in (q, k, v)),
+    )
+    refs = vjp(jnp.asarray(g, JDT[dtype]))
+    outs = tattn.plain_attention_bwd(
+        *(torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v)), torch.from_numpy(valid),
+        torch.from_numpy(g).to(TDT[dtype]),
+    )
+    for out, ref in zip(outs, refs):
+        assert out.dtype == TDT[dtype]
+        np.testing.assert_allclose(_np(out), _np(ref), **TOL[dtype])
+
+
 def test_qkv_function_matches_autograd_of_plain_forward_and_saves_only_qkv_and_mask():
     """fp32: the Function's CPU backward (the kernel's math, unrounded weights) equals
     autograd through the plain forward (rounded weights, the same in fp32)."""

@@ -7,6 +7,7 @@ fails raises instead of falling back.
 """
 
 import ast
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -168,6 +169,26 @@ def test_kernel_build_failure_quotes_nvcc_stderr(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="(?s)exit code 2.*error: simulated"):
         fused_qkv_causal_attention(*_meta_qkv(), 2, 8)
     assert not list((tmp_path / "build").glob("*.so*"))
+
+
+@pytest.mark.parametrize("edit", ["edit a header", "add a header", "edit a source"])
+def test_library_name_hashes_every_file_under_csrc(monkeypatch, tmp_path, edit):
+    """An edit to any file under csrc/, a header included by the sources too, names a new
+    library, so the card never loads one built from stale sources."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    before = _kernels.library_path()
+    assert _kernels.library_path() == before
+    if edit == "edit a header":
+        header = csrc / "attention_common.cuh"
+        header.write_text(header.read_text() + "\n// edited\n")
+    elif edit == "add a header":
+        (csrc / "extra.cuh").write_text("#pragma once\n")
+    else:
+        source = csrc / "attention_fwd.cu"
+        source.write_text(source.read_text() + "\n// edited\n")
+    assert _kernels.library_path() != before
 
 
 def test_cpu_tensors_take_the_plain_version():
