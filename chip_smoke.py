@@ -7,9 +7,10 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the three sources under ``multimodal_timesfm_torch/csrc/``
-   (``attention_fwd.cu``, ``attention_bwd.cu``, ``chronos_attention.cu``;
-   the first two share ``attention_common.cuh``) with nvcc for sm_90a, one nvcc per source started together; print the
+1. build: compile the four sources under ``multimodal_timesfm_torch/csrc/``
+   (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
+   ``chronos_attention.cu``, ``chronos_attention_bwd.cu``, sharing
+   ``chronos_common.cuh``) with nvcc for sm_90a, one nvcc per source started together; print the
    build seconds, the compiler's register and shared-memory report, and the
    card's name and power limit;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
@@ -22,10 +23,13 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    S - 1, random holes after the first valid key, a row with no valid key)
    at S = 300, 600 and 2100 and at the small-S tiles (S = 8, 16, 24), both
    entry points; the Chronos kernels (B4f/B4b) with one segment, and three
-   segments with padded tokens, dbias included; every backward launched
-   twice and held bit-equal; all at the shapes the serving and training
-   paths give them, and at edge shapes. The route and tiles of each causal
-   kernel are printed (``[route]``). The kernel, the plain version and
+   segments with padded tokens, dbias included, on every route and tile
+   shape (S = 5, 16, 17, 48, 64, 67, 70, 80, 81, 96, 97, 113, 128, 129, 193,
+   200, 577; head dims 16 to 256); every backward launched twice and held
+   bit-equal; all at the
+   shapes the serving and training paths give them, and at edge shapes. The
+   route and tiles of each kernel at its main-path shapes are printed
+   (``[route]``). The kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
    timed (device time from torch.profiler, and CUDA events around
@@ -73,10 +77,12 @@ The ``kernels`` line lists every kernel with its launches on the main-path
 phases (3 to 7; each starts its counters at 0) and its numbers at its
 main-path shape in bf16.
 
-``python3 chip_smoke.py --kernel-times [--root DIR]`` only checks and times
-the six causal kernels at their main-path shapes in fp32 and bf16, with the
-port imported from DIR (another checkout, such as the parent commit's) when
-given, so that two trees compare on one card. The line before the last names the card and its power limit; the last line
+``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
+checks and times every kernel at its main-path shapes in fp32 and bf16 (the
+six causal kernels, unless ``--chronos-only``; B4f and B4b with and without
+dbias at 128 x 67 and 16 x 577), with the port imported from DIR (another
+checkout, such as the parent commit's) when given, so that two trees compare
+on one card. The line before the last names the card and its power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is present or the port cannot be imported.
 """
@@ -178,6 +184,32 @@ def kernel_entries(rows: dict[str, dict], launches: dict[str, int]) -> list[dict
             **rows[row_key(key, shape, torch.bfloat16)],
         })
     return entries
+
+
+def sass_mma_report(lib_path) -> list[str]:
+    """Per kernel family of the library, from ``cuobjdump -sass``: how many of its compiled
+    instantiations contain tensor-core instructions (HMMA), and the fewest they hold. Lines
+    naming no tool when the toolkit has no cuobjdump."""
+    import re
+    from pathlib import Path
+
+    from multimodal_timesfm_torch.ops import _kernels
+
+    tool = Path(_kernels.nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return [f"no {tool}: SASS not read"]
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True)
+    counts: dict[str, list[int]] = {}
+    family = None
+    for line in out.stdout.splitlines():
+        found = re.search(r"Function : \S*?(\d+)((?:chronos|attention)_\w*?kernel)", line)
+        if found:
+            family = found.group(2)
+            counts.setdefault(family, []).append(0)
+        elif family is not None and "HMMA" in line:
+            counts[family][-1] += 1
+    return [f"{name}: {sum(n > 0 for n in found)} of {len(found)} instantiations run HMMA "
+            f"(fewest {min(found)})" for name, found in sorted(counts.items())]
 
 
 def gpu_line() -> str:
@@ -553,17 +585,28 @@ def edge_checks(seed: int) -> None:
             check_causal_masks("edge case", shape, dtype, gen)
 
 
+# Chronos-2's main-path (B, S) in the kernels: serving at contexts 512, 2048 and 8192, and
+# the fine-tunes (67 tokens at batch 128; 16 rows of 5 packed at batch 512).
+CHRONOS_PATH_SHAPES = ((64, 97), (64, 193), (16, 577), (128, 67), (512, 80))
+
+
 def print_routes() -> None:
-    """The route and tiles of every causal kernel at its main-path shape, fp32 and bf16, as
-    the library's dispatch reports them."""
+    """The route and tiles of every kernel at its main-path shapes, fp32 and bf16, as the
+    library's dispatch reports them."""
     from multimodal_timesfm_torch.ops import _kernels
 
-    for key, name, _, _, (_, seq, _, dim) in KERNELS:
-        if key.startswith("B4"):
-            continue
+    for key, name, _, _, (_, seq, heads, dim) in KERNELS:
         for dtype in (torch.float32, torch.bfloat16):
-            route = _kernels.attention_route(key.endswith("b"), dtype, seq, dim)
-            print(f"[route] {key} {name} S={seq} D={dim} {str(dtype)[6:]}: {route}")
+            if not key.startswith("B4"):
+                route = _kernels.attention_route(key.endswith("b"), dtype, seq, dim)
+                print(f"[route] {key} {name} S={seq} D={dim} {str(dtype)[6:]}: {route}")
+                continue
+            if not hasattr(_kernels, "chronos_route"):
+                continue
+            for batch, path_seq in CHRONOS_PATH_SHAPES:
+                route = _kernels.chronos_route(key.endswith("b"), dtype, batch, path_seq, heads, dim)
+                print(f"[route] {key} {name} B={batch} S={path_seq} H={heads} D={dim} "
+                      f"{str(dtype)[6:]}: {route}")
 
 
 def chronos_bound(batch: int, seq: int, heads: int, dim: int, seg: torch.Tensor,
@@ -608,8 +651,25 @@ def chronos_sdpa_mask(seg: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype)
     return (bias[None] + torch.where(same, 0.0, NEG_INF)[:, None]).to(dtype)
 
 
-def chronos_kernel_phase(seed: int) -> dict[str, dict]:
-    """B4f and B4b against their plain versions on every element, fp32 and bf16."""
+def chronos_inputs(shape: tuple[int, int, int, int], segments: int, padded: bool, dtype: torch.dtype,
+                   gen: torch.Generator) -> tuple[torch.Tensor, ...]:
+    """qkv (q unscaled, entries of about dim^-1/4 so logits are O(1)), seg, a N(0, 1) bias and
+    a cotangent, drawn on the card."""
+    batch, seq, heads, dim = shape
+    qkv = (torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda") / dim ** 0.25).to(dtype)
+    bias = torch.randn(heads, seq, seq, generator=gen, device="cuda")
+    seg = chronos_segments(batch, seq, segments, padded, gen)
+    g = torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(dtype)
+    return qkv, seg, bias, g
+
+
+def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+                       shape: tuple[int, int, int, int], errs: tuple[float, float, float],
+                       iters: int) -> tuple[dict, dict]:
+    """B4f, B4b without dbias (the multimodal path) and B4b with dbias (baseline mode) timed
+    beside their plain versions, SDPA (forward, or its backward under autograd) and their
+    bounds; ``errs`` = the checked forward, dqkv and dbias errors. Returns the B4f and the
+    no-dbias B4b rows."""
     from multimodal_timesfm_torch.ops.chronos_attention import (
         fused_chronos_attention,
         fused_chronos_attention_bwd,
@@ -617,71 +677,107 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
         plain_chronos_attention_bwd,
     )
 
+    batch, seq, heads, dim = shape
+    dtype = qkv.dtype
+    err_f, err_b, err_db = errs
+    mask = chronos_sdpa_mask(seg, bias, dtype)
+    qh, kh, vh = (t.unflatten(-1, (heads, dim)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, attn_mask=mask, scale=1.0)
+    fwd = time_kernel(
+        "fused_chronos_attention", shape, dtype, err_f, KERNEL_TOL[dtype],
+        lambda: fused_chronos_attention(qkv, seg, bias),
+        lambda: plain_chronos_attention(qkv, seg, bias), sdpa,
+        chronos_bound(*shape, seg, dtype, backward=False), 2 * iters, "sdpa",
+    )
+    qd, kd, vd = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    out = torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=1.0)
+    gh = g.unflatten(-1, (heads, dim)).transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qd, kd, vd), gh, retain_graph=True)  # noqa: E731
+    # The main path's backward: multimodal mode, the bias frozen (no dbias).
+    bwd = time_kernel(
+        "fused_chronos_attention_bwd (no dbias)", shape, dtype, err_b, BWD_TOL[dtype],
+        lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
+        lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, False), sdpa_bwd,
+        chronos_bound(*shape, seg, dtype, backward=True), iters, "sdpa backward",
+    )
+    time_kernel(
+        "fused_chronos_attention_bwd (with dbias)", shape, dtype, max(err_b, err_db), BWD_TOL[dtype],
+        lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True),
+        lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, True), sdpa_bwd,
+        chronos_bound(*shape, seg, dtype, backward=True, dbias=True), iters, "sdpa backward",
+    )
+    return fwd, bwd
+
+
+def check_chronos(what: str, qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
+                  g: torch.Tensor) -> tuple[float, float, float]:
+    """B4f and B4b (with and without dbias) against their plain versions on every element;
+    two backward launches bit-equal; the backward without dbias gives the same dqkv. Returns
+    the forward, dqkv and dbias errors."""
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        fused_chronos_attention_bwd,
+        plain_chronos_attention,
+        plain_chronos_attention_bwd,
+    )
+
+    dtype = qkv.dtype
+    err_f = compare(f"{what} forward", fused_chronos_attention(qkv, seg, bias),
+                    plain_chronos_attention(qkv, seg, bias))
+    dqkv, dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, True)
+    ref_dqkv, ref_dbias = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
+    err_b = compare_bwd(f"{what} backward", dqkv, ref_dqkv)
+    err_db = compare_bwd(f"{what} dbias", dbias, ref_dbias)
+    again_dqkv, again_dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, True)
+    frozen_dqkv, none = fused_chronos_attention_bwd(qkv, seg, bias, g, False)
+    torch.cuda.synchronize()
+    if not (torch.equal(again_dbias, dbias) and torch.equal(again_dqkv, dqkv)):
+        raise AssertionError(f"{what} {dtype}: two backward launches differ")
+    if none is not None or not torch.equal(frozen_dqkv, dqkv):
+        raise AssertionError(f"{what} {dtype}: the backward without dbias differs")
+    print(f"[kernels] {what} {str(dtype)[6:]}: max |kernel - plain| forward {err_f:.3g}, dqkv "
+          f"{err_b:.3g}, dbias {err_db:.3g} (|dbias| <= {ref_dbias.abs().max().item():.3g}); "
+          "two launches bit-equal; without dbias: dqkv bit-equal", flush=True)
+    return err_f, err_b, err_db
+
+
+def chronos_kernel_phase(seed: int) -> dict[str, dict]:
+    """B4f and B4b against their plain versions on every element, fp32 and bf16, at every
+    route and tile shape; timed at the main-path shape."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     rows: dict[str, dict] = {}
     main_shape = dict(KERNELS_BY_KEY)["B4f"]
     # (B, S, H, D, segments, padded): the Chronos-2 shapes (67 tokens at context 32, 97 at
     # 512, 193 at 2048, 577 at 8192), each with one segment and with three segments and
-    # padded tokens; 80 = 16 packed rows of 5; then edge shapes.
+    # padded tokens; 80 = 16 packed rows of 5 (at batch 256: 6 batch rows per block, a short
+    # last group); then the edges of the one-pass limit and of the 16-row steps (S = 16, 17,
+    # 48, 129; 5), every one-pass tile count (S = 64, 81, 96, 113, 128: the forward's 4, 6,
+    # 6, 8, 8 warps, the backward's 4, 6, 6 and the tiled route past 96), head dims 16 (one
+    # k-step), 20 (rows not 16-byte aligned, one-pass and tiled), 32, 128, 256, and odd
+    # batches (9, 17).
     cases = [(batch, seq, 12, 64, *variant)
              for batch, seq in ((128, 67), (64, 97), (64, 193), (16, 577))
              for variant in ((1, False), (3, True))]
-    cases += [(32, 80, 12, 64, 16, False), (3, 70, 2, 32, 1, True), (3, 70, 2, 128, 3, True),
-              (2, 70, 2, 256, 3, True), (4, 5, 2, 64, 1, False)]
+    cases += [(32, 80, 12, 64, 16, False), (256, 80, 12, 64, 16, False),
+              (4, 16, 12, 64, 1, False), (4, 17, 12, 64, 3, True), (4, 48, 12, 64, 3, True),
+              (4, 64, 12, 64, 3, True), (4, 81, 12, 64, 1, False), (4, 96, 12, 64, 3, True),
+              (4, 113, 12, 64, 1, False), (4, 128, 12, 64, 3, True),
+              (4, 129, 12, 64, 3, True), (3, 67, 2, 16, 3, True), (3, 67, 2, 20, 3, True),
+              (3, 200, 2, 20, 3, True), (3, 70, 2, 32, 1, True), (3, 70, 2, 128, 3, True),
+              (2, 70, 2, 256, 3, True), (9, 200, 2, 64, 3, True), (17, 97, 2, 64, 3, True),
+              (4, 5, 2, 64, 1, False)]
     for dtype in (torch.float32, torch.bfloat16):
         for batch, seq, heads, dim, segments, padded in cases:
             shape = (batch, seq, heads, dim)
-            qkv = (torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
-                   / dim ** 0.25).to(dtype)
-            bias = torch.randn(heads, seq, seq, generator=gen, device="cuda")
-            seg = chronos_segments(batch, seq, segments, padded, gen)
-            g = torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(dtype)
+            qkv, seg, bias, g = chronos_inputs(shape, segments, padded, dtype, gen)
             what = f"B4 {shape} {segments} segment(s){' padded' if padded else ''}"
-            err_f = compare(f"{what} forward", fused_chronos_attention(qkv, seg, bias),
-                            plain_chronos_attention(qkv, seg, bias))
-            dqkv, dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, True)
-            ref_dqkv, ref_dbias = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
-            err_b = compare_bwd(f"{what} backward", dqkv, ref_dqkv)
-            err_db = compare_bwd(f"{what} dbias", dbias, ref_dbias)
-            again_dqkv, again_dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, True)
-            frozen_dqkv, none = fused_chronos_attention_bwd(qkv, seg, bias, g, False)
-            torch.cuda.synchronize()
-            if not (torch.equal(again_dbias, dbias) and torch.equal(again_dqkv, dqkv)):
-                raise AssertionError(f"{what} {dtype}: two backward launches differ")
-            if none is not None or not torch.equal(frozen_dqkv, dqkv):
-                raise AssertionError(f"{what} {dtype}: the backward without dbias differs")
-            print(f"[kernels] {what} {str(dtype)[6:]}: max |kernel - plain| forward {err_f:.3g}, dqkv "
-                  f"{err_b:.3g}, dbias {err_db:.3g} (|dbias| <= {ref_dbias.abs().max().item():.3g}); "
-                  "two launches bit-equal; without dbias: dqkv bit-equal", flush=True)
+            errs = check_chronos(what, qkv, seg, bias, g)
             if shape != main_shape or segments != 1:
                 continue
-            mask = chronos_sdpa_mask(seg, bias, dtype)
-            qh, kh, vh = (t.unflatten(-1, (heads, dim)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qh, kh, vh, attn_mask=mask, scale=1.0)
-            rows[row_key("B4f", shape, dtype)] = time_kernel(
-                "fused_chronos_attention", shape, dtype, err_f, KERNEL_TOL[dtype],
-                lambda: fused_chronos_attention(qkv, seg, bias),
-                lambda: plain_chronos_attention(qkv, seg, bias), sdpa,
-                chronos_bound(*shape, seg, dtype, backward=False), 20, "sdpa",
-            )
-            qd, kd, vd = (t.detach().requires_grad_() for t in (qh, kh, vh))
-            out = torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=1.0)
-            gh = g.unflatten(-1, (heads, dim)).transpose(1, 2)
-            sdpa_bwd = lambda: torch.autograd.grad(out, (qd, kd, vd), gh, retain_graph=True)  # noqa: E731
-            # The main path's backward: multimodal mode, the bias frozen (no dbias).
-            rows[row_key("B4b", shape, dtype)] = time_kernel(
-                "fused_chronos_attention_bwd (no dbias)", shape, dtype, err_b, BWD_TOL[dtype],
-                lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
-                lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, False), sdpa_bwd,
-                chronos_bound(*shape, seg, dtype, backward=True), 10, "sdpa backward",
-            )
-            time_kernel(
-                "fused_chronos_attention_bwd (with dbias)", shape, dtype, max(err_b, err_db), BWD_TOL[dtype],
-                lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True),
-                lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, True), sdpa_bwd,
-                chronos_bound(*shape, seg, dtype, backward=True, dbias=True), 10, "sdpa backward",
-            )
+            fwd, bwd = chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10)
+            rows[row_key("B4f", shape, dtype)] = fwd
+            rows[row_key("B4b", shape, dtype)] = bwd
     return rows
 
 
@@ -732,11 +828,13 @@ def flash_kernel_phase(seed: int) -> dict[str, dict]:
     return rows
 
 
-def kernel_times(seed: int) -> None:
-    """The six causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) at their main-path shapes, fp32
-    and bf16, left-padded: checked against their plain versions and timed beside the plain
-    version, SDPA and the bound (``[kernels]`` lines). With ``--root`` the port comes from
-    another checkout (the parent commit, say), so that two trees compare on one card."""
+def kernel_times(seed: int, chronos_only: bool = False) -> None:
+    """Every kernel at its main-path shapes, fp32 and bf16, checked against its plain version
+    and timed beside the plain version, SDPA and the bound (``[kernels]`` lines): the six
+    causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) left-padded (skipped with ``chronos_only``),
+    then B4f, B4b without dbias and B4b with dbias at Chronos-2's fine-tune (128 x 67 tokens)
+    and its serving at context 8192 (16 x 577), one segment. With ``--root`` the port comes
+    from another checkout (the parent commit, say), so that two trees compare on one card."""
     from multimodal_timesfm_torch.ops.attention import (
         flash_causal_attention,
         flash_causal_attention_bwd,
@@ -757,7 +855,7 @@ def kernel_times(seed: int) -> None:
     backward = {"B2b": fused_causal_attention_bwd, "B3b": flash_causal_attention_bwd}
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     for key, name, _, _, shape in KERNELS:
-        if key.startswith("B4"):
+        if key.startswith("B4") or chronos_only:
             continue
         batch, seq, heads, dim = shape
         iters = 5 if seq > 1000 else 20
@@ -785,6 +883,11 @@ def kernel_times(seed: int) -> None:
                 check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
                                  lambda: plain_attention_bwd(q, k, v, valid, g4),
                                  sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
+    for shape in (dict(KERNELS_BY_KEY)["B4f"], (16, 577, 12, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
+            errs = check_chronos(f"B4 {shape} 1 segment(s)", qkv, seg, bias, g)
+            chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10 if shape[1] < 100 else 5)
 
 
 def make_samples(context: int, count: int, seed: int, horizon: int = HORIZON, patch: int = 32) -> list[dict]:
@@ -1245,7 +1348,7 @@ def chronos_serving_phase(seed: int) -> tuple[dict, dict, object]:
     for (dtype, ctx), fc in forecasters.items():
         wall, kernels = device_profile(lambda: fc.forecast_dataset(HORIZON, data[ctx], denormalize=True))
         busy = sum(ms for _, ms in kernels)
-        attn = sum(ms for name, ms in kernels if "chronos_fwd_kernel" in name)
+        attn = sum(ms for name, ms in kernels if "chronos_fwd_" in name)
         top = ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in kernels[:5])
         print(
             f"[profile] chronos context {ctx} {str(dtype)[6:]}: wall {wall:.3f} ms, device busy "
@@ -1307,7 +1410,7 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
             val_loss = trainer.validate_epoch()
             wall, kernels = device_profile(trainer.train_epoch)
             busy = sum(ms for _, ms in kernels)
-            fwd = sum(ms for k, ms in kernels if "chronos_fwd_kernel" in k)
+            fwd = sum(ms for k, ms in kernels if "chronos_fwd_" in k)
             bwd = sum(ms for k, ms in kernels if "chronos_bwd" in k)
             top = ", ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in kernels[:5])
             print(
@@ -1339,13 +1442,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--kernel-times", action="store_true",
-                        help="only check and time the six causal kernels at their main-path shapes")
+                        help="only check and time every kernel at its main-path shapes")
     parser.add_argument("--root", default=None,
                         help="with --kernel-times: import the port from this checkout instead")
+    parser.add_argument("--chronos-only", action="store_true",
+                        help="with --kernel-times: only the Chronos rows (B4f, B4b)")
     args = parser.parse_args()
+    if (args.root is not None or args.chronos_only) and not args.kernel_times:
+        parser.error("--root and --chronos-only need --kernel-times")
     if args.root is not None:
-        if not args.kernel_times:
-            parser.error("--root needs --kernel-times")
         sys.path.insert(0, args.root)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1366,6 +1471,8 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}")
+    for line in sass_mma_report(lib_path):
+        print(f"[build] SASS {line}")
     gpu = gpu_line()
     print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda} | port from "
           f"{_kernels.CSRC.parent if hasattr(_kernels, 'CSRC') else _kernels.SOURCES[0].parent.parent}",
@@ -1373,7 +1480,7 @@ def main() -> int:
     if args.kernel_times:
         if hasattr(_kernels, "attention_route"):
             print_routes()
-        kernel_times(args.seed)
+        kernel_times(args.seed, args.chronos_only)
         print(f"[gpu] {gpu}")
         return 0
     print_routes()

@@ -82,6 +82,11 @@
 namespace {
 
 using mtt::bf16;
+using mtt::mma_abt;
+using mtt::mma_nk;
+using mtt::mma_nko;
+using mtt::mma_pv;
+using mtt::store_rows;
 
 constexpr bool kSplitDl = true;  // dL as a hi + lo pair of bf16 operands (header note)
 
@@ -510,85 +515,6 @@ cudaError_t dispatch_f32(const float* q, const float* k, const float* v, const u
 
 constexpr int kThreadsMma = 128;
 
-// sc = A B^T for one warp: A is 16 rows of a (rows, LDS) bf16 tile, B the NT
-// * 8 rows of another; NK k-steps of 16 columns.
-template <int NK, int NT, int LDS>
-__device__ __forceinline__ void mma_abt(float sc[NT][4], const bf16* A, const bf16* B, int lane) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    uint32_t a[4];
-    mtt::ldsm_x4(a, A + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t bb[4];
-      mtt::ldsm_x4(bb, B + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-      mtt::mma_bf16(sc[n], a, bb);
-      mtt::mma_bf16(sc[n + 1], a, bb + 2);
-    }
-  }
-}
-
-// acc (16 x NO * 8) += P (16 x 16, in registers as the A fragments of an
-// accumulator pair p0, p1 = n-tiles 2kk, 2kk + 1) times rows r0..r0+15 of a
-// (rows, LDS) tile B, columns col0.. (ldmatrix.trans). With SPLIT, P goes in
-// as a hi + lo pair of bf16 operands.
-template <int NO, int LDS, bool SPLIT>
-__device__ __forceinline__ void mma_pv(float acc[NO][4], const float p0[4], const float p1[4],
-                                       const bf16* B, int col0, int lane) {
-  uint32_t hi[4], lo[4];
-  if constexpr (SPLIT) {
-    mtt::split_bf16(p0[0], p0[1], hi[0], lo[0]);
-    mtt::split_bf16(p0[2], p0[3], hi[1], lo[1]);
-    mtt::split_bf16(p1[0], p1[1], hi[2], lo[2]);
-    mtt::split_bf16(p1[2], p1[3], hi[3], lo[3]);
-  } else {
-    hi[0] = mtt::pack_bf16(p0[0], p0[1]);
-    hi[1] = mtt::pack_bf16(p0[2], p0[3]);
-    hi[2] = mtt::pack_bf16(p1[0], p1[1]);
-    hi[3] = mtt::pack_bf16(p1[2], p1[3]);
-  }
-#pragma unroll
-  for (int n = 0; n < NO; n += 2) {
-    uint32_t bb[4];
-    mtt::ldsm_x4_t(bb, B + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + col0 + n * 8 +
-                           (lane >> 4) * 8);
-    mtt::mma_bf16(acc[n], hi, bb);
-    mtt::mma_bf16(acc[n + 1], hi, bb + 2);
-    if constexpr (SPLIT) {
-      mtt::mma_bf16(acc[n], lo, bb);
-      mtt::mma_bf16(acc[n + 1], lo, bb + 2);
-    }
-  }
-}
-
-// Store a warp's 16 x NO * 8 accumulator tile: rows row_a, row_a + 8 of a
-// head's (S, ld) output, columns col0...
-template <int NO>
-__device__ __forceinline__ void store_rows(bf16* ob, long long ld, const float acc[NO][4],
-                                           int row_a, int col0, int S, int D, int pair_out,
-                                           int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row_a + 8 * r;
-      const int d = col0 + n * 8 + 2 * t;
-      if (row >= S || d >= D) continue;
-      bf16* p = ob + (long long)row * ld + d;
-      if (pair_out) {
-        *reinterpret_cast<__nv_bfloat162*>(p) =
-            __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-      } else {
-        p[0] = __float2bfloat16_rn(acc[n][2 * r]);
-        if (d + 1 < D) p[1] = __float2bfloat16_rn(acc[n][2 * r + 1]);
-      }
-    }
-}
-
 // Kernel 1 (bf16): row statistics (m, 1/s, r) and dQ for one query tile.
 template <int NK, int NKO, int QW>
 __global__ void __launch_bounds__(kThreadsMma)
@@ -915,14 +841,8 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, const uint8_
 }
 
 // The forward's bf16 tile rules (attention_fwd.cu): NK k-steps of 16 from
-// head_dim, NKO output k-steps per block, 16 QW rows per head.
-int mma_nk(int D) {
-  const int nk = (D + 15) / 16;
-  if (nk <= 2) return nk;
-  if (nk <= 5) return nk <= 4 ? 4 : 5;
-  return nk <= 8 ? 8 : 16;
-}
-int mma_nko(int nk) { return nk <= 5 ? nk : 4; }
+// head_dim and NKO output k-steps per block (attention_common.cuh), 16 QW rows
+// per head.
 int mma_qw(int S, int nk) {
   if (nk > 5 || S > 32) return 4;
   return S <= 16 ? 1 : 2;

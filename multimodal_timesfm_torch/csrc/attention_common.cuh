@@ -1,6 +1,8 @@
-// Pieces shared by the causal attention kernels (attention_fwd.cu,
-// attention_bwd.cu) on Hopper (sm_90a): cp.async copies, ldmatrix,
-// mma.sync on bf16, the first valid key of a batch row, and the tile loaders.
+// Pieces shared by the attention kernels on Hopper (sm_90a): the causal ones
+// (attention_fwd.cu, attention_bwd.cu) and, through chronos_common.cuh, the
+// Chronos ones: cp.async copies, ldmatrix, mma.sync on bf16 and the warp tile
+// products built on it, the first valid key of a batch row, and the tile
+// loaders.
 //
 // Skip rule (both kernels, both routes). Let f be the first valid key of a
 // batch row (S when there is none). A query row i >= f sees key f, so its
@@ -80,6 +82,110 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+
+// sc = A B^T for one warp: A is 16 rows of a (rows, LDS) bf16 tile, B the
+// NT * 8 rows of another; NK k-steps of 16 columns.
+template <int NK, int NT, int LDS>
+__device__ __forceinline__ void mma_abt(float sc[NT][4], const bf16* A, const bf16* B, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t a[4];
+    mtt::ldsm_x4(a, A + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t bb[4];
+      mtt::ldsm_x4(bb, B + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+      mtt::mma_bf16(sc[n], a, bb);
+      mtt::mma_bf16(sc[n + 1], a, bb + 2);
+    }
+  }
+}
+
+// A fragments of a 16 x 16 block from two accumulator n-tiles p0 (columns
+// 0..7) and p1 (8..15): one bf16 rounding, or with SPLIT a hi + lo pair.
+template <bool SPLIT>
+__device__ __forceinline__ void a_frags(const float p0[4], const float p1[4], uint32_t hi[4],
+                                        uint32_t lo[4]) {
+  if constexpr (SPLIT) {
+    mtt::split_bf16(p0[0], p0[1], hi[0], lo[0]);
+    mtt::split_bf16(p0[2], p0[3], hi[1], lo[1]);
+    mtt::split_bf16(p1[0], p1[1], hi[2], lo[2]);
+    mtt::split_bf16(p1[2], p1[3], hi[3], lo[3]);
+  } else {
+    hi[0] = mtt::pack_bf16(p0[0], p0[1]);
+    hi[1] = mtt::pack_bf16(p0[2], p0[3]);
+    hi[2] = mtt::pack_bf16(p1[0], p1[1]);
+    hi[3] = mtt::pack_bf16(p1[2], p1[3]);
+  }
+}
+
+// acc (16 x NO * 8) += A (16 x 16: hi, and lo when SPLIT) times rows 0..15 of
+// a (rows, LDS) bf16 tile B from column col0 (ldmatrix.trans).
+template <int NO, int LDS, bool SPLIT>
+__device__ __forceinline__ void mma_a_tile(float acc[NO][4], const uint32_t hi[4],
+                                           const uint32_t lo[4], const bf16* B, int col0,
+                                           int lane) {
+#pragma unroll
+  for (int n = 0; n < NO; n += 2) {
+    uint32_t bb[4];
+    mtt::ldsm_x4_t(bb, B + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + col0 + n * 8 +
+                           (lane >> 4) * 8);
+    mtt::mma_bf16(acc[n], hi, bb);
+    mtt::mma_bf16(acc[n + 1], hi, bb + 2);
+    if constexpr (SPLIT) {
+      mtt::mma_bf16(acc[n], lo, bb);
+      mtt::mma_bf16(acc[n + 1], lo, bb + 2);
+    }
+  }
+}
+
+// acc += P B for P in registers (accumulator pair p0, p1 = keys 0..15).
+template <int NO, int LDS, bool SPLIT>
+__device__ __forceinline__ void mma_pv(float acc[NO][4], const float p0[4], const float p1[4],
+                                       const bf16* B, int col0, int lane) {
+  uint32_t hi[4], lo[4];
+  a_frags<SPLIT>(p0, p1, hi, lo);
+  mma_a_tile<NO, LDS, SPLIT>(acc, hi, lo, B, col0, lane);
+}
+
+// Store a warp's 16 x NO * 8 accumulator tile: rows row_a, row_a + 8 of a
+// head's (S, ld) output, columns col0...
+template <int NO>
+__device__ __forceinline__ void store_rows(bf16* ob, long long ld, const float acc[NO][4],
+                                           int row_a, int col0, int S, int D, int pair_out,
+                                           int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      const int d = col0 + n * 8 + 2 * t;
+      if (row >= S || d >= D) continue;
+      bf16* p = ob + (long long)row * ld + d;
+      if (pair_out) {
+        *reinterpret_cast<__nv_bfloat162*>(p) =
+            __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+      } else {
+        p[0] = __float2bfloat16_rn(acc[n][2 * r]);
+        if (d + 1 < D) p[1] = __float2bfloat16_rn(acc[n][2 * r + 1]);
+      }
+    }
+}
+
+// bf16 tiles: k-steps of 16 from head_dim, rounded up to an instantiated count
+// (NK), and the output k-steps one block writes (NKO: all up to 80 columns, 64
+// above, so the accumulators stay in registers).
+inline int mma_nk(int D) {
+  const int nk = (D + 15) / 16;
+  if (nk <= 2) return nk;
+  if (nk <= 5) return nk <= 4 ? 4 : 5;
+  return nk <= 8 ? 8 : 16;
+}
+inline int mma_nko(int nk) { return nk <= 5 ? nk : 4; }
 
 // exp(x) on the SFU, the bf16 routes' exponential: ex2.approx of x log2(e),
 // about 2^-22 relative plus the rounding of the product (|x| 2^-24); exp(0) = 1

@@ -73,6 +73,9 @@
 namespace {
 
 using mtt::bf16;
+using mtt::mma_abt;
+using mtt::mma_nk;
+using mtt::mma_nko;
 
 constexpr int kMaxDim = 256;
 
@@ -313,27 +316,6 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, const void
 
 constexpr int kThreadsMma = 128;
 
-// sc = A B^T for one warp: A is 16 rows of a (rows, LDS) bf16 tile, B the NT
-// * 8 rows of another; NK k-steps of 16 columns.
-template <int NK, int NT, int LDS>
-__device__ __forceinline__ void mma_abt(float sc[NT][4], const bf16* A, const bf16* B, int lane) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    uint32_t a[4];
-    mtt::ldsm_x4(a, A + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t bb[4];
-      mtt::ldsm_x4(bb, B + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-      mtt::mma_bf16(sc[n], a, bb);
-      mtt::mma_bf16(sc[n + 1], a, bb + 2);
-    }
-  }
-}
-
 template <int NK, int NKO, int QW>
 __global__ void __launch_bounds__(kThreadsMma)
     attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -510,15 +492,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// bf16 tiles: k-steps NK = DP / 16 from head_dim, rounded up to an
-// instantiated count; output k-steps per block NKO; query rows per head 16 QW.
-int mma_nk(int D) {
-  const int nk = (D + 15) / 16;
-  if (nk <= 2) return nk;
-  if (nk <= 5) return nk <= 4 ? 4 : 5;
-  return nk <= 8 ? 8 : 16;
-}
-int mma_nko(int nk) { return nk <= 5 ? nk : 4; }
+// bf16 query rows per head: 16 QW.
 int mma_qw(int S, int nk) {
   if (nk > 5 || S > 32) return 4;
   return S <= 16 ? 1 : 2;

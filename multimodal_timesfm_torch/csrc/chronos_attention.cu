@@ -1,5 +1,6 @@
 // Bidirectional T5 attention with a relative-position bias and segment
-// masking, forward and backward, for Hopper (sm_90a).
+// masking, forward (this file) and backward (chronos_attention_bwd.cu), for
+// Hopper (sm_90a); shared pieces in chronos_common.cuh.
 //
 // Replaces the Pallas TPU kernel of the JAX package's Chronos-2 encoder:
 //   multimodal_timesfm_tpu/ops/chronos_attention.py  _fwd_kernel (B4f)
@@ -15,367 +16,430 @@
 // with the unrounded fp32 W, each output cast once. q, k and v are read in
 // place from the (B, S, 3*H*D) projection (column blocks q|k|v, head h at
 // column h*D of each block, row stride 3*H*D); the output is (B, S, H*D) and
-// dqkv (B, S, 3*H*D) in the same layout, so nothing is split, copied or
-// transposed on the host.
+// dqkv (B, S, 3*H*D) in the same layout. Any S, head_dim 1..256, no atomics:
+// two launches give bit-equal dqkv and dbias.
 //
-// Design, simple first, after csrc/attention_fwd.cu and attention_bwd.cu.
-// The TPU kernel holds a whole row tile of (rows, rows) logits per head in
-// VMEM; here one block of 256 threads takes a (query tile, head, batch) and
-// walks the keys in shared-memory tiles, so no (S, S) tile is ever held
-// (S = 577 at context 8192). Forward: pass 1 keeps an online row max and
-// sum, pass 2 forms W, rounds it and accumulates W V (64-row tiles). The
-// backward is three kernels on the caller's stream, none with atomics:
-//   1. dq, per (query tile, head, batch): an online max m, sum s and
-//      t = sum exp(l - m) dW over the keys, so r = rowsum(dW o W) = t / s;
-//      (m, s, r) go to a (3, B, H, S) fp32 scratch; a second walk forms
-//      dL = W (dW - r) and dQ = dL K. When the bias needs a gradient, the
-//      same walk also writes dL to a (B, H, S, S) fp32 scratch.
-//   2. dkdv, per (key tile, head, batch): walks the query tiles with the
-//      row statistics; dV += W^T G, dK += dL^T Q.
-//   3. dbias, only when the bias needs a gradient: one thread per (h, i, j)
-//      sums the B partial dL values in batch order.
-// The TPU sums dbias into an output block that its sequential grid
-// revisits; CUDA blocks run concurrently and in no order, so the sum over
-// the batch is a separate pass. Per-batch partials were chosen over a
-// kernel that recomputes dL for every batch row inside a (head, tile, tile)
-// block because kernel 1 already has dL in registers: the partials cost one
-// write and one read of B*H*S*S fp32 values (28 MB at the baseline
-// fine-tune's B = 128, S = 67, about 17 us at 3.35 TB/s), where a recompute
-// would repeat kernel 1's products on the CUDA cores. Both reductions run in
-// a fixed order, so two launches give bit-equal dbias. Multimodal training
-// freezes the bias and launches neither the partial writes nor kernel 3.
-// Tiles are TB = 16 * TM rows in the backward: 64 (TM = 4) up to head_dim
-// 128, 32 (TM = 2) above, so four (TB, D + 1) fp32 tiles fit in shared
-// memory at D = 256. Each thread owns a TM x TM micro-tile of the logit tile
-// (rows ty + 16 i, keys tx + 16 j) and, for the products with the (TB, D)
-// tiles, TB / 8 rows x ceil(D / 32) columns. Shared rows are padded to
-// D + 1 floats. S and D are runtime values (S any length, D up to 256).
+// Three routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
+// H, D), and chronos_attention_config reports it.
 //
-// What bounds it on an H100: every multiply-add runs on the fp32 CUDA cores
-// (67 TFLOP/s) fed by scalar shared-memory loads, and the bias is read once
-// per (batch, head) from device memory (through L2, where the H*S*S*4 bytes
-// fit: 16 MB at S = 577). At Chronos-2's shapes (H = 12, D = 64, S = 67 to
-// 577) the least time of the work is set by the bytes in bf16 and by the
-// fp32 rate in fp32 (chip_smoke.py prints both); this kernel is far from
-// either. mma/wgmma tiles, TMA loads and keeping the bias tile in shared
-// memory across the batch are later work.
+// 1. bf16 one-pass (S padded to 16 up to 128 in the forward, 96 in the
+//    backward; head_dim <= 64), on the tensor cores. A block takes one head
+//    and a group of G batch rows (G = B H / 512, 1..8); its NQ = ceil(S/16)
+//    warps each own 16 query rows against every key, so the query and key
+//    tiles are S padded to 16 (S = 67: one 80-row tile, 5 warps; S = 80:
+//    exactly one). The (S, S) fp32 bias strip of the head comes into shared
+//    memory once per block and serves all G rows; each row's q, k, v (and g)
+//    tiles come by 16-byte cp.async into a two-slot ring, the next batch
+//    row's while the current one computes. Q K^T runs on mma.sync m16n8k16
+//    (bf16 operands from ldmatrix, fp32 accumulators); the bias and the
+//    segment mask are added in the accumulators. With the whole row in
+//    registers the row max and sum are exact before any exponential, so
+//    W = exp(l - m) / s, rounded to bf16 in the registers and fed to W V as
+//    the A fragment (V by ldmatrix.trans), is the two-pass result computed
+//    once. Backward, per batch row: phase A (warp = 16 query rows) forms W,
+//    dW = G V^T, r = rowsum(dW o W) and dL = W (dW - r) in registers, dQ =
+//    dL K with dL as a hi + lo bf16 pair (each row of dL sums to 0, so dQ and
+//    dK are differences of terms; one bf16 rounding of dL failed BWD_TOL for
+//    the causal kernels), and writes W (one bf16 operand: in [0, 1], its
+//    terms in dV do not cancel) and dL hi/lo to shared memory; phase B (warp
+//    = 16 keys) reads their transposes by ldmatrix.trans as A operands:
+//    dV = W^T G, dK = dL^T Q. Q K^T and G V^T run once per batch row. dbias:
+//    each warp adds its rows of dL over the group's batch rows in registers,
+//    in batch order, and writes one (H, S, S) partial per group; a last
+//    kernel sums the ceil(B / G) partials in group order (none when G = B).
+// 2. bf16 tiled (longer S, or head_dim > 64), on the tensor cores: one block
+//    per (64-row query tile, head, batch row), 4 warps x 16 rows, 64-key
+//    tiles through a two-slot cp.async ring, two passes (pass 1 an online
+//    row max and sum, pass 2 W = exp(l - m) / s rounded to bf16 in the
+//    registers times V; a one-pass online softmax would round unnormalised
+//    weights, a different result). Each lane reads its bias entries from
+//    device memory (L2) as it adds them. Backward: the dq kernel (online m,
+//    s and t = sum exp(l - m) dW, then dL and dQ = dL K; dL to a
+//    per-batch-row partial when dbias is asked for) and the dkdv kernel on
+//    transposed tiles (W^T, dL^T in registers as A operands) after the
+//    causal kernels' design (attention_bwd.cu). For head_dim > 80 a block
+//    writes 64 of the output columns.
+// 3. fp32, on the CUDA cores (plain TF32 rounds to 2^-11, beyond the fp32
+//    tolerance; 3xTF32 is untried): 256 threads, TB = 16 TM rows fitted to S
+//    (16, 32, 64, and 80 for 64 < S <= 80 at head_dim <= 64: one tile at
+//    Chronos-2's 67- and 80-token rows), each thread a TM x TM micro-tile,
+//    4-byte cp.async into a two-slot ring, shared rows padded to D + 1; the
+//    backward keeps one slot where two would leave one block per SM instead
+//    of two (at 64-row tiles two blocks per SM measured faster). When the
+//    whole row is one tile the forward and the dq kernel compute the logits
+//    (and dW) once. dbias: per-batch-row partials summed in batch order. The
+//    bias is read per (batch row, head) from L2.
+//
+// Why routes 2 and 3 read the bias per batch row. The (H, S, S) bias (16 MB
+// at S = 577) stays in the H100's 50 MB L2, so re-reading it costs L2
+// traffic only, and staging it in shared memory costs a 4-byte cp.async per
+// entry (rows of an odd S are not 16-byte aligned). Measured at 16 x 577
+// (chip_smoke.py --kernel-times, H100 80GB HBM3 at 700 W), bf16 forward:
+// read from L2 0.375 ms; staged per block through the ring 0.485; G batch
+// rows per thread-block cluster sharing each staged tile through
+// distributed shared memory 0.738 / 0.458 / 0.423 / 0.466 ms at G = 1 / 2 /
+// 4 / 8. Backward: staged 1.076 ms, L2 1.099, clusters 1.12-1.57; fp32
+// forward and backward: L2 fastest, clusters 4-50% slower. Route 1 does
+// group batch rows (a block takes G of them and stages the bias strip once:
+// its loads then serve G rows and the strip is read as 8-byte pairs).
+//
+// Bias bytes read per launch (fp32 bias, 4 bytes), at the main shapes:
+//   S = 67, B = 128, H = 12 (fine-tune), bf16: G = 3, 43 groups x 12 heads
+//     x 67 x 67 x 4 = 9.3 MB forward and 9.3 MB backward (64-row tiles read
+//     it twice per batch row and query tile: 55 MB); dbias partials 9.3 MB
+//     written and read back (27.6 MB for one partial per batch row). fp32:
+//     one tile, one pass, 27.6 MB from L2; dbias partials one per batch row
+//     (27.6 MB).
+//   S = 577, B = 16, H = 12 (serving at context 8192), bf16 tiled: each
+//     bias entry once per pass and batch row, 2 x 16 x 12 x 577^2 x 4 =
+//     511 MB from L2 (the 16 MB bias read from device memory about once).
+// Segment ids (and the backward's row statistics) come by cp.async in the
+// same commit groups as the tiles.
+//
+// What bounds it on an H100: at Chronos-2's shapes (H = 12, D = 64, S = 67
+// to 577) the least time of the work is set by the bytes in bf16 (q, k, v,
+// out, the bias once) and by the fp32 rate in fp32; chip_smoke.py prints
+// both. The bf16 one-pass route moves each batch row's tiles once and does
+// the work once; it is bound by the latency of its ring at one or two
+// blocks per SM (its shared memory: the bias strip, two slots of tiles and,
+// backward, W and dL). The tiled route re-reads K and V from L2 once per
+// query tile and pass, and the bias once per pass. The fp32 route is bound
+// by the CUDA cores' 67 TFLOP/s.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "chronos_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxDim = 256;
-constexpr int kFwdTile = 64;  // forward: query rows per block and keys per tile
+// ------------------------------------------------------ bf16 one-pass route
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <int NK, int NQ>
+__global__ void __launch_bounds__(32 * NQ)
+    chronos_fwd_onepass_kernel(const bf16* __restrict__ qkv, const int* __restrict__ seg,
+                               const float* __restrict__ bias, bf16* __restrict__ out, int B,
+                               int S, int H, int D, int G, int vec, int pair_out) {
+  constexpr int DP = 16 * NK;
+  constexpr int LDS = DP + 8;
+  constexpr int SP = 16 * NQ;   // query rows = keys per block
+  constexpr int NT = SP / 8;    // n-tiles of a warp's logit row
+  constexpr int LDB = SP + 8;   // bias strip row stride (floats)
+  constexpr int NO = 2 * NK;    // n-tiles of the output
+  constexpr int NTHREADS = 32 * NQ;
+  constexpr int TILE = SP * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Bs = reinterpret_cast<float*>(smem_raw);       // SP x LDB: bias[h]
+  bf16* ring = reinterpret_cast<bf16*>(Bs + SP * LDB);  // 2 slots x (q, k, v) x SP x LDS
+  int* Sg = reinterpret_cast<int*>(ring + 6 * TILE);    // 2 slots x SP segment ids
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+  const int h = blockIdx.x;
+  const int b0 = blockIdx.y * G;
+  const int nb = min(G, B - b0);
+  const long long hd = (long long)H * D;
+  const long long ld = 3 * hd;
+  load_bias_tile<SP, SP, LDB, NTHREADS>(Bs, bias + (long long)h * S * S, 0, 0, S);
+  auto prefetch = [&](int i) {
+    const int slot = i & 1;
+    const long long b = b0 + i;
+    const bf16* src = qkv + b * S * ld + (long long)h * D;
+    bf16* dst = ring + slot * 3 * TILE;
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+      mtt::load_tile_bf16<1, SP, DP, LDS, NTHREADS>(dst + m * TILE, TILE, src + m * hd, ld, D, 0,
+                                                    1, 0, S, vec);
+    load_seg(Sg + slot * SP, seg + b * S, 0, S, SP);
+    mtt::cp_async_commit();
+  };
+  prefetch(0);
 
-// dst[r * dp + d] = src[r * ld + d] for TB rows; rows at or past `rows_left`
-// are zero.
-template <int TB, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows_left, int D, int dp,
-                                          long long ld) {
-  for (int i = threadIdx.x; i < TB * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    dst[r * dp + d] = r < rows_left ? to_f32(src[(long long)r * ld + d]) : 0.f;
-  }
-}
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const float* const brow[2] = {Bs + rows[0] * LDB, Bs + rows[1] * LDB};
 
-// dst[r] = seg[r0 + r] for TB rows; rows past S get 0 (they are never read
-// as keys: their logits are -inf; as queries they are never written).
-template <int TB>
-__device__ __forceinline__ void load_seg(int* dst, const int* seg_b, int r0, int S) {
-  if ((int)threadIdx.x < TB) {
-    const int r = r0 + threadIdx.x;
-    dst[threadIdx.x] = r < S ? seg_b[r] : 0;
-  }
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two (TB, dp) tiles.
-template <int TM>
-__device__ __forceinline__ void micro_dot(const float* A, const float* B, int D, int dp, int tx,
-                                          int ty, float acc[TM][TM]) {
+  for (int i = 0; i < nb; ++i) {
+    mtt::cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < nb) prefetch(i + 1);
+    const int slot = i & 1;
+    const bf16* Qs = ring + slot * 3 * TILE;
+    const bf16* Ks = Qs + TILE;
+    const bf16* Vs = Ks + TILE;
+    const int* sk = Sg + slot * SP;
+    float sc[NT][4];
+    mma_abt<NK, NT, LDS>(sc, Qs + warp * 16 * LDS, Ks, lane);
+    const int sq[2] = {sk[rows[0]], sk[rows[1]]};
+    bias_mask<NT>(sc, brow, sq, sk, 0, S, lane);
+    // The whole row is here: exact max and sum, then W = exp(l - m) / s.
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[TM], b[TM];
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+      mx = quad_max(mx);
+      float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = A[(ty + 16 * i) * dp + d];
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int j = 0; j < TM; ++j) b[j] = B[(tx + 16 * j) * dp + d];
+        for (int e = 0; e < 2; ++e) {
+          const float x = mtt::fast_exp(sc[n][2 * r + e] - mx);
+          sc[n][2 * r + e] = x;
+          s += x;
+        }
+      const float inv = 1.f / quad_sum(s);
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Bias and segment mask on a micro-tile of Q K^T: rows q0 + ty + 16 i (query
-// segments Sq), keys k0 + tx + 16 j (key segments Sk). A key past the
-// sequence end gets -inf (no term); a key of another segment gets
-// finfo(float32).min; an allowed pair gets its bias added. Rows past S are
-// left as they are (never written, and zero-weighted in the backward).
-template <int TM>
-__device__ __forceinline__ void bias_and_mask(float l[TM][TM], const int* Sq, const int* Sk,
-                                              const float* bias_h, int q0, int k0, int S, int tx,
-                                              int ty) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int ri = ty + 16 * i;
-    const int row = q0 + ri;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int c = tx + 16 * j;
-      const int col = k0 + c;
-      if (col >= S) {
-        l[i][j] = -INFINITY;
-      } else if (row < S) {
-        l[i][j] = Sq[ri] == Sk[c] ? l[i][j] + bias_h[(long long)row * S + col] : -FLT_MAX;
+      for (int n = 0; n < NT; ++n) {
+        sc[n][2 * r] *= inv;
+        sc[n][2 * r + 1] *= inv;
       }
     }
+    float o[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      mma_pv<NO, LDS, false>(o, sc[2 * kk], sc[2 * kk + 1], Vs + kk * 16 * LDS, 0, lane);
+    store_rows<NO>(out + (long long)(b0 + i) * S * hd + (long long)h * D, hd, o, rows[0], 0, S,
+                   D, pair_out, lane);
   }
 }
 
-// Reductions over the 16 lanes that share a micro-tile row (tx = lane & 15).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+template <int NK, int NQ>
+cudaError_t launch_onepass(const bf16* qkv, const int* seg, const float* bias, bf16* out, int B,
+                           int S, int H, int D, int G, int vec, int pair_out,
+                           cudaStream_t stream) {
+  constexpr int SP = 16 * NQ;
+  constexpr int LDS = 16 * NK + 8;
+  const size_t smem = sizeof(float) * SP * (SP + 8) + sizeof(bf16) * 6 * SP * LDS +
+                      sizeof(int) * 2 * SP;
+  auto kernel = chronos_fwd_onepass_kernel<NK, NQ>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, (B + G - 1) / G);
+  kernel<<<grid, 32 * NQ, smem, stream>>>(qkv, seg, bias, out, B, S, H, D, G, vec, pair_out);
+  return cudaGetLastError();
 }
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+
+template <int NK>
+cudaError_t launch_onepass_nq(int nq, const bf16* qkv, const int* seg, const float* bias,
+                              bf16* out, int B, int S, int H, int D, int G, int vec, int pair_out,
+                              cudaStream_t stream) {
+#define MTT_LAUNCH(NQ) \
+  return launch_onepass<NK, NQ>(qkv, seg, bias, out, B, S, H, D, G, vec, pair_out, stream)
+  switch (nq) {
+    case 1: MTT_LAUNCH(1);
+    case 2: MTT_LAUNCH(2);
+    case 3: MTT_LAUNCH(3);
+    case 4: MTT_LAUNCH(4);
+    case 5: MTT_LAUNCH(5);
+    case 6: MTT_LAUNCH(6);
+    case 7: MTT_LAUNCH(7);
+    case 8: MTT_LAUNCH(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef MTT_LAUNCH
 }
 
-// ---------------------------------------------------------------------------
-// B4f: forward, one block per (64-row query tile, head, batch)
-// ---------------------------------------------------------------------------
+// --------------------------------------------------------- bf16 tiled route
 
-template <typename T, int NDS>
-__global__ void __launch_bounds__(kThreads)
-    chronos_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ seg,
-                       const float* __restrict__ bias, T* __restrict__ out, int S, int H, int D) {
-  constexpr int TB = kFwdTile;
-  extern __shared__ float smem[];
-  const int dp = D + 1;
-  float* Qs = smem;                // TB x dp
-  float* Ks = Qs + TB * dp;        // TB x dp
-  float* Vs = Ks + TB * dp;        // TB x dp
-  float* Ws = Vs + TB * dp;        // TB x (TB + 1): rounded weights
-  int* Sq = reinterpret_cast<int*>(Ws + TB * (TB + 1));  // TB query segments
-  int* Sk = Sq + TB;                                      // TB key segments
+template <int NK, int NKO>
+__global__ void __launch_bounds__(kThreadsMma)
+    chronos_fwd_tiled_kernel(const bf16* __restrict__ qkv, const int* __restrict__ seg,
+                             const float* __restrict__ bias, bf16* __restrict__ out, int S, int H,
+                             int D, int vec, int pair_out) {
+  constexpr int DP = 16 * NK;
+  constexpr int LDS = DP + 8;
+  constexpr int BQ = 64;
+  constexpr int BK = 64;
+  constexpr int NT = BK / 8;
+  constexpr int NO = 2 * NKO;
+  constexpr int SPLIT = NK / NKO;  // blocks per query tile
+  constexpr int KV = BK * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);           // BQ x LDS
+  bf16* Ks = Qs + BQ * LDS;                               // 2 x BK x LDS
+  bf16* Vs = Ks + 2 * KV;                                 // 2 x BK x LDS
+  int* Sq = reinterpret_cast<int*>(Vs + 2 * KV);          // BQ query segments
+  int* Sk = Sq + BQ;                                      // 2 x BK key segments
 
-  const int q0 = blockIdx.x * TB;
+  const int q0 = ((int)blockIdx.x / SPLIT) * BQ;
+  const int col0 = ((int)blockIdx.x % SPLIT) * NKO * 16;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const long long hd = (long long)H * D;
   const long long ld = 3 * hd;
-  const T* qb = qkv + (long long)b * S * ld + (long long)h * D;
-  const T* kb = qb + hd;
-  const T* vb = qb + 2 * hd;
+  const bf16* qb = qkv + (long long)b * S * ld + (long long)h * D;
   const int* seg_b = seg + (long long)b * S;
   const float* bias_h = bias + (long long)h * S * S;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int nkt = (S + BK - 1) / BK;
+  const int items = 2 * nkt;
+  auto prefetch = [&](int it) {
+    const int buf = it & 1;
+    const int k0 = (it < nkt ? it : it - nkt) * BK;
+    mtt::load_tile_bf16<1, BK, DP, LDS, kThreadsMma>(Ks + buf * KV, KV, qb + hd, ld, D, 0, 1, k0,
+                                                     S, vec);
+    if (it >= nkt)
+      mtt::load_tile_bf16<1, BK, DP, LDS, kThreadsMma>(Vs + buf * KV, KV, qb + 2 * hd, ld, D, 0,
+                                                       1, k0, S, vec);
+    load_seg(Sk + buf * BK, seg_b, k0, S, BK);
+    mtt::cp_async_commit();
+  };
+  mtt::load_tile_bf16<1, BQ, DP, LDS, kThreadsMma>(Qs, BQ * LDS, qb, ld, D, 0, 1, q0, S, vec);
+  load_seg(Sq, seg_b, q0, S, BQ);
+  prefetch(0);
 
-  load_tile<TB>(Qs, qb + (long long)q0 * ld, S - q0, D, dp, ld);
-  load_seg<TB>(Sq, seg_b, q0, S);
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int rows[2] = {q0 + wr + (lane >> 2), q0 + wr + (lane >> 2) + 8};
+  float m[2] = {-FLT_MAX, -FLT_MAX};
+  float s[2] = {0.f, 0.f};
+  float inv[2] = {0.f, 0.f};
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  const bf16* Qw = Qs + wr * LDS;
 
-  // Pass 1: running row max and sum of exp, in fp32.
-  float m[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -FLT_MAX;
-    s[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < S; k0 += TB) {
+  for (int it = 0; it < items; ++it) {
+    mtt::cp_async_wait_all();
     __syncthreads();
-    load_tile<TB>(Ks, kb + (long long)k0 * ld, S - k0, D, dp, ld);
-    load_seg<TB>(Sk, seg_b, k0, S);
-    __syncthreads();
-    float l[4][4];
-    micro_dot<4>(Qs, Ks, D, dp, tx, ty, l);
-    bias_and_mask<4>(l, Sq, Sk, bias_h, q0, k0, S, tx, ty);
+    if (it + 1 < items) prefetch(it + 1);
+    const int buf = it & 1;
+    const int k0 = (it < nkt ? it : it - nkt) * BK;
+    float sc[NT][4];
+    mma_abt<NK, NT, LDS>(sc, Qw, Ks + buf * KV, lane);
+    const int sq[2] = {Sq[wr + (lane >> 2)], Sq[wr + (lane >> 2) + 8]};
+    const float* const brow[2] = {bias_h + (long long)min(rows[0], S - 1) * S + k0,
+                                  bias_h + (long long)min(rows[1], S - 1) * S + k0};
+    bias_mask<NT, false>(sc, brow, sq, Sk + buf * BK, k0, S, lane);
+    if (it < nkt) {
+      // Pass 1: running row max and sum of exp over the quad that holds a row.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float tmax = row_max(fmaxf(fmaxf(l[i][0], l[i][1]), fmaxf(l[i][2], l[i][3])));
-      const float nm = fmaxf(m[i], tmax);
-      float ps = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ps += expf(l[i][j] - nm);
-      s[i] = s[i] * expf(m[i] - nm) + row_sum(ps);
-      m[i] = nm;
-    }
-  }
-
-  // Pass 2: normalized weights, rounded to the compute dtype, times V.
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float acc[8][NDS];
+        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+        const float nm = fmaxf(m[r], quad_max(mx));
+        float ps = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < NDS; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += TB) {
-    __syncthreads();
-    load_tile<TB>(Ks, kb + (long long)k0 * ld, S - k0, D, dp, ld);
-    load_tile<TB>(Vs, vb + (long long)k0 * ld, S - k0, D, dp, ld);
-    load_seg<TB>(Sk, seg_b, k0, S);
-    __syncthreads();
-    float l[4][4];
-    micro_dot<4>(Qs, Ks, D, dp, tx, ty, l);
-    bias_and_mask<4>(l, Sq, Sk, bias_h, q0, k0, S, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float w = expf(l[i][j] - m[i]) / s[i];
-        Ws[(ty + 16 * i) * (TB + 1) + tx + 16 * j] = to_f32(from_f32<T>(w));
+        for (int n = 0; n < NT; ++n)
+          ps += mtt::fast_exp(sc[n][2 * r] - nm) + mtt::fast_exp(sc[n][2 * r + 1] - nm);
+        s[r] = s[r] * mtt::fast_exp(m[r] - nm) + quad_sum(ps);
+        m[r] = nm;
       }
-    __syncthreads();
-    const int kn = min(TB, S - k0);
-    for (int j = 0; j < kn; ++j) {
-      float vv[NDS];
-#pragma unroll
-      for (int c = 0; c < NDS; ++c) {
-        const int d = lane + 32 * c;
-        vv[c] = d < D ? Vs[j * dp + d] : 0.f;
+      if (it + 1 == nkt) {
+        inv[0] = 1.f / s[0];
+        inv[1] = 1.f / s[1];
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float w = Ws[(warp + 8 * i) * (TB + 1) + j];
-#pragma unroll
-        for (int c = 0; c < NDS; ++c) acc[i][c] = fmaf(w, vv[c], acc[i][c]);
-      }
+      continue;
     }
-  }
-
-  T* ob = out + (long long)b * S * hd + (long long)h * D;
+    // Pass 2: W rounded to bf16 in registers is the A operand of W V.
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = q0 + warp + 8 * i;
-    if (row >= S) continue;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < NDS; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) ob[(long long)row * hd + d] = from_f32<T>(acc[i][c]);
-    }
+      for (int e = 0; e < 4; ++e) sc[n][e] = mtt::fast_exp(sc[n][e] - m[e >> 1]) * inv[e >> 1];
+    const bf16* Vw = Vs + buf * KV;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      mma_pv<NO, LDS, false>(o, sc[2 * kk], sc[2 * kk + 1], Vw + kk * 16 * LDS, col0, lane);
   }
+  store_rows<NO>(out + (long long)b * S * hd + (long long)h * D, hd, o, rows[0], col0, S, D,
+                 pair_out, lane);
 }
 
-// ---------------------------------------------------------------------------
-// B4b kernel 1: row statistics, dQ and (optionally) the per-batch dL
-// ---------------------------------------------------------------------------
+template <int NK>
+cudaError_t launch_tiled(const bf16* qkv, const int* seg, const float* bias, bf16* out, int B,
+                         int S, int H, int D, int vec, int pair_out, cudaStream_t stream) {
+  constexpr int NKO = NK <= 5 ? NK : 4;
+  constexpr int LDS = 16 * NK + 8;
+  const size_t smem = sizeof(bf16) * (size_t)5 * 64 * LDS + sizeof(int) * 3 * 64;
+  auto kernel = chronos_fwd_tiled_kernel<NK, NKO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + 63) / 64 * (NK / NKO), H, B);
+  kernel<<<grid, kThreadsMma, smem, stream>>>(qkv, seg, bias, out, S, H, D, vec, pair_out);
+  return cudaGetLastError();
+}
 
-template <typename T, int TM, int NDS>
-__global__ void __launch_bounds__(kThreads)
-    chronos_bwd_dq_kernel(const T* __restrict__ qkv, const int* __restrict__ seg,
-                          const float* __restrict__ bias, const T* __restrict__ g,
-                          T* __restrict__ dqkv, float* __restrict__ stats,
-                          float* __restrict__ partials, int S, int H, int D) {
+cudaError_t dispatch_bf16(const bf16* qkv, const int* seg, const float* bias, bf16* out, int B,
+                          int S, int H, int D, cudaStream_t stream) {
+  // 16-byte cp.async needs every row of q, k and v to start 16-byte aligned:
+  // head_dim a multiple of 8 (then so is the row stride 3 H D) and qkv aligned.
+  const int vec = D % 8 == 0 && aligned16(qkv);
+  const int pair_out = D % 2 == 0 && aligned4(out);
+  const Plan p = make_plan(false, 1, B, S, H, D);
+  const int nk = p.dp / 16;
+  if (p.route == 1) {
+#define MTT_LAUNCH(NK) \
+  return launch_onepass_nq<NK>(p.rows / 16, qkv, seg, bias, out, B, S, H, D, p.group, vec, pair_out, stream)
+    if (nk == 1) MTT_LAUNCH(1);
+    if (nk == 2) MTT_LAUNCH(2);
+    MTT_LAUNCH(4);
+#undef MTT_LAUNCH
+  }
+#define MTT_LAUNCH(NK) return launch_tiled<NK>(qkv, seg, bias, out, B, S, H, D, vec, pair_out, stream)
+  if (nk == 1) MTT_LAUNCH(1);
+  if (nk == 2) MTT_LAUNCH(2);
+  if (nk == 4) MTT_LAUNCH(4);
+  if (nk == 5) MTT_LAUNCH(5);
+  if (nk == 8) MTT_LAUNCH(8);
+  MTT_LAUNCH(16);
+#undef MTT_LAUNCH
+}
+
+// ---------------------------------------------------------------- fp32 route
+
+template <int TM, int NDS>
+__global__ void __launch_bounds__(kThreadsF32)
+    chronos_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__ seg,
+                           const float* __restrict__ bias, float* __restrict__ out, int S, int H,
+                           int D) {
   constexpr int TB = 16 * TM;
   constexpr int RPW = TB / 8;  // output rows per warp
   extern __shared__ float smem[];
   const int dp = D + 1;
-  float* Qs = smem;               // TB x dp
-  float* Gs = Qs + TB * dp;       // TB x dp
-  float* Ks = Gs + TB * dp;       // TB x dp
-  float* Vs = Ks + TB * dp;       // TB x dp
-  float* Ps = Vs + TB * dp;       // TB x (TB + 1): dL tile
-  int* Sq = reinterpret_cast<int*>(Ps + TB * (TB + 1));  // TB query segments
-  int* Sk = Sq + TB;                                      // TB key segments
+  const int ts = TB * max(dp, TB + 1);  // a K or V slot; in pass 2 K's slot then holds W
+  float* Qs = smem;                 // TB x dp
+  float* Ks = Qs + TB * dp;         // 2 slots: K tiles, then the W tile, TB x (TB + 1)
+  float* Vs = Ks + 2 * ts;          // 2 slots: V tiles
+  int* Sq = reinterpret_cast<int*>(Vs + 2 * ts);  // TB query segments
+  int* Sk = Sq + TB;                                // 2 x TB key segments
 
   const int q0 = blockIdx.x * TB;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const long long hd = (long long)H * D;
   const long long ld = 3 * hd;
-  const T* qb = qkv + (long long)b * S * ld + (long long)h * D;
-  const T* kb = qb + hd;
-  const T* vb = qb + 2 * hd;
-  const T* gb = g + (long long)b * S * hd + (long long)h * D;
+  const float* qb = qkv + (long long)b * S * ld + (long long)h * D;
   const int* seg_b = seg + (long long)b * S;
   const float* bias_h = bias + (long long)h * S * S;
-  const long long bh = (long long)b * H + h;
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
 
-  load_tile<TB>(Qs, qb + (long long)q0 * ld, S - q0, D, dp, ld);
-  load_tile<TB>(Gs, gb + (long long)q0 * hd, S - q0, D, dp, hd);
-  load_seg<TB>(Sq, seg_b, q0, S);
+  // One tile holds the whole row: one walk, the logits computed once.
+  const int nkt = (S + TB - 1) / TB;
+  const bool one = nkt == 1;
+  const int items = one ? 1 : 2 * nkt;
+  auto tile_of = [&](int it) { return (it < nkt ? it : it - nkt) * TB; };
+  auto prefetch = [&](int it) {
+    const int buf = it & 1;
+    const int k0 = tile_of(it);
+    mtt::load_tile_f32<TB, kThreadsF32>(Ks + buf * ts, qb + hd, k0, S, D, dp, ld);
+    if (one || it >= nkt)
+      mtt::load_tile_f32<TB, kThreadsF32>(Vs + buf * ts, qb + 2 * hd, k0, S, D, dp, ld);
+    load_seg(Sk + buf * TB, seg_b, k0, S, TB);
+    mtt::cp_async_commit();
+  };
+  mtt::load_tile_f32<TB, kThreadsF32>(Qs, qb, q0, S, D, dp, ld);
+  load_seg(Sq, seg_b, q0, S, TB);
+  prefetch(0);
 
-  // Pass 1: online row max m, sum s of exp(l - m), and t = sum exp(l - m) dW.
-  float m[TM], s[TM], t[TM];
+  float m[TM], s[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     m[i] = -FLT_MAX;
     s[i] = 0.f;
-    t[i] = 0.f;
   }
-  for (int k0 = 0; k0 < S; k0 += TB) {
-    __syncthreads();
-    load_tile<TB>(Ks, kb + (long long)k0 * ld, S - k0, D, dp, ld);
-    load_tile<TB>(Vs, vb + (long long)k0 * ld, S - k0, D, dp, ld);
-    load_seg<TB>(Sk, seg_b, k0, S);
-    __syncthreads();
-    float l[TM][TM], dw[TM][TM];
-    micro_dot<TM>(Qs, Ks, D, dp, tx, ty, l);
-    bias_and_mask<TM>(l, Sq, Sk, bias_h, q0, k0, S, tx, ty);
-    micro_dot<TM>(Gs, Vs, D, dp, tx, ty, dw);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float tmax = l[i][0];
-#pragma unroll
-      for (int j = 1; j < TM; ++j) tmax = fmaxf(tmax, l[i][j]);
-      const float nm = fmaxf(m[i], row_max(tmax));
-      float ps = 0.f, pt = 0.f;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const float e = expf(l[i][j] - nm);
-        ps += e;
-        pt = fmaf(e, dw[i][j], pt);
-      }
-      const float scale = expf(m[i] - nm);
-      s[i] = s[i] * scale + row_sum(ps);
-      t[i] = t[i] * scale + row_sum(pt);
-      m[i] = nm;
-    }
-  }
-  float r[TM];
-  const long long plane = (long long)gridDim.z * H * S;  // B * H * S
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    r[i] = t[i] / s[i];
-    const int row = q0 + ty + 16 * i;
-    if (tx == 0 && row < S) {
-      stats[bh * S + row] = m[i];
-      stats[plane + bh * S + row] = s[i];
-      stats[2 * plane + bh * S + row] = r[i];
-    }
-  }
-
-  // Pass 2: dL = W (dW - r) through shared memory (and to the partials),
-  // dQ += dL K.
-  float* part_bh = partials == nullptr ? nullptr : partials + bh * S * S;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   float acc[RPW][NDS];
@@ -384,47 +448,61 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < NDS; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += TB) {
+  for (int it = 0; it < items; ++it) {
+    mtt::cp_async_wait_all();
     __syncthreads();
-    load_tile<TB>(Ks, kb + (long long)k0 * ld, S - k0, D, dp, ld);
-    load_tile<TB>(Vs, vb + (long long)k0 * ld, S - k0, D, dp, ld);
-    load_seg<TB>(Sk, seg_b, k0, S);
-    __syncthreads();
-    float l[TM][TM], dw[TM][TM];
-    micro_dot<TM>(Qs, Ks, D, dp, tx, ty, l);
-    bias_and_mask<TM>(l, Sq, Sk, bias_h, q0, k0, S, tx, ty);
-    micro_dot<TM>(Gs, Vs, D, dp, tx, ty, dw);
+    if (it + 1 < items) prefetch(it + 1);
+    const int buf = it & 1;
+    const int k0 = tile_of(it);
+    float* Kt = Ks + buf * ts;
+    float l[TM][TM];
+    micro_dot<TM>(Qs, Kt, D, dp, tx, ty, l);
+    bias_and_mask<TM>(l, Sq, Sk + buf * TB, bias_h, q0, k0, S, tx, ty);
+    if (one || it < nkt) {
+      // Pass 1: running row max and sum of exp, in fp32.
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = q0 + ty + 16 * i;
+      for (int i = 0; i < TM; ++i) {
+        float tmax = l[i][0];
 #pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const float w = expf(l[i][j] - m[i]) / s[i];
-        const float dl = w * (dw[i][j] - r[i]);
-        Ps[(ty + 16 * i) * (TB + 1) + tx + 16 * j] = dl;
-        const int col = k0 + tx + 16 * j;
-        if (part_bh != nullptr && row < S && col < S) part_bh[(long long)row * S + col] = dl;
+        for (int j = 1; j < TM; ++j) tmax = fmaxf(tmax, l[i][j]);
+        const float nm = fmaxf(m[i], row_max16(tmax));
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < TM; ++j) ps += expf(l[i][j] - nm);
+        s[i] = s[i] * expf(m[i] - nm) + row_sum16(ps);
+        m[i] = nm;
       }
+      if (!one) continue;
     }
+    // Pass 2: normalized weights (fp32: rounding is the identity), written over
+    // the K tile once every thread has its logits, times V.
     __syncthreads();
+    float* Ws = Kt;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j)
+        Ws[(ty + 16 * i) * (TB + 1) + tx + 16 * j] = expf(l[i][j] - m[i]) / s[i];
+    __syncthreads();
+    const float* Vt = Vs + buf * ts;
     const int kn = min(TB, S - k0);
     for (int j = 0; j < kn; ++j) {
-      float kv[NDS];
+      float vv[NDS];
 #pragma unroll
       for (int c = 0; c < NDS; ++c) {
         const int d = lane + 32 * c;
-        kv[c] = d < D ? Ks[j * dp + d] : 0.f;
+        vv[c] = d < D ? Vt[j * dp + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
-        const float p = Ps[(warp + 8 * i) * (TB + 1) + j];
+        const float w = Ws[(warp + 8 * i) * (TB + 1) + j];
 #pragma unroll
-        for (int c = 0; c < NDS; ++c) acc[i][c] = fmaf(p, kv[c], acc[i][c]);
+        for (int c = 0; c < NDS; ++c) acc[i][c] = fmaf(w, vv[c], acc[i][c]);
       }
     }
   }
 
-  T* ob = dqkv + (long long)b * S * ld + (long long)h * D;
+  float* ob = out + (long long)b * S * hd + (long long)h * D;
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int row = q0 + warp + 8 * i;
@@ -432,239 +510,50 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < NDS; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) ob[(long long)row * ld + d] = from_f32<T>(acc[i][c]);
+      if (d < D) ob[(long long)row * hd + d] = acc[i][c];
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// B4b kernel 2: dK and dV for one (key tile, head, batch)
-// ---------------------------------------------------------------------------
-
-template <typename T, int TM, int NDS>
-__global__ void __launch_bounds__(kThreads)
-    chronos_bwd_dkdv_kernel(const T* __restrict__ qkv, const int* __restrict__ seg,
-                            const float* __restrict__ bias, const T* __restrict__ g,
-                            T* __restrict__ dqkv, const float* __restrict__ stats, int S, int H,
-                            int D) {
+template <int TM, int NDS>
+cudaError_t launch_f32(const float* qkv, const int* seg, const float* bias, float* out, int B,
+                       int S, int H, int D, cudaStream_t stream) {
   constexpr int TB = 16 * TM;
-  constexpr int RPW = TB / 8;
-  extern __shared__ float smem[];
   const int dp = D + 1;
-  float* Ks = smem;               // TB x dp
-  float* Vs = Ks + TB * dp;       // TB x dp
-  float* Qs = Vs + TB * dp;       // TB x dp
-  float* Gs = Qs + TB * dp;       // TB x dp
-  float* Ws = Gs + TB * dp;       // TB x (TB + 1): W tile, rows = queries
-  float* Ps = Ws + TB * (TB + 1); // TB x (TB + 1): dL tile
-  float* Sm = Ps + TB * (TB + 1); // TB row maxima
-  float* Ss = Sm + TB;            // TB row sums
-  float* Sr = Ss + TB;            // TB row terms
-  int* Sq = reinterpret_cast<int*>(Sr + TB);  // TB query segments
-  int* Sk = Sq + TB;                           // TB key segments
-
-  const int k0 = blockIdx.x * TB;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long hd = (long long)H * D;
-  const long long ld = 3 * hd;
-  const T* qb = qkv + (long long)b * S * ld + (long long)h * D;
-  const T* gb = g + (long long)b * S * hd + (long long)h * D;
-  const int* seg_b = seg + (long long)b * S;
-  const float* bias_h = bias + (long long)h * S * S;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long bh = (long long)b * H + h;
-  const long long plane = (long long)gridDim.z * H * S;
-
-  load_tile<TB>(Ks, qb + hd + (long long)k0 * ld, S - k0, D, dp, ld);
-  load_tile<TB>(Vs, qb + 2 * hd + (long long)k0 * ld, S - k0, D, dp, ld);
-  load_seg<TB>(Sk, seg_b, k0, S);
-
-  float akv[RPW][NDS], adk[RPW][NDS];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int c = 0; c < NDS; ++c) {
-      akv[i][c] = 0.f;
-      adk[i][c] = 0.f;
-    }
-
-  for (int q0 = 0; q0 < S; q0 += TB) {
-    __syncthreads();
-    load_tile<TB>(Qs, qb + (long long)q0 * ld, S - q0, D, dp, ld);
-    load_tile<TB>(Gs, gb + (long long)q0 * hd, S - q0, D, dp, hd);
-    load_seg<TB>(Sq, seg_b, q0, S);
-    if (tid < TB) {
-      const int row = q0 + tid;
-      const bool in = row < S;
-      Sm[tid] = in ? stats[bh * S + row] : 0.f;
-      Ss[tid] = in ? stats[plane + bh * S + row] : 1.f;
-      Sr[tid] = in ? stats[2 * plane + bh * S + row] : 0.f;
-    }
-    __syncthreads();
-    float l[TM][TM], dw[TM][TM];
-    micro_dot<TM>(Qs, Ks, D, dp, tx, ty, l);
-    bias_and_mask<TM>(l, Sq, Sk, bias_h, q0, k0, S, tx, ty);
-    micro_dot<TM>(Gs, Vs, D, dp, tx, ty, dw);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int ri = ty + 16 * i;
-      const bool in = q0 + ri < S;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const float w = in ? expf(l[i][j] - Sm[ri]) / Ss[ri] : 0.f;
-        Ws[ri * (TB + 1) + tx + 16 * j] = w;
-        Ps[ri * (TB + 1) + tx + 16 * j] = w * (dw[i][j] - Sr[ri]);
-      }
-    }
-    __syncthreads();
-    const int qn = min(TB, S - q0);
-    for (int i = 0; i < qn; ++i) {
-      float gv[NDS], qv[NDS];
-#pragma unroll
-      for (int c = 0; c < NDS; ++c) {
-        const int d = lane + 32 * c;
-        gv[c] = d < D ? Gs[i * dp + d] : 0.f;
-        qv[c] = d < D ? Qs[i * dp + d] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < RPW; ++a) {
-        const int key = warp + 8 * a;
-        const float w = Ws[i * (TB + 1) + key];
-        const float p = Ps[i * (TB + 1) + key];
-#pragma unroll
-        for (int c = 0; c < NDS; ++c) {
-          akv[a][c] = fmaf(w, gv[c], akv[a][c]);
-          adk[a][c] = fmaf(p, qv[c], adk[a][c]);
-        }
-      }
-    }
-  }
-
-  T* ob = dqkv + (long long)b * S * ld + (long long)h * D;
-#pragma unroll
-  for (int a = 0; a < RPW; ++a) {
-    const int key = k0 + warp + 8 * a;
-    if (key >= S) continue;
-#pragma unroll
-    for (int c = 0; c < NDS; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        ob[hd + (long long)key * ld + d] = from_f32<T>(adk[a][c]);
-        ob[2 * hd + (long long)key * ld + d] = from_f32<T>(akv[a][c]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B4b kernel 3: dbias[e] = sum over b, in order, of partials[b][e]
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-    chronos_bwd_dbias_kernel(const float* __restrict__ partials, float* __restrict__ dbias, int B,
-                             long long n) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  float acc = 0.f;
-  for (int b = 0; b < B; ++b) acc += partials[(long long)b * n + e];
-  dbias[e] = acc;
-}
-
-template <typename T, int NDS>
-cudaError_t launch_fwd(const void* qkv, const void* seg, const void* bias, void* out, int B, int S,
-                       int H, int D, cudaStream_t stream) {
-  constexpr int TB = kFwdTile;
-  const int dp = D + 1;
-  const size_t smem = sizeof(float) * ((size_t)3 * TB * dp + (size_t)TB * (TB + 1)) +
-                      sizeof(int) * 2 * TB;
-  auto kernel = chronos_fwd_kernel<T, NDS>;
+  const size_t smem = sizeof(float) * ((size_t)TB * dp + (size_t)4 * TB * std::max(dp, TB + 1)) +
+                      sizeof(int) * 3 * TB;
+  auto kernel = chronos_fwd_f32_kernel<TM, NDS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + TB - 1) / TB, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv),
-                                           static_cast<const int*>(seg),
-                                           static_cast<const float*>(bias), static_cast<T*>(out),
-                                           S, H, D);
+  kernel<<<grid, kThreadsF32, smem, stream>>>(qkv, seg, bias, out, S, H, D);
   return cudaGetLastError();
 }
 
-template <typename T, int TM, int NDS>
-cudaError_t launch_bwd(const void* qkv, const void* seg, const void* bias, const void* g,
-                       void* dqkv, float* dbias, float* stats, float* partials, int B, int S,
-                       int H, int D, cudaStream_t stream) {
-  constexpr int TB = 16 * TM;
-  const int dp = D + 1;
-  const size_t tiles = sizeof(float) * 4 * (size_t)TB * dp;
-  const size_t smem_dq = tiles + sizeof(float) * TB * (TB + 1) + sizeof(int) * 2 * TB;
-  const size_t smem_dkdv =
-      tiles + sizeof(float) * (2 * TB * (TB + 1) + 3 * TB) + sizeof(int) * 2 * TB;
-  const dim3 grid((S + TB - 1) / TB, H, B);
-  const T* q = static_cast<const T*>(qkv);
-  const int* sg = static_cast<const int*>(seg);
-  const float* bs = static_cast<const float*>(bias);
-  const T* gg = static_cast<const T*>(g);
-  T* dq = static_cast<T*>(dqkv);
-
-  auto dq_kernel = chronos_bwd_dq_kernel<T, TM, NDS>;
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_dq);
-  if (err != cudaSuccess) return err;
-  dq_kernel<<<grid, kThreads, smem_dq, stream>>>(q, sg, bs, gg, dq, stats,
-                                                 dbias == nullptr ? nullptr : partials, S, H, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  auto dkdv_kernel = chronos_bwd_dkdv_kernel<T, TM, NDS>;
-  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_dkdv);
-  if (err != cudaSuccess) return err;
-  dkdv_kernel<<<grid, kThreads, smem_dkdv, stream>>>(q, sg, bs, gg, dq, stats, S, H, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || dbias == nullptr) return err;
-
-  const long long n = (long long)H * S * S;
-  chronos_bwd_dbias_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      partials, dbias, B, n);
-  return cudaGetLastError();
+// Output columns per lane: ceil(D / 32), rounded up to an instantiated count
+// (TM = 4 up to head_dim 128, TM = 5 up to 64: make_plan keeps to these).
+template <int TM>
+cudaError_t launch_f32_nds(const float* qkv, const int* seg, const float* bias, float* out, int B,
+                           int S, int H, int D, cudaStream_t stream) {
+  const int nds = (D + 31) / 32;
+  if (nds == 1) return launch_f32<TM, 1>(qkv, seg, bias, out, B, S, H, D, stream);
+  if (nds == 2) return launch_f32<TM, 2>(qkv, seg, bias, out, B, S, H, D, stream);
+  if constexpr (TM <= 4) {
+    if (nds == 3) return launch_f32<TM, 3>(qkv, seg, bias, out, B, S, H, D, stream);
+    if (nds == 4) return launch_f32<TM, 4>(qkv, seg, bias, out, B, S, H, D, stream);
+  }
+  if constexpr (TM <= 2) return launch_f32<TM, 8>(qkv, seg, bias, out, B, S, H, D, stream);
+  return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t dispatch_fwd(const void* qkv, const void* seg, const void* bias, void* out, int B,
+cudaError_t dispatch_f32(const float* qkv, const int* seg, const float* bias, float* out, int B,
                          int S, int H, int D, cudaStream_t stream) {
-  // Output columns per lane: ceil(D / 32), rounded up to an instantiated count.
-  const int nds = (D + 31) / 32;
-  if (nds == 1) return launch_fwd<T, 1>(qkv, seg, bias, out, B, S, H, D, stream);
-  if (nds == 2) return launch_fwd<T, 2>(qkv, seg, bias, out, B, S, H, D, stream);
-  if (nds == 3) return launch_fwd<T, 3>(qkv, seg, bias, out, B, S, H, D, stream);
-  if (nds == 4) return launch_fwd<T, 4>(qkv, seg, bias, out, B, S, H, D, stream);
-  return launch_fwd<T, 8>(qkv, seg, bias, out, B, S, H, D, stream);
-}
-
-template <typename T>
-cudaError_t dispatch_bwd(const void* qkv, const void* seg, const void* bias, const void* g,
-                         void* dqkv, float* dbias, float* stats, float* partials, int B, int S,
-                         int H, int D, cudaStream_t stream) {
-  // 64-row tiles up to D = 128, 32-row tiles above (see the header).
-  const int nds = (D + 31) / 32;
-#define MTT_LAUNCH(TM, NDS)                                                                    \
-  return launch_bwd<T, TM, NDS>(qkv, seg, bias, g, dqkv, dbias, stats, partials, B, S, H, D, \
-                                stream)
-  if (nds == 1) MTT_LAUNCH(4, 1);
-  if (nds == 2) MTT_LAUNCH(4, 2);
-  if (nds == 3) MTT_LAUNCH(4, 3);
-  if (nds == 4) MTT_LAUNCH(4, 4);
-  MTT_LAUNCH(2, 8);
-#undef MTT_LAUNCH
-}
-
-bool bad_shape(int B, int S, int H, int D) {
-  return B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || B > 65535 || H > 65535;
+  const int tm = make_plan(false, 0, B, S, H, D).rows / 16;
+  if (tm == 1) return launch_f32_nds<1>(qkv, seg, bias, out, B, S, H, D, stream);
+  if (tm == 2) return launch_f32_nds<2>(qkv, seg, bias, out, B, S, H, D, stream);
+  if (tm == 4) return launch_f32_nds<4>(qkv, seg, bias, out, B, S, H, D, stream);
+  return launch_f32_nds<5>(qkv, seg, bias, out, B, S, H, D, stream);
 }
 
 }  // namespace
@@ -677,28 +566,31 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
                                      int dtype, int B, int S, int H, int D, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_fwd<float>(qkv, seg, bias, out, B, S, H, D, st);
-  if (dtype == 1) return (int)dispatch_fwd<__nv_bfloat16>(qkv, seg, bias, out, B, S, H, D, st);
+  const int* sg = static_cast<const int*>(seg);
+  const float* bs = static_cast<const float*>(bias);
+  if (dtype == 0)
+    return (int)dispatch_f32(static_cast<const float*>(qkv), sg, bs, static_cast<float*>(out), B,
+                             S, H, D, st);
+  if (dtype == 1)
+    return (int)dispatch_bf16(static_cast<const bf16*>(qkv), sg, bs, static_cast<bf16*>(out), B,
+                              S, H, D, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// g (B, S, H*D) and dqkv (B, S, 3*H*D) contiguous in qkv's dtype, dqkv
-// written whole; stats: 3*B*H*S floats of scratch. dbias (H, S, S) fp32 and
-// partials (B*H*S*S floats of scratch) are both null or both given: with
-// them, dbias is written whole. Returns the CUDA error of the launches.
-extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const void* bias,
-                                     const void* g, void* dqkv, void* dbias, void* stats,
-                                     void* partials, int dtype, int B, int S, int H, int D,
-                                     void* stream) {
-  if (bad_shape(B, S, H, D) || (dbias == nullptr) != (partials == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* db = static_cast<float*>(dbias);
-  float* sc = static_cast<float*>(stats);
-  float* pt = static_cast<float*>(partials);
-  if (dtype == 0)
-    return (int)dispatch_bwd<float>(qkv, seg, bias, g, dqkv, db, sc, pt, B, S, H, D, st);
-  if (dtype == 1)
-    return (int)dispatch_bwd<__nv_bfloat16>(qkv, seg, bias, g, dqkv, db, sc, pt, B, S, H, D, st);
-  return (int)cudaErrorInvalidValue;
+// The plan chronos_attention_fwd (backward = 0) or chronos_attention_bwd
+// (backward = 1) takes for (dtype, B, S, H, D), for reports and for sizing the
+// dbias partials: cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync
+// m16n8k16 one-pass, 2: bf16 mma.sync tiled), threads, query rows per block,
+// keys per tile, passes over the keys, batch rows per block, blocks along
+// the batch (the (H, S, S) dbias partials the backward sums), padded
+// head_dim, output columns per block, dL as a hi + lo bf16 pair (1) or not
+// (0)}. Returns 0, or cudaErrorInvalidValue.
+extern "C" int chronos_attention_config(int backward, int dtype, int B, int S, int H, int D,
+                                        int* cfg) {
+  if (bad_shape(B, S, H, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(backward != 0, dtype, B, S, H, D);
+  const int c[10] = {p.route, p.threads, p.rows, p.keys, p.passes,
+                     p.group, p.groups,  p.dp,   p.cols, p.split_dl};
+  for (int i = 0; i < 10; ++i) cfg[i] = c[i];
+  return 0;
 }

@@ -25,7 +25,10 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = tuple(CSRC / name for name in ("attention_fwd.cu", "attention_bwd.cu", "chronos_attention.cu"))
+SOURCES = tuple(
+    CSRC / name
+    for name in ("attention_fwd.cu", "attention_bwd.cu", "chronos_attention.cu", "chronos_attention_bwd.cu")
+)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -120,6 +123,8 @@ def library() -> ctypes.CDLL:
     for fn in (lib.attention_fwd_config, lib.attention_bwd_config):
         fn.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
         fn.restype = i32
+    lib.chronos_attention_config.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    lib.chronos_attention_config.restype = i32
     return lib
 
 
@@ -140,6 +145,36 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
             f"columns per block")
     if backward and route == 1:
         text += ", dL as " + ("a hi + lo bf16 pair" if cfg[7] else "one bf16 operand")
+    return text
+
+
+_CHRONOS_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16 one-pass", "bf16 mma.sync m16n8k16 tiled")
+_CHRONOS_KEYS = ("route", "threads", "rows", "keys", "passes", "group", "groups", "padded", "cols", "split_dl")
+
+
+def chronos_plan(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads: int, dim: int) -> dict:
+    """The plan the Chronos attention kernels take for (dtype, B, S, H, D), as the library's
+    own dispatch reports it (``chronos_attention_config``): route, threads, query rows per
+    block, keys per tile, passes over the keys, batch rows per block, blocks along the batch
+    (the dbias partial planes), padded head_dim, output columns per block, dL split."""
+    cfg = (ctypes.c_int * 10)()
+    err = library().chronos_attention_config(int(backward), _DTYPE_CODES[dtype], batch, seq, heads, dim, cfg)
+    if err != 0:
+        raise RuntimeError(
+            f"no Chronos attention route for {dtype} B={batch} S={seq} H={heads} D={dim} (CUDA error {err})"
+        )
+    return dict(zip(_CHRONOS_KEYS, cfg))
+
+
+def chronos_route(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads: int, dim: int) -> str:
+    """:func:`chronos_plan` as one line of text."""
+    p = chronos_plan(backward, dtype, batch, seq, heads, dim)
+    text = (f"{_CHRONOS_ROUTES[p['route']]}, {p['threads']} threads, {p['rows']} query rows x "
+            f"{p['keys']} keys per tile, {'one pass' if p['passes'] == 1 else 'two passes'}, "
+            f"{p['group']} batch row(s) per block ({p['groups']} blocks along the batch), head_dim "
+            f"{dim} padded to {p['padded']}, {p['cols']} output columns per block")
+    if backward and p["route"] != 0:
+        text += ", dL as " + ("a hi + lo bf16 pair" if p["split_dl"] else "one bf16 operand")
     return text
 
 
@@ -322,8 +357,9 @@ def chronos_attention_bwd(
     dqkv: (B, S, 3*H*D), contiguous in qkv's dtype, dqkv written whole;
     dbias: (H, S, S) fp32, written whole, or None to skip the bias gradient.
     Allocates a (3, B, H, S) fp32 scratch for the row statistics and, with
-    dbias, a (B, H, S, S) fp32 scratch for the per-batch partials. Raises
-    ``RuntimeError`` if a launch is refused.
+    dbias, the (H, S, S) fp32 partial sums of dL the plan needs (one per
+    block along the batch; none when there is one). Raises ``RuntimeError``
+    if a launch is refused.
     """
     lib = library()
     outs = (("g", g), ("dqkv", dqkv))
@@ -336,7 +372,9 @@ def chronos_attention_bwd(
         if dbias.device != qkv.device:
             raise ValueError(f"dbias is on {dbias.device}; the kernel needs it on {qkv.device}")
         _check_aux("dbias", dbias, torch.float32, (heads, seq, seq))
-        partials = torch.empty(batch * heads * seq * seq, dtype=torch.float32, device=qkv.device)
+        groups = chronos_plan(True, qkv.dtype, batch, seq, heads, dim)["groups"]
+        planes = groups if groups > 1 else 0
+        partials = torch.empty(max(1, planes * heads * seq * seq), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.chronos_attention_bwd(

@@ -95,6 +95,56 @@ def test_plain_backward_matches_jax_kernel_vjp(batch, seq, heads, dim, segments,
     np.testing.assert_allclose(_np(dbias), _np(ref_dbias), **GRAD_TOL)
 
 
+# Chronos-2's own token counts at its head_dim 64: 67 (context 32: one segment, padded
+# tokens with ids of their own), 80 (16 packed rows of 5 tokens, the mop2 fine-tune) and
+# 97 (context 512). They cover the kernels' fitted tiles (one 80-row tile, exactly one
+# tile, one 112-row tile) and JAX's kernel packs two batch rows per program at each.
+CHRONOS2_SHAPES = [(2, 67, 2, 64, 1), (2, 80, 2, 64, 16), (2, 97, 2, 64, 1)]
+
+
+def _chronos2_case(batch, seq, heads, dim, segments, seed):
+    """As :func:`_chronos_case`, with q, k and v scaled by dim^-1/4 so that the logits
+    q.k are O(1) at head_dim 64, as the encoder's weights keep them."""
+    qkv, seg, bias, g = _chronos_case(batch, seq, heads, dim, segments, seed=seed)
+    return (qkv / dim ** 0.25).astype(np.float32), seg, bias, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,seq,heads,dim,segments", CHRONOS2_SHAPES)
+def test_plain_forward_matches_jax_kernel_at_chronos2_token_counts(batch, seq, heads, dim, segments, dtype):
+    qkv, seg, bias, _ = _chronos2_case(batch, seq, heads, dim, segments, seed=11)
+    ref = j_chronos(
+        jnp.asarray(qkv, JDT[dtype]), jnp.asarray(seg),
+        make_rowtile_bias(jnp.asarray(bias), batch, seq), heads, dim, True,
+    )
+    out = tca.plain_chronos_attention(
+        torch.from_numpy(qkv).to(TDT[dtype]), torch.from_numpy(seg), torch.from_numpy(bias)
+    )
+    assert out.dtype == TDT[dtype] and out.shape == (batch, seq, heads * dim)
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,seq,heads,dim,segments", CHRONOS2_SHAPES)
+def test_plain_backward_matches_jax_kernel_vjp_at_chronos2_token_counts(
+    batch, seq, heads, dim, segments, dtype
+):
+    """dqkv and dbias against jax.vjp of the interpret-mode kernel at Chronos-2's shapes."""
+    qkv, seg, bias, g = _chronos2_case(batch, seq, heads, dim, segments, seed=12)
+    _, vjp = jax.vjp(
+        lambda t, b: j_chronos(t, jnp.asarray(seg), make_rowtile_bias(b, batch, seq), heads, dim, True),
+        jnp.asarray(qkv, JDT[dtype]), jnp.asarray(bias),
+    )
+    ref_dqkv, ref_dbias = vjp(jnp.asarray(g, JDT[dtype]))
+    dqkv, dbias = tca.plain_chronos_attention_bwd(
+        torch.from_numpy(qkv).to(TDT[dtype]), torch.from_numpy(seg), torch.from_numpy(bias),
+        torch.from_numpy(g).to(TDT[dtype]),
+    )
+    assert dqkv.dtype == TDT[dtype] and dbias.shape == (heads, seq, seq)
+    np.testing.assert_allclose(_np(dqkv), _np(ref_dqkv), **(GRAD_TOL if dtype == "float32" else TOL[dtype]))
+    np.testing.assert_allclose(_np(dbias), _np(ref_dbias), **GRAD_TOL)
+
+
 def test_function_backward_is_the_kernel_math_and_skips_a_frozen_bias():
     """On the CPU the Function's backward is plain_chronos_attention_bwd: in fp32 it equals
     autograd through the plain forward; a bias that needs no gradient gets none."""

@@ -191,6 +191,12 @@ def test_library_name_hashes_every_file_under_csrc(monkeypatch, tmp_path, edit):
     assert _kernels.library_path() != before
 
 
+def test_every_cuda_source_under_csrc_is_built():
+    """The library is linked from every ``.cu`` file under csrc/ (one nvcc each), so a kernel
+    source added beside the others cannot be left out of the build."""
+    assert sorted(_kernels.SOURCES) == sorted(_kernels.CSRC.glob("*.cu"))
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(6)
     qkv = torch.from_numpy(rng.normal(size=(2, 8, 3 * 2 * 4)).astype(np.float32))
