@@ -46,14 +46,28 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    the device's busy and idle time and the kernels that take it;
 4. training: the same model trained through ``MultimodalTrainer``
    (``train_epoch``, ``validate_epoch``) in multimodal mode at contexts 512
-   (batch 256) and 16384 (batch 16), fp32 and bf16, and in baseline mode at
-   context 512 in fp32, horizon 32; the counters must show 20 forward and
-   20 backward launches of the right kernel per micro-batch plus the
-   validation forwards; every loss finite; baseline mode must move
-   ``per_dim_scale``; train series/s after a warm-up epoch and one profiled
-   epoch per multimodal cell; and one optimizer step on the card against
+   (batch 256) and 16384 (batch 16), fp32 and bf16, with the frozen affine
+   fold on (the trainer's default), and in baseline mode at context 512 in
+   fp32, horizon 32; the counters must show 20 forward and 20 backward
+   launches of the right kernel per micro-batch plus the validation
+   forwards; every loss finite; baseline mode must move ``per_dim_scale``;
+   train series/s after a warm-up epoch and one profiled epoch per
+   multimodal cell; the bf16 context-512 cell also on the fused path (its
+   step a CUDA graph; the replays' launches added to the count) against the
+   per-epoch loop's idle share; and one optimizer step on the card against
    the same port on the CPU in fp32 (gradients, loss and updated
    parameters; at context 16384 both sides cut depth to 4 layers);
+4b. headline: the JAX bench's ``timesfm_mm_c32`` (multimodal, batch 2048,
+   131,072 series, 3 epochs; the frozen adapter folded and stored in bf16)
+   and ``timesfm_baseline_c32`` (baseline, batch 8192, 65,536 series, 2
+   epochs, bf16 Adam moments), context and horizon 32, bf16 compute,
+   configured as ``bench.py:219-337``, on the fused path
+   (``train_epochs_fused``, one CUDA graph per trainer): train series/s over
+   the timed epochs after a warm-up run, a profiled epoch (idle share, GEMM
+   share, the top kernels), the fold state; two more baseline steps with
+   ``fused_optimizer=True`` and with ``trainable_cast_dtype=bf16``; and a
+   two-step card-against-CPU twin of each cell in bf16 (tolerances beside
+   ``TWIN_BF16_LOSS_RTOL``);
 5. TimesFM past 2,048 tokens: context 67,200 (2,100 tokens) served at batch
    2 and trained for one step (multimodal, fp32) through the flash entry
    point: 20 B3 forward and 20 B3 backward launches, finite forecasts and
@@ -66,7 +80,8 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    the CPU in fp32;
 7. Chronos-2 training through ``MultimodalTrainer`` at the JAX bench's
    geometries (``bench.py:388-403``, context 32, horizon 32): multimodal at
-   batch 128 (67 tokens) in fp32 and bf16, baseline at batch 128 in fp32
+   batch 128 (67 tokens) in fp32 and bf16 (the frozen encoder stored in
+   bf16), baseline at batch 128 in fp32
    (dbias on the path), and multimodal with 2 future patches packed 16 to a
    row at batch 512 (segment masking on the path); 16 B4f and 16 B4b
    launches per micro-batch; a profiled epoch per cell; and a one-step twin
@@ -74,8 +89,9 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    gradient to the stated tolerance.
 
 The ``kernels`` line lists every kernel with its launches on the main-path
-phases (3 to 7; each starts its counters at 0) and its numbers at its
-main-path shape in bf16.
+phases (3 to 7; each starts its counters at 0; a kernel captured in a CUDA
+graph counts once per replay) and its numbers at its main-path shape in
+bf16.
 
 ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
 checks and times every kernel at its main-path shapes in fp32 and bf16 (the
@@ -129,6 +145,29 @@ SLICE_TOL = {torch.float32: 2e-3, torch.bfloat16: 0.15}
 # 1e-2 of the elements may differ by more than 1e-2 lr (a wrong backward
 # flips about half of them).
 TWIN_LOSS_RTOL, TWIN_GRAD_RTOL, TWIN_PARAM_FRAC = 1e-4, 1e-2, 1e-2
+# Card against CPU in bf16 compute, one fused epoch of two steps (on the card the
+# first eager, the second a CUDA-graph replay), the same bf16 storage on both
+# sides: each GEMM sums in fp32 in another order and rounds to bf16, and one bf16
+# ulp (2^-8 relative) flipped in a layer's output carries through the 20 layers.
+# Losses (both steps') and the validation loss: |diff| <= 2e-2 x |CPU|. The
+# gradient of the first micro-batch over all trained leaves: ||card - CPU|| <=
+# 0.1 x ||CPU|| (about 60 bf16 roundings on the backward path, sqrt(60) x 2^-8 =
+# 3%, three times over). The trained parameters after the two Adam steps: none
+# more than 2.01 lr x steps apart (Adam normalises each step to about lr, so a
+# few % of gradient noise moves a parameter by a fraction of lr: the share of
+# elements more than 0.1 lr apart is printed, 0.121 at the first reading).
+TWIN_BF16_LOSS_RTOL, TWIN_BF16_GRAD_RTOL = 2e-2, 0.1
+# The JAX bench's headline cells (bench.py:366-374, configured as bench.py:219-337):
+# (name, mode, batch, series, timed epochs); context and horizon 32, bf16 compute,
+# learning rate 1e-4, one warm-up run of the timed epochs first.
+HEADLINE_CELLS = (
+    ("timesfm_mm_c32", "multimodal", 2048, 131072, 3),
+    ("timesfm_baseline_c32", "baseline", 8192, 65536, 2),
+)
+# Launches that CUDA-graph replays made on a main path: a wrapper counts a
+# captured launch once, at capture, so each phase adds (replays - captures) x
+# the launches of one step here.
+GRAPH_LAUNCHES: dict[str, int] = {}
 HORIZON = 128
 SERVE_REPEATS = 3
 TRAIN_HORIZON = 32
@@ -249,6 +288,20 @@ def device_profile(fn) -> tuple[float, list[tuple[str, float]]]:
         wall_ms = (time.perf_counter() - start) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()]
     return wall_ms, sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+
+
+def op_profile(fn) -> list[tuple[str, int, float]]:
+    """Run ``fn`` once eagerly under torch.profiler (CPU and CUDA activity): [(aten op,
+    calls, device ms of the kernels it launched itself)], largest first. A CUDA-graph
+    replay hides the ops behind its kernels, so this reads an eager call."""
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[2])
 
 
 def device_ms(fn, iters: int) -> tuple[float, float]:
@@ -1072,7 +1125,7 @@ def twin_check(label: str, mode: str, context: int, decoders: dict, tree: dict, 
         perm = np.arange(n, dtype=np.int32)
         mb = trainer._micro_batch(trainer.train_data, trainer._train_device, perm, np.ones(n, np.float32))
         inputs[device] = {}
-        handles = _input_grad_hooks(decoder, inputs[device])
+        handles = _input_grad_hooks(trainer.model, inputs[device])
         grads = torch.autograd.grad(trainer._loss(mb), trainer.trainable)
         for handle in handles:
             handle.remove()
@@ -1187,9 +1240,12 @@ def training_phase(seed: int, tree: dict, decoders: dict, reference) -> None:
             print(
                 f"[train] {label}: batch {batch}, {steps} steps per epoch | train loss {warm:.5f} -> "
                 f"{loss:.5f}, val loss {val_loss:.5f} | {series_per_s:.1f} train series/s after "
-                f"warm-up on {kind} | launches {delta} | layer-0 per_dim_scale moved {moved:.3g}",
+                f"warm-up on {kind} | launches {delta} | layer-0 per_dim_scale moved {moved:.3g} | "
+                f"frozen folds: seq1 {trainer.folded_seq1}, affine {trainer._folded_affine}",
                 flush=True,
             )
+            if (mode, ctx, dtype) == ("multimodal", 512, torch.bfloat16):
+                fused_against_loop(label, trainer, counters, fwd_key, bwd_key, steps, wall, busy)
 
         twin_check("multimodal context 512", "multimodal", 512,
                    {"cuda": decoders[torch.float32], "cpu": reference}, tree, seed, workdir)
@@ -1203,6 +1259,224 @@ def training_phase(seed: int, tree: dict, decoders: dict, reference) -> None:
         }
         twin_check("multimodal context 16384 (4 layers)", "multimodal", 16384, shallow,
                    random_jax_params(shallow["cpu"], seed), seed, workdir)
+
+
+def fused_against_loop(label: str, trainer, counters: dict, fwd_key: str, bwd_key: str, steps: int,
+                       loop_wall: float, loop_busy: float) -> None:
+    """The same trainer on the fused path (the step a CUDA graph): a warm-up epoch (one eager
+    step, the capture, replays), a timed epoch and a profiled one, against the per-epoch
+    loop's profiled epoch; the captured kernels' replays go into the launch count."""
+    before = {key: fn.launches for key, fn in counters.items()}
+    replays0, captures0 = trainer.graph_replays, trainer.graph_captures
+    trainer.train_epochs_fused(1)
+    trainer.train_epochs_fused(1)
+    rate = trainer.last_throughput
+    wall, kernels = device_profile(lambda: trainer.train_epochs_fused(1))
+    busy = sum(ms for _, ms in kernels)
+    delta = {key: fn.launches - before[key] for key, fn in counters.items()}
+    captures = trainer.graph_captures - captures0
+    replays = trainer.graph_replays - replays0
+    want = {key: 0 for key in counters}
+    want[fwd_key] = 20 * (2 * captures + 3)  # the eager step and the capture, + 3 validation batches
+    want[bwd_key] = 20 * 2 * captures
+    if captures != 1 or replays != 3 * steps - 1 or delta != want:
+        raise AssertionError(f"{label} fused: captures {captures}, replays {replays}, launches {delta}, "
+                             f"expected 1, {3 * steps - 1}, {want}")
+    for key in (fwd_key, bwd_key):
+        GRAPH_LAUNCHES[key] = GRAPH_LAUNCHES.get(key, 0) + 20 * (replays - captures)
+    print(
+        f"[profile] train {label} fused epochs (CUDA graph, {replays} replays): one epoch of {steps} "
+        f"steps, wall {wall:.3f} ms, device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}, "
+        f"{rate:.1f} train series/s | per-epoch loop: wall {loop_wall:.3f} ms, busy {loop_busy:.3f} ms, "
+        f"idle {1 - loop_busy / loop_wall:.3f}",
+        flush=True,
+    )
+
+
+def bench_data(mode: str, batch: int, samples: int, seed: int):
+    """The JAX bench's data (bench.py:286-306): noise series of 32 steps with a 32-step
+    horizon, one 384-dim text embedding each in multimodal mode, drawn from ``seed``; the
+    validation split is the first max(batch, 8) series."""
+    from multimodal_timesfm_torch.data.collate import StackedDataset
+
+    rng = np.random.default_rng(seed)
+    text = rng.normal(size=(samples, 1, 384)).astype(np.float32) if mode == "multimodal" else None
+    context = rng.normal(size=(samples, 32)).astype(np.float32)
+    horizon = rng.normal(size=(samples, 32)).astype(np.float32)
+    n_val = max(batch, 8)
+    train = StackedDataset(context, horizon, text, [{} for _ in range(samples)])
+    val = StackedDataset(context[:n_val], horizon[:n_val], None if text is None else text[:n_val],
+                         [{} for _ in range(n_val)])
+    return train, val
+
+
+def headline_trainer(decoder, mode: str, batch: int, train, val, epochs: int, workdir: str, seed: int,
+                     device: str = "cuda", **knobs):
+    """MultimodalTrainer as bench.py:308-337 builds it: ``epochs + 1`` epochs in the
+    schedule, lr 1e-4, no checkpoints (so the fused path), bf16 moments in baseline mode,
+    the frozen adapter stored in bf16 in multimodal mode, the folds at their defaults."""
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    args = TrainingArguments(
+        output_dir=workdir, per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+        num_train_epochs=epochs + 1, learning_rate=1e-4, eval_strategy="epoch", save_strategy="no",
+        logging_strategy="no", seed=seed,
+        adam_moment_dtype="bfloat16" if mode == "baseline" else "float32",
+    )
+    frozen = torch.bfloat16 if mode == "multimodal" else None
+    return MultimodalTrainer(decoder, args, train, val, mode, device=device, frozen_cast_dtype=frozen, **knobs)
+
+
+def is_gemm(kernel: str) -> bool:
+    """Whether a device kernel's name is a cuBLAS/CUTLASS matrix product."""
+    return any(tag in kernel.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
+def is_simt_gemm(kernel: str) -> bool:
+    """Whether a GEMM kernel's name is an fp32 product on the CUDA cores (SIMT/FFMA)."""
+    return any(tag in kernel.lower() for tag in ("f32f32_f32f32", "sgemm", "simt", "ffma"))
+
+
+def fused_twin(label: str, mode: str, decoders: dict, tree: dict, seed: int, workdir: str) -> None:
+    """One fused epoch of two steps at batch 8, configured as the headline cell, on the card
+    (the second step a CUDA-graph replay) and on the CPU, both in bf16 compute: the first
+    micro-batch's gradient, the losses, the validation loss and the trained parameters
+    (TWIN_BF16_*)."""
+    from multimodal_timesfm_torch.models.bridge import export_jax_params, load_jax_params
+
+    train, val = bench_data(mode, 8, 16, seed + 7)
+    out = {}
+    for device, decoder in decoders.items():
+        load_jax_params(decoder, tree)
+        trainer = headline_trainer(decoder, mode, 8, train, val, 1, workdir, seed, device=device)
+        mb = trainer._micro_batch(trainer.train_data, trainer._train_device, np.arange(8), np.ones(8, np.float32))
+        grads = torch.autograd.grad(trainer._loss(mb), trainer._work, allow_unused=True, materialize_grads=True)
+        grad_leaves = _leaves(export_jax_params(trainer.trainable_module, dict(zip(trainer.trainable, grads))))
+        losses, val_losses = trainer.train_epochs_fused(1)
+        params = _leaves(export_jax_params(trainer.trainable_module))
+        out[device] = (np.append(losses.ravel(), val_losses), grad_leaves, params, trainer.graph_replays)
+    (loss_g, grads_g, params_g, replays), (loss_c, grads_c, params_c, _) = out["cuda"], out["cpu"]
+    loss_err = float(np.max(np.abs(loss_g - loss_c) / np.abs(loss_c)))
+    grad_err = float(
+        np.linalg.norm(np.concatenate([(grads_g[k] - grads_c[k]).ravel() for k in grads_c]))
+        / np.linalg.norm(np.concatenate([grads_c[k].ravel() for k in grads_c]))
+    )
+    diffs = np.concatenate([np.abs(params_g[k] - params_c[k]).ravel() for k in params_c])
+    lr = 1e-4
+    print(
+        f"[headline] twin {label}, card vs CPU bf16, two steps of 8 series ({replays} replayed on the "
+        f"card): losses and val loss {np.array2string(loss_g, precision=6)} vs "
+        f"{np.array2string(loss_c, precision=6)}, max rel err {loss_err:.3g} (tol {TWIN_BF16_LOSS_RTOL}); "
+        f"first gradient ||diff|| / ||CPU|| {grad_err:.3g} (tol {TWIN_BF16_GRAD_RTOL}); trained "
+        f"parameters: max |diff| {diffs.max():.3g} (tol {2.01 * lr * 2:.3g}), "
+        f"{float(np.mean(diffs > 0.1 * lr)):.3g} of {diffs.size:,} elements > 0.1 lr",
+        flush=True,
+    )
+    if replays != 1:
+        raise AssertionError(f"twin {label}: {replays} graph replays, expected 1")
+    if not (loss_err <= TWIN_BF16_LOSS_RTOL and grad_err <= TWIN_BF16_GRAD_RTOL and diffs.max() <= 2.01 * lr * 2):
+        raise AssertionError(f"twin {label}: card and CPU disagree")
+
+
+def headline_phase(seed: int, tree: dict, decoders: dict) -> None:
+    """The JAX bench's headline cells on the fused path: train series/s over the timed
+    epochs after a warm-up run, a profiled epoch (idle share, GEMM share, top kernels), the
+    fold state; two more baseline steps with the fused optimizer and with a bf16 working
+    copy of the trained adapter; and card-against-CPU twins of both cells."""
+    import dataclasses as dc
+
+    from multimodal_timesfm_torch.models.bridge import load_jax_params
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+
+    kind = torch.cuda.get_device_name(0)
+    decoder = decoders[torch.bfloat16]
+    with tempfile.TemporaryDirectory() as workdir:
+        for name, mode, batch, samples, epochs in HEADLINE_CELLS:
+            load_jax_params(decoder, tree)
+            train, val = bench_data(mode, batch, samples, seed)
+            trainer = headline_trainer(decoder, mode, batch, train, val, epochs, workdir, seed)
+            if not trainer.fused_epochs_supported():
+                raise AssertionError(f"{name}: the fused path is not supported")
+            start = time.perf_counter()
+            trainer.train_epochs_fused(epochs)  # warm-up: the capture, cuBLAS plans, allocator
+            warm_s = time.perf_counter() - start
+            losses, val_losses = trainer.train_epochs_fused(epochs)
+            rate = trainer.last_throughput
+            wall, kernels = device_profile(lambda: trainer.train_epochs_fused(1))
+            busy = sum(ms for _, ms in kernels)
+            gemm = sum(ms for k, ms in kernels if is_gemm(k))
+            simt = sum(ms for k, ms in kernels if is_gemm(k) and is_simt_gemm(k))
+            steps = -(-samples // batch)
+            want_replays = (2 * epochs + 1) * steps - 1
+            if (trainer.graph_captures, trainer.graph_replays) != (1, want_replays):
+                raise AssertionError(f"{name}: captures {trainer.graph_captures}, replays "
+                                     f"{trainer.graph_replays}, expected 1, {want_replays}")
+            if trainer.folded_seq1 != (mode == "multimodal"):
+                raise AssertionError(f"{name}: folded_seq1 {trainer.folded_seq1}")
+            stored = sorted({str(p.dtype)[6:] for p in trainer.model.adapter.parameters()})
+            print(
+                f"[headline] {name}: {mode}, batch {batch}, {samples} series, {steps} steps per epoch, "
+                f"bf16 compute | {rate:.1f} train series/s over {epochs} epochs after a {warm_s:.1f} s "
+                f"warm-up run, on {kind} | train loss {losses[0].mean():.5f} -> {losses[-1].mean():.5f}, "
+                f"val loss {val_losses[-1]:.5f} | folded_seq1 {trainer.folded_seq1}, affine fold "
+                f"{trainer._folded_affine}, adapter stored in {'/'.join(stored)}, moments "
+                f"{str(trainer.optimizer.mu[0].dtype)[6:]} | fused epochs, one CUDA graph, "
+                f"{trainer.graph_replays} replays",
+                flush=True,
+            )
+            top = ", ".join(f"{k[:90]} {ms:.3f} ms ({ms / busy:.3f})" for k, ms in kernels[:8])
+            print(
+                f"[profile] {name}: one fused epoch of {steps} steps, wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms, idle {1 - busy / wall:.3f}, GEMM kernels {gemm:.3f} ms "
+                f"({gemm / busy:.3f} of busy: tensor-core {gemm - simt:.3f} ms, fp32 SIMT {simt:.3f} ms) "
+                f"| {top}",
+                flush=True,
+            )
+            staged = trainer._train_device
+            idx = torch.arange(batch, device=trainer.device)
+            ones = torch.ones(batch, device=trainer.device)
+            ops = op_profile(lambda: trainer._optimizer_step([trainer._gather(staged, idx, ones)]))
+            op_ms = sum(ms for _, _, ms in ops)
+            print(
+                f"[profile] {name}: one eager optimizer step by aten op (device ms of its own kernels, "
+                f"{op_ms:.3f} ms in all): "
+                + ", ".join(f"{op} x{n} {ms:.3f} ms ({ms / op_ms:.3f})" for op, n, ms in ops[:10]),
+                flush=True,
+            )
+            del trainer
+            torch.cuda.empty_cache()
+
+        for knobs in ({"fused_optimizer": True}, {"trainable_cast_dtype": torch.bfloat16}):
+            load_jax_params(decoder, tree)
+            train, val = bench_data("baseline", 8192, 2 * 8192, seed + 1)
+            trainer = headline_trainer(decoder, "baseline", 8192, train, val, 1, workdir, seed, **knobs)
+            losses, val_losses = trainer.train_epochs_fused(1)
+            work = sorted({str(p.dtype)[6:] for p in trainer._work})
+            wall, kernels = device_profile(lambda: trainer.train_epochs_fused(1))  # two replays
+            busy = sum(ms for _, ms in kernels)
+            gemm = sum(ms for k, ms in kernels if is_gemm(k))
+            simt = sum(ms for k, ms in kernels if is_gemm(k) and is_simt_gemm(k))
+            print(
+                f"[headline] timesfm_baseline_c32 with {knobs}: two steps of 8192 series (one eager, "
+                f"one replayed) | losses {np.array2string(losses.ravel(), precision=5)}, val loss "
+                f"{val_losses[0]:.5f} | differentiated weights {'/'.join(work)}, optimizer "
+                f"{type(trainer.optimizer).__name__} | two more steps (replays) profiled: wall "
+                f"{wall:.3f} ms, device busy {busy:.3f} ms, GEMM kernels {gemm:.3f} ms (tensor-core "
+                f"{gemm - simt:.3f} ms, fp32 SIMT {simt:.3f} ms)",
+                flush=True,
+            )
+            del trainer
+            torch.cuda.empty_cache()
+
+        cpu = MultimodalDecoder(
+            TimesFM2p5Adapter(dc.replace(TimesFMConfig(), compute_dtype=torch.bfloat16)),
+            MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1), device="cpu",
+        )
+        pair = {"cuda": decoder, "cpu": cpu}
+        fused_twin("timesfm_mm_c32 (folded, frozen adapter in bf16)", "multimodal", pair, tree, seed, workdir)
+        fused_twin("timesfm_baseline_c32", "baseline", pair, tree, seed, workdir)
 
 
 def launch_counters() -> dict[str, object]:
@@ -1381,15 +1655,17 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
 
     kind = torch.cuda.get_device_name(0)
     _, packed, _ = chronos_decoders(seed, dataclasses.replace(Chronos2Config(), max_output_patches=2, pack=16))
-    # (bench workload, mode, dtype, decoder, batch, steps per epoch); context 32, horizon 32
+    # (bench workload, mode, dtype, decoder, batch, steps per epoch, trainer knobs); context
+    # 32, horizon 32; the bf16 cell stores the frozen encoder in bf16, as bench.py:317 does
     cells = (
-        ("chronos_mm_h32", "multimodal", torch.float32, decoders[torch.float32], 128, 3),
-        ("chronos_mm_h32", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 128, 3),
-        ("chronos_baseline_h32", "baseline", torch.float32, decoders[torch.float32], 128, 3),
-        ("chronos_mm_h32_mop2", "multimodal", torch.float32, packed[torch.float32], 512, 3),
+        ("chronos_mm_h32", "multimodal", torch.float32, decoders[torch.float32], 128, 3, {}),
+        ("chronos_mm_h32", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 128, 3,
+         {"frozen_cast_dtype": torch.bfloat16}),
+        ("chronos_baseline_h32", "baseline", torch.float32, decoders[torch.float32], 128, 3, {}),
+        ("chronos_mm_h32_mop2", "multimodal", torch.float32, packed[torch.float32], 512, 3, {}),
     )
     with tempfile.TemporaryDirectory() as workdir:
-        for name, mode, dtype, decoder, batch, steps in cells:
+        for name, mode, dtype, decoder, batch, steps, knobs in cells:
             label = f"{name} {mode} {str(dtype)[6:]}"
             load_jax_params(decoder, tree)
             train = make_samples(32, steps * batch, seed, CHRONOS_HORIZON, patch=16)
@@ -1401,7 +1677,8 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
                 weight_decay=0.01, eval_strategy="epoch", save_strategy="no",
                 logging_strategy="no", seed=seed,
             )
-            trainer = MultimodalTrainer(decoder, args, train, val, mode, device="cuda")
+            trainer = MultimodalTrainer(decoder, args, train, val, mode, device="cuda", **knobs)
+            stored = {p.dtype for p in trainer.model.adapter.parameters()}
             table = decoder.adapter.encoder.rel_pos_bias.detach().clone()
             before = launch_counts()
             warm = trainer.train_epoch()  # first epoch: cuBLAS handles, allocator
@@ -1429,7 +1706,8 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
                 f"[train] {label}: batch {batch}, {steps} steps per epoch | train loss {warm:.5f} -> "
                 f"{loss:.5f}, val loss {val_loss:.5f} | {series_per_s:.1f} train series/s after "
                 f"warm-up on {kind} | launches {seen} (16 per micro-batch each way, 16 per "
-                f"validation batch) | rel_pos_bias moved {moved:.3g}",
+                f"validation batch) | rel_pos_bias moved {moved:.3g} | encoder weights stored in "
+                f"{', '.join(sorted(str(d)[6:] for d in stored))}",
                 flush=True,
             )
         pair = {"cuda": decoders[torch.float32], "cpu": reference}
@@ -1504,13 +1782,15 @@ def main() -> int:
     def main_path(name: str, fn, *a):
         for counter in launch_counters().values():
             counter.launches = 0
+        GRAPH_LAUNCHES.clear()
         out = phase(name, fn, *a)
         for key, n in launch_counts().items():
-            launches[key] += n
+            launches[key] += n + GRAPH_LAUNCHES.get(key, 0)
         return out
 
     tree, decoders, reference = main_path("serving", slice_phase, args.seed)
     main_path("training", training_phase, args.seed, tree, decoders, reference)
+    main_path("headline", headline_phase, args.seed, tree, decoders)
     main_path("timesfm past 2048 tokens", long_context_phase, args.seed, tree, decoders)
     del decoders, reference
     c_tree, c_decoders, c_reference = main_path("chronos serving", chronos_serving_phase, args.seed)

@@ -12,6 +12,11 @@ modules:
     ``encoder/layers/...`` (the port's ``encoder.layers.<i>``). Any other
     ``layers`` list, such as the fusion MLP's, stays a list.
 
+A stack folded for training a frozen backbone (``models/layers.py``
+``fold_seq1_attention``, ``fold_frozen_affines``) has JAX's folded layout:
+``attn/vo`` in place of ``attn/qkv``, ``attn/out`` and ``per_dim_scale``, and
+empty ``attn_norm`` and ``ffn_norm`` dicts.
+
 Leaves that are not dense kernels keep their layout: a table held as a plain
 ``nn.Parameter`` (Chronos-2's ``shared`` [REG] table and ``rel_pos_bias``) is
 not named ``weight`` and so is not transposed.
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from multimodal_timesfm_torch.models.layers import LayerNorm
+from multimodal_timesfm_torch.models.layers import LayerNorm, RMSNorm
 
 # (parent, "layers") -> how many of the two names the JAX path keeps: the
 # module list's index is always dropped, "layers" only under ``stacked_xf``.
@@ -54,20 +59,24 @@ class _Slot:
         return (len(self.params), *shape) if self.stacked else shape
 
 
+def _jax_path(name: str) -> tuple[str, bool]:
+    """(JAX tree path, whether it is a stacked leaf) of a dotted module or parameter name."""
+    parts = name.split(".")
+    at = next((i for i in range(len(parts) - 2) if tuple(parts[i : i + 2]) in _STACKS), None)
+    if at is not None:
+        keep = _STACKS[tuple(parts[at : at + 2])]
+        parts = [*parts[: at + keep], *parts[at + 3 :]]
+    return "/".join(parts), at is not None
+
+
 def _slots(module: nn.Module) -> dict[str, _Slot]:
     """JAX tree path -> the parameters it fills, from the module's parameter names."""
     slots: dict[str, _Slot] = {}
     for name, param in module.named_parameters():
-        parts = name.split(".")
-        transpose = parts[-1] == "weight"
+        transpose = name.endswith(".weight") or name == "weight"
         if transpose:
-            parts[-1] = "kernel"
-        at = next((i for i in range(len(parts) - 2) if tuple(parts[i : i + 2]) in _STACKS), None)
-        stacked = at is not None
-        if stacked:
-            keep = _STACKS[tuple(parts[at : at + 2])]
-            parts = [*parts[: at + keep], *parts[at + 3 :]]
-        path = "/".join(parts)
+            name = name[: -len("weight")] + "kernel"
+        path, stacked = _jax_path(name)
         slot = slots.setdefault(path, _Slot([], transpose, stacked))
         slot.params.append(param)
     return slots
@@ -136,6 +145,10 @@ def export_jax_params(
             arr = t.detach().to("cpu", torch.float32).numpy()
             leaves.append(arr.T if slot.transpose else arr)
         _put(tree, path, np.stack(leaves) if slot.stacked else np.ascontiguousarray(leaves[0]))
+    for name, sub in module.named_modules():
+        if isinstance(sub, (RMSNorm, LayerNorm)) and sub.scale is None:
+            # A norm whose affine was folded into the next GEMM: JAX keeps an empty dict.
+            _put(tree, _jax_path(name)[0], {})
     return _lists(tree)
 
 

@@ -8,6 +8,7 @@ Counterpart of ``multimodal_timesfm_tpu/models/decoder.py``. Pipeline:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -53,6 +54,13 @@ class MultimodalDecoder(nn.Module):
         self.adapter = adapter
         self.fusion = MultimodalFusion(self.fusion_spec, gen)
         self.to(target)
+
+    def with_children(self, **children: nn.Module) -> "MultimodalDecoder":
+        """A decoder that shares this one's config and children, except those given
+        (``adapter=...``, ``fusion=...``)."""
+        clone = copy.copy(self)
+        clone._modules = {**self._modules, **children}
+        return clone
 
     def _encode(
         self, inputs: torch.Tensor, masks: torch.Tensor, text_embeddings: torch.Tensor | None

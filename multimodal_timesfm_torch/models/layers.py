@@ -43,8 +43,61 @@ def xavier_uniform(shape: tuple[int, int], generator: torch.Generator) -> torch.
     return torch.empty(shape).uniform_(-limit, limit, generator=generator)
 
 
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices with fp32 accumulation and an fp32 result.
+
+    On CUDA one cuBLAS bf16 GEMM with an fp32 output (``aten::mm.dtype``); on
+    the CPU, where that overload has no kernel, the same products in fp32 (a
+    bf16 x bf16 product is exact in fp32, so only the summation order differs).
+    """
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _DenseBf16(torch.autograd.Function):
+    """:func:`dense` when x and the weight are both bf16, with JAX's VJP of it.
+
+    ``aten::mm.dtype`` has no derivative, so the backward is written out: the
+    bf16 cotangent times the bf16 weight (dx) and the bf16 input (dW), each
+    accumulated in fp32 and cast once to its operand's dtype; the bias
+    gradient is the fp32 sum of the cotangent.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        x2 = x.reshape(-1, x.shape[-1])
+        y = _mm32(x2, weight.t())
+        if bias is not None:
+            y = y + bias.float()
+        ctx.save_for_backward(x2, weight)
+        ctx.x_shape = x.shape
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y.to(x.dtype).reshape(*x.shape[:-1], weight.shape[0])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2, weight = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm32(g2, weight).to(x2.dtype).reshape(ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            dw = _mm32(g2.t(), x2).to(weight.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g2.float().sum(dim=0).to(ctx.bias_dtype)
+        return dx, dw, db
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-    """``x @ weight.T + bias`` accumulated in fp32, bias added in fp32, one cast to x's dtype."""
+    """``x @ weight.T + bias`` accumulated in fp32, bias added in fp32, one cast to x's dtype.
+
+    x and weight both bf16 (a bf16-stored weight under bf16 compute): a bf16
+    GEMM with an fp32 result (:class:`_DenseBf16`). Otherwise, as JAX
+    promotes mixed operands, both go to fp32 first.
+    """
+    if x.dtype == torch.bfloat16 and weight.dtype == torch.bfloat16:
+        return _DenseBf16.apply(x, weight, bias)
     b = None if bias is None else bias.float()
     return F.linear(x.float(), weight.float(), b).to(x.dtype)
 
@@ -86,30 +139,43 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return _Swish.apply(x)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm with gain ``1 + scale``."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with gain ``1 + scale``; ``scale`` None (folded into the next GEMM) only
+    normalizes.
+
+    The gain is formed and applied in fp32 whatever its storage dtype, as
+    JAX's compiled programs keep it (XLA does not round the fused ``1 + scale``
+    of a bf16-stored gain back to bf16).
+    """
     if x.dtype == torch.float32:
         var = (x * x).mean(dim=-1, keepdim=True)
-        return x * torch.rsqrt(var + eps) * (1.0 + scale)
+        normed = x * torch.rsqrt(var + eps)
+        return normed if scale is None else normed * (1.0 + scale.float())
     # fp32 variance, x.dtype intermediates, fp32 gain with one final cast:
     # casting (1 + scale) to bf16 first would snap it to a ~0.004 grid.
     var = (x * x).float().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
+    if scale is None:
+        return x * inv
     return ((x * inv).float() * (1.0 + scale.float())).to(x.dtype)
 
 
 def layer_norm(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
+    x: torch.Tensor, scale: torch.Tensor | None, bias: torch.Tensor | None, eps: float = 1e-6
 ) -> torch.Tensor:
-    """LayerNorm with population variance."""
+    """LayerNorm with population variance; ``scale`` and ``bias`` None (folded into the
+    next GEMM) only standardize. The affine is applied in fp32, as in :func:`rms_norm`."""
     if x.dtype == torch.float32:
         mu = x.mean(dim=-1, keepdim=True)
         var = x.var(dim=-1, keepdim=True, correction=0)
-        return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+        std = (x - mu) * torch.rsqrt(var + eps)
+        return std if scale is None else std * scale.float() + bias.float()
     mu32 = x.float().mean(dim=-1, keepdim=True)
     centered = x - mu32.to(x.dtype)
     var = (centered * centered).float().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
+    if scale is None:
+        return centered * inv
     return ((centered * inv).float() * scale.float() + bias.float()).to(x.dtype)
 
 
@@ -120,6 +186,15 @@ class Dense(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(xavier_uniform((out_dim, in_dim), generator))
         self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    @classmethod
+    def of(cls, weight: torch.Tensor, bias: torch.Tensor | None) -> "Dense":
+        """A Dense holding ``weight`` (out, in) and ``bias`` as given, frozen."""
+        module = cls.__new__(cls)
+        nn.Module.__init__(module)
+        module.weight = nn.Parameter(weight, requires_grad=False)
+        module.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+        return module
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.weight, self.bias)
@@ -163,7 +238,13 @@ class ResidualBlock(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head causal self-attention with key padding and a learned per-dim query scale."""
+    """Multi-head causal self-attention with key padding and a learned per-dim query scale.
+
+    Folded forms (frozen stacks; :func:`fold_seq1_attention`,
+    :func:`fold_frozen_affines`): ``vo`` alone replaces ``qkv``, ``out`` and
+    ``per_dim_scale`` (valid at one token only), or ``per_dim_scale`` is None
+    and the q block of ``qkv`` arrives scaled.
+    """
 
     def __init__(
         self, model_dims: int, num_heads: int, head_dim: int, generator: torch.Generator
@@ -174,6 +255,7 @@ class Attention(nn.Module):
         self.qkv = Dense(model_dims, 3 * num_heads * head_dim, generator)
         self.out = Dense(num_heads * head_dim, model_dims, generator)
         self.per_dim_scale = nn.Parameter(torch.zeros(head_dim))
+        self.register_module("vo", None)
 
     def forward(self, x: torch.Tensor, paddings: torch.Tensor) -> torch.Tensor:
         """Counterpart of JAX ``causal_attention``, with its dispatch.
@@ -182,12 +264,21 @@ class Attention(nn.Module):
             x: (B, S, model_dims).
             paddings: (B, S) bool, True = padded token.
 
-        Dispatch: one token -> the v projection alone (softmax over one key
-        is the identity); on CUDA 8 <= S < 256 -> the fused-qkv kernel,
-        256 <= S <= 1024 -> the whole-sequence kernel, S > 2048 -> the flash
-        entry point; everything else, and every CPU tensor, the plain path.
+        Dispatch: folded ``vo`` -> one GEMM (S must be 1); one token -> the v
+        projection alone (softmax over one key is the identity); on CUDA
+        8 <= S < 256 -> the fused-qkv kernel, 256 <= S <= 1024 -> the
+        whole-sequence kernel, S > 2048 -> the flash entry point; everything
+        else, and every CPU tensor, the plain path.
         """
         batch, seq, _ = x.shape
+        if self.vo is not None:
+            if seq != 1:
+                raise ValueError(
+                    f"attention params were folded for seq==1 (fold_seq1_attention) "
+                    f"but got seq={seq}; rebuild the model with unfolded params for "
+                    "multi-token contexts"
+                )
+            return self.vo(x)
         heads, dim = self.num_heads, self.head_dim
         hd = heads * dim
         if seq == 1:
@@ -196,18 +287,19 @@ class Attention(nn.Module):
             return self.out(out.to(x.dtype))
 
         qkv = self.qkv(x)  # (B, S, 3*H*D), column blocks q|k|v
-        # Per-dim query scale on the q column block, fp32 multiply and one cast.
-        scale = (_R_SOFTPLUS_0 / math.sqrt(dim)) * F.softplus(self.per_dim_scale.float())
-        q = (qkv[..., :hd].float() * scale.repeat(heads)).to(qkv.dtype)
-        if qkv.requires_grad:
-            # A new tensor, as JAX's concatenate: writing into the projection
-            # output would overwrite what the backward of the scale and of the
-            # projection read.
-            qkv = torch.cat([q, qkv[..., hd:]], dim=-1)
-        else:
-            # Nothing differentiates through it (serving): in place, which
-            # saves a copy of qkv per layer.
-            qkv[..., :hd] = q
+        if self.per_dim_scale is not None:
+            # Per-dim query scale on the q column block, fp32 multiply and one cast.
+            scale = (_R_SOFTPLUS_0 / math.sqrt(dim)) * F.softplus(self.per_dim_scale.float())
+            q = (qkv[..., :hd].float() * scale.repeat(heads)).to(qkv.dtype)
+            if qkv.requires_grad:
+                # A new tensor, as JAX's concatenate: writing into the projection
+                # output would overwrite what the backward of the scale and of the
+                # projection read.
+                qkv = torch.cat([q, qkv[..., hd:]], dim=-1)
+            else:
+                # Nothing differentiates through it (serving): in place, which
+                # saves a copy of qkv per layer.
+                qkv[..., :hd] = q
         key_valid = ~paddings
 
         if supports_qkv_fused(qkv, seq, dim):
@@ -263,3 +355,107 @@ class StackedTransformer(nn.Module):
         for layer in self.layers:
             x = layer(x, paddings)
         return x
+
+
+# ---------------------------------------------------------------------------
+# folds of a frozen stack (counterparts of JAX ``fold_seq1_attention``,
+# ``fold_frozen_affines`` and their tree forms)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def fold_seq1_attention(stack: StackedTransformer) -> StackedTransformer:
+    """Fold each layer's frozen attention into one (D, D) ``vo`` Dense, in place.
+
+    At one causal position softmax runs over one key, so attention is
+    ``out(v(x)) = x @ (Wv Wo) + (bv Wo + bo)``: the product is taken once in
+    fp32 and stored in the weights' own dtype; ``qkv``, ``out`` and
+    ``per_dim_scale`` go. Valid only for a frozen stack that sees one token
+    (``Attention`` raises at S > 1). Idempotent: a folded layer is left as it is.
+    """
+    for layer in stack.layers:
+        attn = layer.attn
+        if attn.vo is not None:
+            continue
+        hd = attn.num_heads * attn.head_dim
+        wo = attn.out.weight  # (D, H*Dh), (out, in)
+        weight = (wo.float() @ attn.qkv.weight[2 * hd :].float()).to(wo.dtype)
+        bias = attn.out.bias
+        if attn.qkv.bias is not None:
+            folded_bv = (wo.float() @ attn.qkv.bias[2 * hd :].float()).to(wo.dtype)
+            bias = folded_bv if bias is None else bias + folded_bv
+        attn.vo = Dense.of(weight, None if bias is None else bias.detach().clone())
+        attn.qkv = attn.out = None
+        attn.per_dim_scale = None
+    return stack
+
+
+@torch.no_grad()
+def fold_frozen_affines(stack: StackedTransformer) -> StackedTransformer:
+    """Fold each frozen layer's elementwise affines into its GEMM weights, in place.
+
+    Three exact linear rewrites, taken in fp32 and stored in each weight's own
+    dtype: the RMS gain ``1 + scale`` into the input columns of ``qkv`` (or of
+    ``vo`` when :func:`fold_seq1_attention` ran first); the softplus'd per-dim
+    query scale, tiled over the heads, into the q rows of ``qkv`` and its bias;
+    the LayerNorm scale into ``ffn_up``'s input columns and its bias, through
+    ``ffn_up``, into ``ffn_up``'s bias. The norms then only standardize and
+    ``per_dim_scale`` goes. Valid at any sequence length for a frozen stack.
+    Idempotent: a folded layer is left as it is.
+    """
+    for layer in stack.layers:
+        if layer.attn_norm.scale is None:
+            continue
+        attn = layer.attn
+        gain = 1.0 + layer.attn_norm.scale.float()  # (D,)
+        if attn.vo is not None:
+            vo = attn.vo.weight
+            attn.vo.weight = nn.Parameter((vo.float() * gain).to(vo.dtype), requires_grad=False)
+        else:
+            qkv = attn.qkv
+            weight = qkv.weight.float() * gain  # (3*H*Dh, D)
+            if attn.per_dim_scale is not None:
+                hd = attn.num_heads * attn.head_dim
+                s = (_R_SOFTPLUS_0 / math.sqrt(attn.head_dim)) * F.softplus(attn.per_dim_scale.float())
+                tiled = s.repeat(attn.num_heads)  # (H*Dh,)
+                weight[:hd] *= tiled[:, None]
+                if qkv.bias is not None:
+                    bias = qkv.bias.float()
+                    bias[:hd] *= tiled
+                    qkv.bias = nn.Parameter(bias.to(qkv.bias.dtype), requires_grad=False)
+                attn.per_dim_scale = None
+            qkv.weight = nn.Parameter(weight.to(qkv.weight.dtype), requires_grad=False)
+        layer.attn_norm.scale = None
+
+        ln, up = layer.ffn_norm, layer.ffn_up
+        w32 = up.weight.float()  # (F, D)
+        weight = w32 * ln.scale.float()
+        bias = w32 @ ln.bias.float()
+        if up.bias is not None:
+            bias = bias + up.bias.float()
+        bias_dtype = up.weight.dtype if up.bias is None else up.bias.dtype
+        up.weight = nn.Parameter(weight.to(up.weight.dtype), requires_grad=False)
+        up.bias = nn.Parameter(bias.to(bias_dtype), requires_grad=False)
+        ln.scale = ln.bias = None
+    return stack
+
+
+def fold_frozen_tree_seq1(adapter: nn.Module) -> nn.Module | None:
+    """:func:`fold_seq1_attention` on an adapter's stack, in place; None (nothing folded)
+    for an adapter without a TimesFM ``stacked_xf`` (Chronos-2). That every context the
+    adapter will see is one patch token is the caller's to check."""
+    stack = getattr(adapter, "stacked_xf", None)
+    if not isinstance(stack, StackedTransformer):
+        return None
+    fold_seq1_attention(stack)
+    return adapter
+
+
+def fold_frozen_tree_affines(adapter: nn.Module) -> nn.Module | None:
+    """:func:`fold_frozen_affines` on an adapter's stack, in place; None for an adapter
+    without a TimesFM ``stacked_xf`` (Chronos-2's T5 encoder wires its norms otherwise)."""
+    stack = getattr(adapter, "stacked_xf", None)
+    if not isinstance(stack, StackedTransformer):
+        return None
+    fold_frozen_affines(stack)
+    return adapter

@@ -1,15 +1,26 @@
-"""LR schedules and the AdamW optimizer.
+"""LR schedules and the AdamW optimizers.
 
 Counterpart of ``multimodal_timesfm_tpu/training/optimization.py``. The
 schedules are its HF-style lambdas in fp32 (linear warmup, then linear decay
-to 0 or a half cosine), indexed by optimizer step. The optimizer is its
-``make_optimizer`` chain in optax's order: global-norm clipping with the norm
-accumulated in fp32, Adam with torch-default betas and eps, decoupled weight
-decay, then the step of ``-lr``. One functional AdamW over a list of tensors
-covers both moment dtypes: the moments are stored in ``moment_dtype`` (each
-parameter's own dtype when None) and every update accumulates in fp32 and
-rounds once on store, which is ``optax.adamw`` for fp32 moments and the JAX
-package's ``scale_by_adam_lowmem`` for bf16 ones.
+to 0 or a half cosine), indexed by optimizer step; they take the step count
+as a tensor and return the rate as a 0-d fp32 tensor on the count's device,
+so an optimizer step reads no value back to the host and can be captured in
+a CUDA graph.
+
+Two optimizers share one state (a device step count, moments ``mu`` and
+``nu`` stored in ``moment_dtype`` or each parameter's own dtype) and update
+their parameters in place:
+
+  * :class:`AdamW` is the JAX package's ``make_optimizer`` chain in optax's
+    order: global-norm clipping with the norm accumulated in fp32, Adam with
+    torch-default betas and eps, decoupled weight decay, then the step of
+    ``-lr``. Every update accumulates in fp32 and rounds once on store, which
+    is ``optax.adamw`` for fp32 moments and the JAX package's
+    ``scale_by_adam_lowmem`` for bf16 ones;
+  * :class:`FusedOptimizer` (``make_fused_adamw``) is JAX's fused stepper:
+    the same math with the branchless clip ``max_norm / max(norm, max_norm)``
+    and the clipped gradient kept in fp32, over all trained tensors at once
+    with ``torch._foreach_*``.
 """
 
 from __future__ import annotations
@@ -17,10 +28,9 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence
 
-import numpy as np
 import torch
 
-Schedule = Callable[[int], float]
+Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 
 def linear_schedule_with_warmup(
@@ -28,17 +38,13 @@ def linear_schedule_with_warmup(
 ) -> Schedule:
     """lr(t) = base * t/warmup for t < warmup, else base * (T-t)/(T-warmup), floored at 0."""
 
-    def schedule(count: int) -> float:
-        t = np.float32(count)
-        if t < num_warmup_steps:
-            factor = t / np.float32(max(1, num_warmup_steps))
-        else:
-            factor = max(
-                np.float32(0.0),
-                (np.float32(num_training_steps) - t)
-                / np.float32(max(1, num_training_steps - num_warmup_steps)),
-            )
-        return float(np.float32(base_lr) * factor)
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        t = torch.as_tensor(count).to(torch.float32)
+        warm = t / max(1, num_warmup_steps)
+        decay = torch.clamp_min(
+            (num_training_steps - t) / max(1, num_training_steps - num_warmup_steps), 0.0
+        )
+        return base_lr * torch.where(t < num_warmup_steps, warm, decay)
 
     return schedule
 
@@ -51,17 +57,12 @@ def cosine_schedule_with_warmup(
 ) -> Schedule:
     """Linear warmup then cosine decay: base * 0.5*(1+cos(pi * cycles * 2 * progress))."""
 
-    def schedule(count: int) -> float:
-        t = np.float32(count)
-        if t < num_warmup_steps:
-            factor = t / np.float32(max(1, num_warmup_steps))
-        else:
-            progress = (t - np.float32(num_warmup_steps)) / np.float32(
-                max(1, num_training_steps - num_warmup_steps)
-            )
-            cos = np.cos(np.float32(math.pi * num_cycles * 2.0) * progress)
-            factor = max(np.float32(0.0), np.float32(0.5) * (np.float32(1.0) + cos))
-        return float(np.float32(base_lr) * factor)
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        t = torch.as_tensor(count).to(torch.float32)
+        warm = t / max(1, num_warmup_steps)
+        progress = (t - num_warmup_steps) / max(1, num_training_steps - num_warmup_steps)
+        decay = torch.clamp_min(0.5 * (1.0 + torch.cos(math.pi * num_cycles * 2.0 * progress)), 0.0)
+        return base_lr * torch.where(t < num_warmup_steps, warm, decay)
 
     return schedule
 
@@ -76,6 +77,11 @@ def make_schedule(
     raise NotImplementedError(f"Unsupported lr_scheduler_type: {lr_scheduler_type!r}")
 
 
+def _global_norm_fp32(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum, in tensor order, of each tensor's fp32 sum of squares."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+
+
 def clip_by_global_norm_fp32(grads: Sequence[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
     """Scale ``grads`` by ``max_norm / norm`` when their global norm reaches ``max_norm``.
 
@@ -83,18 +89,17 @@ def clip_by_global_norm_fp32(grads: Sequence[torch.Tensor], max_norm: float) -> 
     gradients' dtype; below ``max_norm`` the gradients pass unchanged. The
     choice is made on the device (no host synchronisation).
     """
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    norm = _global_norm_fp32(grads)
     keep = norm < max_norm
     return [torch.where(keep, g, ((g.float() / norm) * max_norm).to(g.dtype)) for g in grads]
 
 
-class AdamW:
-    """Clip -> Adam -> decoupled weight decay -> ``-lr``, applied in place to ``params``.
+class _Adam:
+    """State shared by both optimizers: parameters, schedule, step count and moments.
 
-    ``count`` is the number of steps taken; the learning rate of a step is
-    ``schedule(count)`` before it is incremented, as optax's
-    ``scale_by_learning_rate`` reads it. ``mu`` and ``nu`` hold the moments
-    in ``moment_dtype``.
+    ``count`` is the number of steps taken, kept on the parameters' device;
+    the learning rate of a step is ``schedule(count)`` before it is
+    incremented, as optax's ``scale_by_learning_rate`` reads it.
     """
 
     def __init__(
@@ -113,22 +118,41 @@ class AdamW:
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.count = 0
+        self._count = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
         self.mu = [torch.zeros_like(p, dtype=moment_dtype or p.dtype) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=moment_dtype or p.dtype) for p in self.params]
+
+    @property
+    def count(self) -> int:
+        """Steps taken (reads the device counter back)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(value)
+
+    def _advance(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(lr, c1, c2) of this step, as 0-d fp32 device tensors; increments the count."""
+        lr = self.schedule(self._count)
+        self._count += 1
+        t = self._count.float()
+        return lr, 1.0 - torch.pow(self.b1, t), 1.0 - torch.pow(self.b2, t)
+
+    def _check(self, grads: Sequence[torch.Tensor]) -> None:
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+
+
+class AdamW(_Adam):
+    """Clip -> Adam -> decoupled weight decay -> ``-lr``, applied in place to ``params``."""
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         """One update from ``grads`` (one per parameter, in order)."""
-        if len(grads) != len(self.params):
-            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        self._check(grads)
         if self.max_grad_norm > 0:
             grads = clip_by_global_norm_fp32(grads, self.max_grad_norm)
-        lr = self.schedule(self.count)
-        self.count += 1
-        b1, b2 = np.float32(self.b1), np.float32(self.b2)
-        c1 = float(np.float32(1.0) - b1 ** np.float32(self.count))
-        c2 = float(np.float32(1.0) - b2 ** np.float32(self.count))
+        lr, c1, c2 = self._advance()
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             g32 = g.float()
             m32 = m.float() * self.b1 + g32 * (1.0 - self.b1)
@@ -138,3 +162,55 @@ class AdamW:
             p.add_((update * -lr).to(p.dtype))
             m.copy_(m32)
             v.copy_(v32)
+
+
+class FusedOptimizer(_Adam):
+    """AdamW as one fused step over every trained tensor (JAX ``FusedOptimizer``).
+
+    The same math as :class:`AdamW` except, when clipping triggers, the
+    branchless ``max_norm / max(norm, max_norm)`` multiply and the clipped
+    gradient kept in fp32 for the moments (the chain divides, multiplies and
+    rounds it back to the gradient's dtype). Each stage is one
+    ``torch._foreach_*`` call over all tensors, in JAX's order of operations.
+    """
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """One update from ``grads`` (one per parameter, in order)."""
+        self._check(grads)
+        lr, c1, c2 = self._advance()
+        g32 = [g.float() for g in grads]
+        if self.max_grad_norm > 0:
+            norm = _global_norm_fp32(g32)
+            clip = self.max_grad_norm / torch.clamp_min(norm, self.max_grad_norm)
+            g32 = torch._foreach_mul(g32, clip)
+        m32 = torch._foreach_add(
+            torch._foreach_mul([m.float() for m in self.mu], self.b1),
+            torch._foreach_mul(g32, 1.0 - self.b1),
+        )
+        v32 = torch._foreach_add(
+            torch._foreach_mul([v.float() for v in self.nu], self.b2),
+            torch._foreach_mul(torch._foreach_mul(g32, g32), 1.0 - self.b2),
+        )
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(v32, c2)), self.eps)
+        update = torch._foreach_div(torch._foreach_div(m32, c1), denom)
+        p32 = [p.float() for p in self.params]
+        torch._foreach_add_(update, torch._foreach_mul(p32, self.weight_decay))
+        new_p = torch._foreach_sub(p32, torch._foreach_mul(update, lr))
+        torch._foreach_copy_(self.params, new_p)
+        torch._foreach_copy_(self.mu, m32)
+        torch._foreach_copy_(self.nu, v32)
+
+
+def make_fused_adamw(
+    params: Sequence[torch.Tensor],
+    schedule: Schedule,
+    weight_decay: float,
+    max_grad_norm: float,
+    moment_dtype: torch.dtype | None = None,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> FusedOptimizer:
+    """The fused AdamW stepper over ``params`` (JAX ``make_fused_adamw``)."""
+    return FusedOptimizer(params, schedule, weight_decay, max_grad_norm, moment_dtype, b1, b2, eps)

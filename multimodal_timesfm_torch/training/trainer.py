@@ -1,7 +1,7 @@
-"""Trainer: per-epoch training with mode-based parameter partitioning.
+"""Trainer: per-epoch or fused multi-epoch training with mode-based parameter partitioning.
 
-Counterpart of ``multimodal_timesfm_tpu/training/trainer.py``'s per-epoch
-loop (``train`` -> ``_train_loop``), with the same semantics:
+Counterpart of ``multimodal_timesfm_tpu/training/trainer.py``, with the same
+semantics:
 
   * multimodal mode trains the ``fusion`` child of the decoder with the
     adapter frozen; baseline mode trains the ``adapter``. The trained
@@ -9,33 +9,49 @@ loop (``train`` -> ``_train_loop``), with the same semantics:
   * all-False input masks at train time; batches padded to a static size
     with zero-weight rows, the loss divided by ``max(sum(weights) * H, 1)``;
   * point-channel MSE, or the quantile objective (``loss_type="quantile"``);
-  * gradient accumulation as the mean of the micro-batch gradients, fp32
-    global-norm clipping, AdamW, and the schedule advanced per optimizer
-    step (``training/optimization.py``);
+  * gradient accumulation as the mean of the micro-batch gradients (an
+    all-padding micro-batch runs with zero weight, as JAX's scan runs it),
+    fp32 global-norm clipping, AdamW (the optax chain, or the fused stepper
+    with ``fused_optimizer=True``), and the schedule advanced per optimizer
+    step on the device (``training/optimization.py``);
   * the epoch order drawn by a numpy ``Generator`` seeded from ``args.seed``
     (``build_epoch_indices``), which gives the JAX trainer's batch order;
   * per-epoch validation, epoch and best checkpoints with rotation, resume,
-    and the best model restored at the end on request.
+    and the best model restored at the end on request;
+  * the frozen child is a trainer-owned copy, folded (multimodal TimesFM:
+    ``fold_frozen_seq1`` at one patch token, ``fold_frozen_affine``; both on
+    by default, as in JAX) and then cast to ``frozen_cast_dtype``; the
+    caller's frozen child is left as it was. The trained child is the
+    caller's, trained in place; with ``trainable_cast_dtype`` each optimizer
+    step differentiates a cast working copy of it, made once per step, and
+    the optimizer updates the fp32 masters, which validation and
+    checkpoints read;
+  * ``train()`` takes the fused multi-epoch path (``train_epochs_fused``)
+    when ``fused_epochs_supported()``: the epoch orders drawn up front in
+    the loop's RNG order, no host synchronisation until the run ends, the
+    best trained tensors tracked on the device. On CUDA, without gradient
+    accumulation, one optimizer step (gather, forward, backward, clip,
+    update) is captured in a CUDA graph after one eager step and replayed;
+    a capture that fails raises.
 
 The datasets are staged on the device once when they fit under
 ``max_device_dataset_bytes``; each epoch then moves only its index and weight
 arrays, and micro-batches are gathered on the device. Larger datasets are
-gathered on the host, one micro-batch at a time. The trainer runs on CUDA
-unless the caller passes ``device="cpu"``.
+gathered on the host, one micro-batch at a time, and train per epoch. The
+trainer runs on CUDA unless the caller passes ``device="cpu"``.
 
 Not ported yet, and refused when asked for: ``mesh``/``shard_params_fn``
-(ROADMAP queue A item 10), the frozen folds ``fold_frozen_seq1`` and
-``fold_frozen_affine`` (item 18; both are exact up to fp32 reassociation, so
-leaving them off changes no result), ``fused_optimizer`` (item 19),
-``fuse_epochs=True`` (item 20), ``frozen_cast_dtype``/``trainable_cast_dtype``
-(item 21) and ``ckpt_backend="orbax"`` (item 22).
+(ROADMAP queue A item 10) and ``ckpt_backend="orbax"`` (item 22).
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import math
 import time
-from typing import Any
+import warnings
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -43,18 +59,31 @@ import torch
 from multimodal_timesfm_torch.data.collate import StackedDataset, stack_samples
 from multimodal_timesfm_torch.models.bridge import export_jax_params, jax_tree_arrays, load_jax_params
 from multimodal_timesfm_torch.models.decoder import MultimodalDecoder
+from multimodal_timesfm_torch.models.layers import (
+    StackedTransformer,
+    fold_frozen_tree_affines,
+    fold_frozen_tree_seq1,
+)
 from multimodal_timesfm_torch.training.checkpoint import (
     load_checkpoint,
     rotate_checkpoints,
     save_checkpoint,
 )
-from multimodal_timesfm_torch.training.optimization import AdamW, make_schedule
+from multimodal_timesfm_torch.training.optimization import AdamW, FusedOptimizer, make_schedule
 from multimodal_timesfm_torch.training_args import TrainingArguments
 from multimodal_timesfm_torch.types import TrainingMode
 from multimodal_timesfm_torch.utils.logging import get_logger
 from multimodal_timesfm_torch.utils.platform import resolve_device
 
 _logger = get_logger()
+
+
+@functools.lru_cache(maxsize=8)
+def _levels_tensor(levels: tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The quantile levels as an fp32 tensor on ``device``, made once: a host-to-device
+    copy cannot be captured in a CUDA graph."""
+    with torch.inference_mode(False):
+        return torch.tensor(levels, dtype=torch.float32).to(device)
 
 
 def quantile_objective(
@@ -76,7 +105,7 @@ def quantile_objective(
         loss = torch.sum(err * weights[:, None]) / denom
     q_channels = [c for c in range(full.shape[-1]) if c != mean_channel]
     errs = horizon[..., None] - full[..., q_channels]  # (B, H, Q)
-    levels_t = torch.tensor(levels, dtype=torch.float32, device=full.device)
+    levels_t = _levels_tensor(tuple(levels), full.device)
     pinball = torch.maximum((levels_t - 1.0) * errs, levels_t * errs)
     return loss + torch.sum(pinball * weights[:, None, None]) / (denom * len(levels))
 
@@ -116,6 +145,13 @@ def _refuse_unported(**knobs: tuple[Any, bool, str]) -> None:
             )
 
 
+def _cast_floats(module: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Store every fp32 parameter of ``module`` in ``dtype`` (others stay as they are)."""
+    for param in module.parameters():
+        if param.dtype == torch.float32:
+            param.data = param.data.to(dtype)
+
+
 class MultimodalTrainer:
     """Trainer for multimodal and baseline time-series forecasting."""
 
@@ -130,32 +166,43 @@ class MultimodalTrainer:
         max_device_dataset_bytes: int = 4 << 30,
         mesh: Any = None,
         shard_params_fn: Any = None,
-        frozen_cast_dtype: Any = None,
-        trainable_cast_dtype: Any = None,
+        frozen_cast_dtype: torch.dtype | None = None,
+        trainable_cast_dtype: torch.dtype | None = None,
         ckpt_backend: str = "pickle",
         fuse_epochs: bool | None = None,
-        fold_frozen_seq1: bool = False,
-        fold_frozen_affine: bool = False,
+        fold_frozen_seq1: bool = True,
+        fold_frozen_affine: bool = True,
         fused_optimizer: bool = False,
     ) -> None:
         """``model`` is moved to ``device`` (CUDA by default, where its absence
-        raises) and trained in place. ``fuse_epochs`` None or False runs the
-        per-epoch loop, the only path ported."""
+        raises); its trained child is trained in place, its frozen child is
+        copied when folded or cast.
+
+        ``frozen_cast_dtype`` (e.g. ``torch.bfloat16``) stores the frozen
+        child's fp32 parameters in that dtype, after the folds.
+        ``trainable_cast_dtype`` differentiates a copy of the trained child
+        cast to that dtype, keeping fp32 masters in the optimizer.
+        ``fuse_epochs``: None lets ``train()`` take the fused multi-epoch path
+        when it is supported; False forces the per-epoch loop.
+        ``fold_frozen_seq1``: in multimodal mode with one patch token on both
+        splits, fold each frozen layer's attention into one (D, D) matrix
+        (``models/layers.fold_seq1_attention``). ``fold_frozen_affine``: in
+        multimodal mode, fold the frozen norms' gains and the per-dim query
+        scale into the adjacent GEMM weights. Both are exact up to fp32
+        reassociation and apply to TimesFM only. ``fused_optimizer`` selects
+        the fused AdamW stepper; a checkpoint resumes only under the setting
+        it was written with.
+        """
         _refuse_unported(
             mesh=(mesh, mesh is not None, "10"),
             shard_params_fn=(shard_params_fn, shard_params_fn is not None, "10"),
-            fold_frozen_seq1=(fold_frozen_seq1, bool(fold_frozen_seq1), "18"),
-            fold_frozen_affine=(fold_frozen_affine, bool(fold_frozen_affine), "18"),
-            fused_optimizer=(fused_optimizer, bool(fused_optimizer), "19"),
-            fuse_epochs=(fuse_epochs, fuse_epochs is True, "20"),
-            frozen_cast_dtype=(frozen_cast_dtype, frozen_cast_dtype is not None, "21"),
-            trainable_cast_dtype=(trainable_cast_dtype, trainable_cast_dtype is not None, "21"),
             ckpt_backend=(ckpt_backend, ckpt_backend != "pickle", "22"),
         )
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        model = model.to(self.device)
         self.args = args
         self.mode = mode
+        self.fuse_epochs = fuse_epochs
 
         multimodal = mode == "multimodal"
         self.train_data = (
@@ -176,10 +223,43 @@ class MultimodalTrainer:
 
         # --- params partition: the trained child module vs the frozen rest ---
         self.trainable_key = "fusion" if multimodal else "adapter"
+        frozen_key = "adapter" if multimodal else "fusion"
         self.trainable_module = getattr(model, self.trainable_key)
         model.requires_grad_(False)
         self.trainable_module.requires_grad_(True)
         self.trainable = list(self.trainable_module.parameters())
+
+        # --- the frozen child: folded in fp32 first, then cast (JAX's order) ---
+        # The folds apply to a frozen TimesFM stack only (not to Chronos-2).
+        foldable = multimodal and isinstance(getattr(model.adapter, "stacked_xf", None), StackedTransformer)
+        patch = model.adapter.patch_len
+        self._folded_seq1 = bool(
+            fold_frozen_seq1
+            and foldable
+            and self.train_data.context.shape[1] == patch
+            and self.val_data.context.shape[1] == patch
+        )
+        self._folded_affine = bool(fold_frozen_affine and foldable)
+        self.eval_model = model
+        if self._folded_seq1 or self._folded_affine or frozen_cast_dtype is not None:
+            frozen = copy.deepcopy(getattr(model, frozen_key))
+            if self._folded_seq1:
+                fold_frozen_tree_seq1(frozen)
+            if self._folded_affine:
+                fold_frozen_tree_affines(frozen)
+            if frozen_cast_dtype is not None:
+                _cast_floats(frozen, frozen_cast_dtype)
+            self.eval_model = model.with_children(**{frozen_key: frozen})
+
+        # --- the module the training step differentiates ---
+        self._trainable_cast_dtype = trainable_cast_dtype
+        self.model = self.eval_model
+        self._work = self.trainable
+        if trainable_cast_dtype is not None:
+            work = copy.deepcopy(self.trainable_module)
+            _cast_floats(work, trainable_cast_dtype)
+            self.model = self.eval_model.with_children(**{self.trainable_key: work})
+            self._work = list(work.parameters())
 
         # --- optimizer + schedule (per optimizer step) ---
         num_batches = math.ceil(len(self.train_data) / args.per_device_train_batch_size)
@@ -193,7 +273,8 @@ class MultimodalTrainer:
             self.num_training_steps,
         )
         moment_dtype = torch.bfloat16 if args.adam_moment_dtype == "bfloat16" else None
-        self.optimizer = AdamW(
+        optimizer_cls = FusedOptimizer if fused_optimizer else AdamW
+        self.optimizer = optimizer_cls(
             self.trainable, self.schedule, args.weight_decay, args.max_grad_norm, moment_dtype
         )
 
@@ -215,11 +296,18 @@ class MultimodalTrainer:
             _logger.info("Dataset exceeds device budget; gathering micro-batches on the host")
         self._val_indices: tuple[np.ndarray, np.ndarray, int] | None = None
 
+        # The captured optimizer step of the fused path (CUDA, no accumulation):
+        # (graph, index buffer, weight buffer, loss output), kept across runs.
+        self._step_graph: tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+        self.graph_captures = 0
+        self.graph_replays = 0
+
         self.current_epoch = 0
         self.start_epoch = 0
         self.global_step = 0
         self.best_val_loss = float("inf")
         self.last_throughput: float | None = None
+        self._fused_best: dict[str, Any] | None = None
 
     # ------------------------------------------------------------------
     # data staging and the per-micro-batch computation
@@ -231,20 +319,26 @@ class MultimodalTrainer:
             tree["text"] = data.text_embeddings
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in tree.items()}
 
+    @staticmethod
+    def _gather(staged: dict[str, torch.Tensor], idx: torch.Tensor, weights: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Rows ``idx`` of each staged array, gathered on the device, with their weights."""
+        mb = {k: torch.index_select(v, 0, idx) for k, v in staged.items()}
+        mb["weights"] = weights
+        return mb
+
     def _micro_batch(
         self, data: StackedDataset, staged: dict[str, torch.Tensor] | None, idx: np.ndarray,
         weights: np.ndarray,
     ) -> dict[str, torch.Tensor]:
         """Rows ``idx`` of each dataset array, gathered on the device when it holds them."""
+        w = torch.from_numpy(np.ascontiguousarray(weights)).to(self.device)
         if staged is not None:
-            take = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            mb = {k: v[take] for k, v in staged.items()}
-        else:
-            arrays = {"context": data.context, "horizon": data.horizon}
-            if data.text_embeddings is not None:
-                arrays["text"] = data.text_embeddings
-            mb = {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(self.device) for k, v in arrays.items()}
-        mb["weights"] = torch.from_numpy(weights).to(self.device)
+            return self._gather(staged, torch.from_numpy(idx.astype(np.int64)).to(self.device), w)
+        arrays = {"context": data.context, "horizon": data.horizon}
+        if data.text_embeddings is not None:
+            arrays["text"] = data.text_embeddings
+        mb = {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(self.device) for k, v in arrays.items()}
+        mb["weights"] = w
         return mb
 
     def _loss(self, mb: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -264,25 +358,29 @@ class MultimodalTrainer:
 
     def _eval_mse(self, mb: dict[str, torch.Tensor]) -> torch.Tensor:
         masks = torch.zeros_like(mb["context"], dtype=torch.bool)
-        point = self.model(self.horizon_len, mb["context"], masks, mb.get("text"))
+        point = self.eval_model(self.horizon_len, mb["context"], masks, mb.get("text"))
         err = point.float() - mb["horizon"]
         denom = torch.clamp_min(torch.sum(mb["weights"]) * self.horizon_len, 1.0)
         return torch.sum(err * err * mb["weights"][:, None]) / denom
 
-    def _optimizer_step(self, micro_batches: list[dict[str, torch.Tensor] | None]) -> list[torch.Tensor]:
-        """One optimizer step over the ``accum`` micro-batches of a step; returns their losses.
+    def _optimizer_step(self, micro_batches: list[dict[str, torch.Tensor]]) -> torch.Tensor:
+        """One optimizer step over the ``accum`` micro-batches of a step; returns their
+        (accum,) losses.
 
-        The gradient is the mean over the step's ``accum`` micro-batches; an
-        all-padding one (None) has a zero gradient and is not run.
+        The gradient is the mean over the step's micro-batches, accumulated in
+        the masters' dtype; without accumulation the gradients go to the
+        optimizer as the backward gives them. Nothing here reads a value back
+        to the host.
         """
-        accum = self.args.gradient_accumulation_steps
+        accum = len(micro_batches)
+        if self._trainable_cast_dtype is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(self._work, self.trainable)
         grads: list[torch.Tensor] | None = None
         losses = []
         for mb in micro_batches:
-            if mb is None:
-                continue
             loss = self._loss(mb)
-            g = torch.autograd.grad(loss, self.trainable, allow_unused=True, materialize_grads=True)
+            g = torch.autograd.grad(loss, self._work, allow_unused=True, materialize_grads=True)
             if accum == 1:
                 grads = list(g)
             else:
@@ -291,15 +389,25 @@ class MultimodalTrainer:
                 grads = [a + gi / accum for a, gi in zip(grads, g)]
             losses.append(loss.detach())
         self.optimizer.step(grads)
-        return losses
+        return torch.stack(losses)
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _check_finite(flat: np.ndarray, first_epoch: int) -> None:
+        """Raise on the first non-finite loss of an (epochs, micro-batches) array."""
+        if not np.all(np.isfinite(flat)):
+            e, b = map(int, np.argwhere(~np.isfinite(flat))[0])
+            raise FloatingPointError(
+                f"Non-finite training loss at epoch {first_epoch + e}, micro-batch {b} "
+                f"(loss={flat[e, b]}). Check learning rate / data scaling."
+            )
+
     def train_epoch(self) -> float:
         """Train one epoch; returns the average per-micro-batch training loss."""
-        perm, weights, _ = build_epoch_indices(
+        perm, weights, num_batches = build_epoch_indices(
             len(self.train_data),
             self.args.per_device_train_batch_size,
             True,
@@ -309,28 +417,27 @@ class MultimodalTrainer:
         )
         staged = self._train_device if self._device_resident else None
         t0 = time.perf_counter()
-        losses: list[torch.Tensor] = []
         num_steps, accum, _ = perm.shape
-        for s in range(num_steps):
-            group = [
+        losses = [
+            self._optimizer_step([
                 self._micro_batch(self.train_data, staged, perm[s, a], weights[s, a])
-                if weights[s, a].any() else None
                 for a in range(accum)
-            ]
-            losses += self._optimizer_step(group)
-        loss_arr = torch.stack(losses).cpu().numpy()  # waits for the epoch's work
+            ])
+            for s in range(num_steps)
+        ]
+        loss_arr = torch.stack(losses).reshape(-1)[:num_batches].cpu().numpy()  # waits for the epoch
         elapsed = time.perf_counter() - t0
         self.last_throughput = len(self.train_data) / max(elapsed, 1e-9)
-
-        if not np.all(np.isfinite(loss_arr)):
-            bad = int(np.flatnonzero(~np.isfinite(loss_arr))[0])
-            raise FloatingPointError(
-                f"Non-finite training loss at epoch {self.current_epoch}, micro-batch {bad} "
-                f"(loss={loss_arr[bad]}). Check learning rate / data scaling."
-            )
-
+        self._check_finite(loss_arr[None], self.current_epoch)
         self.global_step += num_steps
         return float(np.mean(loss_arr))
+
+    @torch.no_grad()
+    def _val_loss(self, idx: torch.Tensor, weights: torch.Tensor, num_batches: int) -> torch.Tensor:
+        """Mean validation MSE over the first ``num_batches`` rows of (steps, B) device
+        indices and weights, as a device scalar."""
+        mse = [self._eval_mse(self._gather(self._val_device, idx[s], weights[s])) for s in range(num_batches)]
+        return torch.stack(mse).mean()
 
     @torch.no_grad()
     def validate_epoch(self) -> float:
@@ -340,12 +447,144 @@ class MultimodalTrainer:
                 len(self.val_data), self.args.per_device_eval_batch_size, False, 1, 1, self._rng
             )
         perm, weights, num_batches = self._val_indices
-        staged = self._val_device if self._device_resident else None
+        if self._device_resident:
+            idx = torch.from_numpy(perm[:, 0].astype(np.int64)).to(self.device)
+            return float(self._val_loss(idx, torch.from_numpy(weights[:, 0]).to(self.device), num_batches))
         mse = [
-            self._eval_mse(self._micro_batch(self.val_data, staged, perm[s, 0], weights[s, 0]))
+            self._eval_mse(self._micro_batch(self.val_data, None, perm[s, 0], weights[s, 0]))
             for s in range(num_batches)
         ]
         return float(torch.stack(mse).mean().cpu())
+
+    @property
+    def folded_seq1(self) -> bool:
+        """Whether the frozen stack's attention was folded for one token (``fold_seq1_attention``).
+
+        True only when every gate held: multimodal mode, one patch token on
+        both splits, the ``fold_frozen_seq1`` knob, and a TimesFM adapter.
+        FLOPs accounting keys on this instead of re-deriving the gates.
+        """
+        return self._folded_seq1
+
+    def fused_epochs_supported(self) -> bool:
+        """Whether ``train()`` can run the fused multi-epoch path: the device-resident
+        data path, per-epoch eval, and no per-epoch host work (epoch checkpoints
+        need the host between epochs; ``no``/``best`` do not)."""
+        return (
+            self.fuse_epochs is not False
+            and self._device_resident
+            and self.args.eval_strategy == "epoch"
+            and self.args.save_strategy in ("no", "best")
+        )
+
+    def _step_runner(self, perm: torch.Tensor, weights: torch.Tensor) -> Callable[[int, int], torch.Tensor]:
+        """``run(e, s)``: optimizer step ``s`` of epoch ``e`` of (E, steps, accum, B) device
+        indices and weights; returns its (accum,) losses.
+
+        On CUDA without accumulation the step is a CUDA graph: captured once per
+        trainer, after one eager step on a side stream (which is the step it
+        stands for), then replayed with the step's rows copied into its static
+        index and weight buffers. Elsewhere the same step runs eagerly.
+        """
+        staged = self._train_device
+        accum = perm.shape[2]
+        if self.device.type != "cuda" or accum != 1:
+            def eager(e: int, s: int) -> torch.Tensor:
+                return self._optimizer_step(
+                    [self._gather(staged, perm[e, s, a], weights[e, s, a]) for a in range(accum)]
+                )
+            return eager
+
+        def run(e: int, s: int) -> torch.Tensor:
+            if self._step_graph is None:
+                idx, w = perm[e, s, 0].clone(), weights[e, s, 0].clone()
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    loss = self._optimizer_step([self._gather(staged, idx, w)])
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                loss.record_stream(torch.cuda.current_stream(self.device))
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = self._optimizer_step([self._gather(staged, idx, w)])
+                self._step_graph = (graph, idx, w, out)
+                self.graph_captures += 1
+                return loss
+            graph, idx, w, out = self._step_graph
+            idx.copy_(perm[e, s, 0])
+            w.copy_(weights[e, s, 0])
+            graph.replay()
+            self.graph_replays += 1
+            return out
+
+        return run
+
+    def train_epochs_fused(self, num_epochs: int) -> tuple[np.ndarray, np.ndarray]:
+        """Run ``num_epochs`` x (train epoch + validation) with no host synchronisation
+        until the end (JAX ``train_epochs_fused``).
+
+        The epoch orders are drawn on the host up front in the loop's RNG order
+        and staged once; the validation loss is the same per-batch mean; under
+        ``save_strategy="best"`` the best trained tensors are tracked on the
+        device (``torch.where``), with the loop's best-epoch selection. A
+        ``best`` checkpoint written after a fused run carries the end-of-run
+        optimizer state (stamped ``optimizer_state_is_final``).
+
+        Returns:
+            (train_losses, val_losses): (E, num_micro_batches) and (E,).
+        """
+        if not self._device_resident:
+            raise RuntimeError("train_epochs_fused requires the device-resident data path")
+        accum = self.args.gradient_accumulation_steps
+        draws = [
+            build_epoch_indices(
+                len(self.train_data), self.args.per_device_train_batch_size, True, accum, 1, self._rng
+            )
+            for _ in range(num_epochs)
+        ]
+        num_batches = draws[0][2]
+        perm = torch.from_numpy(np.stack([d[0] for d in draws]).astype(np.int64)).to(self.device)
+        weights = torch.from_numpy(np.stack([d[1] for d in draws])).to(self.device)
+        val_perm, val_weights, val_nb = build_epoch_indices(
+            len(self.val_data), self.args.per_device_eval_batch_size, False, 1, 1, self._rng
+        )
+        val_idx = torch.from_numpy(val_perm[:, 0].astype(np.int64)).to(self.device)
+        val_w = torch.from_numpy(val_weights[:, 0]).to(self.device)
+
+        start = self.best_val_loss if np.isfinite(self.best_val_loss) else np.finfo(np.float32).max
+        best_val = torch.tensor(start, dtype=torch.float32, device=self.device)
+        best = [p.detach().clone() for p in self.trainable] if self.args.save_strategy == "best" else None
+        num_steps = perm.shape[1]
+        train_losses = torch.empty((num_epochs, num_steps, accum), device=self.device)
+        val_losses = torch.empty(num_epochs, device=self.device)
+
+        t0 = time.perf_counter()
+        run = self._step_runner(perm, weights)
+        for e in range(num_epochs):
+            for s in range(num_steps):
+                train_losses[e, s] = run(e, s)
+            val_loss = self._val_loss(val_idx, val_w, val_nb)
+            val_losses[e] = val_loss
+            is_best = val_loss < best_val
+            best_val = torch.where(is_best, val_loss, best_val)
+            if best is not None:
+                with torch.no_grad():
+                    for b, p in zip(best, self.trainable):
+                        b.copy_(torch.where(is_best, p, b))
+        loss_cube = train_losses.cpu().numpy()  # the run's one wait
+        val_arr = val_losses.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        self.last_throughput = num_epochs * len(self.train_data) / max(elapsed, 1e-9)
+
+        flat = loss_cube.reshape(num_epochs, -1)[:, :num_batches]
+        self._check_finite(flat, self.start_epoch)
+        self.global_step += num_epochs * num_steps
+        self._fused_best = {
+            "val": float(best_val),
+            "trainable": best,  # None unless save_strategy="best"
+            "epoch": self.start_epoch + int(np.argmin(val_arr)),
+        }
+        return flat, val_arr
 
     # --- checkpointing ---
 
@@ -353,7 +592,9 @@ class MultimodalTrainer:
     def _params_key(self) -> str:
         return "fusion_params" if self.mode == "multimodal" else "adapter_params"
 
-    def _build_checkpoint(self) -> dict:
+    def _build_checkpoint(self, params: list[torch.Tensor] | None = None) -> dict:
+        """The checkpoint payload; ``params`` (one per trained tensor) in place of the
+        live trained parameters when given."""
         opt = self.optimizer
         module = self.trainable_module
         return {
@@ -364,16 +605,43 @@ class MultimodalTrainer:
                 "mu": export_jax_params(module, dict(zip(self.trainable, opt.mu))),
                 "nu": export_jax_params(module, dict(zip(self.trainable, opt.nu))),
             },
+            # Resuming under the other optimizer is refused by name.
+            "optimizer_is_fused": isinstance(opt, FusedOptimizer),
             "best_val_loss": self.best_val_loss,
-            self._params_key: export_jax_params(module),
+            self._params_key: export_jax_params(
+                module, None if params is None else dict(zip(self.trainable, params))
+            ),
         }
 
     def resume_from_checkpoint(self, path: Any) -> None:
         """Restore the trained parameters, optimizer state and counters; call before ``train()``.
 
-        Training continues at the epoch after the checkpointed one.
+        Training continues at the epoch after the checkpointed one. A checkpoint
+        written under the other ``fused_optimizer`` setting raises; a ``best``
+        checkpoint of the fused path (best weights, end-of-run optimizer state)
+        warns.
         """
         checkpoint = load_checkpoint(path)
+        saved_fused = checkpoint.get("optimizer_is_fused")
+        live_fused = isinstance(self.optimizer, FusedOptimizer)
+        if saved_fused is not None and bool(saved_fused) != live_fused:
+            saved_kind = "fused" if saved_fused else "chain"
+            live_kind = "chain" if saved_fused else "fused"
+            raise ValueError(
+                f"Checkpoint {path} was written with the {saved_kind} optimizer "
+                f"but this trainer was built with the {live_kind} one — their "
+                "opt_state structures are incompatible. Rebuild the trainer with "
+                f"fused_optimizer={bool(saved_fused)} to resume it."
+            )
+        if checkpoint.get("optimizer_state_is_final"):
+            warnings.warn(
+                f"Resuming from {path}: this checkpoint was written by the fused "
+                "training path — its weights are the best epoch's, but the optimizer "
+                "state is end-of-run. Moments/schedule position will not match the "
+                "recorded epoch/global_step.",
+                UserWarning,
+                stacklevel=2,
+            )
         load_jax_params(self.trainable_module, checkpoint[self._params_key])
         state = checkpoint["optimizer_state"]
         with torch.no_grad():
@@ -410,7 +678,8 @@ class MultimodalTrainer:
             _logger.info("Saved best model checkpoint at epoch %d", self.current_epoch)
 
     def train(self) -> None:
-        """Main training loop: per epoch, train, validate, log and checkpoint."""
+        """Main training loop: the fused path when supported, else per epoch train,
+        validate, log and checkpoint."""
         if self.args.eval_strategy != "epoch":
             raise NotImplementedError(
                 f"eval_strategy={self.args.eval_strategy!r} is not supported; only 'epoch' is implemented."
@@ -424,6 +693,54 @@ class MultimodalTrainer:
         _logger.info("Train dataset size: %d", len(self.train_data))
         _logger.info("Validation dataset size: %d", len(self.val_data))
 
+        if self.fused_epochs_supported():
+            self._train_fused()
+        else:
+            self._train_loop()
+
+        if self.args.load_best_model_at_end:
+            best_path = self.args.checkpoint_dir / "best_model.ckpt"
+            if best_path.exists():
+                load_jax_params(self.trainable_module, load_checkpoint(best_path)[self._params_key])
+                _logger.info("Loaded best model at end of training")
+        _logger.info("Training completed")
+
+    def _train_fused(self) -> None:
+        """The fused run (``train_epochs_fused``); logging and the best checkpoint follow
+        from the returned losses."""
+        num_epochs = self.args.num_train_epochs - self.start_epoch
+        if num_epochs <= 0:
+            return
+        step0 = self.global_step
+        train_losses, val_losses = self.train_epochs_fused(num_epochs)
+        steps_per_epoch = (self.global_step - step0) // num_epochs
+        for e in range(num_epochs):
+            _logger.info(
+                "Epoch %d: Train Loss = %.6f, Val Loss = %.6f (%.1f series/s)",
+                self.start_epoch + e, float(np.mean(train_losses[e])), float(val_losses[e]),
+                self.last_throughput or 0.0,
+            )
+        # As in the loop, the best is tracked only where save_ckpt would run.
+        improved = (
+            self.args.save_strategy == "best" and float(np.min(val_losses)) < self.best_val_loss
+        )
+        if improved:
+            self.best_val_loss = self._fused_best["val"]
+            # epoch and global_step record the best epoch's position; the
+            # optimizer state is end-of-run, and the stamp says so.
+            live_step = self.global_step
+            best_epoch = self._fused_best["epoch"]
+            self.current_epoch = best_epoch
+            self.global_step = step0 + (best_epoch - self.start_epoch + 1) * steps_per_epoch
+            checkpoint = self._build_checkpoint(self._fused_best["trainable"])
+            checkpoint["optimizer_state_is_final"] = True
+            self.global_step = live_step
+            save_checkpoint(self.args.checkpoint_dir / "best_model.ckpt", checkpoint)
+            _logger.info("Saved best model checkpoint at epoch %d", best_epoch)
+        self.current_epoch = self.args.num_train_epochs - 1
+
+    def _train_loop(self) -> None:
+        """Per-epoch host loop (exact checkpoint semantics)."""
         for epoch in range(self.start_epoch, self.args.num_train_epochs):
             self.current_epoch = epoch
             train_loss = self.train_epoch()
@@ -434,10 +751,3 @@ class MultimodalTrainer:
             )
             if self.args.save_strategy in ("epoch", "best"):
                 self.save_ckpt(val_loss)
-
-        if self.args.load_best_model_at_end:
-            best_path = self.args.checkpoint_dir / "best_model.ckpt"
-            if best_path.exists():
-                load_jax_params(self.trainable_module, load_checkpoint(best_path)[self._params_key])
-                _logger.info("Loaded best model at end of training")
-        _logger.info("Training completed")

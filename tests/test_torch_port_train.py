@@ -371,7 +371,9 @@ def test_checkpoints_rotate_keep_the_best_and_resume_the_run(tmp_path):
     ckpts = sorted(p.name for p in full.args.checkpoint_dir.iterdir())
     assert ckpts == ["best_model.ckpt", "checkpoint_epoch_2.ckpt", "checkpoint_epoch_3.ckpt"]
     payload = load_checkpoint(full.args.checkpoint_dir / "checkpoint_epoch_3.ckpt")
-    assert set(payload) == {"epoch", "global_step", "optimizer_state", "best_val_loss", "adapter_params"}
+    assert set(payload) == {"epoch", "global_step", "optimizer_state", "optimizer_is_fused",
+                            "best_val_loss", "adapter_params"}
+    assert payload["optimizer_is_fused"] is False
     assert payload["epoch"] == 3 and payload["global_step"] == 8
     assert set(payload["optimizer_state"]) == {"count", "mu", "nu"}
     assert int(payload["optimizer_state"]["count"]) == 8
@@ -441,10 +443,7 @@ def test_trainer_needs_cuda_unless_told_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize(
     "knob,value",
-    [("mesh", object()), ("shard_params_fn", lambda p, m: p), ("fold_frozen_seq1", True),
-     ("fold_frozen_affine", True), ("fused_optimizer", True), ("fuse_epochs", True),
-     ("frozen_cast_dtype", torch.bfloat16), ("trainable_cast_dtype", torch.bfloat16),
-     ("ckpt_backend", "orbax")],
+    [("mesh", object()), ("shard_params_fn", lambda p, m: p), ("ckpt_backend", "orbax")],
 )
 def test_trainer_refuses_unported_knobs(tmp_path, knob, value):
     port, _, _ = _decoder_pair()
