@@ -86,10 +86,27 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    row at batch 512 (segment masking on the path); 16 B4f and 16 B4b
    launches per micro-batch; a profiled epoch per cell; and a one-step twin
    on the CPU in both modes, the baseline one holding the ``rel_pos_bias``
-   gradient to the stated tolerance.
+   gradient to the stated tolerance;
+8. time-mmd data: a synthetic Time-MMD tree written with the ``csv`` module
+   from ``--seed`` (the ten domains, nine monthly of 500 rows and the daily
+   Environment of 11,000; report CSVs, search CSVs on half the domains; NaN,
+   inf and NA-like cells; texts reaching every length bucket and the cut at
+   256 tokens) and a MiniLM-L6 snapshot with weights drawn from ``--seed``;
+   embedding caches built on the card through the port's
+   ``time_mmd.cache`` CLI at context 32 and 512 (patch 32), augmented and
+   plain: samples, texts, seconds and texts/s, one domain's build profiled
+   (idle share, top kernels), the native tokenizer required where ``g++``
+   exists, the cache reloaded equal and every pickle holding numpy only;
+   MiniLM-L6 on the card against the CPU on 256 texts, with TF32 allowed
+   outside the encoder; ModernBERT at ruri-v3-310m width (25 layers) on 256
+   texts in chunks of 32, and a 3-layer twin against the CPU; then
+   ``load_fold_datasets`` and ``MultimodalTrainer`` on TimesFM-2.5 200M
+   from the caches (context 32 on the headline's fused, folded bf16 path;
+   context 512 in bf16 on the per-epoch loop, 20 B1f and 20 B1b launches
+   per micro-batch) and ``MultimodalEvaluator`` on the test fold.
 
 The ``kernels`` line lists every kernel with its launches on the main-path
-phases (3 to 7; each starts its counters at 0; a kernel captured in a CUDA
+phases (3 to 8; each starts its counters at 0; a kernel captured in a CUDA
 graph counts once per replay) and its numbers at its main-path shape in
 bf16.
 
@@ -1716,6 +1733,382 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
                    report=("/encoder/rel_pos_bias",))
 
 
+# --- the time-mmd data phase -------------------------------------------------
+
+# The synthetic Time-MMD tree: the ten domains of the Time-MMD release (their
+# columns from the port's DEFAULT_TIME_MMD_CONFIGS: Health_AFR's start column is
+# ``date``), nine monthly domains of TIME_MMD_ROWS rows and the
+# daily Environment domain of TIME_MMD_DAILY_ROWS; a report row every 7 rows (fact
+# and preds), a search table on every other domain. Per domain (in
+# TIME_MMD_DOMAINS order) the median words of a text cell and the share of cells
+# that are NA-like, so that every length bucket from 16 to 256 occurs and texts
+# are cut at 256.
+TIME_MMD_DOMAINS = ("Agriculture", "Climate", "Economy", "Energy", "Environment",
+                    "Health_AFR", "Health_US", "Security", "SocialGood", "Traffic")
+TIME_MMD_ROWS = 500
+# Environment is cut from 11,000 daily rows to 4,000: at 11,000 the phase took
+# about 146 s on an NVIDIA H100 80GB HBM3 at 700 W (the headline cache's calls of
+# one text set the pace), over its 120 s budget.
+TIME_MMD_DAILY_ROWS = 4000
+TEXT_MEDIAN_WORDS = (1, 2, 3, 5, 8, 12, 18, 25, 40, 3)
+TEXT_NA_SHARE = (0.7, 0.5, 0.3, 0.2, 0.1, 0.1, 0.1, 0.1, 0.05, 0.4)
+NA_CELLS = ("NA", "null", "", "N/A", "NA - not available", "None", "nan", "NULL")
+SYLLABLES = ("ka", "lo", "mi", "ne", "ru", "ta", "sho", "vi", "de", "po", "gra", "tel", "an", "es", "or")
+# Card against the same encoder on the CPU, both fp32 without TF32, on L2-normalised
+# embeddings: the same fp32 products summed in another order (1e-6 expected).
+ENCODER_TOL = 1e-4
+# (context, horizon) of the two cache geometries, patch 32: the headline's, and
+# context 512 (16 texts a call).
+CACHE_GEOMETRIES = ((32, 32), (512, 128))
+TRAIN_DOMAINS = ("Agriculture", "Climate", "Economy", "Energy", "Environment", "Health_AFR", "Security")
+
+
+def write_csv(path, header: list[str], rows: list[list[str]]) -> None:
+    import csv
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        writer.writerows(rows)
+
+
+def write_time_mmd_tree(root, seed: int) -> list[str]:
+    """Write the synthetic Time-MMD tree under ``root`` with the ``csv`` module from numpy
+    draws; return its words (3,000 made of SYLLABLES). Each domain's numerical CSV has
+    its own configured columns, rows in shuffled order, an empty first and a NaN last
+    value and a few interior NA, nan and inf cells."""
+    import datetime as dt
+
+    from multimodal_timesfm_torch.time_mmd.columns import DEFAULT_TIME_MMD_CONFIGS
+
+    rng = np.random.default_rng(seed)
+    words: dict[str, None] = {}
+    while len(words) < 3000:
+        words["".join(rng.choice(SYLLABLES, size=int(rng.integers(1, 5))))] = None
+    vocab_words = np.array(list(words))
+    for k, domain in enumerate(TIME_MMD_DOMAINS):
+        cols = DEFAULT_TIME_MMD_CONFIGS.get_config_for_domain(domain)
+        daily = domain == "Environment"
+        n = TIME_MMD_DAILY_ROWS if daily else TIME_MMD_ROWS
+        if daily:
+            starts = ends = [dt.date(1990, 1, 1) + dt.timedelta(days=i) for i in range(n)]
+        else:
+            starts = [dt.date(1980 + i // 12, i % 12 + 1, 1) for i in range(n)]
+            ends = [dt.date(1980 + (i + 1) // 12, (i + 1) % 12 + 1, 1) - dt.timedelta(days=1) for i in range(n)]
+        t = np.arange(n)
+        series = 10 + 3 * np.sin(2 * np.pi * t / (365 if daily else 12)) + 0.1 * np.cumsum(rng.normal(size=n))
+        values = [f"{v:.4f}" for v in series]
+        values[0], values[-1] = "", "NaN"
+        for i in rng.choice(np.arange(2, n - 2), size=n // 50, replace=False):
+            values[i] = str(rng.choice(["NA", "nan", "inf", "-inf", "null"]))
+        write_csv(root / "numerical" / domain / f"{domain}.csv",
+                  [cols.start_date_col, cols.end_date_col, *cols.time_series_cols, "extra"],
+                  [[starts[i].isoformat(), ends[i].isoformat(), values[i], "x"] for i in rng.permutation(n)])
+
+        def cell() -> str:
+            if rng.random() < TEXT_NA_SHARE[k]:
+                return str(rng.choice(NA_CELLS))
+            count = int(np.clip(np.exp(rng.normal(np.log(TEXT_MEDIAN_WORDS[k]), 0.8)), 1, 400))
+            return " ".join(vocab_words[rng.integers(0, len(vocab_words), count)]).capitalize() + "."
+
+        def table(offset: int, span: int) -> list[list[str]]:
+            return [[starts[i].isoformat(), ends[min(i + span, n - 1)].isoformat(), cell(), cell()]
+                    for i in range(offset, n, 7)]
+
+        header = ["start_date", "end_date", "fact", "preds"]
+        write_csv(root / "textual" / domain / f"{domain}_report.csv", header, table(0, 6))
+        if k % 2 == 0:
+            write_csv(root / "textual" / domain / f"{domain}_search.csv", header, table(3, 10))
+    return list(words)
+
+
+def write_minilm_snapshot(path, words: list[str], seed: int) -> None:
+    """A local snapshot at all-MiniLM-L6-v2's geometry: ``config.json``, a 30,522-entry
+    ``vocab.txt`` (2,400 of the tree's words, the syllables and their ``##`` pieces, so
+    the other words split or become [UNK]) and ``pytorch_model.bin`` under HF's names,
+    weights drawn from ``seed`` (no pretrained weights are in the repository)."""
+    from multimodal_timesfm_torch.models.bridge import export_jax_params
+    from multimodal_timesfm_torch.text.bert import BertConfig, BertEncoder
+    from multimodal_timesfm_torch.text.convert import hf_bert_state
+
+    cfg = BertConfig.minilm_l6()
+    path.mkdir(parents=True)
+    module = BertEncoder(cfg, torch.Generator().manual_seed(seed))
+    state = hf_bert_state(export_jax_params(module))
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path / "pytorch_model.bin")
+    entries = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ",", ":", *words[:2400], *SYLLABLES,
+               *(f"##{s}" for s in SYLLABLES)]
+    entries += [f"[unused{i}]" for i in range(cfg.vocab_size - len(entries))]
+    (path / "vocab.txt").write_text("\n".join(entries) + "\n")
+    (path / "config.json").write_text(json.dumps({
+        "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "intermediate_size": cfg.intermediate_size,
+        "vocab_size": cfg.vocab_size, "max_position_embeddings": cfg.max_position_embeddings,
+    }))
+
+
+def _types(node, seen: set) -> set:
+    seen.add(type(node))
+    if isinstance(node, dict):
+        for key, value in node.items():
+            seen.add(type(key))
+            _types(value, seen)
+    elif isinstance(node, list):
+        for value in node:
+            _types(value, seen)
+    return seen
+
+
+def check_cache_file(path) -> list:
+    """Load one cache pickle and fail unless it holds dicts, lists, Python scalars and
+    float32 numpy arrays only (what the JAX package's pickles hold)."""
+    import pickle
+
+    samples = pickle.loads(path.read_bytes())
+    kinds = _types(samples, set())
+    if not kinds <= {list, dict, str, int, float, bool, np.ndarray}:
+        raise AssertionError(f"{path.name} holds {sorted(k.__name__ for k in kinds)}")
+    dtypes = {a.dtype for s in samples for a in s.values() if isinstance(a, np.ndarray)}
+    if dtypes - {np.dtype(np.float32)}:
+        raise AssertionError(f"{path.name} holds arrays of {dtypes}")
+    return samples
+
+
+def time_mmd_phase(seed: int, tree: dict) -> None:
+    """CSVs -> windows and per-patch texts -> MiniLM-L6 on the card -> the embedding cache
+    (the port's ``time_mmd.cache`` CLI) -> the fold loader -> MultimodalTrainer and
+    MultimodalEvaluator on TimesFM-2.5 200M; ModernBERT at ruri-v3-310m width; both
+    encoders held to the port on the CPU."""
+    import collections
+    import copy
+    import shutil
+    from pathlib import Path
+
+    from multimodal_timesfm_torch.data.preprocess import PreprocessPipeline
+    from multimodal_timesfm_torch.models.bridge import load_jax_params
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+    from multimodal_timesfm_torch.text.encoders import JapaneseTextEncoder, build_text_encoder, fp32_matmuls
+    from multimodal_timesfm_torch.text.modernbert import ModernBertConfig, ModernBertEncoder
+    from multimodal_timesfm_torch.text.tokenizer import HashTokenizer
+    from multimodal_timesfm_torch.time_mmd import cache as cache_cli
+    from multimodal_timesfm_torch.time_mmd.cross_validation import DomainSpec, load_fold_datasets
+    from multimodal_timesfm_torch.time_mmd.dataset import TimeMmdDataset
+    from multimodal_timesfm_torch.training.evaluator import MultimodalEvaluator
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    kind = torch.cuda.get_device_name(0)
+    print(f"[data] matmul flags at the start: float32_matmul_precision "
+          f"{torch.get_float32_matmul_precision()!r}, cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root, snapshot, cache_dir = tmp / "Time-MMD", tmp / "minilm", tmp / "cache"
+        t0 = time.perf_counter()
+        words = write_time_mmd_tree(root, seed)
+        write_minilm_snapshot(snapshot, words, seed)
+        rows = {d: sum(1 for _ in open(root / "numerical" / d / f"{d}.csv")) - 1 for d in TIME_MMD_DOMAINS}
+        print(f"[data] synthetic Time-MMD tree (csv module, seed {seed}): {rows} rows, report CSVs on every "
+              f"domain, search CSVs on {len(list(root.glob('textual/*/*_search.csv')))}; MiniLM-L6 snapshot "
+              f"(pytorch_model.bin, weights from seed {seed}) in {time.perf_counter() - t0:.1f} s", flush=True)
+        (tmp / "model.json").write_text(json.dumps({
+            "adapter": {"type": "timesfm", "patch_len": 32},
+            "fusion": {"text_encoder_type": "english", "text_embedding_dims": 384}}))
+
+        encoder = build_text_encoder("english", str(snapshot), embedding_dim=384)
+        if shutil.which("g++") and encoder.tokenizer_name != "WordPieceTokenizer (native)":
+            raise AssertionError(f"g++ is present but the tokenizer is {encoder.tokenizer_name}")
+        print(f"[data] encoder {type(encoder).__name__} on {encoder.device}, tokenizer "
+              f"{encoder.tokenizer_name}, "
+              f"pretrained stamp {encoder.is_pretrained}", flush=True)
+
+        # Caches through the CLI: augmented and plain, at both geometries.
+        for ctx, hor in CACHE_GEOMETRIES:
+            forecast = tmp / f"forecast_c{ctx}.json"
+            forecast.write_text(json.dumps({"context_len": ctx, "horizon_len": hor}))
+            for augment in (True, False):
+                argv = ["--data-path", str(root), "--model-config", str(tmp / "model.json"),
+                        "--forecast-config", str(forecast), "--text-encoder-type", "english",
+                        "--text-model-dir", str(snapshot), "--cache-dir", str(cache_dir), "--seed", str(seed),
+                        *(["--augment"] if augment else [])]
+                start = time.perf_counter()
+                if cache_cli.main(argv) != 0:
+                    raise AssertionError(f"cache CLI failed: {argv}")
+                seconds = time.perf_counter() - start
+                suffix = "_aug" if augment else ""
+                files = sorted(cache_dir.glob(f"time_mmd_*_english_p32_c{ctx}_h{hor}{suffix}.pkl"))
+                if len(files) != len(TIME_MMD_DOMAINS):
+                    raise AssertionError(f"{len(files)} cache files at context {ctx}{suffix}")
+                samples = sum(len(check_cache_file(f)) for f in files)
+                texts = samples * (ctx // 32)
+                print(f"[data] cache context {ctx} horizon {hor}{' --augment' if augment else ''}: {samples} "
+                      f"samples, {texts} texts ({ctx // 32} a call) in {seconds:.2f} s (CLI wall: CSVs, "
+                      f"windows, encoder, pickles), {texts / seconds:.1f} texts/s on {kind}", flush=True)
+
+        # Length buckets and the cut at 256 over the headline cache's texts (one a call).
+        def texts_of(sample) -> list[str]:
+            return [" ".join(p) if p else "" for p in sample["patched_texts"]]
+
+        buckets, cut = collections.Counter(), 0
+        for domain in TIME_MMD_DOMAINS:
+            for sample in TimeMmdDataset(root, domain, 32, 32, 32, augment=True):
+                texts = texts_of(sample)
+                buckets[encoder.tokenizer.encode_batch(texts, 256)[0].shape[1]] += 1
+                cut += sum(len(encoder.tokenizer.encode(t, 4096)) > 256 for t in texts)
+        print(f"[data] context-32 --augment calls by padded length: {dict(sorted(buckets.items()))}; "
+              f"texts cut at 256 tokens: {cut}", flush=True)
+        if set(buckets) != {16, 32, 64, 128, 256} or cut == 0:
+            raise AssertionError("the tree does not reach every length bucket and the cut at 256")
+
+        # One domain's build, profiled: the encode loop's idle share and top kernels.
+        pipeline = PreprocessPipeline(tmp / "profiled")
+        dataset = TimeMmdDataset(root, "Agriculture", 32, 32, 32, augment=True)
+        path = pipeline.get_path("time_mmd", "Agriculture", "english", 32, 32, 32, augment=True)
+        built = []
+        wall, kernels = device_profile(lambda: built.append(pipeline.prepare(path, lambda: dataset, encoder,
+                                                                             force_rebuild=True)))
+        busy = sum(ms for _, ms in kernels)
+        top = ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in kernels[:6])
+        print(f"[profile] cache build of Agriculture, context 32 --augment ({len(dataset)} calls of one "
+              f"text): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}, "
+              f"{len(dataset) / wall * 1e3:.1f} texts/s | {top}", flush=True)
+        reloaded = pipeline.load(path)
+        same = len(reloaded) == len(built[0]) and all(
+            a["metadata"] == b["metadata"] and all(np.array_equal(a[k], b[k]) for k in
+                                                   ("context", "horizon", "text_embeddings"))
+            for a, b in zip(reloaded, built[0]))
+        if not same:
+            raise AssertionError("the cache file does not reload equal")
+        print("[data] the profiled cache reloads equal; every cache pickle holds dicts, lists, Python "
+              "scalars and float32 numpy arrays only", flush=True)
+
+        # Card against CPU: MiniLM-L6 at full width on 256 texts of the tree, every step-th of
+        # its plain windows' texts at both geometries (short and cut alike), with TF32 turned
+        # on for the process.
+        plain = [t for ctx, hor in CACHE_GEOMETRIES for d in TIME_MMD_DOMAINS
+                 for s in TimeMmdDataset(root, d, 32, ctx, hor) for t in texts_of(s)]
+        step = max(1, len(plain) // 256)
+        picked = plain[::step][:256]
+        start = time.perf_counter()
+        cpu_encoder = build_text_encoder("english", str(snapshot), embedding_dim=384, device="cpu")
+        previous = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            card = encoder(picked)
+        finally:
+            torch.set_float32_matmul_precision(previous)
+        err = float(np.abs(card - cpu_encoder(picked)).max())
+        print(f"[data] MiniLM-L6 card vs CPU on {len(picked)} texts (every {step}th of the {len(plain)} plain "
+              f"windows' texts), process precision 'high' (TF32 allowed) outside the encoder: max abs diff "
+              f"{err:.3g} (tol {ENCODER_TOL}) | "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        if not err <= ENCODER_TOL:
+            raise AssertionError("MiniLM-L6: card and CPU disagree")
+
+        # ModernBERT at ruri-v3-310m width on the card; a 3-layer twin on the CPU.
+        start = time.perf_counter()
+        ruri = JapaneseTextEncoder()
+        ruri(picked[:32])  # warm-up: cuBLAS handles, allocator
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - start
+        start = time.perf_counter()
+        emb = ruri(picked)
+        seconds = time.perf_counter() - start
+        norms = np.linalg.norm(emb, axis=1)
+        print(f"[data] ModernBERT {ruri.config.num_layers} layers x {ruri.config.hidden_size} on {kind}: "
+              f"{len(picked)} texts in chunks of 32 in {seconds:.3f} s, {len(picked) / seconds:.1f} texts/s | "
+              f"shape {emb.shape}, |norm - 1| max {np.abs(norms - 1).max():.2g}, tokenizer "
+              f"{ruri.tokenizer_name} | "
+              f"built and warmed in {built_s:.1f} s",
+              flush=True)
+        if emb.shape != (len(picked), 768) or not np.isfinite(emb).all() or np.abs(norms - 1).max() > 1e-4:
+            raise AssertionError("ModernBERT: bad embeddings")
+        del ruri
+        start = time.perf_counter()
+        cfg3 = dataclasses.replace(ModernBertConfig.ruri_v3_310m(), num_layers=3)
+        cpu_model = ModernBertEncoder(cfg3, torch.Generator().manual_seed(seed)).eval()
+        card_model = copy.deepcopy(cpu_model).cuda()
+        tok = HashTokenizer(cfg3.vocab_size)
+        worst, seqs = 0.0, []
+        with torch.no_grad(), fp32_matmuls():
+            for i in range(0, 64, 32):
+                ids, mask = (torch.from_numpy(a) for a in tok.encode_batch(picked[i:i + 32], 256))
+                seqs.append(ids.shape[1])
+                got = card_model(ids.cuda(), mask.cuda()).cpu()
+                worst = max(worst, float((got - cpu_model(ids, mask)).abs().max()))
+        if max(seqs) <= cfg3.local_attention_window // 2 + 1:
+            raise AssertionError(f"ModernBERT twin: padded lengths {seqs} never reach past the local window")
+        print(f"[data] ModernBERT 3 layers (global, local, local; window {cfg3.local_attention_window}) x "
+              f"{cfg3.hidden_size} card vs CPU on 64 texts (padded to {seqs}): max abs diff {worst:.3g} "
+              f"(tol {ENCODER_TOL}) | {time.perf_counter() - start:.1f} s", flush=True)
+        if not worst <= ENCODER_TOL:
+            raise AssertionError("ModernBERT: card and CPU disagree")
+        del card_model, cpu_model
+
+        # Training from the caches: TimesFM-2.5 200M, bf16 compute.
+        adapter = TimesFM2p5Adapter(dataclasses.replace(TimesFMConfig(), compute_dtype=torch.bfloat16))
+        dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+        decoder = MultimodalDecoder(adapter, dec_cfg, device="cuda")
+        folds = {
+            32: ([DomainSpec(d, augment=True) for d in TRAIN_DOMAINS],
+                 [DomainSpec("Health_US"), DomainSpec("SocialGood")], [DomainSpec("Traffic")]),
+            # Only the daily domain is long enough for a 640-step window.
+            512: ([DomainSpec("Environment", augment=True)], [DomainSpec("Environment")],
+                  [DomainSpec("Environment")]),
+        }
+        workdir = tmp / "train"
+        for ctx, hor in CACHE_GEOMETRIES:
+            start = time.perf_counter()
+            train, val, test = load_fold_datasets(*folds[ctx], "english", 32, ctx, hor, cache_dir)
+            load_jax_params(decoder, tree)
+            before = launch_counts()
+            if ctx == 32:  # the headline configuration: folded, frozen adapter in bf16, fused epochs
+                trainer = headline_trainer(decoder, "multimodal", 2048, train, val, 1, str(workdir), seed)
+                if not (trainer.fused_epochs_supported() and trainer.folded_seq1):
+                    raise AssertionError("context 32: not the fused, folded headline path")
+                trainer.train_epochs_fused(1)  # warm-up: the capture, cuBLAS plans
+                losses, val_losses = trainer.train_epochs_fused(1)
+                losses = list(losses.ravel()) + list(np.ravel(val_losses))
+                batch, path_name = 2048, "fused epochs, one CUDA graph"
+            else:  # bf16 on the per-epoch loop, B1 in both directions
+                batch, path_name = 256, "per-epoch loop"
+                args = TrainingArguments(
+                    output_dir=str(workdir), per_device_train_batch_size=batch,
+                    per_device_eval_batch_size=batch, num_train_epochs=1, learning_rate=TRAIN_LR,
+                    weight_decay=0.01, eval_strategy="epoch", save_strategy="no", logging_strategy="no",
+                    seed=seed,
+                )
+                trainer = MultimodalTrainer(decoder, args, train, val, "multimodal", device="cuda")
+                losses = [trainer.train_epoch(), trainer.train_epoch(), trainer.validate_epoch()]
+            rate = trainer.last_throughput
+            metrics = MultimodalEvaluator(trainer.eval_model, device="cuda").evaluate(test, batch_size=batch)
+            steps, val_batches, test_batches = (-(-len(d) // batch) for d in (train, val, test))
+            want = {}  # one token at context 32: the folded stack runs no attention kernel
+            if ctx == 512:  # two epochs of steps, a validation and a test pass, 20 layers
+                want = {"B1f": 20 * (2 * steps + val_batches + test_batches), "B1b": 20 * 2 * steps}
+            seen = expect_launches(f"time-mmd context {ctx}", before, want)
+            values = [*losses, metrics["mse"], metrics["mae"]]
+            if not np.isfinite(values).all():
+                raise AssertionError(f"time-mmd context {ctx}: non-finite {values}")
+            print(f"[data] train TimesFM-2.5 200M from the context-{ctx} caches ({path_name}, bf16): "
+                  f"{len(train)} / {len(val)} / {len(test)} train / val / test series, batch {batch}, {steps} "
+                  f"steps an epoch, two epochs | losses {np.array2string(np.asarray(losses), precision=5)} | "
+                  f"{rate:.1f} train series/s (the second epoch) on {kind} | "
+                  f"{time.perf_counter() - start:.1f} s "
+                  f"| test mse {metrics['mse']:.5f}, mae {metrics['mae']:.5f} | launches "
+                  f"{seen} (20 per micro-batch each way, 20 per validation and test batch)", flush=True)
+            del trainer
+            torch.cuda.empty_cache()
+    # The card's path reads CSVs, snapshots and configs without these (YAML is tried first
+    # where it is installed; a JSON config reads without it).
+    imported = sorted(m for m in ("pandas", "safetensors", "transformers", "jax") if m in sys.modules)
+    if imported:
+        raise AssertionError(f"the data path imported {imported}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1795,6 +2188,9 @@ def main() -> int:
     del decoders, reference
     c_tree, c_decoders, c_reference = main_path("chronos serving", chronos_serving_phase, args.seed)
     main_path("chronos training", chronos_training_phase, args.seed, c_tree, c_decoders, c_reference)
+    del c_decoders, c_reference
+    torch.cuda.empty_cache()
+    main_path("time-mmd data", time_mmd_phase, args.seed, tree)
     idle = [key for key, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")

@@ -18,8 +18,14 @@ A stack folded for training a frozen backbone (``models/layers.py``
 empty ``attn_norm`` and ``ffn_norm`` dicts.
 
 Leaves that are not dense kernels keep their layout: a table held as a plain
-``nn.Parameter`` (Chronos-2's ``shared`` [REG] table and ``rel_pos_bias``) is
-not named ``weight`` and so is not transposed.
+``nn.Parameter`` (Chronos-2's ``shared`` [REG] table and ``rel_pos_bias``, the
+text encoders' embedding tables) is not named ``weight`` and so is not
+transposed.
+
+The text encoders' trees (``text/bert.py``, ``text/modernbert.py``, as the
+JAX package's ``init_bert`` and ``init_modernbert`` lay them out) go through
+the same rules: their ``layers`` list stays a list, and ModernBERT's layer 0
+has no ``attn_norm`` because the module has none.
 
 ``load_jax_params`` reads a tree into a module; ``export_jax_params`` writes
 a module's parameters (or tensors paired with them, such as optimizer

@@ -16,6 +16,15 @@ import numpy.typing as npt
 TrainingMode = Literal["multimodal", "baseline"]
 
 
+class RawSample(TypedDict):
+    """A single raw dataset sample before preprocessing: per-patch texts, not yet embedded."""
+
+    context: npt.NDArray[np.float32]
+    horizon: npt.NDArray[np.float32]
+    patched_texts: list[list[str]]
+    metadata: dict[str, Any]
+
+
 class PreprocessedSample(TypedDict):
     """A single dataset sample after preprocessing (text already embedded)."""
 
