@@ -66,7 +66,7 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    the timed epochs after a warm-up run, a profiled epoch (idle share, GEMM
    share, the top kernels), the fold state; two more baseline steps with
    ``fused_optimizer=True`` and with ``trainable_cast_dtype=bf16``; and a
-   two-step card-against-CPU twin of each cell in bf16 (tolerances beside
+   two-step card-against-CPU twin of each cell in bf16 at 4 layers (tolerances beside
    ``TWIN_BF16_LOSS_RTOL``);
 5. TimesFM past 2,048 tokens: context 67,200 (2,100 tokens) served at batch
    2 and trained for one step (multimodal, fp32) through the flash entry
@@ -103,10 +103,35 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    ``load_fold_datasets`` and ``MultimodalTrainer`` on TimesFM-2.5 200M
    from the caches (context 32 on the headline's fused, folded bf16 path;
    context 512 in bf16 on the per-epoch loop, 20 B1f and 20 B1b launches
-   per micro-batch) and ``MultimodalEvaluator`` on the test fold.
+   per micro-batch) and ``MultimodalEvaluator`` on the test fold;
+9. pretrained to served: synthetic snapshots of TimesFM-2.5 200M (about 816 MB)
+   and Chronos-2 120M (about 476 MB) written under ``build/pretrained/`` from
+   ``--seed`` with the port's safetensors writer, under the upstream names of
+   ``models/convert.py``'s rules, with a ``config.json``; ``from_pretrained``
+   of each, every tensor on the card bit-equal to the bridge loading the same
+   arrays; a TimesFM fine-tune from the snapshot (multimodal, context 512,
+   bf16, frozen adapter in bf16) checkpointed with both backends and resumed
+   from each, the next epoch bit-equal to the uninterrupted run; artifacts
+   (``serving.export_program``) of the fine-tuned model as its trainer holds
+   it, of TimesFM at context 512 (fp32 traced on the CPU, bf16 on the card)
+   and 2048 (bf16) and of Chronos-2 at 512 and 2048 (bf16), each loaded with
+   ``load_program`` on the card and served three times, in turn with
+   ``Forecaster`` on the same data (series/s, one profiled call's idle share,
+   20 B1f or 16 B4f launches per batch, forecasts against ``Forecaster``'s on
+   the same weights), one re-pointed at the fine-tuned
+   weights; TimesFM served at contexts 96, 1,056 and 40,000 (3, 33 and 1,250
+   tokens) and trained one step at 1,056, with the plain attention made to
+   raise (B2f and B2b must launch); the forecast CLI in-process with
+   ``--autoregressive`` at horizon 512 (its decode graphs' captures and
+   replays, series/s, forecasts bit-equal to the eager loop); and a check
+   that nothing of jax, the JAX package, ``examples``, safetensors or
+   transformers was imported. Before any main path, phase 2 also checks the
+   whole-sequence kernels (B2f, B2b) at the lengths the repaired gates give
+   them (S = 2, 3, 5, 7, 33, 1,025, 1,250), and at the exact (B, S) that
+   phase 9's serving and training give them.
 
 The ``kernels`` line lists every kernel with its launches on the main-path
-phases (3 to 8; each starts its counters at 0; a kernel captured in a CUDA
+phases (3 to 9; each starts its counters at 0; a kernel captured in a CUDA
 graph counts once per replay) and its numbers at its main-path shape in
 bf16.
 
@@ -115,7 +140,17 @@ checks and times every kernel at its main-path shapes in fp32 and bf16 (the
 six causal kernels, unless ``--chronos-only``; B4f and B4b with and without
 dbias at 128 x 67 and 16 x 577), with the port imported from DIR (another
 checkout, such as the parent commit's) when given, so that two trees compare
-on one card. The line before the last names the card and its power limit; the last line
+on one card. ``python3 chip_smoke.py --serving-times [--root DIR]`` only
+times TimesFM serving at context 512 (fp32 and bf16, seven calls each), with
+the port imported from DIR when given. ``python3 chip_smoke.py
+--training-times [--root DIR]`` only times the eager ``chronos_mm_h32`` bf16
+training epoch (seven epochs after two of warm-up), with the port imported
+from DIR when given. ``python3 chip_smoke.py --dispatch-times`` only times
+the host's cost of one call of the fused-qkv attention entry point as the
+``torch.library`` custom op it is and as an ``autograd.Function`` around the
+same launch, in inference, in a forward with grad, and forward and backward.
+The line before the last names the
+card and its power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is present or the port cannot be imported.
 """
@@ -653,6 +688,54 @@ def edge_checks(seed: int) -> None:
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             check_causal_masks("edge case", shape, dtype, gen)
+
+
+# The lengths the repaired gates send to the whole-sequence entry point (B2) where the TPU's
+# gates sent them to the plain path: 2-7 tokens, S not a multiple of 8 (33: context 1,056)
+# and 1,025-2,048 (1,250: context 40,000). Checked before any main path runs.
+GATE_LENGTHS = (2, 3, 5, 7, 33, 1025, 1250)
+# Phase 9 serves the contexts whose token counts the TPU's gates sent to the plain path
+# (context -> series, batch), and trains one step at GATE_TRAIN (context, batch).
+GATE_CONTEXTS = {96: (64, 64), 1056: (64, 64), 40000: (4, 4)}
+GATE_TRAIN = (1056, 16)
+# The (B, S) the gate checks run at: every GATE_LENGTHS entry, and the exact (B, S) that
+# phase 9's serving and training give B2.
+GATE_SHAPES = tuple(sorted(
+    {(4 if s > 1000 else 16, s) for s in GATE_LENGTHS}
+    | {(batch, ctx // 32) for ctx, (_, batch) in GATE_CONTEXTS.items()}
+    | {(GATE_TRAIN[1], GATE_TRAIN[0] // 32)}, key=lambda bs: (bs[1], bs[0])))
+
+
+def gate_length_checks(seed: int) -> None:
+    """B2f and B2b against their plain versions at :data:`GATE_SHAPES`, fp32 and bf16, on
+    every query row under the skip-rule masks, with a random cotangent on every row; two
+    backward launches bit-equal."""
+    from multimodal_timesfm_torch.ops.attention import (
+        fused_causal_attention,
+        fused_causal_attention_bwd,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    heads, dim = 16, 80
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch, seq in GATE_SHAPES:
+            worst_f = worst_b = 0.0
+            for name, valid in skip_rule_masks(batch, seq, gen).items():
+                q, k, v = (torch.randn(batch, seq, heads, dim, generator=gen, device="cuda") for _ in range(3))
+                q, k, v = (q / math.sqrt(dim)).to(dtype), k.to(dtype), v.to(dtype)
+                g = torch.randn(batch, seq, heads, dim, generator=gen, device="cuda").to(dtype)
+                what = f"B2 gate length (B,S,H,D) {(batch, seq, heads, dim)} {name}"
+                worst_f = max(worst_f, compare(what, fused_causal_attention(q, k, v, valid),
+                                               plain_causal_attention(q, k, v, valid)))
+                backward = lambda: fused_causal_attention_bwd(q, k, v, valid, g)  # noqa: E731
+                worst_b = max(worst_b, compare_bwd(f"{what} backward", backward(),
+                                                   plain_attention_bwd(q, k, v, valid, g)))
+                same_twice(f"{what} {dtype}", backward)
+            print(f"[kernels] B2 at gate length S={seq} (B={batch} H={heads} D={dim}) {str(dtype)[6:]}, "
+                  f"masks left-padded / deep padding / holes: max |kernel - plain| forward {worst_f:.3g}, "
+                  f"backward {worst_b:.3g}; two backward launches bit-equal", flush=True)
 
 
 # Chronos-2's main-path (B, S) in the kernels: serving at contexts 512, 2048 and 8192, and
@@ -1362,6 +1445,7 @@ def fused_twin(label: str, mode: str, decoders: dict, tree: dict, seed: int, wor
     (TWIN_BF16_*)."""
     from multimodal_timesfm_torch.models.bridge import export_jax_params, load_jax_params
 
+    start = time.perf_counter()
     train, val = bench_data(mode, 8, 16, seed + 7)
     out = {}
     for device, decoder in decoders.items():
@@ -1387,7 +1471,8 @@ def fused_twin(label: str, mode: str, decoders: dict, tree: dict, seed: int, wor
         f"{np.array2string(loss_c, precision=6)}, max rel err {loss_err:.3g} (tol {TWIN_BF16_LOSS_RTOL}); "
         f"first gradient ||diff|| / ||CPU|| {grad_err:.3g} (tol {TWIN_BF16_GRAD_RTOL}); trained "
         f"parameters: max |diff| {diffs.max():.3g} (tol {2.01 * lr * 2:.3g}), "
-        f"{float(np.mean(diffs > 0.1 * lr)):.3g} of {diffs.size:,} elements > 0.1 lr",
+        f"{float(np.mean(diffs > 0.1 * lr)):.3g} of {diffs.size:,} elements > 0.1 lr | "
+        f"{time.perf_counter() - start:.1f} s",
         flush=True,
     )
     if replays != 1:
@@ -1400,10 +1485,10 @@ def headline_phase(seed: int, tree: dict, decoders: dict) -> None:
     """The JAX bench's headline cells on the fused path: train series/s over the timed
     epochs after a warm-up run, a profiled epoch (idle share, GEMM share, top kernels), the
     fold state; two more baseline steps with the fused optimizer and with a bf16 working
-    copy of the trained adapter; and card-against-CPU twins of both cells."""
+    copy of the trained adapter; and card-against-CPU twins of both cells at 4 layers."""
     import dataclasses as dc
 
-    from multimodal_timesfm_torch.models.bridge import load_jax_params
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
     from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
 
@@ -1487,13 +1572,16 @@ def headline_phase(seed: int, tree: dict, decoders: dict) -> None:
             del trainer
             torch.cuda.empty_cache()
 
-        cpu = MultimodalDecoder(
-            TimesFM2p5Adapter(dc.replace(TimesFMConfig(), compute_dtype=torch.bfloat16)),
-            MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1), device="cpu",
-        )
-        pair = {"cuda": decoder, "cpu": cpu}
-        fused_twin("timesfm_mm_c32 (folded, frozen adapter in bf16)", "multimodal", pair, tree, seed, workdir)
-        fused_twin("timesfm_baseline_c32", "baseline", pair, tree, seed, workdir)
+        # The twins run 4 layers on both sides: the 200M model's bf16 steps on the CPU
+        # are slow, and the script has to stay well inside its time limit.
+        cfg4 = dc.replace(TimesFMConfig(num_layers=4), compute_dtype=torch.bfloat16)
+        dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+        pair = {device: MultimodalDecoder(TimesFM2p5Adapter(cfg4), dec_cfg, device=device)
+                for device in ("cuda", "cpu")}
+        tree4 = random_jax_params(pair["cpu"], seed)
+        fused_twin("timesfm_mm_c32 (folded, frozen adapter in bf16, 4 layers)", "multimodal", pair, tree4,
+                   seed, workdir)
+        fused_twin("timesfm_baseline_c32 (4 layers)", "baseline", pair, tree4, seed, workdir)
 
 
 def launch_counters() -> dict[str, object]:
@@ -2109,6 +2197,550 @@ def time_mmd_phase(seed: int, tree: dict) -> None:
         raise AssertionError(f"the data path imported {imported}")
 
 
+# The two snapshots of the "pretrained to served" phase: upstream tensor names (the
+# converters' rules, candidate 0), weights drawn from --seed, and a config.json giving the
+# published geometry (TimesFM-2.5 200M; Chronos-2 120M) in the upstream config's own names.
+QUANTILES = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
+PRETRAINED_HF = {
+    "timesfm-2.5-200m": {
+        "model_type": "timesfm", "patch_len": 32, "output_patch_len": 128, "hidden_size": 1280,
+        "intermediate_size": 1280, "num_hidden_layers": 20, "num_attention_heads": 16,
+        "quantiles": QUANTILES,
+    },
+    "chronos-2-120m": {
+        "model_type": "t5", "d_model": 768, "d_ff": 3072, "num_layers": 16, "num_heads": 12,
+        "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+        "chronos_config": {"input_patch_size": 16, "output_patch_size": 16, "max_output_patches": 64,
+                           "quantiles": QUANTILES, "use_reg_token": True},
+    },
+}
+# An exported artifact against Forecaster on the same weights, on the card: the program runs
+# the same aten ops and kernels at the same shapes (its last batch padded as Forecaster pads
+# it), so the forecasts are expected bit-equal. Where they are not, |diff| <= TOL x std: fp32,
+# summation order only; bf16, one bf16 ulp (2^-8) flipped in a layer's output carries
+# through the stack.
+EXPORT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+EXPORTS = (  # (snapshot, context, compute dtype, traced on: the fp32 one on the CPU)
+    ("timesfm-2.5-200m", 512, torch.float32, "cpu"),
+    ("timesfm-2.5-200m", 512, torch.bfloat16, "cuda"),
+    ("timesfm-2.5-200m", 2048, torch.bfloat16, "cuda"),
+    ("chronos-2-120m", 512, torch.bfloat16, "cuda"),
+    ("chronos-2-120m", 2048, torch.bfloat16, "cuda"),
+)
+
+
+def write_pretrained_snapshot(path, adapter, rules, hf: dict, seed: int) -> dict:
+    """A synthetic upstream snapshot of ``adapter``'s geometry: ``model.safetensors`` (the
+    port's writer) under the upstream names of ``rules`` and ``config.json``. Weights are
+    ``bridge.random_jax_params(adapter, seed)``, an RMS gain stored in the weight convention
+    (1 + scale). Returns the JAX-layout tree the converter must give."""
+    import re
+
+    from multimodal_timesfm_torch.models.bridge import random_jax_params
+    from multimodal_timesfm_torch.utils import safetensors
+
+    upstream, want = {}, {}
+    for key, value in _leaves(random_jax_params(adapter, seed)).items():
+        key = key.strip("/")
+        _, candidates = next(r for r in rules if re.fullmatch(r[0], key))
+        name, transform = candidates[0]
+        if transform == "rms":
+            stored = (value + np.float32(1.0)).astype(np.float32)
+            value = stored - np.float32(1.0)  # what the converter computes
+        elif transform == "t":
+            stored = np.swapaxes(value, -1, -2)
+        elif transform == "":
+            stored = value
+        else:
+            raise AssertionError(f"{key}: candidate 0 has transform {transform!r}")
+        want[key] = value
+        for i, part in enumerate(stored) if "{i}" in name else ((None, stored),):
+            upstream[name.format(i=i) if i is not None else name] = np.ascontiguousarray(part)
+    path.mkdir(parents=True, exist_ok=True)
+    safetensors.save_file(upstream, path / "model.safetensors")
+    (path / "config.json").write_text(json.dumps(hf))
+    tree: dict = {}
+    for key, value in want.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def serve_padded(serve, context: np.ndarray, text: np.ndarray, batch: int) -> np.ndarray:
+    """An exported artifact over ``context`` in batches of ``batch`` rows, the last padded by
+    repeating its last row, as Forecaster pads it; returns the real rows' point forecasts."""
+    from multimodal_timesfm_torch.inference import _pad_rows
+
+    outs = []
+    for i in range(0, context.shape[0], batch):
+        real = min(batch, context.shape[0] - i)
+        out = serve(_pad_rows(context[i : i + batch], batch), _pad_rows(text[i : i + batch], batch))
+        outs.append(out["point_forecast"].cpu().numpy()[:real])
+    return np.concatenate(outs)
+
+
+def compare_export(label: str, out: np.ndarray, ref: np.ndarray, dtype: torch.dtype) -> str:
+    """The artifact's forecasts against Forecaster's: bit-equal, or within EXPORT_TOL."""
+    if out.shape != ref.shape or not np.isfinite(out).all():
+        raise AssertionError(f"{label}: bad forecasts, shape {out.shape}")
+    if np.array_equal(out, ref):
+        return "bit-equal to Forecaster"
+    err, tol = float(np.abs(out - ref).max()), EXPORT_TOL[dtype] * float(ref.std())
+    if not err <= tol:
+        raise AssertionError(f"{label}: artifact and Forecaster differ by {err:.4g} > {tol:.4g}")
+    return f"max |artifact - Forecaster| {err:.4g} <= {tol:.4g} ({EXPORT_TOL[dtype]} x std), not bit-equal"
+
+
+def pretrained_phase(seed: int) -> None:
+    """Snapshots -> from_pretrained -> a bf16 fine-tune with checkpoints of both backends
+    and resumes -> exported artifacts served from their files (re-pointed once) -> the
+    repaired gates -> the forecast CLI with the autoregressive decode graph."""
+    import copy
+    import pickle
+    import shutil
+    import warnings
+    from pathlib import Path
+
+    from multimodal_timesfm_torch import forecast as forecast_cli
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models import layers
+    from multimodal_timesfm_torch.models.bridge import export_jax_params, load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.chronos import Chronos2Adapter
+    from multimodal_timesfm_torch.models.convert import CHRONOS_NAME_RULES, TIMESFM_NAME_RULES
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+    from multimodal_timesfm_torch.serving import export_program, load_program, save_program_params
+    from multimodal_timesfm_torch.training.checkpoint import save_checkpoint
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    kind = torch.cuda.get_device_name(0)
+    root = Path(__file__).resolve().parent / "build" / "pretrained"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+    specs = {"timesfm-2.5-200m": (TimesFM2p5Adapter, TIMESFM_NAME_RULES),
+             "chronos-2-120m": (Chronos2Adapter, CHRONOS_NAME_RULES)}
+
+    # 1. snapshots, and from_pretrained on the card against the bridge
+    decoders = {}
+    for name, (cls, rules) in specs.items():
+        hf = PRETRAINED_HF[name]
+        start = time.perf_counter()
+        want = write_pretrained_snapshot(root / name, cls(cls.config_from_hf(hf)), rules, hf, seed)
+        size = (root / name / "model.safetensors").stat().st_size
+        written = time.perf_counter() - start
+        start = time.perf_counter()
+        adapter = cls.from_pretrained(root / name)
+        loaded = time.perf_counter() - start
+        if cls is TimesFM2p5Adapter and adapter.config != TimesFMConfig():
+            raise AssertionError(f"{name}: config.json read as {adapter.config}")
+        decoder = MultimodalDecoder(adapter, dec_cfg, device="cuda")
+        fusion = random_jax_params(decoder.fusion, seed)
+        load_jax_params(decoder.fusion, fusion)
+        ref = MultimodalDecoder(cls(adapter.config), dec_cfg, device="cuda")
+        load_jax_params(ref.adapter, want)
+        load_jax_params(ref.fusion, fusion)
+        pairs = list(zip(decoder.named_parameters(), ref.named_parameters()))
+        bad = [n for (n, a), (_, b) in pairs if not torch.equal(a, b)]
+        if bad or len(pairs) != len(list(ref.parameters())):
+            raise AssertionError(f"{name}: from_pretrained differs from the bridge at {bad[:5]}")
+        n_params = sum(p.numel() for p in adapter.parameters())
+        print(f"[pretrained] {name}: synthetic snapshot (seed {seed}) model.safetensors "
+              f"{size / 1e6:.1f} MB, {n_params:,} backbone parameters, written in {written:.1f} s; "
+              f"from_pretrained (config.json geometry, port safetensors reader, converter) in "
+              f"{loaded:.1f} s; all {len(pairs)} tensors on the card bit-equal to the bridge", flush=True)
+        decoders[name] = decoder
+        del ref
+    timesfm = decoders["timesfm-2.5-200m"]
+
+    def with_dtype(decoder, dtype: torch.dtype):
+        """A copy of ``decoder`` computing in ``dtype`` (built on the meta device, then given
+        a copy of the weights: no random draw of 200M parameters)."""
+        if dtype == torch.float32:
+            return decoder
+        cfg = dataclasses.replace(decoder.adapter.config, compute_dtype=dtype)
+        with torch.device("meta"):
+            copy_ = MultimodalDecoder(type(decoder.adapter)(cfg), dec_cfg, device="meta")
+        copy_ = copy_.to_empty(device="cuda")
+        copy_.load_state_dict(decoder.state_dict())
+        return copy_
+
+    # 2. fine-tune TimesFM from the snapshot (multimodal, c512, bf16), checkpoint, resume
+    train = make_samples(512, 128, seed + 11, TRAIN_HORIZON)
+    val = make_samples(512, 64, seed + 12, TRAIN_HORIZON)
+
+    def trainer(out: str):
+        args = TrainingArguments(
+            output_dir=str(root / out), per_device_train_batch_size=64, per_device_eval_batch_size=64,
+            num_train_epochs=2, learning_rate=TRAIN_LR, weight_decay=0.01, eval_strategy="epoch",
+            save_strategy="epoch", logging_strategy="no", seed=seed)
+        return MultimodalTrainer(with_dtype(timesfm, torch.bfloat16), args, train, val, "multimodal",
+                                 device="cuda", frozen_cast_dtype=torch.bfloat16, ckpt_backend="orbax")
+
+    start = time.perf_counter()
+    run = trainer("finetune")
+    before = launch_counts()
+    run.current_epoch = 0
+    losses = [run.train_epoch()]
+    run.save_ckpt(run.validate_epoch())
+    orbax_ckpt = run.args.checkpoint_dir / "checkpoint_epoch_0.ckpt"
+    pickle_ckpt = root / "finetune_epoch_0_pickle.ckpt"
+    save_checkpoint(pickle_ckpt, run._build_checkpoint(), backend="pickle")
+    run.current_epoch = 1
+    losses.append(run.train_epoch())
+    rate = run.last_throughput
+    final = _leaves(export_jax_params(run.trainable_module))
+    seen = expect_launches("fine-tune from the snapshot", before, {"B1f": 20 * 5, "B1b": 20 * 4})
+    if not orbax_ckpt.is_dir() or not np.isfinite(losses).all():
+        raise AssertionError(f"fine-tune: checkpoint {orbax_ckpt} or losses {losses}")
+    print(f"[pretrained] fine-tune TimesFM-2.5 200M from the snapshot: multimodal, context 512, bf16 "
+          f"(frozen adapter stored in bf16), 128 series in batches of 64, two epochs: losses "
+          f"{np.array2string(np.asarray(losses), precision=6)}, {rate:.1f} train series/s (second epoch) "
+          f"on {kind} | launches {seen} | {time.perf_counter() - start:.1f} s", flush=True)
+    for backend, path in (("orbax", orbax_ckpt), ("pickle", pickle_ckpt)):
+        resumed = trainer(f"resume_{backend}")
+        resumed.resume_from_checkpoint(path)
+        resumed._rng.permutation(len(train))  # the order epoch 0 drew, as the run drew it
+        resumed.current_epoch = 1
+        loss = resumed.train_epoch()
+        mine = _leaves(export_jax_params(resumed.trainable_module))
+        same = loss == losses[1] and all(np.array_equal(mine[k], final[k]) for k in final)
+        if not same:
+            worst = max(float(np.abs(mine[k] - final[k]).max()) for k in final)
+            raise AssertionError(f"resume from the {backend} checkpoint: loss {loss} vs {losses[1]}, "
+                                 f"parameters up to {worst:.3g} apart")
+        print(f"[pretrained] resume from the {backend} checkpoint ({'a directory' if path.is_dir() else 'a file'}"
+              f"): the next epoch's loss and trained parameters bit-equal to the uninterrupted run", flush=True)
+        del resumed
+    finetuned = export_jax_params(run.trainable_module)
+    # The fine-tuned model as the trainer holds it: affine fold, frozen weights stored in
+    # bf16 (bf16 GEMMs with an fp32 result), bf16 compute.
+    art = root / "export" / "finetuned_c512_bf16_stored"
+    export_program(run.eval_model, HORIZON, 512, art, multimodal=True)
+    serve, _ = load_program(art, device="cuda")
+    data = make_samples(512, 128, seed + 13)
+    context = np.stack([d["context"] for d in data])
+    text = np.stack([d["text_embeddings"] for d in data])
+    ref = Forecaster(run.eval_model, batch_size=64, device="cuda").forecast(HORIZON, context, text_embeddings=text)
+    before = launch_counts()
+    out = serve_padded(serve, context, text, 64)
+    seen = expect_launches("fine-tuned artifact", before, {"B1f": 20 * 2})
+    print(f"[export] the fine-tuned TimesFM as its trainer holds it (affine fold, frozen weights in bf16), "
+          f"context 512: {compare_export('fine-tuned artifact', out, ref, torch.bfloat16)} | launches {seen}",
+          flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    # 3. exported artifacts, served from their files
+    artifacts = {}
+    for name, ctx, dtype, traced_on in EXPORTS:
+        cls, _ = specs[name]
+        label = f"{name} context {ctx} {str(dtype)[6:]}, exported on the {'card' if traced_on == 'cuda' else 'CPU'}"
+        decoder = with_dtype(decoders[name], dtype)
+        source = decoder if traced_on == "cuda" else copy.deepcopy(decoder).to("cpu")
+        art = root / "export" / f"{name}_c{ctx}_{str(dtype)[6:]}_{traced_on}"
+        start = time.perf_counter()
+        export_program(source, HORIZON, ctx, art, multimodal=True)
+        exported = time.perf_counter() - start
+        start = time.perf_counter()
+        serve, manifest = load_program(art, device="cuda")
+        loaded = time.perf_counter() - start
+        patch = decoder.adapter.patch_len
+        data = make_samples(ctx, 192, seed + ctx, patch=patch)
+        context = np.stack([d["context"] for d in data])
+        text = np.stack([d["text_embeddings"] for d in data])
+        fc = Forecaster(decoder, batch_size=64, device="cuda")
+        ref = fc.forecast(HORIZON, context, text_embeddings=text)
+        serve_padded(serve, context[:64], text[:64], 64)  # warm-up
+        torch.cuda.synchronize()
+        key, per = ("B4f", 16) if cls is Chronos2Adapter else ("B1f", 20)
+        rates, fc_rates, outs = [], [], []
+        for _ in range(SERVE_REPEATS):  # the artifact and Forecaster in turn, same data
+            before = launch_counts()
+            start_call = time.perf_counter()
+            outs.append(serve_padded(serve, context, text, 64))
+            rates.append(len(context) / (time.perf_counter() - start_call))
+            seen = expect_launches(label, before, {key: per * 3})
+            start_call = time.perf_counter()
+            fc.forecast(HORIZON, context, text_embeddings=text)
+            fc_rates.append(len(context) / (time.perf_counter() - start_call))
+        if not all(np.array_equal(o, outs[0]) for o in outs):
+            raise AssertionError(f"{label}: forecasts differ between calls")
+        verdict = compare_export(label, outs[0], ref, dtype)
+        wall, kernels = device_profile(lambda: serve_padded(serve, context, text, 64))
+        busy = sum(ms for _, ms in kernels)
+        sizes = {f: (art / f).stat().st_size / 1e6 for f in ("program.pt2", "params.npz")}
+        print(f"[export] {label}: export {exported:.1f} s (program.pt2 {sizes['program.pt2']:.2f} MB, "
+              f"params.npz {sizes['params.npz']:.1f} MB), load_program {loaded:.1f} s | served 192 series "
+              f"in batches of 64, median of {SERVE_REPEATS} calls {float(np.median(rates)):.1f} series/s "
+              f"({', '.join(f'{r:.1f}' for r in rates)}), Forecaster in turn {float(np.median(fc_rates)):.1f} "
+              f"({', '.join(f'{r:.1f}' for r in fc_rates)}) on {kind} | profiled call: wall {wall:.3f} ms, "
+              f"busy {busy:.3f} ms, idle {1 - busy / wall:.3f} | launches {seen} per call ({per} per batch) | "
+              f"{verdict}", flush=True)
+        artifacts[(name, ctx, dtype, traced_on)] = (art, context, text)
+
+    # 4. re-point the c512 fp32 artifact at the fine-tuned fusion weights
+    art, context, text = artifacts[("timesfm-2.5-200m", 512, torch.float32, "cpu")]
+    old = serve_padded(load_program(art, device="cuda")[0], context, text, 64)
+    load_jax_params(timesfm.fusion, finetuned)
+    save_program_params(art, timesfm)
+    new = serve_padded(load_program(art, device="cuda")[0], context, text, 64)
+    ref = Forecaster(timesfm, batch_size=64, device="cuda").forecast(HORIZON, context, text_embeddings=text)
+    if np.array_equal(new, old) or list(art.glob("*.tmp")):
+        raise AssertionError("re-pointed artifact: forecasts did not follow the new weights")
+    print(f"[export] re-pointed TimesFM context 512 fp32 at the fine-tuned fusion weights "
+          f"(save_program_params): {compare_export('re-pointed', new, ref, torch.float32)}; "
+          f"max |new - old| {float(np.abs(new - old).max()):.4g}", flush=True)
+
+    # 5. the repaired gates: no plain attention on the card
+    plain = layers.plain_causal_attention
+
+    def no_plain(*a):
+        raise AssertionError("plain_causal_attention ran on the card")
+
+    layers.plain_causal_attention = no_plain
+    try:
+        for ctx, (n, batch) in GATE_CONTEXTS.items():
+            data = make_samples(ctx, n, seed + ctx)
+            fc = Forecaster(timesfm, batch_size=batch, device="cuda")
+            fc.forecast_dataset(HORIZON, data[:batch])  # warm-up: the first call at a length
+            torch.cuda.synchronize()
+            before = launch_counts()
+            start = time.perf_counter()
+            out = fc.forecast_dataset(HORIZON, data, denormalize=True)
+            rate = n / (time.perf_counter() - start)
+            if out.shape != (n, HORIZON) or not np.isfinite(out).all():
+                raise AssertionError(f"context {ctx}: bad forecasts")
+            seen = expect_launches(f"gate context {ctx}", before, {"B2f": 20 * -(-n // batch)})
+            print(f"[gates] TimesFM context {ctx} ({ctx // 32} tokens) fp32, {n} series in batches of {batch}: "
+                  f"{rate:.1f} series/s (one call after a warm-up) on {kind} | launches {seen}", flush=True)
+        ctx, batch = GATE_TRAIN
+        data = make_samples(ctx, batch, seed + 3, TRAIN_HORIZON)
+        args = TrainingArguments(
+            output_dir=str(root / "gate_train"), per_device_train_batch_size=batch,
+            per_device_eval_batch_size=batch,
+            num_train_epochs=1, learning_rate=TRAIN_LR, eval_strategy="epoch", save_strategy="no",
+            logging_strategy="no", seed=seed)
+        gate_trainer = MultimodalTrainer(timesfm, args, data, data, "multimodal", device="cuda")
+        before = launch_counts()
+        loss = gate_trainer.train_epoch()
+        seen = expect_launches(f"gate context {ctx} training", before, {"B2f": 20, "B2b": 20})
+        if not np.isfinite(loss):
+            raise AssertionError(f"context {ctx} training: loss {loss}")
+        print(f"[gates] TimesFM context {ctx} ({ctx // 32} tokens) multimodal fp32, one step of {batch} series: loss "
+              f"{loss:.5f} | launches {seen}", flush=True)
+        del gate_trainer
+    finally:
+        layers.plain_causal_attention = plain
+
+    # 6. the forecast CLI, autoregressive at horizon 512 (4 rounds of 128 at context 512)
+    cache = root / "cache" / "time_mmd_Synthetic_english_p32_c512_h512.pkl"
+    cache.parent.mkdir()
+    samples = make_samples(512, 128, seed + 21, horizon=512)
+    cache.write_bytes(pickle.dumps(samples))
+    (root / "model.json").write_text(json.dumps({"adapter": {"type": "timesfm", "patch_len": 32},
+                                                 "fusion": {"text_embedding_dims": 384}}))
+    made = []
+
+    class Recorded(Forecaster):
+        def forecast_dataset(self, *a, **kw):
+            made.append(self)
+            start_call = time.perf_counter()
+            out = super().forecast_dataset(*a, **kw)
+            self.seconds = time.perf_counter() - start_call
+            return out
+
+    flags = ["--cache-file", str(cache), "--model-config", str(root / "model.json"), "--horizon", "512",
+             "--pretrained-dir", str(root / "timesfm-2.5-200m"), "--checkpoint", str(pickle_ckpt),
+             "--multimodal", "--denormalize", "--autoregressive", "--batch-size", "64"]
+    forecast_cli.Forecaster = Recorded
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # text fuses into the first window only, as in JAX
+            before = launch_counts()
+            if forecast_cli.main([*flags, "--output", str(root / "forecasts.npz")]) != 0:
+                raise AssertionError("forecast CLI failed")
+            graphs = made[-1]
+            first_rate = len(samples) / graphs.seconds
+            again = graphs.forecast_dataset(512, samples, multimodal=True, denormalize=True, autoregressive=True)
+            replay_rate = len(samples) / graphs.seconds
+            # another context on the same Forecaster: a graph of its own, then its replay
+            short = make_samples(256, 64, seed + 22, horizon=512)
+            held = graphs.graph_captures
+            short_got = [graphs.forecast_dataset(512, short, multimodal=True, denormalize=True,
+                                                 autoregressive=True) for _ in range(2)]
+            if graphs.graph_captures != held + 1:
+                raise AssertionError(f"forecast CLI: context 256 made {graphs.graph_captures - held} decode graphs")
+            captures, replays = graphs.graph_captures, graphs.graph_replays
+            GRAPH_LAUNCHES["B1f"] = GRAPH_LAUNCHES.get("B1f", 0) + 20 * 4 * (replays - captures)
+            loop = Forecaster(graphs.model, batch_size=64, device="cuda")  # the CLI's decoder
+            loop._use_graphs = False
+            loop.forecast_dataset(512, samples[:64], multimodal=True, denormalize=True, autoregressive=True)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            want = loop.forecast_dataset(512, samples, multimodal=True, denormalize=True, autoregressive=True)
+            loop_rate = len(samples) / (time.perf_counter() - start)
+            short_want = loop.forecast_dataset(512, short, multimodal=True, denormalize=True, autoregressive=True)
+    finally:
+        forecast_cli.Forecaster = Forecaster
+    got = np.load(root / "forecasts.npz")
+    if got["forecasts"].shape != (128, 512) or not np.array_equal(got["forecasts"], want):
+        raise AssertionError("forecast CLI: the decode graph differs from the eager loop")
+    if not np.array_equal(again, want):
+        raise AssertionError("forecast CLI: a second call's replays differ from the eager loop")
+    if not all(np.array_equal(x, short_want) for x in short_got):
+        raise AssertionError("forecast CLI: the decode graph at context 256 differs from the eager loop")
+    seen = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+    print(f"[cli] python -m multimodal_timesfm_torch.forecast --autoregressive --horizon 512 (4 rounds at "
+          f"context 512, snapshot + port checkpoint), 128 series in batches of 64: decode graphs "
+          f"{captures} captured, {replays} replays over two calls and two at context 256 (a graph of "
+          f"its own, bit-equal to the eager loop too); forecast_dataset {first_rate:.1f} series/s "
+          f"in the CLI (capture included), {replay_rate:.1f} on a second call (replays only), the eager "
+          f"loop {loop_rate:.1f} (after a warm-up) on {kind}; forecasts bit-equal to the eager loop on the "
+          f"card | counted launches {seen} "
+          f"(+{20 * 4 * (replays - captures)} B1f from replays)", flush=True)
+    shutil.rmtree(root / "export", ignore_errors=True)
+    imported = sorted(m for m in ("jax", "multimodal_timesfm_tpu", "examples", "safetensors", "transformers")
+                      if m in sys.modules)
+    if imported:
+        raise AssertionError(f"the pretrained-to-served path imported {imported}")
+
+
+def serving_times(seed: int, repeats: int = 7) -> None:
+    """TimesFM-2.5 200M served through Forecaster at context 512 (200 series in batches of
+    64, multimodal, horizon 128), fp32 and bf16: the median series/s of ``repeats`` calls
+    after a warm-up, with the port imported from ``--root`` when given. The serving path is
+    host-bound, so this reads the cost of the attention entry points' dispatch."""
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+    tree = random_jax_params(MultimodalDecoder(TimesFM2p5Adapter(), dec_cfg, device="cpu"), seed)
+    data = make_samples(512, 200, seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        decoder = MultimodalDecoder(
+            TimesFM2p5Adapter(dataclasses.replace(TimesFMConfig(), compute_dtype=dtype)), dec_cfg, device="cuda")
+        load_jax_params(decoder, tree)
+        fc = Forecaster(decoder, batch_size=64, device="cuda")
+        fc.forecast_dataset(HORIZON, data, denormalize=True)
+        rates = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fc.forecast_dataset(HORIZON, data, denormalize=True)
+            rates.append(len(data) / (time.perf_counter() - start))
+        print(f"[serving-times] context 512 {str(dtype)[6:]}: median of {repeats} calls "
+              f"{float(np.median(rates)):.1f} series/s ({', '.join(f'{r:.1f}' for r in rates)})", flush=True)
+
+
+def training_times(seed: int, epochs: int = 7) -> None:
+    """The eager ``chronos_mm_h32`` bf16 cell of the Chronos training phase (batch 128, 3
+    steps an epoch, context 32, horizon 32, frozen encoder stored in bf16): train series/s
+    of ``epochs`` epochs after two of warm-up, with the port imported from ``--root`` when
+    given. The per-epoch loop is host-bound (the chronos training phase's profile shows
+    the card idle most of an epoch), so this reads the
+    dispatch cost of the Chronos attention entry points with grad."""
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    cfg = Chronos2Config()
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+    tree = random_jax_params(MultimodalDecoder(Chronos2Adapter(cfg), dec_cfg, device="cpu"), seed)
+    decoder = MultimodalDecoder(
+        Chronos2Adapter(dataclasses.replace(cfg, compute_dtype=torch.bfloat16)), dec_cfg, device="cuda")
+    load_jax_params(decoder, tree)
+    batch, steps = 128, 3
+    train = make_samples(32, steps * batch, seed, CHRONOS_HORIZON, patch=16)
+    val = make_samples(32, batch, seed + 1, CHRONOS_HORIZON, patch=16)
+    with tempfile.TemporaryDirectory() as workdir:
+        args = TrainingArguments(
+            output_dir=workdir, per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+            num_train_epochs=3, learning_rate=TRAIN_LR, weight_decay=0.01, eval_strategy="epoch",
+            save_strategy="no", logging_strategy="no", seed=seed)
+        trainer = MultimodalTrainer(decoder, args, train, val, "multimodal", device="cuda",
+                                    frozen_cast_dtype=torch.bfloat16)
+        rates = []
+        for epoch in range(epochs + 2):
+            loss = trainer.train_epoch()
+            if not np.isfinite(loss):
+                raise AssertionError(f"training-times: loss {loss}")
+            if epoch >= 2:
+                rates.append(trainer.last_throughput)
+    print(f"[training-times] chronos_mm_h32 multimodal bfloat16, batch {batch}, {steps} steps an epoch: "
+          f"median of {epochs} epochs {float(np.median(rates)):.1f} train series/s "
+          f"({', '.join(f'{r:.1f}' for r in rates)})", flush=True)
+
+
+def dispatch_times(calls: int = 2000, repeats: int = 7) -> None:
+    """The host's time for one call of the fused-qkv attention entry point (B1f, and B1b
+    with the backward) at a shape whose kernels take a few microseconds ((B,S,H,D)
+    (1,8,1,8), fp32): the ``torch.library`` custom op the port calls against an
+    ``autograd.Function`` around the same launches (the form the entry points had before
+    they were ops), in inference, in a forward with grad, and a forward and backward. Each
+    figure is the median over ``repeats`` rounds of ``calls`` calls without a
+    synchronisation, the two forms alternating."""
+    from multimodal_timesfm_torch.ops import qkv_attention as qa
+
+    class Launch(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qkv, key_valid, heads, dim):
+            ctx.save_for_backward(qkv, key_valid)
+            ctx.heads, ctx.dim = heads, dim
+            return qa._forward(qkv, key_valid, heads, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            qkv, key_valid = ctx.saved_tensors
+            return qa.fused_qkv_causal_attention_bwd(qkv, key_valid, g, ctx.heads, ctx.dim), None, None, None
+
+    heads, dim = 1, 8
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(1, 8, 3 * heads * dim, generator=gen, device="cuda")
+    valid = torch.ones(1, 8, dtype=torch.bool, device="cuda")
+    g = torch.randn(1, 8, heads * dim, generator=gen, device="cuda")
+    forms = {"custom op": qa.fused_qkv_causal_attention, "autograd.Function": Launch.apply}
+    if not torch.equal(forms["custom op"](qkv, valid, heads, dim), forms["autograd.Function"](qkv, valid, heads, dim)):
+        raise AssertionError("dispatch-times: the two forms disagree")
+    leaf = qkv.clone().requires_grad_()
+
+    def inference(fn):
+        with torch.no_grad():
+            fn(qkv, valid, heads, dim)
+
+    def forward_grad(fn):
+        fn(leaf, valid, heads, dim)
+
+    def forward_backward(fn):
+        fn(leaf, valid, heads, dim).backward(g)
+
+    for mode, step in (("inference", inference), ("forward with grad", forward_grad),
+                       ("forward and backward", forward_backward)):
+        per_call = {name: [] for name in forms}
+        for _ in range(repeats):
+            for name, fn in forms.items():
+                step(fn)
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for _ in range(calls):
+                    step(fn)
+                torch.cuda.synchronize()
+                per_call[name].append((time.perf_counter() - start) / calls * 1e6)
+        us = {name: float(np.median(v)) for name, v in per_call.items()}
+        print(f"[dispatch-times] B1 (B,S,H,D) (1,8,1,8) fp32, {mode}: custom op {us['custom op']:.2f} us a call, "
+              f"autograd.Function {us['autograd.Function']:.2f} us, difference "
+              f"{us['custom op'] - us['autograd.Function']:.2f} us (median of {repeats} rounds of {calls} calls)",
+              flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2118,9 +2750,17 @@ def main() -> int:
                         help="with --kernel-times: import the port from this checkout instead")
     parser.add_argument("--chronos-only", action="store_true",
                         help="with --kernel-times: only the Chronos rows (B4f, B4b)")
+    parser.add_argument("--serving-times", action="store_true",
+                        help="only time TimesFM serving at context 512 (fp32, bf16)")
+    parser.add_argument("--training-times", action="store_true",
+                        help="only time the eager chronos_mm_h32 bf16 training epoch")
+    parser.add_argument("--dispatch-times", action="store_true",
+                        help="only time one call of the B1 entry point: custom op against autograd.Function")
     args = parser.parse_args()
-    if (args.root is not None or args.chronos_only) and not args.kernel_times:
-        parser.error("--root and --chronos-only need --kernel-times")
+    if args.chronos_only and not args.kernel_times:
+        parser.error("--chronos-only needs --kernel-times")
+    if args.root is not None and not (args.kernel_times or args.serving_times or args.training_times):
+        parser.error("--root needs --kernel-times, --serving-times or --training-times")
     if args.root is not None:
         sys.path.insert(0, args.root)
     if not torch.cuda.is_available():
@@ -2148,6 +2788,15 @@ def main() -> int:
     print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda} | port from "
           f"{_kernels.CSRC.parent if hasattr(_kernels, 'CSRC') else _kernels.SOURCES[0].parent.parent}",
           flush=True)
+    if args.serving_times or args.training_times or args.dispatch_times:
+        if args.serving_times:
+            serving_times(args.seed)
+        if args.training_times:
+            training_times(args.seed)
+        if args.dispatch_times:
+            dispatch_times()
+        print(f"[gpu] {gpu}")
+        return 0
     if args.kernel_times:
         if hasattr(_kernels, "attention_route"):
             print_routes()
@@ -2165,6 +2814,7 @@ def main() -> int:
     rows = phase("forward kernels", kernel_phase, args.seed)
     rows.update(phase("backward kernels", backward_kernel_phase, args.seed))
     phase("edge shapes", edge_checks, args.seed)
+    phase("gate lengths", gate_length_checks, args.seed)
     rows.update(phase("chronos kernels", chronos_kernel_phase, args.seed))
     rows.update(phase("flash kernels", flash_kernel_phase, args.seed))
 
@@ -2191,6 +2841,9 @@ def main() -> int:
     del c_decoders, c_reference
     torch.cuda.empty_cache()
     main_path("time-mmd data", time_mmd_phase, args.seed, tree)
+    del tree
+    torch.cuda.empty_cache()
+    main_path("pretrained to served", pretrained_phase, args.seed)
     idle = [key for key, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")

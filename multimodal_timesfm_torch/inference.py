@@ -6,11 +6,20 @@ batch is padded by repeating its last row), decodes horizons beyond one
 output patch autoregressively, and can denormalize predictions with the
 per-sample z-score ``mean``/``std`` metadata the Time-MMD loader records.
 It serves any adapter: TimesFM-2.5 and Chronos-2.
+
+On CUDA the whole autoregressive decode of a batch (round 0 with its
+optional text, then the context slides) is one CUDA graph, the counterpart
+of JAX's one compiled decode program (``inference.py:236-268``): captured
+once per (batch, context, chunk, rounds, text shape, dtype) after one eager run, then
+replayed; the graphs sit in a bounded LRU of JAX's size (8). A graph reads
+the parameters' storage, so weights loaded in place (``bridge.load_jax_params``)
+are what it serves. On the CPU the same decode runs eagerly.
 """
 
 from __future__ import annotations
 
 import warnings
+from collections import OrderedDict
 from typing import Any, Callable
 
 import numpy as np
@@ -18,6 +27,7 @@ import torch
 
 from multimodal_timesfm_torch.data.collate import StackedDataset, stack_samples
 from multimodal_timesfm_torch.models.decoder import MultimodalDecoder
+from multimodal_timesfm_torch.utils.cache import lru_get
 from multimodal_timesfm_torch.utils.platform import resolve_device
 
 
@@ -54,6 +64,13 @@ class Forecaster:
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         self._warned_ar_text = False
+        # Captured decode graphs by (batch, context, chunk, rounds, text shape, dtype); each
+        # pins a graph and its static buffers, so the LRU is bounded as JAX's is.
+        self._ar_graphs: OrderedDict = OrderedDict()
+        self._fn_cache_max = 8
+        self._use_graphs = self.device.type == "cuda"
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -163,6 +180,24 @@ class Forecaster:
         if masks is None:
             masks = np.zeros_like(context, dtype=bool)
 
+        eager = self._decode_fn(chunk, rounds)
+        decode = eager
+        if self._use_graphs:
+            # the graph's inputs are static buffers: every shape it copies in is in the key
+            dtype = next(self.model.parameters()).dtype
+            text_shape = None if text_embeddings is None else np.shape(text_embeddings)[1:]
+            key = (self.batch_size, np.shape(context)[1], chunk, rounds, text_shape, dtype)
+            decode = lru_get(self._ar_graphs, key, lambda: self._graph_runner(eager), self._fn_cache_max)
+
+        out = self._batched(
+            decode, np.asarray(context, np.float32), np.asarray(masks, bool), text_embeddings
+        )
+        return out[:, :horizon]
+
+    def _decode_fn(self, chunk: int, rounds: int) -> Callable[..., torch.Tensor]:
+        """The whole decode of one batch: round 0 (with its optional text), then ``rounds - 1``
+        rounds that slide the context by ``chunk`` steps without text."""
+
         def decode(ctx: torch.Tensor, msk: torch.Tensor, text: torch.Tensor | None) -> torch.Tensor:
             preds = [self.model(chunk, ctx, msk, text)]
             for _ in range(rounds - 1):
@@ -171,10 +206,38 @@ class Forecaster:
                 preds.append(self.model(chunk, ctx, msk, None))
             return torch.cat(preds, dim=1)
 
-        out = self._batched(
-            decode, np.asarray(context, np.float32), np.asarray(masks, bool), text_embeddings
-        )
-        return out[:, :horizon]
+        return decode
+
+    def _graph_runner(self, decode: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
+        """``decode`` as a CUDA graph: the first call runs it eagerly on a side stream (its
+        result is that call's), then captures it on static copies of the inputs; every
+        later call copies its inputs in and replays. The output buffer is the graph's,
+        overwritten by the next replay."""
+        state: dict[str, Any] = {}
+
+        def run(ctx: torch.Tensor, msk: torch.Tensor, text: torch.Tensor | None) -> torch.Tensor:
+            if not state:
+                inputs = [ctx.clone(), msk.clone(), None if text is None else text.clone()]
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    first = decode(*inputs)
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                first.record_stream(torch.cuda.current_stream(self.device))
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = decode(*inputs)
+                state.update(graph=graph, inputs=inputs, out=out)
+                self.graph_captures += 1
+                return first
+            for buf, value in zip(state["inputs"], (ctx, msk, text)):
+                if buf is not None:
+                    buf.copy_(value)
+            state["graph"].replay()
+            self.graph_replays += 1
+            return state["out"]
+
+        return run
 
     def forecast_dataset(
         self,

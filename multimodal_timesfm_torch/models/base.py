@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 from abc import ABC, abstractmethod
+from pathlib import Path
+from typing import Any
 
 import torch
 from torch import nn
@@ -65,3 +67,39 @@ class TsfmAdapter(nn.Module, ABC):
         normalization_stats: dict[str, torch.Tensor],
     ) -> torch.Tensor:
         """Project to forecasts: -> (B, horizon, num_output_channels)."""
+
+    # -- the checkpoint surface (JAX ``models/base.py:96-127``): local paths only --
+
+    def load_checkpoint(self, path: str | Path) -> None:
+        """Load backbone weights from a local checkpoint directory or file into this
+        module, strictly (``models/convert.py``)."""
+        from multimodal_timesfm_torch.models.bridge import load_jax_params
+        from multimodal_timesfm_torch.models.convert import load_backbone_checkpoint
+
+        load_jax_params(self, load_backbone_checkpoint(path, self))
+
+    @staticmethod
+    def config_from_hf(hf_config: dict) -> Any:
+        """This adapter's config dataclass from an HF ``config.json`` dict."""
+        raise NotImplementedError
+
+    @classmethod
+    def from_pretrained(cls, path_or_repo: str | Path, config: Any = None) -> "TsfmAdapter":
+        """The adapter with pretrained weights from a snapshot.
+
+        ``path_or_repo`` is a local snapshot directory, a checkpoint file, or an
+        HF repo id resolved against local caches (``models/snapshot.py``;
+        nothing is downloaded). Without ``config``, a snapshot's
+        ``config.json`` gives the geometry. Returns the adapter on the CPU,
+        holding the weights (JAX returns ``(adapter, params)``).
+        """
+        from multimodal_timesfm_torch.models.snapshot import read_hf_config, resolve_snapshot_dir
+
+        snapshot = resolve_snapshot_dir(path_or_repo)
+        if config is None and snapshot.is_dir():
+            hf = read_hf_config(snapshot)
+            if hf is not None:
+                config = cls.config_from_hf(hf)
+        adapter = cls(config) if config is not None else cls()
+        adapter.load_checkpoint(snapshot)
+        return adapter

@@ -31,7 +31,8 @@ has no ``attn_norm`` because the module has none.
 a module's parameters (or tensors paired with them, such as optimizer
 moments) back out as a tree. Loading is strict: a leaf that is missing, left
 over or of the wrong shape raises ``ValueError`` naming its path. Any leaf
-that ``np.asarray`` accepts (numpy or JAX arrays) is taken.
+that ``np.asarray`` accepts (numpy or JAX arrays) is taken, and tensors
+(the bf16 leaves of an unpickled JAX checkpoint).
 """
 
 from __future__ import annotations
@@ -101,6 +102,15 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     return flat
 
 
+def leaf_array(leaf: Any) -> np.ndarray:
+    """A tree leaf as a numpy array: a tensor (bf16 upcast to fp32, which is exact) or
+    anything ``np.asarray`` takes."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        return (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
+    return np.asarray(leaf)
+
+
 def expected_shapes(module: nn.Module) -> dict[str, tuple[int, ...]]:
     """JAX tree path -> leaf shape, for the tree that ``module`` accepts."""
     return {path: slot.shape for path, slot in _slots(module).items()}
@@ -116,7 +126,7 @@ def jax_tree_arrays(module: nn.Module, tree: Any) -> dict[nn.Parameter, np.ndarr
         raise ValueError(f"params tree does not match the module: missing {missing}, extra {extra}")
     out: dict[nn.Parameter, np.ndarray] = {}
     for path, slot in slots.items():
-        arr = np.asarray(flat[path])
+        arr = leaf_array(flat[path])
         if arr.shape != slot.shape:
             raise ValueError(f"{path}: shape {arr.shape}, expected {slot.shape}")
         arr = arr.astype(np.float32, copy=False)

@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from multimodal_timesfm_torch.models.base import PreprocessResult, TsfmAdapter
 from multimodal_timesfm_torch.models.layers import Dense, ResidualBlock, RMSNorm, dense, relu, xavier_uniform
-from multimodal_timesfm_torch.ops.attention import NEG_INF
+from multimodal_timesfm_torch.ops.attention import NEG_INF, takes_kernels
 from multimodal_timesfm_torch.ops.chronos_attention import fused_chronos_attention
 from multimodal_timesfm_torch.ops.patching import patchify
 from multimodal_timesfm_torch.ops.qkv_attention import split_heads
@@ -146,16 +146,28 @@ def _relative_bucket(rel: torch.Tensor, num_buckets: int, max_distance: int) -> 
     return ret + torch.where(rel < max_exact, rel, large)
 
 
+def _bucket_table(seq: int, num_buckets: int, max_distance: int, device: torch.device) -> torch.Tensor:
+    pos = torch.arange(seq)
+    return _relative_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance).to(device)
+
+
 @functools.lru_cache(maxsize=32)
+def _cached_buckets(seq: int, num_buckets: int, max_distance: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return _bucket_table(seq, num_buckets, max_distance, device)
+
+
 def _buckets(seq: int, num_buckets: int, max_distance: int, device: torch.device) -> torch.Tensor:
     """(S, S) bucket of key - query, computed on the CPU once per length and device.
 
     Made outside inference mode even when first asked for inside it, so that
-    a later differentiated call can index with the cached tensor.
+    a later differentiated call can index with the cached tensor. While
+    ``torch.export`` traces, the table is computed in the graph and not
+    cached (a traced tensor must not outlive its trace).
     """
-    with torch.inference_mode(False):
-        pos = torch.arange(seq)
-        return _relative_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance).to(device)
+    if torch.compiler.is_compiling():
+        return _bucket_table(seq, num_buckets, max_distance, device)
+    return _cached_buckets(seq, num_buckets, max_distance, device)
 
 
 class ChronosAttention(nn.Module):
@@ -182,14 +194,15 @@ class ChronosEncoderLayer(nn.Module):
         self.ffn_down = Dense(cfg.ffn_dim, cfg.model_dim, generator, bias=False)
 
     def forward(self, h: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """``mask``: on CUDA the (B, S) int32 segment ids of the kernel; on the CPU the
+        """``mask``: on the kernel route (``ops.attention.takes_kernels``: the card, or the
+        CPU while exporting) the (B, S) int32 segment ids of the kernel; otherwise the
         additive fp32 key mask (0 or finfo.min) of JAX's composition."""
         attn = self.attn
         normed = self.attn_norm(h)
         # One GEMM over the concatenated q|k|v weights: its (B, S, 3*H*D) output
         # is what the kernel reads in place (JAX's fused path concatenates too).
         qkv = dense(normed, torch.cat([attn.q.weight, attn.k.weight, attn.v.weight]))
-        if h.is_cuda:
+        if takes_kernels(h):
             ctx = fused_chronos_attention(qkv, mask, bias)
         else:
             q, k, v = split_heads(qkv, self.num_heads, self.head_dim)
@@ -237,7 +250,7 @@ class ChronosEncoder(nn.Module):
         # over the layers into the (buckets, H) table.
         bias = self.rel_pos_bias[buckets].permute(2, 0, 1).float().contiguous()
         valid = attention_mask > 0
-        if x.is_cuda:
+        if takes_kernels(x):
             # Attention-group ids: the segment for a valid token, an id of its
             # own (negative) for a padded one, which then attends only itself.
             base = torch.zeros_like(valid, dtype=torch.int32) if segment_ids is None else segment_ids
@@ -285,10 +298,9 @@ class Chronos2Adapter(TsfmAdapter):
 
     @staticmethod
     def config_from_hf(hf_config: dict) -> Chronos2Config:
-        raise NotImplementedError(
-            "loading a Chronos-2 snapshot's config.json is not ported yet "
-            "(ROADMAP queue A, item 12: safetensors converters)"
-        )
+        from multimodal_timesfm_torch.models.snapshot import chronos2_config_from_hf
+
+        return chronos2_config_from_hf(hf_config)
 
     @property
     def model_dims(self) -> int:

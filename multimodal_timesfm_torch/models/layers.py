@@ -25,6 +25,7 @@ from multimodal_timesfm_torch.ops.attention import (
     needs_flash,
     plain_causal_attention,
     supports_fused,
+    takes_kernels,
 )
 from multimodal_timesfm_torch.ops.qkv_attention import (
     fused_qkv_causal_attention,
@@ -99,7 +100,11 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = Non
     if x.dtype == torch.bfloat16 and weight.dtype == torch.bfloat16:
         return _DenseBf16.apply(x, weight, bias)
     b = None if bias is None else bias.float()
-    return F.linear(x.float(), weight.float(), b).to(x.dtype)
+    # Contiguous, so that ATen's linear takes its flattened GEMM with the bias fused
+    # whether or not the weight requires grad (it picks another path for a strided
+    # input when it does not): a module and an exported program on the same weights
+    # then give the same bits.
+    return F.linear(x.float().contiguous(), weight.float(), b).to(x.dtype)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -265,10 +270,13 @@ class Attention(nn.Module):
             paddings: (B, S) bool, True = padded token.
 
         Dispatch: folded ``vo`` -> one GEMM (S must be 1); one token -> the v
-        projection alone (softmax over one key is the identity); on CUDA
-        8 <= S < 256 -> the fused-qkv kernel, 256 <= S <= 1024 -> the
-        whole-sequence kernel, S > 2048 -> the flash entry point; everything
-        else, and every CPU tensor, the plain path.
+        projection alone (softmax over one key is the identity). Otherwise a
+        tensor that ``ops.attention.takes_kernels`` (any tensor not on the CPU;
+        a CPU one while exporting) goes to a kernel entry point: the fused-qkv
+        kernel at 8 <= S < 256 with S % 8 == 0 (B1, the TPU's border), the
+        whole-sequence one at every other S up to 2,048 (B2), the flash one
+        past 2,048 (B3); on the card no S reaches the plain path. A CPU
+        tensor runs the plain path (JAX's XLA path).
         """
         batch, seq, _ = x.shape
         if self.vo is not None:
@@ -310,6 +318,8 @@ class Attention(nn.Module):
                 out = fused_causal_attention(q, k, v, key_valid)
             elif needs_flash(qkv, seq, dim):
                 out = flash_causal_attention(q, k, v, key_valid)
+            elif takes_kernels(qkv):
+                raise ValueError(f"head_dim {dim} is past the attention kernels' 256")
             else:
                 out = plain_causal_attention(q, k, v, key_valid)
             out = out.reshape(batch, seq, hd)

@@ -87,6 +87,12 @@ class TimesFM2p5Adapter(TsfmAdapter):
                 cfg.model_dims, cfg.model_dims, cfg.quantile_horizon * cfg.num_output_channels, gen
             )
 
+    @staticmethod
+    def config_from_hf(hf_config: dict) -> TimesFMConfig:
+        from multimodal_timesfm_torch.models.snapshot import timesfm_config_from_hf
+
+        return timesfm_config_from_hf(hf_config)
+
     @property
     def model_dims(self) -> int:
         return self.config.model_dims

@@ -5,20 +5,25 @@ with q pre-scaled and ``key_valid`` (B, S) bool, True = valid key. Masked
 logits are ``finfo(float32).min``, never ``-inf``: a query row with no valid
 key then gets uniform weights and stays finite.
 
-``fused_causal_attention`` (B2, 256 <= S <= 1024) and
-``flash_causal_attention`` (B3, S > 2048) are differentiable. On a CUDA
-tensor their forwards launch the hand-written kernel ``csrc/attention_fwd.cu``
-and their backwards ``csrc/attention_bwd.cu``; on a CPU tensor each runs its
-plain version. There is no other fallback. Both kernels walk the keys and the
-query rows in shared-memory tiles and keep no (S, S) buffer, so one pair of
-kernels serves both lengths, each entry point with its own launch counters.
-As in JAX's custom VJP, the only residuals are q, k, v and the mask: the
-backward recomputes the weights.
+``fused_causal_attention`` (B2, S <= 2048 where B1 does not run) and
+``flash_causal_attention`` (B3, S > 2048) are differentiable ``torch.library``
+custom ops (``torch.ops.mtt.*``), so ``torch.export`` keeps them in its
+graph. On a CUDA tensor their forwards launch the hand-written kernel
+``csrc/attention_fwd.cu`` and their backwards ``csrc/attention_bwd.cu``; on a
+CPU tensor each runs its plain version. There is no other fallback. Both
+kernels walk the keys and the query rows in shared-memory tiles and keep no
+(S, S) buffer, so one pair of kernels serves both lengths, each entry point
+with its own launch counters. As in JAX's custom VJP, the only residuals are
+q, k, v and the mask: the backward recomputes the weights.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from multimodal_timesfm_torch.ops import _kernels
 
@@ -105,6 +110,12 @@ def plain_attention_bwd(
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def is_traced(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a tensor ``torch.export`` traces with (a fake tensor), as against a
+    real one (a meta tensor included)."""
+    return isinstance(x, FakeTensor)
+
+
 def _kernel_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor, counter
 ) -> torch.Tensor:
@@ -130,24 +141,6 @@ def _kernel_bwd(
     return dq, dk, dv
 
 
-class _CausalAttention(torch.autograd.Function):
-    """Both entry points: ``entry`` counts the forward launches, ``entry_bwd`` is the backward."""
-
-    @staticmethod
-    def forward(
-        ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
-        entry, entry_bwd,
-    ) -> torch.Tensor:
-        ctx.save_for_backward(q, k, v, key_valid)
-        ctx.entry_bwd = entry_bwd
-        return _kernel_fwd(q, k, v, key_valid, entry)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
-        q, k, v, key_valid = ctx.saved_tensors
-        return (*ctx.entry_bwd(q, k, v, key_valid, g), None, None, None)
-
-
 def fused_causal_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor
 ) -> torch.Tensor:
@@ -156,9 +149,10 @@ def fused_causal_attention(
     q, k, v: (B, S, H, D) sharing one row stride, each head's D values
     contiguous (so q/k/v column views of a fused projection go in without a
     copy); key_valid: (B, S) bool. Returns a new contiguous (B, S, H, D).
-    ``fused_causal_attention.launches`` counts forward kernel launches.
+    ``fused_causal_attention.launches`` counts forward kernel launches. It is
+    the custom op ``torch.ops.mtt.fused_causal_attention``.
     """
-    return _CausalAttention.apply(q, k, v, key_valid, fused_causal_attention, fused_causal_attention_bwd)
+    return _fused_op(q, k, v, key_valid)
 
 
 fused_causal_attention.launches = 0
@@ -190,9 +184,9 @@ def flash_causal_attention(
     is padded here. As in JAX, the valid query rows are the contract (a row
     with no valid key gets uniform weights here). Returns a new contiguous
     (B, S, H, D); ``flash_causal_attention.launches`` counts forward kernel
-    launches.
+    launches. It is the custom op ``torch.ops.mtt.flash_causal_attention``.
     """
-    return _CausalAttention.apply(q, k, v, key_valid, flash_causal_attention, flash_causal_attention_bwd)
+    return _flash_op(q, k, v, key_valid)
 
 
 flash_causal_attention.launches = 0
@@ -213,11 +207,76 @@ def flash_causal_attention_bwd(
 flash_causal_attention_bwd.launches = 0
 
 
+def _register(entry, entry_bwd):
+    """Register ``entry`` as the ``torch.library`` custom op ``mtt::<its name>``.
+
+    One implementation serves every device: the plain version on a CPU
+    tensor, else the kernel, counted on ``entry.launches`` (so a trace, which
+    runs the fake implementation, counts nothing). The fake implementation
+    gives ``torch.export`` the output's shape and dtype; PyTorch also runs it
+    for meta tensors, and there it takes the kernel path as a CUDA tensor
+    does. The backward calls ``entry_bwd``, which launches the backward
+    kernel.
+    """
+
+    def impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
+        return _kernel_fwd(q, k, v, key_valid, entry)
+
+    def fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
+        if not is_traced(q):
+            return impl(q, k, v, key_valid)
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    op = torch.library.custom_op(f"mtt::{entry.__name__}", impl, mutates_args=())
+    op.register_fake(fake)
+
+    def setup_context(ctx, inputs, output) -> None:
+        ctx.save_for_backward(*inputs)
+
+    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
+        q, k, v, key_valid = ctx.saved_tensors
+        return (*entry_bwd(q, k, v, key_valid, g), None)
+
+    op.register_autograd(backward, setup_context=setup_context)
+    return op
+
+
+_fused_op = _register(fused_causal_attention, fused_causal_attention_bwd)
+_flash_op = _register(flash_causal_attention, flash_causal_attention_bwd)
+
+
+_ROUTE_CPU_TO_KERNELS = contextvars.ContextVar("route_cpu_to_kernels", default=False)
+
+
+@contextlib.contextmanager
+def kernel_route():
+    """Send CPU tensors down the kernel entry points too, inside this block.
+
+    The entry points run their plain versions on a CPU tensor, so the numbers
+    do not change; what changes is the graph: ``serving.export_program``
+    traces under it, so an artifact exported on the CPU holds the custom ops
+    and launches the kernels when it is served on the card.
+    """
+    token = _ROUTE_CPU_TO_KERNELS.set(True)
+    try:
+        yield
+    finally:
+        _ROUTE_CPU_TO_KERNELS.reset(token)
+
+
+def takes_kernels(x: torch.Tensor) -> bool:
+    """Whether ``x`` goes down the kernel entry points: any tensor not on the CPU (a
+    meta tensor too), and a CPU one inside :func:`kernel_route`."""
+    return x.device.type != "cpu" or _ROUTE_CPU_TO_KERNELS.get()
+
+
 def supports_fused(x: torch.Tensor, seq: int, dim: int) -> bool:
-    """Gate of the whole-sequence kernel: the JAX package's TPU bounds, on CUDA tensors."""
-    return x.is_cuda and 256 <= seq <= 1024 and seq % 8 == 0 and dim <= 256
+    """Gate of the whole-sequence entry point (B2): every S from 2 to 2,048 on a tensor
+    that :func:`takes_kernels` (the dispatch tries B1 first). The TPU took 256-1,024 with
+    S % 8 == 0 here; the CUDA kernels take any S."""
+    return takes_kernels(x) and 2 <= seq <= 2048 and dim <= 256
 
 
 def needs_flash(x: torch.Tensor, seq: int, dim: int) -> bool:
-    """Gate of :func:`flash_causal_attention`: where JAX runs its flash kernel (S > 2048)."""
-    return x.is_cuda and seq > 2048 and dim <= 256
+    """Gate of :func:`flash_causal_attention` (B3): S > 2,048, where JAX runs its flash kernel."""
+    return takes_kernels(x) and seq > 2048 and dim <= 256

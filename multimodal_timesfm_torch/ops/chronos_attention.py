@@ -14,7 +14,8 @@ Numerics are JAX's kernel's: fp32 logits ``q k^T + bias``, masked to
 the compute dtype before an fp32-accumulated PV product, one cast out; the
 backward recomputes the weights in fp32 and keeps them unrounded.
 
-``fused_chronos_attention`` is differentiable. On a CUDA tensor its forward
+``fused_chronos_attention`` is differentiable, a ``torch.library`` custom op
+(``torch.ops.mtt.fused_chronos_attention``). On a CUDA tensor its forward
 launches the hand-written kernel ``csrc/chronos_attention.cu`` (B4f) and its
 backward the same source's backward kernels (B4b); on a CPU tensor each runs
 its plain version. There is no other fallback. As in JAX's custom VJP, the
@@ -29,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_timesfm_torch.ops import _kernels
-from multimodal_timesfm_torch.ops.attention import NEG_INF
+from multimodal_timesfm_torch.ops.attention import NEG_INF, is_traced
 from multimodal_timesfm_torch.ops.qkv_attention import split_heads
 
 
@@ -100,25 +101,6 @@ def plain_chronos_attention_bwd(
     return dqkv, (dl.sum(dim=0) if need_dbias else None)
 
 
-class _FusedChronosAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(qkv, seg, bias)
-        if qkv.device.type == "cpu":
-            return plain_chronos_attention(qkv, seg, bias)
-        heads, dim = _geometry(qkv, bias)
-        out = torch.empty((*qkv.shape[:2], heads * dim), dtype=qkv.dtype, device=qkv.device)
-        _kernels.chronos_attention_fwd(qkv, seg, bias, out, heads, dim)
-        fused_chronos_attention.launches += 1
-        return out
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
-        qkv, seg, bias = ctx.saved_tensors
-        dqkv, dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, ctx.needs_input_grad[2])
-        return dqkv, None, dbias
-
-
 def fused_chronos_attention(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """softmax(QK^T + bias + segment mask) V over the raw (B, S, 3*H*D) qkv, differentiable.
 
@@ -135,7 +117,7 @@ def fused_chronos_attention(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Te
     """
     if qkv.device.type != "cpu" and not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    return _FusedChronosAttention.apply(qkv, seg, bias)
+    return _chronos_op(qkv, seg, bias)
 
 
 fused_chronos_attention.launches = 0
@@ -163,3 +145,39 @@ def fused_chronos_attention_bwd(
 
 
 fused_chronos_attention_bwd.launches = 0
+
+
+def _forward(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The op's implementation: plain on a CPU tensor, else the kernel, counted."""
+    if qkv.device.type == "cpu":
+        return plain_chronos_attention(qkv, seg, bias)
+    heads, dim = _geometry(qkv, bias)
+    out = torch.empty((*qkv.shape[:2], heads * dim), dtype=qkv.dtype, device=qkv.device)
+    _kernels.chronos_attention_fwd(qkv, seg, bias, out, heads, dim)
+    fused_chronos_attention.launches += 1
+    return out
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
+    qkv, seg, bias = ctx.saved_tensors
+    dqkv, dbias = fused_chronos_attention_bwd(qkv, seg, bias, g, ctx.needs_input_grad[2])
+    return dqkv, None, dbias
+
+
+def _fake(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The shape and dtype for ``torch.export``; a real meta tensor takes the kernel path."""
+    if not is_traced(qkv):
+        return _forward(qkv, seg, bias)
+    return qkv.new_empty((*qkv.shape[:2], qkv.shape[-1] // 3))
+
+
+# The custom op mtt::fused_chronos_attention, registered as ops/attention.py's
+# entry points are: one implementation for every device, a fake one for
+# torch.export (and meta tensors), the backward kernels through register_autograd.
+_chronos_op = torch.library.custom_op("mtt::fused_chronos_attention", _forward, mutates_args=())
+_chronos_op.register_fake(_fake)
+_chronos_op.register_autograd(_backward, setup_context=_setup_context)

@@ -7,7 +7,9 @@ the out projection. The CUDA kernels read q, k and v straight out of that
 layout (row stride 3*H*D), and the backward kernel writes dq|dk|dv into one
 (B, S, 3*H*D) gradient in the same layout, so nothing is sliced, copied or
 transposed. The residuals are qkv and the mask, as in JAX's custom VJP. The
-TPU kernel's row-tile packing is a TPU layout device and is not carried over.
+entry point is the ``torch.library`` custom op
+``torch.ops.mtt.fused_qkv_causal_attention``. The TPU kernel's row-tile
+packing is a TPU layout device and is not carried over.
 """
 
 from __future__ import annotations
@@ -15,7 +17,12 @@ from __future__ import annotations
 import torch
 
 from multimodal_timesfm_torch.ops import _kernels
-from multimodal_timesfm_torch.ops.attention import plain_attention_bwd, plain_causal_attention
+from multimodal_timesfm_torch.ops.attention import (
+    is_traced,
+    plain_attention_bwd,
+    plain_causal_attention,
+    takes_kernels,
+)
 
 
 def split_heads(qkv: torch.Tensor, num_heads: int, head_dim: int) -> tuple[torch.Tensor, ...]:
@@ -47,29 +54,6 @@ def plain_qkv_attention_bwd(
     return torch.cat([d.flatten(-2) for d in grads], dim=-1)
 
 
-class _FusedQKVAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(
-        ctx, qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_dim: int
-    ) -> torch.Tensor:
-        ctx.save_for_backward(qkv, key_valid)
-        ctx.num_heads, ctx.head_dim = num_heads, head_dim
-        if qkv.device.type == "cpu":
-            return plain_qkv_causal_attention(qkv, key_valid, num_heads, head_dim)
-        batch, seq, _ = qkv.shape
-        out = torch.empty((batch, seq, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
-        q, k, v = split_heads(qkv, num_heads, head_dim)
-        _kernels.attention_fwd(q, k, v, key_valid, out.unflatten(-1, (num_heads, head_dim)))
-        fused_qkv_causal_attention.launches += 1
-        return out
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
-        qkv, key_valid = ctx.saved_tensors
-        dqkv = fused_qkv_causal_attention_bwd(qkv, key_valid, g, ctx.num_heads, ctx.head_dim)
-        return dqkv, None, None, None
-
-
 def fused_qkv_causal_attention(
     qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_dim: int
 ) -> torch.Tensor:
@@ -88,7 +72,7 @@ def fused_qkv_causal_attention(
         raise ValueError(f"qkv has {cols} columns, expected 3*H*D = {3 * num_heads * head_dim}")
     if qkv.device.type != "cpu" and not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    return _FusedQKVAttention.apply(qkv, key_valid, num_heads, head_dim)
+    return _fused_qkv_op(qkv, key_valid, num_heads, head_dim)
 
 
 fused_qkv_causal_attention.launches = 0
@@ -117,6 +101,46 @@ def fused_qkv_causal_attention_bwd(
 fused_qkv_causal_attention_bwd.launches = 0
 
 
+def _forward(qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    """The op's implementation: plain on a CPU tensor, else the kernel, counted."""
+    if qkv.device.type == "cpu":
+        return plain_qkv_causal_attention(qkv, key_valid, num_heads, head_dim)
+    batch, seq, _ = qkv.shape
+    out = torch.empty((batch, seq, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
+    q, k, v = split_heads(qkv, num_heads, head_dim)
+    _kernels.attention_fwd(q, k, v, key_valid, out.unflatten(-1, (num_heads, head_dim)))
+    fused_qkv_causal_attention.launches += 1
+    return out
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    qkv, key_valid, num_heads, head_dim = inputs
+    ctx.save_for_backward(qkv, key_valid)
+    ctx.num_heads, ctx.head_dim = num_heads, head_dim
+
+
+def _backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
+    qkv, key_valid = ctx.saved_tensors
+    dqkv = fused_qkv_causal_attention_bwd(qkv, key_valid, g, ctx.num_heads, ctx.head_dim)
+    return dqkv, None, None, None
+
+
+def _fake(qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    """The shape and dtype for ``torch.export``; a real meta tensor takes the kernel path."""
+    if not is_traced(qkv):
+        return _forward(qkv, key_valid, num_heads, head_dim)
+    return qkv.new_empty((*qkv.shape[:2], num_heads * head_dim))
+
+
+# The custom op mtt::fused_qkv_causal_attention, registered as ops/attention.py's
+# entry points are: one implementation for every device, a fake one for
+# torch.export (and meta tensors), the backward kernel through register_autograd.
+_fused_qkv_op = torch.library.custom_op("mtt::fused_qkv_causal_attention", _forward, mutates_args=())
+_fused_qkv_op.register_fake(_fake)
+_fused_qkv_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def supports_qkv_fused(x: torch.Tensor, seq: int, dim: int) -> bool:
-    """Gate of the fused-qkv kernel: the JAX package's TPU bounds, on CUDA tensors."""
-    return x.is_cuda and 8 <= seq < 256 and seq % 8 == 0 and dim <= 256 and dim % 8 == 0
+    """Gate of the fused-qkv kernel (B1): the JAX package's TPU bounds (8 <= S < 256,
+    S % 8 == 0), on a tensor that ``ops.attention.takes_kernels``."""
+    return takes_kernels(x) and 8 <= seq < 256 and seq % 8 == 0 and dim <= 256 and dim % 8 == 0

@@ -5,9 +5,9 @@ downloaded HF model directory (e.g. ``sentence-transformers/all-MiniLM-L6-v2``)
 into the ``text/bert.py`` tree, which ``models/bridge.load_jax_params`` loads
 into a :class:`~multimodal_timesfm_torch.text.bert.BertEncoder`, plus its
 ``vocab.txt`` WordPiece tokenizer. Torch linear weights are (out, in) and
-become (in, out) kernels. ``model.safetensors`` is read with
-``safetensors.numpy``, imported only then; ``pytorch_model.bin`` with
-``torch.load(weights_only=True)``.
+become (in, out) kernels. ``model.safetensors`` is read with the
+port's own reader (``utils/safetensors.py``, no ``safetensors`` package);
+``pytorch_model.bin`` with ``torch.load(weights_only=True)``.
 """
 
 from __future__ import annotations
@@ -20,20 +20,20 @@ import torch
 
 from multimodal_timesfm_torch.text.bert import BertConfig
 from multimodal_timesfm_torch.text.tokenizer import WordPieceTokenizer
+from multimodal_timesfm_torch.utils import safetensors
 
 
 def load_state_dict(model_dir: Path) -> dict[str, np.ndarray]:
     """Read model.safetensors or pytorch_model.bin into numpy arrays."""
     st_path = model_dir / "model.safetensors"
     if st_path.exists():
-        from safetensors.numpy import load_file
-
-        return dict(load_file(str(st_path)))
-    bin_path = model_dir / "pytorch_model.bin"
-    if bin_path.exists():
+        sd = safetensors.load_file(st_path)
+    else:
+        bin_path = model_dir / "pytorch_model.bin"
+        if not bin_path.exists():
+            raise FileNotFoundError(f"No model.safetensors or pytorch_model.bin in {model_dir}")
         sd = torch.load(bin_path, map_location="cpu", weights_only=True)
-        return {k: v.float().numpy() for k, v in sd.items()}
-    raise FileNotFoundError(f"No model.safetensors or pytorch_model.bin in {model_dir}")
+    return {k: v.float().numpy() for k, v in sd.items()}
 
 
 def convert_hf_bert_state(sd: dict[str, Any], cfg: BertConfig) -> dict[str, Any]:

@@ -40,8 +40,13 @@ arrays, and micro-batches are gathered on the device. Larger datasets are
 gathered on the host, one micro-batch at a time, and train per epoch. The
 trainer runs on CUDA unless the caller passes ``device="cpu"``.
 
+Checkpoints take the JAX package's two backends (``training/checkpoint.py``:
+a pickle file, or with ``ckpt_backend="orbax"`` a directory of safetensors
+and JSON), and resuming reads the port's payloads and those the JAX trainer
+wrote (an optax chain or fused state, bf16 moments included).
+
 Not ported yet, and refused when asked for: ``mesh``/``shard_params_fn``
-(ROADMAP queue A item 10) and ``ckpt_backend="orbax"`` (item 22).
+(ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ from multimodal_timesfm_torch.models.layers import (
     fold_frozen_tree_seq1,
 )
 from multimodal_timesfm_torch.training.checkpoint import (
+    BACKENDS,
+    adam_state,
     load_checkpoint,
     rotate_checkpoints,
     save_checkpoint,
@@ -196,8 +203,10 @@ class MultimodalTrainer:
         _refuse_unported(
             mesh=(mesh, mesh is not None, "10"),
             shard_params_fn=(shard_params_fn, shard_params_fn is not None, "10"),
-            ckpt_backend=(ckpt_backend, ckpt_backend != "pickle", "22"),
         )
+        if ckpt_backend not in BACKENDS:
+            raise ValueError(f"ckpt_backend must be one of {BACKENDS}, got {ckpt_backend!r}")
+        self.ckpt_backend = ckpt_backend
         self.device = resolve_device(device)
         model = model.to(self.device)
         self.args = args
@@ -616,7 +625,9 @@ class MultimodalTrainer:
     def resume_from_checkpoint(self, path: Any) -> None:
         """Restore the trained parameters, optimizer state and counters; call before ``train()``.
 
-        Training continues at the epoch after the checkpointed one. A checkpoint
+        Reads either backend, and checkpoints the JAX trainer wrote (its optax
+        chain or fused state, fp32 or bf16 moments). Training continues at the
+        epoch after the checkpointed one. A checkpoint
         written under the other ``fused_optimizer`` setting raises; a ``best``
         checkpoint of the fused path (best weights, end-of-run optimizer state)
         warns.
@@ -643,13 +654,15 @@ class MultimodalTrainer:
                 stacklevel=2,
             )
         load_jax_params(self.trainable_module, checkpoint[self._params_key])
-        state = checkpoint["optimizer_state"]
+        # The port's {"count", "mu", "nu"}, or the ScaleByAdamState of a JAX chain
+        # or fused state; moments of either dtype are cast to the live slots'.
+        count, mu, nu = adam_state(checkpoint["optimizer_state"])
         with torch.no_grad():
-            for slots, tree in ((self.optimizer.mu, state["mu"]), (self.optimizer.nu, state["nu"])):
+            for slots, tree in ((self.optimizer.mu, mu), (self.optimizer.nu, nu)):
                 arrays = jax_tree_arrays(self.trainable_module, tree)
                 for p, slot in zip(self.trainable, slots):
                     slot.copy_(torch.from_numpy(arrays[p]))
-        self.optimizer.count = int(state["count"])
+        self.optimizer.count = count
         self.start_epoch = checkpoint["epoch"] + 1
         self.current_epoch = self.start_epoch
         self.global_step = checkpoint["global_step"]
@@ -669,12 +682,14 @@ class MultimodalTrainer:
         checkpoint = self._build_checkpoint()
         if self.args.save_strategy == "epoch":
             path = self.args.checkpoint_dir / f"checkpoint_epoch_{self.current_epoch}.ckpt"
-            save_checkpoint(path, checkpoint)
+            save_checkpoint(path, checkpoint, backend=self.ckpt_backend)
             _logger.info("Saved checkpoint at epoch %d", self.current_epoch)
             if self.args.save_total_limit is not None:
                 rotate_checkpoints(self.args.checkpoint_dir, self.args.save_total_limit)
         if is_best:
-            save_checkpoint(self.args.checkpoint_dir / "best_model.ckpt", checkpoint)
+            save_checkpoint(
+                self.args.checkpoint_dir / "best_model.ckpt", checkpoint, backend=self.ckpt_backend
+            )
             _logger.info("Saved best model checkpoint at epoch %d", self.current_epoch)
 
     def train(self) -> None:
@@ -735,7 +750,9 @@ class MultimodalTrainer:
             checkpoint = self._build_checkpoint(self._fused_best["trainable"])
             checkpoint["optimizer_state_is_final"] = True
             self.global_step = live_step
-            save_checkpoint(self.args.checkpoint_dir / "best_model.ckpt", checkpoint)
+            save_checkpoint(
+                self.args.checkpoint_dir / "best_model.ckpt", checkpoint, backend=self.ckpt_backend
+            )
             _logger.info("Saved best model checkpoint at epoch %d", best_epoch)
         self.current_epoch = self.args.num_train_epochs - 1
 

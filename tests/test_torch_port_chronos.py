@@ -105,8 +105,10 @@ def test_config_checks_and_hf_loader():
             tc.Chronos2Config(**bad)
     default = tc.Chronos2Config()
     assert (default.model_dim, default.num_layers, default.num_heads, default.head_dim) == (768, 16, 12, 64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tc.Chronos2Adapter.config_from_hf({})
+    # The snapshot loader maps config.json onto the config (models/snapshot.py).
+    assert tc.Chronos2Adapter.config_from_hf({}) == default
+    cfg = tc.Chronos2Adapter.config_from_hf({"chronos_config": {"d_model": 64, "num_heads": 4}})
+    assert (cfg.model_dim, cfg.num_heads, cfg.num_layers) == (64, 4, 16)
 
 
 def test_instance_norm_matches_jax():

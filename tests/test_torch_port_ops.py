@@ -140,6 +140,25 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
+def test_the_pretrained_to_served_path_imports_no_optional_package():
+    """The snapshot readers, checkpoints, serving and the CLIs import neither
+    ``safetensors`` nor ``transformers`` (the card's installation has no such
+    package; the port reads safetensors itself), at any level of the module."""
+    port = REPO / "multimodal_timesfm_torch"
+    files = [port / name for name in (
+        "utils/safetensors.py", "utils/cache.py", "models/convert.py", "models/base.py",
+        "training/checkpoint.py", "training/trainer.py", "inference.py", "serving.py",
+        "forecast.py", "export.py", "time_mmd/models.py", "text/convert.py",
+    )]
+    bad = [
+        f"{f.relative_to(REPO)}: {name}"
+        for f in files
+        for name in _imported_modules(f)
+        if name.split(".")[0] in ("safetensors", "transformers", "jax", "multimodal_timesfm_tpu", "examples")
+    ]
+    assert not bad, bad
+
+
 def _meta_qkv():
     qkv = torch.empty(2, 16, 3 * 2 * 8, device="meta")
     return qkv, torch.ones(2, 16, dtype=torch.bool, device="meta")

@@ -443,7 +443,7 @@ def test_trainer_needs_cuda_unless_told_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize(
     "knob,value",
-    [("mesh", object()), ("shard_params_fn", lambda p, m: p), ("ckpt_backend", "orbax")],
+    [("mesh", object()), ("shard_params_fn", lambda p, m: p)],
 )
 def test_trainer_refuses_unported_knobs(tmp_path, knob, value):
     port, _, _ = _decoder_pair()
