@@ -128,10 +128,28 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    transformers was imported. Before any main path, phase 2 also checks the
    whole-sequence kernels (B2f, B2b) at the lengths the repaired gates give
    them (S = 2, 3, 5, 7, 33, 1,025, 1,250), and at the exact (B, S) that
-   phase 9's serving and training give them.
+   phase 9's serving and training give them;
+10. sweeps, with PyTorch's per-sample vmap fallback disabled (an op without a
+   batching rule raises) and the plain attention made to raise: phase 8's
+   tree split by the port's split CLI, the fold cached by the cache CLI, then
+   ``python -m multimodal_timesfm_torch.tune --offline --vectorized`` in-process
+   (TimesFM-2.5 200M fp32, 8 trials in one structural group) and the same 8
+   configs through the sequential CLI, ``val/best_loss`` and ``test/mse`` per
+   trial within ``SWEEP_RTOL``; the JAX bench's ``timesfm_mm_sweepT16``
+   (bench.py:510-650: 16 trials in one group against sequential T=1 runs, and
+   split 6/5/5 over 1/2/3 fusion layers; s/trial, trials/hour, the ratio, the
+   CUDA-graph captures and replays, one profiled step's and validation pass's
+   idle share); a TimesFM multimodal group at context 512 (B1f/B1b) and a
+   Chronos-2 multimodal group at ``chronos_mm_h32`` (B4f/B4b), each with the
+   same counted launches at T=4 as at T=1; a baseline TimesFM group of T=2
+   (per-trial 200M weights) against a T=1 run, and ``vectorized_max_trials``.
+   Before the main paths, each custom op's vmap rule is held to per-trial
+   launches on the card (B1-B4, fp32 and bf16): forward and gradients
+   bit-equal, one launch for all trials (B4 with a per-trial bias: one a
+   trial).
 
 The ``kernels`` line lists every kernel with its launches on the main-path
-phases (3 to 9; each starts its counters at 0; a kernel captured in a CUDA
+phases (3 to 10; each starts its counters at 0; a kernel captured in a CUDA
 graph counts once per replay) and its numbers at its main-path shape in
 bf16.
 
@@ -2604,10 +2622,19 @@ def pretrained_phase(seed: int) -> None:
           f"card | counted launches {seen} "
           f"(+{20 * 4 * (replays - captures)} B1f from replays)", flush=True)
     shutil.rmtree(root / "export", ignore_errors=True)
+    # The sweep slice's modules too (phase 10 drives them): importing them pulls in
+    # nothing of these either.
+    import multimodal_timesfm_torch.time_mmd.split  # noqa: F401
+    import multimodal_timesfm_torch.time_mmd.sweep_lib  # noqa: F401
+    import multimodal_timesfm_torch.training.vectorized  # noqa: F401
+    import multimodal_timesfm_torch.tune  # noqa: F401
+    import multimodal_timesfm_torch.tune_baseline  # noqa: F401
+    import multimodal_timesfm_torch.utils.tracking  # noqa: F401
+
     imported = sorted(m for m in ("jax", "multimodal_timesfm_tpu", "examples", "safetensors", "transformers")
                       if m in sys.modules)
     if imported:
-        raise AssertionError(f"the pretrained-to-served path imported {imported}")
+        raise AssertionError(f"the pretrained-to-served and sweep paths imported {imported}")
 
 
 def serving_times(seed: int, repeats: int = 7) -> None:
@@ -2741,6 +2768,398 @@ def dispatch_times(calls: int = 2000, repeats: int = 7) -> None:
               flush=True)
 
 
+# Phase 10, sweeps: the vmap rules against per-trial launches (before the main paths),
+# then the tuning workflow and the vectorized trials on the card.
+# Vectorized against sequential trials of the same configs (the tune CLI, fp32, 8 trials):
+# |vec - seq| <= SWEEP_RTOL x |seq| on val/best_loss and test/mse. The trial axis changes
+# only the GEMMs' row counts (T x B rows against B), so the sums run in another order;
+# the trajectory ceiling of the repo's parity tests (losses rtol 2e-3) bounds what Adam
+# makes of that over two epochs.
+SWEEP_RTOL = 2e-3
+# Shapes of the vmap-rule checks: (label, trials, batch rows per trial, S) on the main
+# paths of phase 10 (B1 at the context-512 group; B4 at chronos_mm_h32) and the lengths
+# B2 and B3 serve (B2 at 40 tokens, B3 past 2,048).
+VMAP_CAUSAL_SHAPES = (("B1", 4, 32, 16), ("B2", 2, 8, 40), ("B3", 2, 1, 2100))
+VMAP_CHRONOS_SHAPES = ((4, 32, 67, False), (2, 8, 67, True))
+SWEEP_FOLD = ("Agriculture", "Economy", "Environment", "Health_US", "Traffic")
+
+
+def vmap_rule_checks(seed: int) -> None:
+    """Each custom op's vmap rule (one launch over the trial axis folded into the batch
+    rows) against a loop of per-trial launches on the card, forward and backward, fp32 and
+    bf16: outputs and input gradients bit-equal (every kernel's rows are independent); a
+    bias shared by the trials gets one dbias sum over all rows, held to 1e-5 relative of
+    the per-trial sums."""
+    from torch.func import vmap
+
+    from multimodal_timesfm_torch.ops.attention import flash_causal_attention, fused_causal_attention
+    from multimodal_timesfm_torch.ops.chronos_attention import fused_chronos_attention
+    from multimodal_timesfm_torch.ops.qkv_attention import fused_qkv_causal_attention, split_heads
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def compare(label, fn, args, in_dims, grad_idx, shared_grad=None):
+        trials = args[0].shape[0]
+        before = launch_counts()
+        out = vmap(fn, in_dims=in_dims)(*args)
+        grads = torch.autograd.grad(out.float().square().sum(), [args[i] for i in grad_idx])
+        folded = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+        refs = [fn(*[a if d is None else a[t] for a, d in zip(args, in_dims)]) for t in range(trials)]
+        ref_grads = torch.autograd.grad(sum(r.float().square().sum() for r in refs), [args[i] for i in grad_idx])
+        same = torch.equal(out, torch.stack(refs)) and all(
+            torch.equal(g, r) for i, (g, r) in enumerate(zip(grads, ref_grads)) if i != shared_grad)
+        note = ""
+        if shared_grad is not None:
+            g, r = grads[shared_grad], ref_grads[shared_grad]
+            rel = float((g - r).abs().max() / r.abs().max())
+            note = f", shared dbias {rel:.2g} of max (tol 1e-5)"
+            same = same and rel <= 1e-5
+        print(f"[vmap] {label}: {trials} trials, vmapped launches {folded} against {trials} per-trial "
+              f"launches each way: forward and gradients bit-equal {same}{note}", flush=True)
+        if not same:
+            raise AssertionError(f"vmap rule {label}: disagrees with per-trial launches")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for key, trials, batch, seq in VMAP_CAUSAL_SHAPES:
+            qkv = torch.randn(trials, batch, seq, 3 * 16 * 80, device="cuda", generator=gen).to(dtype)
+            qkv.requires_grad_()
+            valid = torch.rand(trials, batch, seq, device="cuda", generator=gen) > 0.2
+            valid[..., 0] = True
+            if key == "B1":
+                def fn(x, m):
+                    return fused_qkv_causal_attention(x, m, 16, 80)
+            else:
+                entry = fused_causal_attention if key == "B2" else flash_causal_attention
+
+                def fn(x, m, entry=entry):
+                    return entry(*split_heads(x, 16, 80), m)
+            compare(f"{key} ({trials} x {batch}, {seq}, 16, 80) {name}", fn, (qkv, valid), (0, 0), (0,))
+        for trials, batch, seq, per_trial in VMAP_CHRONOS_SHAPES:
+            qkv = torch.randn(trials, batch, seq, 3 * 12 * 64, device="cuda", generator=gen).to(dtype)
+            qkv.requires_grad_()
+            seg = torch.zeros(trials, batch, seq, dtype=torch.int32, device="cuda")
+            seg[:, ::2, seq - 5:] = -1 - torch.arange(5, dtype=torch.int32, device="cuda")  # padded tokens
+            bias = torch.randn(*((trials,) if per_trial else ()), 12, seq, seq, device="cuda", generator=gen)
+            bias.requires_grad_()
+            compare(f"B4 ({trials} x {batch}, {seq}, 12, 64) {name}, bias "
+                    f"{'per trial (one launch per trial)' if per_trial else 'shared'}",
+                    fused_chronos_attention, (qkv, seg, bias), (0, 0, 0 if per_trial else None), (0, 2),
+                    shared_grad=None if per_trial else 1)
+
+
+def _timesfm_decoder(seed: int, dtype: torch.dtype, fusion_layers: int = 1, hidden: tuple = (),
+                     adapter=None):
+    """A TimesFM-2.5 200M decoder on the card, weights from ``seed`` (the adapter given is
+    shared as it is)."""
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=fusion_layers,
+                                      fusion_hidden_dims=hidden)
+    if adapter is not None:
+        decoder = MultimodalDecoder(adapter, dec_cfg, device="cuda",
+                                    generator=torch.Generator().manual_seed(seed + fusion_layers))
+        return decoder
+    decoder = MultimodalDecoder(TimesFM2p5Adapter(dataclasses.replace(TimesFMConfig(), compute_dtype=dtype)),
+                                dec_cfg, device="cpu")
+    load_jax_params(decoder, random_jax_params(decoder, seed))
+    return decoder.cuda()
+
+
+def _sweep_results(path) -> dict:
+    out = {}
+    for line in path.read_text().splitlines():
+        rec = json.loads(line)
+        if "val/best_loss" in rec or "error" in rec:
+            out[rec["run_id"]] = rec
+    return out
+
+
+def sweep_cli_part(seed: int, kind: str) -> None:
+    """The tuning workflow from raw CSVs: the phase-8 tree split by the port's split CLI,
+    cached by the cache CLI, then ``python -m multimodal_timesfm_torch.tune --offline
+    --vectorized`` in-process (one structural group of 8 trials) and the same 8 configs
+    through the sequential CLI (``train_and_evaluate``)."""
+    from pathlib import Path
+
+    from multimodal_timesfm_torch import tune
+    from multimodal_timesfm_torch.time_mmd import cache as cache_cli
+    from multimodal_timesfm_torch.time_mmd import split as split_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root, snapshot, cache_dir = tmp / "Time-MMD", tmp / "minilm", tmp / "cache"
+        start = time.perf_counter()
+        words = write_time_mmd_tree(root, seed)
+        write_minilm_snapshot(snapshot, words, seed)
+        if split_cli.main(["--data-path", str(root), "--train-ratio", "0.6", "--val-ratio", "0.2"]) != 0:
+            raise AssertionError("split CLI failed")
+        split_s = time.perf_counter() - start
+        (tmp / "model.json").write_text(json.dumps({
+            "adapter": {"type": "timesfm", "patch_len": 32},
+            "fusion": {"text_encoder_type": "english", "text_embedding_dims": 384}}))
+        (tmp / "forecast.json").write_text(json.dumps({"context_len": 32, "horizon_len": 32}))
+        start = time.perf_counter()
+        for augment, splits in ((True, ("train",)), (False, ("val", "test"))):
+            argv = ["--data-path", str(root), "--model-config", str(tmp / "model.json"),
+                    "--forecast-config", str(tmp / "forecast.json"), "--text-encoder-type", "english",
+                    "--text-model-dir", str(snapshot), "--cache-dir", str(cache_dir), "--seed", str(seed),
+                    "--domains", *(f"{d}_{s}" for d in SWEEP_FOLD for s in splits),
+                    *(["--augment"] if augment else [])]
+            if cache_cli.main(argv) != 0:
+                raise AssertionError(f"cache CLI failed: {argv}")
+        cache_s = time.perf_counter() - start
+        # examples/time_mmd/configs/sweeps/multimodal_1layer.yml, written as JSON (the card has
+        # no PyYAML), with the structural keys fixed to one value each: one group.
+        (tmp / "sweep.json").write_text(json.dumps({
+            "method": "bayes", "metric": {"name": "test/mse", "goal": "minimize"},
+            "parameters": {
+                "num_fusion_layers": {"value": 1}, "batch_size": {"values": [32]}, "num_epochs": {"values": [2]},
+                "learning_rate": {"distribution": "log_uniform_values", "min": 1e-6, "max": 1e-4},
+                "lr_scheduler_type": {"values": ["linear"]},
+                "warmup_steps": {"distribution": "uniform", "min": 0.0, "max": 0.1},
+                "weight_decay": {"distribution": "log_uniform_values", "min": 1e-4, "max": 1e-1},
+                "gradient_accumulation_steps": {"values": [1]},
+            }}))
+        common = ["--sweep-config", str(tmp / "sweep.json"), "--count", "8", "--model-config",
+                  str(tmp / "model.json"), "--forecast-config", str(tmp / "forecast.json"),
+                  "--cache-dir", str(cache_dir), "--offline", "--seed", str(seed)]
+        seconds = {}
+        for label, extra in (("vectorized", ["--vectorized"]), ("sequential", [])):
+            start = time.perf_counter()
+            if tune.main([*common, "--output-dir", str(tmp / label), *extra]) != 0:
+                raise AssertionError(f"tune CLI ({label}) failed")
+            seconds[label] = time.perf_counter() - start
+        vec, seq = (_sweep_results(tmp / label / "sweep_results.jsonl") for label in ("vectorized", "sequential"))
+        errors = [r for r in (*vec.values(), *seq.values()) if "error" in r]
+        if errors or len(vec) != 8 or set(vec) != set(seq):
+            raise AssertionError(f"tune CLI: runs {sorted(vec)} / {sorted(seq)}, errors {errors[:2]}")
+        worst = {key: max(abs(vec[r][key] - seq[r][key]) / abs(seq[r][key]) for r in seq)
+                 for key in ("val/best_loss", "test/mse", "test/mae")}
+        state = (tmp / "vectorized" / "sweep_state.jsonl").read_text().splitlines()
+        n_train = sum(1 for _ in open(root / "numerical" / "Agriculture_train" / "Agriculture_train.csv")) - 1
+        print(f"[sweep] workflow: phase 8's tree split by `python -m multimodal_timesfm_torch.time_mmd.split "
+              f"--train-ratio 0.6 --val-ratio 0.2` ({n_train} of 500 monthly rows to a train split) and the "
+              f"MiniLM-L6 snapshot in {split_s:.1f} s; the fold's caches (train --augment, val, test) by the "
+              f"cache CLI in {cache_s:.1f} s; `tune --offline --vectorized --count 8` (TimesFM-2.5 200M fp32, "
+              f"one group of 8 at batch 32, 2 epochs) in {seconds['vectorized']:.1f} s, the same 8 configs "
+              f"through the sequential CLI in {seconds['sequential']:.1f} s on {kind}; per trial, max "
+              f"|vectorized - sequential| / |sequential|: val/best_loss {worst['val/best_loss']:.2g}, "
+              f"test/mse {worst['test/mse']:.2g}, test/mae {worst['test/mae']:.2g} (tol {SWEEP_RTOL}); "
+              f"{len(state)} observations in sweep_state.jsonl", flush=True)
+        if max(worst.values()) > SWEEP_RTOL or len(state) != 8:
+            raise AssertionError("tune CLI: vectorized and sequential trials disagree")
+
+
+def sweep_bench_part(seed: int, kind: str) -> None:
+    """``timesfm_mm_sweepT16`` as the JAX bench defines it (bench.py:510-650): TimesFM-2.5
+    200M multimodal, bf16 compute, the frozen adapter seq1-folded and stored in bf16;
+    2,048 series, batch 32, 2 epochs, context 32; 16 trials in one group against
+    sequential T=1 runs (4 timed), and the same 16 split 6/5/5 over 1/2/3 fusion layers."""
+    from multimodal_timesfm_torch.models.layers import fold_frozen_tree_seq1
+    from multimodal_timesfm_torch.training import vectorized
+
+    start = time.perf_counter()
+    base = _timesfm_decoder(seed, torch.bfloat16)
+    fold_frozen_tree_seq1(base.adapter)
+    for p in base.adapter.parameters():
+        if p.dtype == torch.float32:
+            p.data = p.data.to(torch.bfloat16)
+    decoders = {1: base, 2: _timesfm_decoder(seed, torch.bfloat16, 2, (512,), adapter=base.adapter),
+                3: _timesfm_decoder(seed, torch.bfloat16, 3, (512, 256), adapter=base.adapter)}
+    fusions = {k: {n: p.detach().clone() for n, p in d.fusion.named_parameters()} for k, d in decoders.items()}
+    rng = np.random.default_rng(0)
+    n, batch, epochs = 2048, 32, 2
+    data = {"context": rng.normal(size=(n, 32)).astype(np.float32),
+            "horizon": rng.normal(size=(n, 32)).astype(np.float32),
+            "text": rng.normal(size=(n, 1, 384)).astype(np.float32)}
+    val = {k: v[:256] for k, v in data.items()}
+    built_s = time.perf_counter() - start
+    graphs = {"captures": 0, "replays": 0}
+
+    def run(t: int, layers: int = 1):
+        r = np.random.default_rng(1)
+        hp = {"learning_rate": r.uniform(1e-4, 1e-2, t), "weight_decay": r.uniform(0.0, 0.01, t),
+              "warmup_steps": r.uniform(0, 8, t)}
+        res = vectorized.run_vectorized_trials(
+            decoders[layers], vectorized.replicate_trainables(fusions[layers], t), data, val, hp,
+            horizon_len=32, batch_size=batch, num_epochs=epochs, scheduler="linear", seed=0)
+        graphs["captures"] += res.graph_captures
+        graphs["replays"] += res.graph_replays
+        if not np.isfinite(res.train_losses).all() or not np.isfinite(res.best_val).all():
+            raise AssertionError(f"sweepT16: non-finite losses at T={t}")
+        return res
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start
+
+    trials, seq_trials = 16, 4
+    run(1)  # the capture of the T=1 program
+    seq = timed(lambda: [run(1) for _ in range(seq_trials)]) / seq_trials
+    run(trials)  # the capture of the T=16 program
+    vec = timed(lambda: run(trials)) / trials
+    frag = {1: 6, 2: 5, 3: 5}
+    first = {layers: timed(lambda layers=layers, t=t: run(t, layers)) for layers, t in frag.items()}
+    frag_s = timed(lambda: [run(t, layers) for layers, t in frag.items()]) / trials
+    # One step (a graph replay) and one validation pass (8 eager vmapped forwards) of the
+    # T=16 and T=1 programs under the profiler; a whole call's trace (some 50,000 kernels)
+    # takes the profiler tens of seconds to reduce.
+    programs = {p.idx.shape[0]: p for p in vectorized._PROGRAMS.values() if p.objective.decoder is base}
+    val_idx = torch.arange(256, device="cuda").reshape(8, 32)
+    val_w = torch.ones(8, 32, device="cuda")
+    profiled = {}
+    for t in (trials, 1):
+        prog = programs[t]
+        profiled[t] = [device_profile(prog.graph[0].replay),
+                       device_profile(lambda prog=prog: prog.val_losses(val_idx, val_w, 8))]
+    print(f"[sweep] timesfm_mm_sweepT16 (TimesFM-2.5 200M multimodal, seq1-folded, frozen in bf16, bf16 "
+          f"compute; {n} series, batch {batch}, {epochs} epochs, context 32; built in {built_s:.1f} s): "
+          f"vectorized T={trials} {vec:.4f} s/trial ({3600 / vec:.1f} trials/hour), sequential T=1 "
+          f"{seq:.4f} s/trial ({3600 / seq:.1f} trials/hour, {seq_trials} timed), ratio {seq / vec:.2f}; "
+          f"fragmented {frag} over 1/2/3 fusion layers {frag_s:.4f} s/trial (ratio {seq / frag_s:.2f}; first "
+          f"calls with their captures {', '.join(f'{k}: {v:.2f} s' for k, v in first.items())}); "
+          f"{n * epochs / vec:.1f} train series/s vectorized; CUDA graphs {graphs['captures']} captures, "
+          f"{graphs['replays']} replays on {kind}", flush=True)
+    for t, ((step_wall, step_k), (val_wall, val_k)) in profiled.items():
+        step_busy, val_busy = sum(ms for _, ms in step_k), sum(ms for _, ms in val_k)
+        top = ", ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in step_k[:3])
+        print(f"[profile] sweepT16 T={t}: one step (graph replay) wall {step_wall:.3f} ms, device busy "
+              f"{step_busy:.3f} ms, idle {1 - step_busy / step_wall:.3f}; one validation pass (8 eager vmapped "
+              f"forwards of 32 rows) wall {val_wall:.1f} ms, busy {val_busy:.1f} ms, idle "
+              f"{1 - val_busy / val_wall:.3f}; a call runs 128 steps and 2 passes | step: {top}", flush=True)
+    vectorized.release_programs(decoders[1])
+    for d in decoders.values():
+        vectorized.release_programs(d)
+
+
+def _group_data(context: int, horizon: int, n: int, patch: int, seed: int, text: bool = True) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {"context": rng.normal(size=(n, context)).astype(np.float32),
+           "horizon": rng.normal(size=(n, horizon)).astype(np.float32)}
+    if text:
+        out["text"] = rng.normal(size=(n, context // patch, 384)).astype(np.float32)
+    return out
+
+
+def _group_runs(label: str, decoder, key: str, trials: int, data: dict, val: dict, horizon: int, batch: int,
+                epochs: int, lr: float, want: dict[str, int], per_step: dict[str, int]) -> list:
+    """T=1, then T=``trials`` vectorized runs of the same structure; the counted launches of
+    each must be ``want`` (the same for both: the trial axis folded into one launch)."""
+    from multimodal_timesfm_torch.training import vectorized
+
+    init = {n: p.detach().clone() for n, p in getattr(decoder, key).named_parameters()}
+    results, seen = [], []
+    for t in (1, trials):
+        hp = {"learning_rate": np.full(t, lr), "weight_decay": np.full(t, 0.01), "warmup_steps": np.full(t, 1.0)}
+        before = launch_counts()
+        start = time.perf_counter()
+        res = vectorized.run_vectorized_trials(
+            decoder, vectorized.replicate_trainables(init, t), data, val, hp, horizon_len=horizon,
+            batch_size=batch, num_epochs=epochs, seed=0, seed_stride=0, trainable_key=key)
+        seconds = time.perf_counter() - start
+        delta = expect_launches(f"{label} T={t}", before, want)
+        for k, n in per_step.items():
+            GRAPH_LAUNCHES[k] = GRAPH_LAUNCHES.get(k, 0) + (res.graph_replays - res.graph_captures) * n
+        if not (np.isfinite(res.train_losses).all() and np.isfinite(res.best_val).all()):
+            raise AssertionError(f"{label} T={t}: non-finite losses")
+        results.append(res)
+        seen.append(f"T={t}: {seconds:.2f} s, counted launches {delta}, graph {res.graph_captures} capture / "
+                    f"{res.graph_replays} replays, best val {np.array2string(res.best_val, precision=5)}")
+        vectorized.release_programs(decoder)
+    print(f"[sweep] {label}: " + "; ".join(seen) + f"; the same counted launches at T=1 and T={trials} "
+          f"(per step {per_step}; each run: the eager step, the capture, the validation forwards)", flush=True)
+    return results
+
+
+def sweep_groups_part(seed: int, kind: str) -> None:
+    """The trial axis through the kernels: a TimesFM multimodal group at context 512 (16
+    tokens, B1f/B1b), a Chronos-2 multimodal group at chronos_mm_h32 (67 tokens, B4f/B4b),
+    each at T=4 with the launches of T=1; a baseline TimesFM group of T=2 with per-trial
+    200M weights, its first trial against a T=1 run; ``vectorized_max_trials``."""
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.training import vectorized
+
+    # TimesFM context 512, horizon 128, 256 series at batch 32 (8 steps an epoch), 2 epochs,
+    # validation 64 series (2 batches): 20 layers x (eager step + capture + 2 x 2 validation).
+    timesfm = _timesfm_decoder(seed, torch.float32)
+    data, val = _group_data(512, 128, 256, 32, seed), _group_data(512, 128, 64, 32, seed + 1)
+    _group_runs("TimesFM-2.5 200M multimodal context 512 fp32 (16 tokens)", timesfm, "fusion", 4, data, val,
+                128, 32, 2, TRAIN_LR, {"B1f": 20 * 6, "B1b": 20 * 2}, {"B1f": 20, "B1b": 20})
+
+    # Baseline: the adapter per trial (2 x 200M), context 512, 64 series at batch 16 (4 steps),
+    # one epoch, validation 16 series: 20 x (eager + capture + 1) forward, 20 x 2 backward.
+    data, val = _group_data(512, 128, 64, 32, seed + 2, text=False), _group_data(512, 128, 16, 32, seed + 3, False)
+    one, two = _group_runs("TimesFM-2.5 200M baseline context 512 fp32, per-trial weights", timesfm, "adapter", 2,
+                           data, val, 128, 16, 1, BASELINE_LR, {"B1f": 20 * 3, "B1b": 20 * 2},
+                           {"B1f": 20, "B1b": 20})
+    rel = float(np.abs(two.val_losses[0] - one.val_losses[0]).max() / np.abs(one.val_losses[0]).max())
+    trainable_bytes = sum(p.numel() * 4 for p in timesfm.adapter.parameters())
+    hbm = vectorized.device_hbm_bytes()
+    t_max = vectorized.vectorized_max_trials(trainable_bytes, hbm)
+    print(f"[sweep] baseline T=2 trial 0 against the T=1 run: validation losses {rel:.2g} relative apart "
+          f"(tol {SWEEP_RTOL}; batched against single GEMMs); vectorized_max_trials: {trainable_bytes / 1e9:.3f} GB "
+          f"of fp32 adapter, 5 copies a trial, 0.75 of {hbm / 1e9:.1f} GB -> T_max = {t_max} baseline trials "
+          f"on {kind}", flush=True)
+    if rel > SWEEP_RTOL:
+        raise AssertionError("baseline group: trial 0 departs from the T=1 run")
+    del timesfm, one, two
+    torch.cuda.empty_cache()
+
+    # Chronos-2 120M multimodal, bf16 compute, frozen encoder in bf16: context 32, horizon 32,
+    # 512 series at batch 128 (4 steps), 2 epochs, validation 128: 16 layers x (2 + 2).
+    cfg = dataclasses.replace(Chronos2Config(), compute_dtype=torch.bfloat16)
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+    chronos = MultimodalDecoder(Chronos2Adapter(cfg), dec_cfg, device="cpu")
+    load_jax_params(chronos, random_jax_params(chronos, seed))
+    for p in chronos.adapter.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    chronos = chronos.cuda()
+    data, val = _group_data(32, CHRONOS_HORIZON, 512, 16, seed + 4), _group_data(32, CHRONOS_HORIZON, 128, 16, seed + 5)
+    _group_runs("Chronos-2 120M multimodal (chronos_mm_h32, 67 tokens) bf16, frozen in bf16", chronos, "fusion", 4,
+                data, val, CHRONOS_HORIZON, 128, 2, TRAIN_LR, {"B4f": 16 * 4, "B4b": 16 * 2},
+                {"B4f": 16, "B4b": 16})
+
+
+def sweep_phase(seed: int) -> None:
+    """Phase 10: the tuning workflow and the vectorized trials on the card, with PyTorch's
+    per-sample vmap fallback disabled (an op without a batching rule raises) and the plain
+    attention made to raise."""
+    from multimodal_timesfm_torch.models import layers
+
+    kind = torch.cuda.get_device_name(0)
+    plain = layers.plain_causal_attention
+
+    def no_plain(*a):
+        raise AssertionError("plain_causal_attention ran on the card")
+
+    layers.plain_causal_attention = no_plain
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        start = time.perf_counter()
+        sweep_cli_part(seed, kind)
+        print(f"[sweep] workflow part: {time.perf_counter() - start:.1f} s", flush=True)
+        start = time.perf_counter()
+        sweep_bench_part(seed, kind)
+        print(f"[sweep] sweepT16 part: {time.perf_counter() - start:.1f} s", flush=True)
+        start = time.perf_counter()
+        sweep_groups_part(seed, kind)
+        print(f"[sweep] groups part: {time.perf_counter() - start:.1f} s", flush=True)
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(True)
+        layers.plain_causal_attention = plain
+    imported = sorted(m for m in ("jax", "multimodal_timesfm_tpu", "examples", "pandas") if m in sys.modules)
+    if imported:
+        raise AssertionError(f"the sweep path imported {imported}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2817,6 +3236,7 @@ def main() -> int:
     phase("gate lengths", gate_length_checks, args.seed)
     rows.update(phase("chronos kernels", chronos_kernel_phase, args.seed))
     rows.update(phase("flash kernels", flash_kernel_phase, args.seed))
+    phase("vmap rules", vmap_rule_checks, args.seed)
 
     # The main paths: every launch counter starts at 0 just before each and is read
     # just after; the kernels line reports their sum.
@@ -2844,6 +3264,8 @@ def main() -> int:
     del tree
     torch.cuda.empty_cache()
     main_path("pretrained to served", pretrained_phase, args.seed)
+    torch.cuda.empty_cache()
+    main_path("sweeps", sweep_phase, args.seed)
     idle = [key for key, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")

@@ -56,6 +56,21 @@ def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
+def _bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_mm32` over a leading batch axis: (T, M, K) @ (T, K, N) in fp32, one
+    batched GEMM (``aten::bmm.dtype`` on CUDA, the fp32 upcast on the CPU)."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _fold_trials(x: torch.Tensor, dim: int | None, trials: int) -> torch.Tensor:
+    """``x`` with its vmap dimension ``dim`` moved to the front (expanded when None)."""
+    if dim is None:
+        return x.expand(trials, *x.shape)
+    return x.movedim(dim, 0)
+
+
 class _DenseBf16(torch.autograd.Function):
     """:func:`dense` when x and the weight are both bf16, with JAX's VJP of it.
 
@@ -63,31 +78,68 @@ class _DenseBf16(torch.autograd.Function):
     bf16 cotangent times the bf16 weight (dx) and the bf16 input (dW), each
     accumulated in fp32 and cast once to its operand's dtype; the bias
     gradient is the fp32 sum of the cotangent.
+
+    A (T, out, in) weight with x (T, ..., in) and a (T, out) bias is T
+    independent GEMMs run as one batched GEMM: the form the vmap rule gives a
+    trial axis whose weights are per trial (a baseline sweep). Under
+    ``torch.func.vmap`` (``aten::mm.dtype`` has no batching rule) a shared
+    weight takes the trial axis into its rows: one GEMM for all trials.
     """
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-        x2 = x.reshape(-1, x.shape[-1])
-        y = _mm32(x2, weight.t())
+    def forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        if weight.dim() == 3:
+            x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+            y = _bmm32(x3, weight.transpose(1, 2))
+            if bias is not None:
+                y = y + bias.float()[:, None, :]
+            return y.to(x.dtype).reshape(*x.shape[:-1], weight.shape[1])
+        y = _mm32(x.reshape(-1, x.shape[-1]), weight.t())
         if bias is not None:
             y = y + bias.float()
-        ctx.save_for_backward(x2, weight)
-        ctx.x_shape = x.shape
-        ctx.bias_dtype = None if bias is None else bias.dtype
         return y.to(x.dtype).reshape(*x.shape[:-1], weight.shape[0])
 
     @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        x, weight, bias = inputs
+        ctx.save_for_backward(x, weight)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+
+    @staticmethod
     def backward(ctx, g: torch.Tensor):
-        x2, weight = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
+        x, weight = ctx.saved_tensors
         dx = dw = db = None
+        if weight.dim() == 3:
+            x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+            g3 = g.reshape(g.shape[0], -1, g.shape[-1])
+            if ctx.needs_input_grad[0]:
+                dx = _bmm32(g3, weight).to(x.dtype).reshape(x.shape)
+            if ctx.needs_input_grad[1]:
+                dw = _bmm32(g3.transpose(1, 2), x3).to(weight.dtype)
+            if ctx.needs_input_grad[2]:
+                db = g3.float().sum(dim=1).to(ctx.bias_dtype)
+            return dx, dw, db
+        x2 = x.reshape(-1, x.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
         if ctx.needs_input_grad[0]:
-            dx = _mm32(g2, weight).to(x2.dtype).reshape(ctx.x_shape)
+            dx = _mm32(g2, weight).to(x.dtype).reshape(x.shape)
         if ctx.needs_input_grad[1]:
             dw = _mm32(g2.t(), x2).to(weight.dtype)
         if ctx.needs_input_grad[2]:
             db = g2.float().sum(dim=0).to(ctx.bias_dtype)
         return dx, dw, db
+
+    @staticmethod
+    def vmap(info, in_dims, x, weight, bias):
+        x_dim, w_dim, b_dim = in_dims
+        trials = info.batch_size
+        x = _fold_trials(x, x_dim, trials)
+        if w_dim is None and b_dim is None:
+            return _DenseBf16.apply(x, weight, bias), 0
+        weight = _fold_trials(weight, w_dim, trials)
+        if bias is not None:
+            bias = _fold_trials(bias, b_dim, trials)
+        return _DenseBf16.apply(x, weight, bias), 0
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -119,16 +171,27 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Swish(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        s = torch.reciprocal(1 + torch.exp(-x))
-        ctx.save_for_backward(x, s)
-        return x * s
+    """``(x * s, s)`` with s = sigmoid(x); s is handed to the backward, not differentiated."""
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+    def forward(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        s = torch.reciprocal(1 + torch.exp(-x))
+        return x * s, s
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(inputs[0], output[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor, _: torch.Tensor) -> torch.Tensor:
         x, s = ctx.saved_tensors
         return g * s + (g * x) * (s * (1 - s))
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        # Elementwise: the batched tensor goes through as it lies.
+        return _Swish.apply(x), (in_dims[0], in_dims[0])
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -141,7 +204,7 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     the same per-op rounding; differentiating the forward's ops instead would
     give ``0 * inf`` below x = -88, where ``exp(-x)`` overflows.
     """
-    return _Swish.apply(x)
+    return _Swish.apply(x)[0]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6) -> torch.Tensor:
@@ -299,10 +362,12 @@ class Attention(nn.Module):
             # Per-dim query scale on the q column block, fp32 multiply and one cast.
             scale = (_R_SOFTPLUS_0 / math.sqrt(dim)) * F.softplus(self.per_dim_scale.float())
             q = (qkv[..., :hd].float() * scale.repeat(heads)).to(qkv.dtype)
-            if qkv.requires_grad:
+            if torch.is_grad_enabled():
                 # A new tensor, as JAX's concatenate: writing into the projection
                 # output would overwrite what the backward of the scale and of the
-                # projection read.
+                # projection read. Grad mode, not ``qkv.requires_grad``: under
+                # torch.func.vmap a batched tensor reports False though autograd
+                # records the tensors under it.
                 qkv = torch.cat([q, qkv[..., hd:]], dim=-1)
             else:
                 # Nothing differentiates through it (serving): in place, which

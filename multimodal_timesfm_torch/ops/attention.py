@@ -32,16 +32,23 @@ NEG_INF = torch.finfo(torch.float32).min
 
 class _SoftmaxLowp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        weights = torch.softmax(logits, dim=-1).to(dtype)
-        ctx.save_for_backward(weights)
-        return weights
+    def forward(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return torch.softmax(logits, dim=-1).to(dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor, None]:
         (weights,) = ctx.saved_tensors
         w32, g32 = weights.float(), g.float()
         return w32 * (g32 - (g32 * w32).sum(dim=-1, keepdim=True)), None
+
+    @staticmethod
+    def vmap(info, in_dims, logits, dtype):
+        # The trial axis at the front keeps the softmax axis last.
+        return _SoftmaxLowp.apply(logits.movedim(in_dims[0], 0), dtype), 0
 
 
 def softmax_lowp(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -207,6 +214,14 @@ def flash_causal_attention_bwd(
 flash_causal_attention_bwd.launches = 0
 
 
+def fold_trials(x: torch.Tensor, dim: int | None, trials: int) -> torch.Tensor:
+    """``x`` under a ``torch.func.vmap`` trial axis as (T*B, ...) rows: the vmap dimension
+    ``dim`` moved to the front (an unbatched ``x``, ``dim`` None, expanded to every trial)
+    and folded into the batch rows. A view where the strides allow it."""
+    x = x.expand(trials, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(trials * x.shape[1], *x.shape[2:])
+
+
 def _register(entry, entry_bwd):
     """Register ``entry`` as the ``torch.library`` custom op ``mtt::<its name>``.
 
@@ -217,6 +232,12 @@ def _register(entry, entry_bwd):
     for meta tensors, and there it takes the kernel path as a CUDA tensor
     does. The backward calls ``entry_bwd``, which launches the backward
     kernel.
+
+    Under ``torch.func.vmap`` (a trial axis, ``training/vectorized.py``) the
+    rule folds the trial axis into the batch rows and calls the op once: one
+    forward launch and, under autograd outside the vmap, one backward launch
+    for all trials. Rows are independent in the kernels, so each trial's rows
+    come out as its own call would give them.
     """
 
     def impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
@@ -238,6 +259,17 @@ def _register(entry, entry_bwd):
         return (*entry_bwd(q, k, v, key_valid, g), None)
 
     op.register_autograd(backward, setup_context=setup_context)
+
+    def vmap_rule(info, in_dims, q, k, v, key_valid):
+        trials = info.batch_size
+        q, k, v = (fold_trials(x, d, trials) for x, d in zip((q, k, v), in_dims[:3]))
+        if len({x.stride(1) for x in (q, k, v)}) > 1:
+            # A shared operand was expanded and copied: give all three one row stride.
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = op(q, k, v, fold_trials(key_valid, in_dims[3], trials).contiguous())
+        return out.unflatten(0, (trials, -1)), 0
+
+    op.register_vmap(vmap_rule)
     return op
 
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_timesfm_torch.ops import _kernels
-from multimodal_timesfm_torch.ops.attention import NEG_INF, is_traced
+from multimodal_timesfm_torch.ops.attention import NEG_INF, fold_trials, is_traced
 from multimodal_timesfm_torch.ops.qkv_attention import split_heads
 
 
@@ -115,8 +115,6 @@ def fused_chronos_attention(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Te
         (B, S, H*D) in qkv's dtype. ``fused_chronos_attention.launches``
         counts forward kernel launches.
     """
-    if qkv.device.type != "cpu" and not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
     return _chronos_op(qkv, seg, bias)
 
 
@@ -181,3 +179,27 @@ def _fake(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor) -> torch.Ten
 _chronos_op = torch.library.custom_op("mtt::fused_chronos_attention", _forward, mutates_args=())
 _chronos_op.register_fake(_fake)
 _chronos_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _vmap_rule(info, in_dims, qkv, seg, bias):
+    """Under ``torch.func.vmap`` (a trial axis): qkv and seg with the trial axis folded
+    into the batch rows. A shared (H, S, S) bias (the frozen encoder of a multimodal
+    sweep) makes that one launch, and one backward launch, for all trials. A bias
+    batched over the trials (a baseline sweep trains the bucket table per trial) cannot
+    share a launch, since the kernel takes one bias: the op then launches once per
+    trial, on that trial's rows and bias, and the outputs are stacked."""
+    trials = info.batch_size
+    qkv = fold_trials(qkv, in_dims[0], trials).contiguous()
+    seg = fold_trials(seg, in_dims[1], trials).contiguous()
+    if in_dims[2] is None:
+        return _chronos_op(qkv, seg, bias).unflatten(0, (trials, -1)), 0
+    bias = bias.movedim(in_dims[2], 0)
+    rows = qkv.shape[0] // trials
+    outs = [
+        _chronos_op(qkv[t * rows : (t + 1) * rows], seg[t * rows : (t + 1) * rows], bias[t].contiguous())
+        for t in range(trials)
+    ]
+    return torch.stack(outs), 0
+
+
+_chronos_op.register_vmap(_vmap_rule)

@@ -18,6 +18,7 @@ import torch
 
 from multimodal_timesfm_torch.ops import _kernels
 from multimodal_timesfm_torch.ops.attention import (
+    fold_trials,
     is_traced,
     plain_attention_bwd,
     plain_causal_attention,
@@ -70,8 +71,6 @@ def fused_qkv_causal_attention(
     cols = qkv.shape[-1]
     if cols != 3 * num_heads * head_dim:
         raise ValueError(f"qkv has {cols} columns, expected 3*H*D = {3 * num_heads * head_dim}")
-    if qkv.device.type != "cpu" and not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
     return _fused_qkv_op(qkv, key_valid, num_heads, head_dim)
 
 
@@ -138,6 +137,22 @@ def _fake(qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_dim: 
 _fused_qkv_op = torch.library.custom_op("mtt::fused_qkv_causal_attention", _forward, mutates_args=())
 _fused_qkv_op.register_fake(_fake)
 _fused_qkv_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _vmap_rule(info, in_dims, qkv, key_valid, num_heads, head_dim):
+    """Under ``torch.func.vmap``: the trial axis folded into the batch rows, one launch
+    (and one backward launch) for all trials; rows are independent in the kernels."""
+    trials = info.batch_size
+    out = _fused_qkv_op(
+        fold_trials(qkv, in_dims[0], trials).contiguous(),
+        fold_trials(key_valid, in_dims[1], trials).contiguous(),
+        num_heads,
+        head_dim,
+    )
+    return out.unflatten(0, (trials, -1)), 0
+
+
+_fused_qkv_op.register_vmap(_vmap_rule)
 
 
 def supports_qkv_fused(x: torch.Tensor, seq: int, dim: int) -> bool:

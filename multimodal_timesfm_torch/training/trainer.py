@@ -180,6 +180,7 @@ class MultimodalTrainer:
         fold_frozen_seq1: bool = True,
         fold_frozen_affine: bool = True,
         fused_optimizer: bool = False,
+        wandb_run: Any = None,
     ) -> None:
         """``model`` is moved to ``device`` (CUDA by default, where its absence
         raises); its trained child is trained in place, its frozen child is
@@ -198,7 +199,10 @@ class MultimodalTrainer:
         scale into the adjacent GEMM weights. Both are exact up to fp32
         reassociation and apply to TimesFM only. ``fused_optimizer`` selects
         the fused AdamW stepper; a checkpoint resumes only under the setting
-        it was written with.
+        it was written with. ``wandb_run`` (a W&B run, or any object with
+        ``log(metrics, step=...)``) receives the JAX trainer's keys at its
+        steps: ``train/loss`` and ``train/lr`` per step or per epoch as
+        ``args.logging_strategy`` says, and ``val/loss`` every epoch.
         """
         _refuse_unported(
             mesh=(mesh, mesh is not None, "10"),
@@ -212,6 +216,7 @@ class MultimodalTrainer:
         self.args = args
         self.mode = mode
         self.fuse_epochs = fuse_epochs
+        self._wandb_run = wandb_run
 
         multimodal = mode == "multimodal"
         self.train_data = (
@@ -434,12 +439,36 @@ class MultimodalTrainer:
             ])
             for s in range(num_steps)
         ]
-        loss_arr = torch.stack(losses).reshape(-1)[:num_batches].cpu().numpy()  # waits for the epoch
+        loss_matrix = torch.stack(losses).cpu().numpy()  # (num_steps, accum); waits for the epoch
+        loss_arr = loss_matrix.reshape(-1)[:num_batches]
         elapsed = time.perf_counter() - t0
         self.last_throughput = len(self.train_data) / max(elapsed, 1e-9)
         self._check_finite(loss_arr[None], self.current_epoch)
+        step_start = self.global_step
         self.global_step += num_steps
+        if self.args.logging_strategy == "steps":
+            self._log_steps(loss_matrix.reshape(-1), num_batches, step_start, num_steps)
         return float(np.mean(loss_arr))
+
+    def _lr_at(self, step: int) -> float:
+        return float(self.schedule(torch.tensor(step)))
+
+    def _log_steps(self, losses: np.ndarray, num_batches: int, step_start: int, num_steps: int) -> None:
+        """Per-step W&B logs from an epoch's flat micro-batch losses (JAX ``train_epoch``):
+        every ``logging_steps``-th step logs the loss of its last real micro-batch and the
+        rate that step used."""
+        if self._wandb_run is None:
+            return
+        accum = self.args.gradient_accumulation_steps
+        every = max(self.args.logging_steps, 1)
+        for s in range(num_steps):
+            gs = step_start + s + 1
+            if gs % every == 0:
+                last_real = min(accum, num_batches - s * accum) - 1
+                self._wandb_run.log(
+                    {"train/loss": float(losses[s * accum + max(last_real, 0)]), "train/lr": self._lr_at(gs - 1)},
+                    step=gs,
+                )
 
     @torch.no_grad()
     def _val_loss(self, idx: torch.Tensor, weights: torch.Tensor, num_batches: int) -> torch.Tensor:
@@ -730,11 +759,25 @@ class MultimodalTrainer:
         train_losses, val_losses = self.train_epochs_fused(num_epochs)
         steps_per_epoch = (self.global_step - step0) // num_epochs
         for e in range(num_epochs):
+            train_loss, val_loss = float(np.mean(train_losses[e])), float(val_losses[e])
             _logger.info(
                 "Epoch %d: Train Loss = %.6f, Val Loss = %.6f (%.1f series/s)",
-                self.start_epoch + e, float(np.mean(train_losses[e])), float(val_losses[e]),
-                self.last_throughput or 0.0,
+                self.start_epoch + e, train_loss, val_loss, self.last_throughput or 0.0,
             )
+            if self._wandb_run is None:
+                continue
+            gs = step0 + (e + 1) * steps_per_epoch
+            if self.args.logging_strategy == "steps":
+                self._log_steps(train_losses[e], train_losses.shape[1], step0 + e * steps_per_epoch,
+                                steps_per_epoch)
+                self._wandb_run.log({"val/loss": val_loss}, step=gs)
+            elif self.args.logging_strategy == "epoch":
+                self._wandb_run.log(
+                    {"train/loss": train_loss, "train/lr": self._lr_at(gs - steps_per_epoch), "val/loss": val_loss},
+                    step=gs,
+                )
+            else:  # val/loss is logged under logging_strategy="no" too, as in JAX
+                self._wandb_run.log({"val/loss": val_loss}, step=gs)
         # As in the loop, the best is tracked only where save_ckpt would run.
         improved = (
             self.args.save_strategy == "best" and float(np.min(val_losses)) < self.best_val_loss
@@ -760,11 +803,20 @@ class MultimodalTrainer:
         """Per-epoch host loop (exact checkpoint semantics)."""
         for epoch in range(self.start_epoch, self.args.num_train_epochs):
             self.current_epoch = epoch
+            epoch_lr = self._lr_at(self.global_step)
             train_loss = self.train_epoch()
             val_loss = self.validate_epoch()
             _logger.info(
                 "Epoch %d: Train Loss = %.6f, Val Loss = %.6f (%.1f series/s)",
                 epoch, train_loss, val_loss, self.last_throughput or 0.0,
             )
+            if self._wandb_run is not None:
+                if self.args.logging_strategy == "epoch":
+                    self._wandb_run.log(
+                        {"train/loss": train_loss, "train/lr": epoch_lr, "val/loss": val_loss},
+                        step=self.global_step,
+                    )
+                else:  # val/loss is logged under every other strategy too, as in JAX
+                    self._wandb_run.log({"val/loss": val_loss}, step=self.global_step)
             if self.args.save_strategy in ("epoch", "best"):
                 self.save_ckpt(val_loss)

@@ -159,6 +159,26 @@ def test_the_pretrained_to_served_path_imports_no_optional_package():
     assert not bad, bad
 
 
+def test_the_sweep_path_imports_no_jax_or_pandas():
+    """The split CLI, the vectorized trials, the sweep library, the tracking copy and the
+    tune CLIs are walked by the guard above, and import neither the JAX package,
+    ``examples`` nor pandas (the split CLI writes with the ``csv`` module), at any level."""
+    port = REPO / "multimodal_timesfm_torch"
+    files = [port / name for name in (
+        "time_mmd/split.py", "time_mmd/sweep_lib.py", "training/vectorized.py", "utils/tracking.py",
+        "tune.py", "tune_baseline.py",
+    )]
+    walked = set(sorted((REPO / "multimodal_timesfm_torch").rglob("*.py")))
+    assert all(f in walked for f in files)
+    bad = [
+        f"{f.relative_to(REPO)}: {name}"
+        for f in files
+        for name in _imported_modules(f)
+        if name.split(".")[0] in ("jax", "jaxlib", "multimodal_timesfm_tpu", "examples", "pandas")
+    ]
+    assert not bad, bad
+
+
 def _meta_qkv():
     qkv = torch.empty(2, 16, 3 * 2 * 8, device="meta")
     return qkv, torch.ones(2, 16, dtype=torch.bool, device="meta")
