@@ -757,8 +757,9 @@ def gate_length_checks(seed: int) -> None:
 
 
 # Chronos-2's main-path (B, S) in the kernels: serving at contexts 512, 2048 and 8192, and
-# the fine-tunes (67 tokens at batch 128; 16 rows of 5 packed at batch 512).
-CHRONOS_PATH_SHAPES = ((64, 97), (64, 193), (16, 577), (128, 67), (512, 80))
+# the fine-tunes (67 tokens at batch 128, and at 4 trials x 128 rows in a sweep group; 16
+# rows of 5 packed at batch 512).
+CHRONOS_PATH_SHAPES = ((64, 97), (64, 193), (16, 577), (128, 67), (512, 67), (512, 80))
 
 
 def print_routes() -> None:
@@ -919,16 +920,17 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     rows: dict[str, dict] = {}
     main_shape = dict(KERNELS_BY_KEY)["B4f"]
-    # (B, S, H, D, segments, padded): the Chronos-2 shapes (67 tokens at context 32, 97 at
-    # 512, 193 at 2048, 577 at 8192), each with one segment and with three segments and
-    # padded tokens; 80 = 16 packed rows of 5 (at batch 256: 6 batch rows per block, a short
+    # (B, S, H, D, segments, padded): the Chronos-2 shapes (67 tokens at context 32, alone
+    # and as a sweep group's 4 x 128 folded rows, 97 at 512, 193 at 2048, 577 at 8192),
+    # each with one segment and with three segments and padded tokens; 80 = 16 packed
+    # rows of 5 (at batch 256: 6 batch rows per block, a short
     # last group); then the edges of the one-pass limit and of the 16-row steps (S = 16, 17,
     # 48, 129; 5), every one-pass tile count (S = 64, 81, 96, 113, 128: the forward's 4, 6,
     # 6, 8, 8 warps, the backward's 4, 6, 6 and the tiled route past 96), head dims 16 (one
     # k-step), 20 (rows not 16-byte aligned, one-pass and tiled), 32, 128, 256, and odd
     # batches (9, 17).
     cases = [(batch, seq, 12, 64, *variant)
-             for batch, seq in ((128, 67), (64, 97), (64, 193), (16, 577))
+             for batch, seq in ((128, 67), (512, 67), (64, 97), (64, 193), (16, 577))
              for variant in ((1, False), (3, True))]
     cases += [(32, 80, 12, 64, 16, False), (256, 80, 12, 64, 16, False),
               (4, 16, 12, 64, 1, False), (4, 17, 12, 64, 3, True), (4, 48, 12, 64, 3, True),
@@ -2777,10 +2779,11 @@ def dispatch_times(calls: int = 2000, repeats: int = 7) -> None:
 # makes of that over two epochs.
 SWEEP_RTOL = 2e-3
 # Shapes of the vmap-rule checks: (label, trials, batch rows per trial, S) on the main
-# paths of phase 10 (B1 at the context-512 group; B4 at chronos_mm_h32) and the lengths
-# B2 and B3 serve (B2 at 40 tokens, B3 past 2,048).
+# paths of phase 10 (B1 at the context-512 group's 4 x 32 rows; B4 at the Chronos group's
+# 4 x 128 rows of chronos_mm_h32, its bias shared, and a bias per trial as a baseline
+# Chronos sweep trains it) and the lengths B2 and B3 serve (B2 at 40 tokens, B3 past 2,048).
 VMAP_CAUSAL_SHAPES = (("B1", 4, 32, 16), ("B2", 2, 8, 40), ("B3", 2, 1, 2100))
-VMAP_CHRONOS_SHAPES = ((4, 32, 67, False), (2, 8, 67, True))
+VMAP_CHRONOS_SHAPES = ((4, 128, 67, False), (2, 8, 67, True))
 SWEEP_FOLD = ("Agriculture", "Economy", "Environment", "Health_US", "Traffic")
 
 
@@ -2789,16 +2792,34 @@ def vmap_rule_checks(seed: int) -> None:
     rows) against a loop of per-trial launches on the card, forward and backward, fp32 and
     bf16: outputs and input gradients bit-equal (every kernel's rows are independent); a
     bias shared by the trials gets one dbias sum over all rows, held to 1e-5 relative of
-    the per-trial sums."""
+    the per-trial sums. The vmapped output and gradients are also held against the plain
+    version on the folded rows: the output within KERNEL_TOL, the gradients (dbias
+    included) within BWD_TOL."""
     from torch.func import vmap
 
-    from multimodal_timesfm_torch.ops.attention import flash_causal_attention, fused_causal_attention
-    from multimodal_timesfm_torch.ops.chronos_attention import fused_chronos_attention
-    from multimodal_timesfm_torch.ops.qkv_attention import fused_qkv_causal_attention, split_heads
+    from multimodal_timesfm_torch.ops.attention import (
+        flash_causal_attention,
+        fused_causal_attention,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        plain_chronos_attention,
+        plain_chronos_attention_bwd,
+    )
+    from multimodal_timesfm_torch.ops.qkv_attention import (
+        fused_qkv_causal_attention,
+        plain_qkv_attention_bwd,
+        plain_qkv_causal_attention,
+        split_heads,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def compare(label, fn, args, in_dims, grad_idx, shared_grad=None):
+    def check(label, fn, plain, args, in_dims, grad_idx, shared_grad=None):
+        """``plain(args, g)`` gives the plain output and the gradients of ``grad_idx`` for
+        the cotangent ``g`` of the vmapped output, on the same (T, ...) layout."""
         trials = args[0].shape[0]
         before = launch_counts()
         out = vmap(fn, in_dims=in_dims)(*args)
@@ -2814,37 +2835,70 @@ def vmap_rule_checks(seed: int) -> None:
             rel = float((g - r).abs().max() / r.abs().max())
             note = f", shared dbias {rel:.2g} of max (tol 1e-5)"
             same = same and rel <= 1e-5
+        plain_out, plain_grads = plain([a.detach() for a in args], (2 * out.detach().float()).to(out.dtype))
+        err_f = compare(f"vmap {label}", out, plain_out)
+        err_b = compare_bwd(f"vmap {label} backward", tuple(grads), tuple(plain_grads))
         print(f"[vmap] {label}: {trials} trials, vmapped launches {folded} against {trials} per-trial "
-              f"launches each way: forward and gradients bit-equal {same}{note}", flush=True)
+              f"launches each way: forward and gradients bit-equal {same}{note}; against plain on the "
+              f"folded rows: forward {err_f:.3g}, gradients {err_b:.3g}", flush=True)
         if not same:
             raise AssertionError(f"vmap rule {label}: disagrees with per-trial launches")
+
+    def folded(x):
+        return x.reshape(-1, *x.shape[2:])
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         for key, trials, batch, seq in VMAP_CAUSAL_SHAPES:
-            qkv = torch.randn(trials, batch, seq, 3 * 16 * 80, device="cuda", generator=gen).to(dtype)
+            # q and k scaled by D^-1/4 each: logits of O(1), as the kernels see them.
+            qkv = (torch.randn(trials, batch, seq, 3 * 16 * 80, device="cuda", generator=gen) / 80 ** 0.25).to(dtype)
             qkv.requires_grad_()
             valid = torch.rand(trials, batch, seq, device="cuda", generator=gen) > 0.2
             valid[..., 0] = True
             if key == "B1":
                 def fn(x, m):
                     return fused_qkv_causal_attention(x, m, 16, 80)
+
+                def plain(args, g):
+                    x, m = (folded(a) for a in args)
+                    return (plain_qkv_causal_attention(x, m, 16, 80).view_as(g),
+                            (plain_qkv_attention_bwd(x, m, folded(g), 16, 80).view_as(args[0]),))
             else:
                 entry = fused_causal_attention if key == "B2" else flash_causal_attention
 
                 def fn(x, m, entry=entry):
                     return entry(*split_heads(x, 16, 80), m)
-            compare(f"{key} ({trials} x {batch}, {seq}, 16, 80) {name}", fn, (qkv, valid), (0, 0), (0,))
+
+                def plain(args, g):
+                    q, k, v = split_heads(folded(args[0]), 16, 80)
+                    m = folded(args[1])
+                    dq, dk, dv = plain_attention_bwd(q, k, v, m, folded(g))
+                    dqkv = torch.cat([d.flatten(-2) for d in (dq, dk, dv)], dim=-1)
+                    return plain_causal_attention(q, k, v, m).view_as(g), (dqkv.view_as(args[0]),)
+            check(f"{key} ({trials} x {batch}, {seq}, 16, 80) {name}", fn, plain, (qkv, valid), (0, 0), (0,))
         for trials, batch, seq, per_trial in VMAP_CHRONOS_SHAPES:
-            qkv = torch.randn(trials, batch, seq, 3 * 12 * 64, device="cuda", generator=gen).to(dtype)
+            qkv = (torch.randn(trials, batch, seq, 3 * 12 * 64, device="cuda", generator=gen) / 64 ** 0.25).to(dtype)
             qkv.requires_grad_()
             seg = torch.zeros(trials, batch, seq, dtype=torch.int32, device="cuda")
             seg[:, ::2, seq - 5:] = -1 - torch.arange(5, dtype=torch.int32, device="cuda")  # padded tokens
             bias = torch.randn(*((trials,) if per_trial else ()), 12, seq, seq, device="cuda", generator=gen)
             bias.requires_grad_()
-            compare(f"B4 ({trials} x {batch}, {seq}, 12, 64) {name}, bias "
+
+            def plain(args, g, per_trial=per_trial):
+                qkv, seg, bias = args
+                if per_trial:
+                    parts = [(plain_chronos_attention(qkv[t], seg[t], bias[t]),
+                              plain_chronos_attention_bwd(qkv[t], seg[t], bias[t], g[t], True))
+                             for t in range(qkv.shape[0])]
+                    return (torch.stack([o for o, _ in parts]),
+                            tuple(torch.stack([d[i] for _, d in parts]) for i in range(2)))
+                out = plain_chronos_attention(folded(qkv), folded(seg), bias)
+                dqkv, dbias = plain_chronos_attention_bwd(folded(qkv), folded(seg), bias, folded(g), True)
+                return out.view_as(g), (dqkv.view_as(qkv), dbias)
+
+            check(f"B4 ({trials} x {batch}, {seq}, 12, 64) {name}, bias "
                     f"{'per trial (one launch per trial)' if per_trial else 'shared'}",
-                    fused_chronos_attention, (qkv, seg, bias), (0, 0, 0 if per_trial else None), (0, 2),
+                    fused_chronos_attention, plain, (qkv, seg, bias), (0, 0, 0 if per_trial else None), (0, 2),
                     shared_grad=None if per_trial else 1)
 
 
@@ -3048,40 +3102,62 @@ def _group_data(context: int, horizon: int, n: int, patch: int, seed: int, text:
 
 
 def _group_runs(label: str, decoder, key: str, trials: int, data: dict, val: dict, horizon: int, batch: int,
-                epochs: int, lr: float, want: dict[str, int], per_step: dict[str, int]) -> list:
-    """T=1, then T=``trials`` vectorized runs of the same structure; the counted launches of
-    each must be ``want`` (the same for both: the trial axis folded into one launch)."""
+                epochs: int, lr: float, want: dict[str, int], per_step: dict[str, int]) -> None:
+    """A T=``trials`` vectorized run of distinct trials (trial t: learning rate lr / 2^t,
+    weight decay 0.01 (t + 1), warmup t + 1 steps, permutation stream seed t), then each
+    trial alone as a T=1 run with its hyperparameters and seed. Every run's counted
+    launches must be ``want`` (the trial axis folded into one launch), and every trial's
+    train and validation losses and best validation loss those of its T=1 run within
+    SWEEP_RTOL: the folded GEMMs and kernels change only the row counts."""
     from multimodal_timesfm_torch.training import vectorized
 
     init = {n: p.detach().clone() for n, p in getattr(decoder, key).named_parameters()}
+    hp = {"learning_rate": lr * 0.5 ** np.arange(trials), "weight_decay": 0.01 * (1.0 + np.arange(trials)),
+          "warmup_steps": 1.0 + np.arange(trials)}
     results, seen = [], []
-    for t in (1, trials):
-        hp = {"learning_rate": np.full(t, lr), "weight_decay": np.full(t, 0.01), "warmup_steps": np.full(t, 1.0)}
+    for t in (None, *range(trials)):
+        one = {k: v if t is None else v[t:t + 1] for k, v in hp.items()}
+        n = trials if t is None else 1
         before = launch_counts()
         start = time.perf_counter()
         res = vectorized.run_vectorized_trials(
-            decoder, vectorized.replicate_trainables(init, t), data, val, hp, horizon_len=horizon,
-            batch_size=batch, num_epochs=epochs, seed=0, seed_stride=0, trainable_key=key)
+            decoder, vectorized.replicate_trainables(init, n), data, val, one, horizon_len=horizon,
+            batch_size=batch, num_epochs=epochs, seed=t or 0, seed_stride=1, trainable_key=key)
         seconds = time.perf_counter() - start
-        delta = expect_launches(f"{label} T={t}", before, want)
-        for k, n in per_step.items():
-            GRAPH_LAUNCHES[k] = GRAPH_LAUNCHES.get(k, 0) + (res.graph_replays - res.graph_captures) * n
+        run = f"T={trials}" if t is None else f"trial {t} alone"
+        delta = expect_launches(f"{label} {run}", before, want)
+        for k, m in per_step.items():
+            GRAPH_LAUNCHES[k] = GRAPH_LAUNCHES.get(k, 0) + (res.graph_replays - res.graph_captures) * m
         if not (np.isfinite(res.train_losses).all() and np.isfinite(res.best_val).all()):
-            raise AssertionError(f"{label} T={t}: non-finite losses")
+            raise AssertionError(f"{label} {run}: non-finite losses")
         results.append(res)
-        seen.append(f"T={t}: {seconds:.2f} s, counted launches {delta}, graph {res.graph_captures} capture / "
+        seen.append(f"{run}: {seconds:.2f} s, counted launches {delta}, graph {res.graph_captures} capture / "
                     f"{res.graph_replays} replays, best val {np.array2string(res.best_val, precision=5)}")
         vectorized.release_programs(decoder)
+    vec, alone = results[0], results[1:]
+    worst = {name: max(float(np.max(np.abs(getattr(vec, name)[t] - getattr(r, name)[0])
+                                    / np.abs(getattr(r, name)[0]))) for t, r in enumerate(alone))
+             for name in ("train_losses", "val_losses", "best_val")}
+    # The check has power only if the trials differ (each draws its own batches): two
+    # trials more than 2 x SWEEP_RTOL apart cannot both be within it of one run alone.
+    apart = min(float(np.max(np.abs(a.train_losses - b.train_losses) / np.abs(b.train_losses)))
+                for i, a in enumerate(alone) for b in alone[i + 1:])
     print(f"[sweep] {label}: " + "; ".join(seen) + f"; the same counted launches at T=1 and T={trials} "
-          f"(per step {per_step}; each run: the eager step, the capture, the validation forwards)", flush=True)
-    return results
+          f"(per step {per_step}; each run: the eager step, the capture, the validation forwards); "
+          f"learning rates {', '.join(f'{x:.3g}' for x in hp['learning_rate'])}; per trial, max |T={trials} - "
+          f"alone| / |alone|: " + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()) + f" (tol {SWEEP_RTOL}); "
+          f"two trials' train losses at least {apart:.2g} apart", flush=True)
+    if max(worst.values()) > SWEEP_RTOL:
+        raise AssertionError(f"{label}: a trial of the T={trials} run departs from its run alone")
+    if apart <= 5 * SWEEP_RTOL:
+        raise AssertionError(f"{label}: the trials are too alike for the check to tell them apart")
 
 
 def sweep_groups_part(seed: int, kind: str) -> None:
     """The trial axis through the kernels: a TimesFM multimodal group at context 512 (16
     tokens, B1f/B1b), a Chronos-2 multimodal group at chronos_mm_h32 (67 tokens, B4f/B4b),
     each at T=4 with the launches of T=1; a baseline TimesFM group of T=2 with per-trial
-    200M weights, its first trial against a T=1 run; ``vectorized_max_trials``."""
+    200M weights; every trial of a group against its run alone; ``vectorized_max_trials``."""
     from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
     from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
@@ -3097,20 +3173,14 @@ def sweep_groups_part(seed: int, kind: str) -> None:
     # Baseline: the adapter per trial (2 x 200M), context 512, 64 series at batch 16 (4 steps),
     # one epoch, validation 16 series: 20 x (eager + capture + 1) forward, 20 x 2 backward.
     data, val = _group_data(512, 128, 64, 32, seed + 2, text=False), _group_data(512, 128, 16, 32, seed + 3, False)
-    one, two = _group_runs("TimesFM-2.5 200M baseline context 512 fp32, per-trial weights", timesfm, "adapter", 2,
-                           data, val, 128, 16, 1, BASELINE_LR, {"B1f": 20 * 3, "B1b": 20 * 2},
-                           {"B1f": 20, "B1b": 20})
-    rel = float(np.abs(two.val_losses[0] - one.val_losses[0]).max() / np.abs(one.val_losses[0]).max())
+    _group_runs("TimesFM-2.5 200M baseline context 512 fp32, per-trial weights", timesfm, "adapter", 2,
+                data, val, 128, 16, 1, BASELINE_LR, {"B1f": 20 * 3, "B1b": 20 * 2}, {"B1f": 20, "B1b": 20})
     trainable_bytes = sum(p.numel() * 4 for p in timesfm.adapter.parameters())
     hbm = vectorized.device_hbm_bytes()
     t_max = vectorized.vectorized_max_trials(trainable_bytes, hbm)
-    print(f"[sweep] baseline T=2 trial 0 against the T=1 run: validation losses {rel:.2g} relative apart "
-          f"(tol {SWEEP_RTOL}; batched against single GEMMs); vectorized_max_trials: {trainable_bytes / 1e9:.3f} GB "
-          f"of fp32 adapter, 5 copies a trial, 0.75 of {hbm / 1e9:.1f} GB -> T_max = {t_max} baseline trials "
-          f"on {kind}", flush=True)
-    if rel > SWEEP_RTOL:
-        raise AssertionError("baseline group: trial 0 departs from the T=1 run")
-    del timesfm, one, two
+    print(f"[sweep] vectorized_max_trials: {trainable_bytes / 1e9:.3f} GB of fp32 adapter, 5 copies a trial, "
+          f"0.75 of {hbm / 1e9:.1f} GB -> T_max = {t_max} baseline trials on {kind}", flush=True)
+    del timesfm
     torch.cuda.empty_cache()
 
     # Chronos-2 120M multimodal, bf16 compute, frozen encoder in bf16: context 32, horizon 32,

@@ -26,6 +26,7 @@ from multimodal_timesfm_torch.ops.attention import (
     plain_causal_attention,
     supports_fused,
     takes_kernels,
+    trials_first,
 )
 from multimodal_timesfm_torch.ops.qkv_attention import (
     fused_qkv_causal_attention,
@@ -62,13 +63,6 @@ def _bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
-
-
-def _fold_trials(x: torch.Tensor, dim: int | None, trials: int) -> torch.Tensor:
-    """``x`` with its vmap dimension ``dim`` moved to the front (expanded when None)."""
-    if dim is None:
-        return x.expand(trials, *x.shape)
-    return x.movedim(dim, 0)
 
 
 class _DenseBf16(torch.autograd.Function):
@@ -133,12 +127,12 @@ class _DenseBf16(torch.autograd.Function):
     def vmap(info, in_dims, x, weight, bias):
         x_dim, w_dim, b_dim = in_dims
         trials = info.batch_size
-        x = _fold_trials(x, x_dim, trials)
+        x = trials_first(x, x_dim, trials)
         if w_dim is None and b_dim is None:
             return _DenseBf16.apply(x, weight, bias), 0
-        weight = _fold_trials(weight, w_dim, trials)
+        weight = trials_first(weight, w_dim, trials)
         if bias is not None:
-            bias = _fold_trials(bias, b_dim, trials)
+            bias = trials_first(bias, b_dim, trials)
         return _DenseBf16.apply(x, weight, bias), 0
 
 
@@ -173,6 +167,8 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 class _Swish(torch.autograd.Function):
     """``(x * s, s)`` with s = sigmoid(x); s is handed to the backward, not differentiated."""
 
+    generate_vmap_rule = True
+
     @staticmethod
     def forward(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         s = torch.reciprocal(1 + torch.exp(-x))
@@ -187,11 +183,6 @@ class _Swish(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor, _: torch.Tensor) -> torch.Tensor:
         x, s = ctx.saved_tensors
         return g * s + (g * x) * (s * (1 - s))
-
-    @staticmethod
-    def vmap(info, in_dims, x):
-        # Elementwise: the batched tensor goes through as it lies.
-        return _Swish.apply(x), (in_dims[0], in_dims[0])
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,8 @@ NEG_INF = torch.finfo(torch.float32).min
 
 
 class _SoftmaxLowp(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
     def forward(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return torch.softmax(logits, dim=-1).to(dtype)
@@ -44,11 +46,6 @@ class _SoftmaxLowp(torch.autograd.Function):
         (weights,) = ctx.saved_tensors
         w32, g32 = weights.float(), g.float()
         return w32 * (g32 - (g32 * w32).sum(dim=-1, keepdim=True)), None
-
-    @staticmethod
-    def vmap(info, in_dims, logits, dtype):
-        # The trial axis at the front keeps the softmax axis last.
-        return _SoftmaxLowp.apply(logits.movedim(in_dims[0], 0), dtype), 0
 
 
 def softmax_lowp(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -214,11 +211,16 @@ def flash_causal_attention_bwd(
 flash_causal_attention_bwd.launches = 0
 
 
+def trials_first(x: torch.Tensor, dim: int | None, trials: int) -> torch.Tensor:
+    """``x`` under a ``torch.func.vmap`` trial axis with its vmap dimension ``dim`` moved
+    to the front (an unbatched ``x``, ``dim`` None, expanded to every trial); a view."""
+    return x.expand(trials, *x.shape) if dim is None else x.movedim(dim, 0)
+
+
 def fold_trials(x: torch.Tensor, dim: int | None, trials: int) -> torch.Tensor:
-    """``x`` under a ``torch.func.vmap`` trial axis as (T*B, ...) rows: the vmap dimension
-    ``dim`` moved to the front (an unbatched ``x``, ``dim`` None, expanded to every trial)
-    and folded into the batch rows. A view where the strides allow it."""
-    x = x.expand(trials, *x.shape) if dim is None else x.movedim(dim, 0)
+    """:func:`trials_first` folded into the batch rows: (T*B, ...). A view where the
+    strides allow it."""
+    x = trials_first(x, dim, trials)
     return x.reshape(trials * x.shape[1], *x.shape[2:])
 
 
