@@ -146,17 +146,39 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    Before the main paths, each custom op's vmap rule is held to per-trial
    launches on the card (B1-B4, fp32 and bf16): forward and gradients
    bit-equal, one launch for all trials (B4 with a per-trial bias: one a
-   trial).
+   trial);
+11. parallel (the ``(data, model)`` mesh of ``multimodal_timesfm_torch/parallel/``):
+   two ranks spawned on the one card with gloo (NCCL refuses two ranks on
+   one device; their fused steps run eagerly), weights from ``--seed`` at
+   full width, over a (2, 1) mesh (TimesFM-2.5 200M multimodal c512 fp32,
+   256 series at batch 64, two epochs of the loop and two of the fused path;
+   ``MultimodalEvaluator``; four distinct trials of ``run_vectorized_trials``,
+   two a rank; ``Forecaster`` c512 bf16, 192 series in batches of 64) and a
+   (1, 2) mesh (TimesFM baseline c512 fp32, 128 series at batch 32, its
+   checkpoint loaded without a mesh bit-equal to the gathered weights;
+   Chronos-2 120M baseline at ``chronos_mm_h32``'s 67 tokens and serving at
+   c512, fp32 and bf16, B4f/B4b at 6 heads a rank; the same ``Forecaster``
+   cell), each reading (``[parallel]``) beside its limit against the same run
+   without a mesh, done meanwhile in this process; every rank must launch
+   B1f/B1b and B4f/B4b and never the plain attention; then one NCCL rank on a
+   (1, 1) mesh (the fused step captured with its all-reduce; bit-equal or
+   not, and train series/s in turns against the run without a mesh); then
+   ``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+   multimodal_timesfm_torch.tune --vectorized`` on phase 10's tree, held per
+   run id to the same CLI on one rank. Before the main paths phase 2 checks
+   B4 at its 6-head shapes.
 
 The ``kernels`` line lists every kernel with its launches on the main-path
-phases (3 to 10; each starts its counters at 0; a kernel captured in a CUDA
-graph counts once per replay) and its numbers at its main-path shape in
-bf16.
+phases (3 to 11; each starts its counters at 0; a kernel captured in a CUDA
+graph counts once per replay; phase 11 adds its ranks' counts) and its
+numbers at its main-path shape in bf16.
 
-``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
+``python3 chip_smoke.py --parallel-only`` only builds the kernels, checks B4
+at phase 11's 6-head shapes and runs phase 11 (making phase 10's tree
+itself). ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
 checks and times every kernel at its main-path shapes in fp32 and bf16 (the
 six causal kernels, unless ``--chronos-only``; B4f and B4b with and without
-dbias at 128 x 67 and 16 x 577), with the port imported from DIR (another
+dbias at 128 x 67, 128 x 67 at 6 heads and 16 x 577), with the port imported from DIR (another
 checkout, such as the parent commit's) when given, so that two trees compare
 on one card. ``python3 chip_smoke.py --serving-times [--root DIR]`` only
 times TimesFM serving at context 512 (fp32 and bf16, seven calls each), with
@@ -179,10 +201,15 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import pickle
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -914,6 +941,22 @@ def check_chronos(what: str, qkv: torch.Tensor, seg: torch.Tensor, bias: torch.T
     return err_f, err_b, err_db
 
 
+# Phase 11's B4 shapes: 12 heads over a model axis of 2 (the fine-tune's 67 tokens and
+# serving's 97, batch 64 on each rank; the timed row's batch 128), one and three segments.
+SHARDED_CHRONOS_CASES = [(batch, seq, 6, 64, *variant) for batch, seq in ((64, 67), (64, 97), (128, 67))
+                         for variant in ((1, False), (3, True))]
+
+
+def sharded_chronos_checks(seed: int) -> None:
+    """B4f and B4b at phase 11's head-sharded shapes against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch, seq, heads, dim, segments, padded in SHARDED_CHRONOS_CASES:
+            shape = (batch, seq, heads, dim)
+            qkv, seg, bias, g = chronos_inputs(shape, segments, padded, dtype, gen)
+            check_chronos(f"B4 {shape} {segments} segment(s){' padded' if padded else ''}", qkv, seg, bias, g)
+
+
 def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     """B4f and B4b against their plain versions on every element, fp32 and bf16, at every
     route and tile shape; timed at the main-path shape."""
@@ -932,6 +975,7 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     cases = [(batch, seq, 12, 64, *variant)
              for batch, seq in ((128, 67), (512, 67), (64, 97), (64, 193), (16, 577))
              for variant in ((1, False), (3, True))]
+    cases += SHARDED_CHRONOS_CASES
     cases += [(32, 80, 12, 64, 16, False), (256, 80, 12, 64, 16, False),
               (4, 16, 12, 64, 1, False), (4, 17, 12, 64, 3, True), (4, 48, 12, 64, 3, True),
               (4, 64, 12, 64, 3, True), (4, 81, 12, 64, 1, False), (4, 96, 12, 64, 3, True),
@@ -1006,7 +1050,8 @@ def kernel_times(seed: int, chronos_only: bool = False) -> None:
     and timed beside the plain version, SDPA and the bound (``[kernels]`` lines): the six
     causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) left-padded (skipped with ``chronos_only``),
     then B4f, B4b without dbias and B4b with dbias at Chronos-2's fine-tune (128 x 67 tokens)
-    and its serving at context 8192 (16 x 577), one segment. With ``--root`` the port comes
+    and its serving at context 8192 (16 x 577), and at the fine-tune's shape with its 12 heads
+    over a model axis of 2 (128 x 67 x 6), one segment. With ``--root`` the port comes
     from another checkout (the parent commit, say), so that two trees compare on one card."""
     from multimodal_timesfm_torch.ops.attention import (
         flash_causal_attention,
@@ -1056,7 +1101,7 @@ def kernel_times(seed: int, chronos_only: bool = False) -> None:
                 check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
                                  lambda: plain_attention_bwd(q, k, v, valid, g4),
                                  sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
-    for shape in (dict(KERNELS_BY_KEY)["B4f"], (16, 577, 12, 64)):
+    for shape in (dict(KERNELS_BY_KEY)["B4f"], (128, 67, 6, 64), (16, 577, 12, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
             errs = check_chronos(f"B4 {shape} 1 segment(s)", qkv, seg, bias, g)
@@ -1243,7 +1288,7 @@ def twin_check(label: str, mode: str, context: int, decoders: dict, tree: dict, 
         trainer = MultimodalTrainer(decoder, args, data, data, mode, device=device)
         # The first micro-batch's gradient, through the trainer's own loss.
         perm = np.arange(n, dtype=np.int32)
-        mb = trainer._micro_batch(trainer.train_data, trainer._train_device, perm, np.ones(n, np.float32))
+        mb = trainer._micro_batch(trainer.train_data, trainer._train_device, perm, np.ones(n, np.float32), n)
         inputs[device] = {}
         handles = _input_grad_hooks(trainer.model, inputs[device])
         grads = torch.autograd.grad(trainer._loss(mb), trainer.trainable)
@@ -1471,7 +1516,7 @@ def fused_twin(label: str, mode: str, decoders: dict, tree: dict, seed: int, wor
     for device, decoder in decoders.items():
         load_jax_params(decoder, tree)
         trainer = headline_trainer(decoder, mode, 8, train, val, 1, workdir, seed, device=device)
-        mb = trainer._micro_batch(trainer.train_data, trainer._train_device, np.arange(8), np.ones(8, np.float32))
+        mb = trainer._micro_batch(trainer.train_data, trainer._train_device, np.arange(8), np.ones(8, np.float32), 8)
         grads = torch.autograd.grad(trainer._loss(mb), trainer._work, allow_unused=True, materialize_grads=True)
         grad_leaves = _leaves(export_jax_params(trainer.trainable_module, dict(zip(trainer.trainable, grads))))
         losses, val_losses = trainer.train_epochs_fused(1)
@@ -1559,7 +1604,7 @@ def headline_phase(seed: int, tree: dict, decoders: dict) -> None:
             staged = trainer._train_device
             idx = torch.arange(batch, device=trainer.device)
             ones = torch.ones(batch, device=trainer.device)
-            ops = op_profile(lambda: trainer._optimizer_step([trainer._gather(staged, idx, ones)]))
+            ops = op_profile(lambda: trainer._optimizer_step([trainer._gather(staged, idx, ones, ones.sum())]))
             op_ms = sum(ms for _, _, ms in ops)
             print(
                 f"[profile] {name}: one eager optimizer step by aten op (device ms of its own kernels, "
@@ -2931,80 +2976,95 @@ def _sweep_results(path) -> dict:
     return out
 
 
-def sweep_cli_part(seed: int, kind: str) -> None:
-    """The tuning workflow from raw CSVs: the phase-8 tree split by the port's split CLI,
-    cached by the cache CLI, then ``python -m multimodal_timesfm_torch.tune --offline
-    --vectorized`` in-process (one structural group of 8 trials) and the same 8 configs
-    through the sequential CLI (``train_and_evaluate``)."""
-    from pathlib import Path
-
-    from multimodal_timesfm_torch import tune
+def sweep_tree(seed: int) -> tuple[Path, float, float]:
+    """The phase-8 tree split by the port's split CLI and the fold cached by the cache CLI,
+    made anew under ``SWEEP_TREE`` with the configs the tune CLI reads (``model.json``,
+    ``forecast.json``, ``sweep.json``): (the directory, split seconds, cache seconds).
+    Phase 10 makes it and phase 11 tunes on it again."""
     from multimodal_timesfm_torch.time_mmd import cache as cache_cli
     from multimodal_timesfm_torch.time_mmd import split as split_cli
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        root, snapshot, cache_dir = tmp / "Time-MMD", tmp / "minilm", tmp / "cache"
+    tmp = SWEEP_TREE
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    root, snapshot, cache_dir = tmp / "Time-MMD", tmp / "minilm", tmp / "cache"
+    start = time.perf_counter()
+    words = write_time_mmd_tree(root, seed)
+    write_minilm_snapshot(snapshot, words, seed)
+    if split_cli.main(["--data-path", str(root), "--train-ratio", "0.6", "--val-ratio", "0.2"]) != 0:
+        raise AssertionError("split CLI failed")
+    split_s = time.perf_counter() - start
+    (tmp / "model.json").write_text(json.dumps({
+        "adapter": {"type": "timesfm", "patch_len": 32},
+        "fusion": {"text_encoder_type": "english", "text_embedding_dims": 384}}))
+    (tmp / "forecast.json").write_text(json.dumps({"context_len": 32, "horizon_len": 32}))
+    start = time.perf_counter()
+    for augment, splits in ((True, ("train",)), (False, ("val", "test"))):
+        argv = ["--data-path", str(root), "--model-config", str(tmp / "model.json"),
+                "--forecast-config", str(tmp / "forecast.json"), "--text-encoder-type", "english",
+                "--text-model-dir", str(snapshot), "--cache-dir", str(cache_dir), "--seed", str(seed),
+                "--domains", *(f"{d}_{s}" for d in SWEEP_FOLD for s in splits),
+                *(["--augment"] if augment else [])]
+        if cache_cli.main(argv) != 0:
+            raise AssertionError(f"cache CLI failed: {argv}")
+    cache_s = time.perf_counter() - start
+    # examples/time_mmd/configs/sweeps/multimodal_1layer.yml, written as JSON (the card has
+    # no PyYAML), with the structural keys fixed to one value each: one group.
+    (tmp / "sweep.json").write_text(json.dumps({
+        "method": "bayes", "metric": {"name": "test/mse", "goal": "minimize"},
+        "parameters": {
+            "num_fusion_layers": {"value": 1}, "batch_size": {"values": [32]}, "num_epochs": {"values": [2]},
+            "learning_rate": {"distribution": "log_uniform_values", "min": 1e-6, "max": 1e-4},
+            "lr_scheduler_type": {"values": ["linear"]},
+            "warmup_steps": {"distribution": "uniform", "min": 0.0, "max": 0.1},
+            "weight_decay": {"distribution": "log_uniform_values", "min": 1e-4, "max": 1e-1},
+            "gradient_accumulation_steps": {"values": [1]},
+        }}))
+    return tmp, split_s, cache_s
+
+
+def tune_argv(tree: Path, count: int) -> list[str]:
+    """The tune CLI's flags for the sweep on ``tree`` (``sweep_tree``), ``count`` trials."""
+    return ["--sweep-config", str(tree / "sweep.json"), "--count", str(count), "--model-config",
+            str(tree / "model.json"), "--forecast-config", str(tree / "forecast.json"),
+            "--cache-dir", str(tree / "cache"), "--offline"]
+
+
+def sweep_cli_part(seed: int, kind: str) -> None:
+    """The tuning workflow from raw CSVs: the phase-8 tree split by the port's split CLI,
+    cached by the cache CLI (``sweep_tree``), then ``python -m multimodal_timesfm_torch.tune
+    --offline --vectorized`` in-process (one structural group of 8 trials) and the same 8
+    configs through the sequential CLI (``train_and_evaluate``)."""
+    from multimodal_timesfm_torch import tune
+
+    tmp, split_s, cache_s = sweep_tree(seed)
+    root = tmp / "Time-MMD"
+    common = [*tune_argv(tmp, 8), "--seed", str(seed)]
+    seconds = {}
+    for label, extra in (("vectorized", ["--vectorized"]), ("sequential", [])):
         start = time.perf_counter()
-        words = write_time_mmd_tree(root, seed)
-        write_minilm_snapshot(snapshot, words, seed)
-        if split_cli.main(["--data-path", str(root), "--train-ratio", "0.6", "--val-ratio", "0.2"]) != 0:
-            raise AssertionError("split CLI failed")
-        split_s = time.perf_counter() - start
-        (tmp / "model.json").write_text(json.dumps({
-            "adapter": {"type": "timesfm", "patch_len": 32},
-            "fusion": {"text_encoder_type": "english", "text_embedding_dims": 384}}))
-        (tmp / "forecast.json").write_text(json.dumps({"context_len": 32, "horizon_len": 32}))
-        start = time.perf_counter()
-        for augment, splits in ((True, ("train",)), (False, ("val", "test"))):
-            argv = ["--data-path", str(root), "--model-config", str(tmp / "model.json"),
-                    "--forecast-config", str(tmp / "forecast.json"), "--text-encoder-type", "english",
-                    "--text-model-dir", str(snapshot), "--cache-dir", str(cache_dir), "--seed", str(seed),
-                    "--domains", *(f"{d}_{s}" for d in SWEEP_FOLD for s in splits),
-                    *(["--augment"] if augment else [])]
-            if cache_cli.main(argv) != 0:
-                raise AssertionError(f"cache CLI failed: {argv}")
-        cache_s = time.perf_counter() - start
-        # examples/time_mmd/configs/sweeps/multimodal_1layer.yml, written as JSON (the card has
-        # no PyYAML), with the structural keys fixed to one value each: one group.
-        (tmp / "sweep.json").write_text(json.dumps({
-            "method": "bayes", "metric": {"name": "test/mse", "goal": "minimize"},
-            "parameters": {
-                "num_fusion_layers": {"value": 1}, "batch_size": {"values": [32]}, "num_epochs": {"values": [2]},
-                "learning_rate": {"distribution": "log_uniform_values", "min": 1e-6, "max": 1e-4},
-                "lr_scheduler_type": {"values": ["linear"]},
-                "warmup_steps": {"distribution": "uniform", "min": 0.0, "max": 0.1},
-                "weight_decay": {"distribution": "log_uniform_values", "min": 1e-4, "max": 1e-1},
-                "gradient_accumulation_steps": {"values": [1]},
-            }}))
-        common = ["--sweep-config", str(tmp / "sweep.json"), "--count", "8", "--model-config",
-                  str(tmp / "model.json"), "--forecast-config", str(tmp / "forecast.json"),
-                  "--cache-dir", str(cache_dir), "--offline", "--seed", str(seed)]
-        seconds = {}
-        for label, extra in (("vectorized", ["--vectorized"]), ("sequential", [])):
-            start = time.perf_counter()
-            if tune.main([*common, "--output-dir", str(tmp / label), *extra]) != 0:
-                raise AssertionError(f"tune CLI ({label}) failed")
-            seconds[label] = time.perf_counter() - start
-        vec, seq = (_sweep_results(tmp / label / "sweep_results.jsonl") for label in ("vectorized", "sequential"))
-        errors = [r for r in (*vec.values(), *seq.values()) if "error" in r]
-        if errors or len(vec) != 8 or set(vec) != set(seq):
-            raise AssertionError(f"tune CLI: runs {sorted(vec)} / {sorted(seq)}, errors {errors[:2]}")
-        worst = {key: max(abs(vec[r][key] - seq[r][key]) / abs(seq[r][key]) for r in seq)
-                 for key in ("val/best_loss", "test/mse", "test/mae")}
-        state = (tmp / "vectorized" / "sweep_state.jsonl").read_text().splitlines()
-        n_train = sum(1 for _ in open(root / "numerical" / "Agriculture_train" / "Agriculture_train.csv")) - 1
-        print(f"[sweep] workflow: phase 8's tree split by `python -m multimodal_timesfm_torch.time_mmd.split "
-              f"--train-ratio 0.6 --val-ratio 0.2` ({n_train} of 500 monthly rows to a train split) and the "
-              f"MiniLM-L6 snapshot in {split_s:.1f} s; the fold's caches (train --augment, val, test) by the "
-              f"cache CLI in {cache_s:.1f} s; `tune --offline --vectorized --count 8` (TimesFM-2.5 200M fp32, "
-              f"one group of 8 at batch 32, 2 epochs) in {seconds['vectorized']:.1f} s, the same 8 configs "
-              f"through the sequential CLI in {seconds['sequential']:.1f} s on {kind}; per trial, max "
-              f"|vectorized - sequential| / |sequential|: val/best_loss {worst['val/best_loss']:.2g}, "
-              f"test/mse {worst['test/mse']:.2g}, test/mae {worst['test/mae']:.2g} (tol {SWEEP_RTOL}); "
-              f"{len(state)} observations in sweep_state.jsonl", flush=True)
-        if max(worst.values()) > SWEEP_RTOL or len(state) != 8:
-            raise AssertionError("tune CLI: vectorized and sequential trials disagree")
+        if tune.main([*common, "--output-dir", str(tmp / label), *extra]) != 0:
+            raise AssertionError(f"tune CLI ({label}) failed")
+        seconds[label] = time.perf_counter() - start
+    vec, seq = (_sweep_results(tmp / label / "sweep_results.jsonl") for label in ("vectorized", "sequential"))
+    errors = [r for r in (*vec.values(), *seq.values()) if "error" in r]
+    if errors or len(vec) != 8 or set(vec) != set(seq):
+        raise AssertionError(f"tune CLI: runs {sorted(vec)} / {sorted(seq)}, errors {errors[:2]}")
+    worst = {key: max(abs(vec[r][key] - seq[r][key]) / abs(seq[r][key]) for r in seq)
+             for key in ("val/best_loss", "test/mse", "test/mae")}
+    state = (tmp / "vectorized" / "sweep_state.jsonl").read_text().splitlines()
+    n_train = sum(1 for _ in open(root / "numerical" / "Agriculture_train" / "Agriculture_train.csv")) - 1
+    print(f"[sweep] workflow: phase 8's tree split by `python -m multimodal_timesfm_torch.time_mmd.split "
+          f"--train-ratio 0.6 --val-ratio 0.2` ({n_train} of 500 monthly rows to a train split) and the "
+          f"MiniLM-L6 snapshot in {split_s:.1f} s; the fold's caches (train --augment, val, test) by the "
+          f"cache CLI in {cache_s:.1f} s; `tune --offline --vectorized --count 8` (TimesFM-2.5 200M fp32, "
+          f"one group of 8 at batch 32, 2 epochs) in {seconds['vectorized']:.1f} s, the same 8 configs "
+          f"through the sequential CLI in {seconds['sequential']:.1f} s on {kind}; per trial, max "
+          f"|vectorized - sequential| / |sequential|: val/best_loss {worst['val/best_loss']:.2g}, "
+          f"test/mse {worst['test/mse']:.2g}, test/mae {worst['test/mae']:.2g} (tol {SWEEP_RTOL}); "
+          f"{len(state)} observations in sweep_state.jsonl", flush=True)
+    if max(worst.values()) > SWEEP_RTOL or len(state) != 8:
+        raise AssertionError("tune CLI: vectorized and sequential trials disagree")
 
 
 def sweep_bench_part(seed: int, kind: str) -> None:
@@ -3230,6 +3290,458 @@ def sweep_phase(seed: int) -> None:
         raise AssertionError(f"the sweep path imported {imported}")
 
 
+# --- phase 11: the (data, model) mesh -----------------------------------------
+
+# Phase 10's split tree and cache, kept for phase 11's tune CLI over two ranks.
+SWEEP_TREE = Path(__file__).resolve().parent / "build" / "sweep_tree"
+# Two ranks on one card against the same run without a mesh: fp32 train losses relative,
+# validation losses and weights absolute (JAX's tests/test_sharding.py:96-101), vectorized
+# trials SWEEP_RTOL. Forecasts, max |diff| / std of the forecasts without a mesh, each limit
+# set between the largest sound reading and a control, as read on an H100 80GB HBM3 at
+# 700 W. fp32 1e-4: Chronos-2's 16 layers with their row-parallel GEMMs summed in two
+# halves read 2.95e-5, the same decoder without a mesh at batch 32 against 64 (other GEMM
+# shapes) 4.2e-5. bf16 0.2: Chronos-2 under the mesh reads 0.150 and at batch 32 against
+# 64 0.115; bf16 against fp32 (the control: a whole dtype's rounding) reads 0.274.
+PAR_LOSS_RTOL, PAR_VAL_ATOL, PAR_WEIGHT_ATOL = 1e-5, 1e-4, 5e-3
+PAR_FORECAST_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.2}
+# Launches the ranks of phase 11 made on the card: their counters are their own.
+RANK_LAUNCHES: dict[str, int] = {}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _arrays(module) -> dict[str, np.ndarray]:
+    return {name: p.detach().float().cpu().numpy() for name, p in module.named_parameters()}
+
+
+def parallel_work(seed: int, meshes: dict | None, workdir: str, rank: int = 0) -> dict:
+    """The runs of phase 11, over ``meshes`` ({"dp": the (2, 1) mesh, "mp": the (1, 2) mesh};
+    every rank runs this) or each without a mesh (``meshes`` None; the reference): what
+    each gives. Weights from ``seed`` (numpy, as ``random_jax_params`` draws them), full
+    width. Under the (1, 2) mesh the decoders are sharded by ``parallel.shard_params``;
+    rank 0 writes what must be compared whole (a checkpoint, Chronos's trained weights)."""
+    from multimodal_timesfm_torch import parallel
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models.bridge import export_jax_params, load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+    from multimodal_timesfm_torch.training import vectorized
+    from multimodal_timesfm_torch.training.evaluator import MultimodalEvaluator
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    dp, mp = (None, None) if meshes is None else (meshes["dp"], meshes["mp"])
+    shard = None if meshes is None else parallel.shard_params
+    tag = "ref" if meshes is None else "mesh"
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+    trees = {}
+
+    def decoder(family: str, dtype: torch.dtype = torch.float32):
+        if family == "timesfm":
+            adapter = TimesFM2p5Adapter(dataclasses.replace(TimesFMConfig(), compute_dtype=dtype))
+        else:
+            adapter = Chronos2Adapter(dataclasses.replace(Chronos2Config(), compute_dtype=dtype))
+        dec = MultimodalDecoder(adapter, dec_cfg, device="cpu")
+        if family not in trees:
+            trees[family] = random_jax_params(dec, seed)
+        load_jax_params(dec, trees[family])
+        return dec.cuda()
+
+    def args(name: str, batch: int, epochs: int, lr: float, save_strategy: str = "no") -> TrainingArguments:
+        return TrainingArguments(
+            output_dir=f"{workdir}/{tag}_{name}", per_device_train_batch_size=batch,
+            per_device_eval_batch_size=batch, num_train_epochs=epochs, learning_rate=lr, weight_decay=0.01,
+            eval_strategy="epoch", save_strategy=save_strategy, logging_strategy="no", seed=seed)
+
+    out: dict = {"graph_launches": {}}
+
+    def count_replays(captures: int, replays: int, per_step: dict[str, int]) -> None:
+        for key, n in per_step.items():
+            out["graph_launches"][key] = out["graph_launches"].get(key, 0) + (replays - captures) * n
+
+    # TimesFM-2.5 200M multimodal, context 512 (16 tokens), fp32, the (2, 1) mesh: 256
+    # series at batch 64, two epochs of the loop, then two of the fused path.
+    dec = decoder("timesfm")
+    train, val = make_samples(512, 256, seed, TRAIN_HORIZON), make_samples(512, 64, seed + 1, TRAIN_HORIZON)
+    trainer = MultimodalTrainer(dec, args("mm", 64, 2, TRAIN_LR), train, val, "multimodal", device="cuda", mesh=dp)
+    out["mm_loop"] = [(trainer.train_epoch(), trainer.validate_epoch()) for _ in range(2)]
+    out["mm_loop_fusion"] = _arrays(dec.fusion)
+    load_jax_params(dec.fusion, trees["timesfm"]["fusion"])
+    trainer = MultimodalTrainer(dec, args("mm", 64, 2, TRAIN_LR), train, val, "multimodal", device="cuda", mesh=dp)
+    losses, vals = trainer.train_epochs_fused(2)
+    out["mm_fused"] = {"losses": losses, "vals": vals, "fusion": _arrays(dec.fusion),
+                       "captures": trainer.graph_captures, "replays": trainer.graph_replays}
+    count_replays(trainer.graph_captures, trainer.graph_replays, {"B1f": 20, "B1b": 20})
+    # MultimodalEvaluator on 200 series at batch 64 (the last batch padded), the (2, 1) mesh.
+    evaluator = MultimodalEvaluator(dec, device="cuda", mesh=dp)
+    out["evaluate"] = dict(evaluator.evaluate(make_samples(512, 200, seed + 2, TRAIN_HORIZON), batch_size=64))
+    # Four distinct trials (lr 1e-4 / 2^t, own batch orders) over the (2, 1) mesh: two a rank.
+    load_jax_params(dec.fusion, trees["timesfm"]["fusion"])
+    init = {n: p.detach().clone() for n, p in dec.fusion.named_parameters()}
+    hp = {"learning_rate": TRAIN_LR * 0.5 ** np.arange(4), "weight_decay": 0.01 * (1.0 + np.arange(4)),
+          "warmup_steps": 1.0 + np.arange(4)}
+    data, tval = _group_data(512, HORIZON, 256, 32, seed + 3), _group_data(512, HORIZON, 64, 32, seed + 4)
+    res = vectorized.run_vectorized_trials(
+        dec, vectorized.replicate_trainables(init, 4, dp), data, tval, hp, horizon_len=HORIZON, batch_size=32,
+        num_epochs=2, seed=seed, seed_stride=1, mesh=dp)
+    mse, mae = vectorized.evaluate_vectorized(dec, res.best_trainable, tval, horizon_len=HORIZON, batch_size=32,
+                                              mesh=dp)
+    out["trials"] = {"train": res.train_losses, "val": res.val_losses, "best": res.best_val, "mse": mse,
+                     "mae": mae, "block": next(iter(res.best_trainable.values())).shape[0]}
+    count_replays(res.graph_captures, res.graph_replays, {"B1f": 20, "B1b": 20})
+    vectorized.release_programs(dec)
+    del dec, trainer, evaluator, res
+    torch.cuda.empty_cache()
+
+    # TimesFM baseline, context 512, fp32, the (1, 2) mesh: 128 series at batch 32, one
+    # epoch; the best checkpoint (whole arrays) written under the mesh.
+    dec = decoder("timesfm")
+    train, val = make_samples(512, 128, seed + 5, TRAIN_HORIZON), make_samples(512, 32, seed + 6, TRAIN_HORIZON)
+    trainer = MultimodalTrainer(dec, args("base", 32, 1, BASELINE_LR, save_strategy="best"), train, val,
+                                "baseline", device="cuda", mesh=mp, shard_params_fn=shard)
+    out["base"] = {"loss": trainer.train_epoch(), "val": trainer.validate_epoch()}
+    if meshes is None:
+        out["base"]["adapter"] = _leaves(export_jax_params(dec.adapter))
+    else:
+        trainer.save_ckpt(out["base"]["val"])
+        out["base"]["ckpt"] = str(trainer.args.checkpoint_dir / "best_model.ckpt")
+        whole = parallel.gather_params(trainer.trainable_module)
+        if rank == 0:
+            from multimodal_timesfm_torch.training.checkpoint import load_checkpoint
+
+            # Loaded into a TimesFM adapter without a mesh: bit-equal to the gathered weights.
+            plain = TimesFM2p5Adapter(TimesFMConfig())
+            load_jax_params(plain, load_checkpoint(out["base"]["ckpt"])["adapter_params"])
+            trained = trainer.trainable_module.parameters()
+            out["base"]["ckpt_bit_equal"] = all(
+                torch.equal(p, whole[q].cpu()) for p, q in zip(plain.parameters(), trained))
+        out["base"]["local_ffn_up"] = tuple(dec.adapter.stacked_xf.layers[0].ffn_up.weight.shape)
+    del dec, trainer
+    torch.cuda.empty_cache()
+
+    # Chronos-2 120M baseline at chronos_mm_h32's geometry (context 32, 67 tokens, horizon
+    # 32), fp32, the (1, 2) mesh: 256 series at batch 64, one epoch (B4f/B4b at 6 heads).
+    dec = decoder("chronos")
+    train = make_samples(32, 256, seed + 7, CHRONOS_HORIZON, patch=16)
+    val = make_samples(32, 64, seed + 8, CHRONOS_HORIZON, patch=16)
+    trainer = MultimodalTrainer(dec, args("chronos", 64, 1, BASELINE_LR), train, val, "baseline", device="cuda",
+                                mesh=mp, shard_params_fn=shard)
+    out["chronos"] = {"loss": trainer.train_epoch(), "val": trainer.validate_epoch()}
+    whole = parallel.gather_params(trainer.trainable_module) if meshes else None
+    if meshes is None:
+        out["chronos"]["adapter"] = _arrays(dec.adapter)
+    elif rank == 0:
+        names = [n for n, _ in trainer.trainable_module.named_parameters()]
+        np.savez(f"{workdir}/chronos_mesh.npz", **{
+            n: whole[p].cpu().numpy() for n, p in zip(names, trainer.trainable_module.parameters())})
+    del dec, trainer, whole
+    torch.cuda.empty_cache()
+
+    # Chronos-2 served at context 512 (97 tokens), fp32 and bf16, the (1, 2) mesh: 128
+    # series in batches of 64; TimesFM served at context 512 in bf16, 192 series in batches
+    # of 64, at (2, 1) and (1, 2).
+    serve_c = make_samples(512, 128, seed + 9, HORIZON, patch=16)
+    out["chronos_serve"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fc = Forecaster(decoder("chronos", dtype), batch_size=64, device="cuda", mesh=mp, shard_params_fn=shard)
+        out["chronos_serve"][dtype] = fc.forecast_dataset(HORIZON, serve_c)
+        if meshes is None:
+            fc.batch_size = 32  # the floor: the same decoder, other GEMM shapes
+            out.setdefault("chronos_serve_b32", {})[dtype] = fc.forecast_dataset(HORIZON, serve_c)
+        del fc
+    serve_t = make_samples(512, 192, seed + 10, HORIZON)
+    out["serve"] = {}
+    for name, mesh, sharded in (("dp2", dp, None), ("mp2", mp, shard)):
+        if meshes is None and name == "mp2":
+            break  # one reference for both meshes
+        fc = Forecaster(decoder("timesfm", torch.bfloat16), batch_size=64, device="cuda", mesh=mesh,
+                        shard_params_fn=sharded)
+        out["serve"][name] = fc.forecast_dataset(HORIZON, serve_t, denormalize=True)
+        del fc
+    torch.cuda.empty_cache()
+    if meshes is None:
+        out["trees"] = trees
+    return out
+
+
+def parallel_rank(rank: int, world: int, port: int, seed: int, workdir: str) -> None:
+    """One of phase 11's two ranks: gloo (NCCL refuses two ranks on one card), the card's
+    device 0; the plain attention made to raise; ``parallel_work`` over a (2, 1) and a (1, 2)
+    mesh; what it saw, with its launches, pickled to ``workdir/rank<rank>.pkl``."""
+    from multimodal_timesfm_torch import parallel
+    from multimodal_timesfm_torch.models import layers
+    from multimodal_timesfm_torch.ops import chronos_attention
+
+    def no_plain(*a):
+        raise AssertionError("the plain attention ran on the card")
+
+    layers.plain_causal_attention = no_plain
+    chronos_attention.plain_chronos_attention = no_plain
+    parallel.initialize_multihost(f"localhost:{port}", world, rank, backend="gloo")
+    meshes = {"dp": parallel.make_mesh(parallel.MeshConfig(data_parallel=2, model_parallel=1)),
+              "mp": parallel.make_mesh(parallel.MeshConfig(data_parallel=1, model_parallel=2))}
+    for counter in launch_counters().values():
+        counter.launches = 0
+    out = parallel_work(seed, meshes, workdir, rank)
+    out["launches"] = {k: n + out["graph_launches"].get(k, 0) for k, n in launch_counts().items()}
+    with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float(np.max(np.abs(a[k] - b[k]))) for k in b)
+
+
+def parallel_checks(ref: dict, ranks: list[dict], workdir: str) -> tuple[list[str], list[str]]:
+    """Each reading of the two ranks beside its limit, against the runs without a mesh, and
+    the labels of those that fail."""
+    from multimodal_timesfm_torch.training.checkpoint import load_checkpoint
+
+    lines, failed = [], []
+
+    def check(label: str, value: float, limit: float) -> None:
+        ok = value <= limit
+        lines.append(f"{label} {value:.3g} (limit {limit:g}){'' if ok else ' FAILED'}")
+        if not ok:
+            failed.append(label)
+
+    def rel(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    for r, seen in enumerate(ranks):
+        pre = f"rank {r}:"
+        loop, want = np.asarray(seen["mm_loop"]), np.asarray(ref["mm_loop"])
+        check(f"{pre} (2,1) TimesFM mm c512 loop, 2 epochs: train loss rel", rel(loop[:, 0], want[:, 0]), PAR_LOSS_RTOL)
+        check(f"{pre} val loss abs", float(np.max(np.abs(loop[:, 1] - want[:, 1]))), PAR_VAL_ATOL)
+        check(f"{pre} fusion weights abs", _max_diff(seen["mm_loop_fusion"], ref["mm_loop_fusion"]), PAR_WEIGHT_ATOL)
+        fused, want = seen["mm_fused"], ref["mm_fused"]
+        check(f"{pre} fused path (eager under gloo, {fused['captures']} captures): train losses rel",
+              rel(fused["losses"], want["losses"]), PAR_LOSS_RTOL)
+        check(f"{pre} val abs", float(np.max(np.abs(fused["vals"] - want["vals"]))), PAR_VAL_ATOL)
+        check(f"{pre} fusion abs", _max_diff(fused["fusion"], want["fusion"]), PAR_WEIGHT_ATOL)
+        if fused["captures"] != 0:
+            failed.append(f"{pre} the fused step was captured under gloo")
+        check(f"{pre} (2,1) MultimodalEvaluator mse/mae rel",
+              max(rel(seen["evaluate"][k], ref["evaluate"][k]) for k in ("mse", "mae")), PAR_LOSS_RTOL)
+        trials, want = seen["trials"], ref["trials"]
+        check(f"{pre} (2,1) 4 trials ({trials['block']} on this rank): train/val/best/test mse rel",
+              max(rel(trials[k], want[k]) for k in ("train", "val", "best", "mse", "mae")), SWEEP_RTOL)
+        for cell, label in (("base", "(1,2) TimesFM baseline c512"), ("chronos", "(1,2) Chronos-2 baseline 67 tokens")):
+            check(f"{pre} {label}: train loss rel", rel(seen[cell]["loss"], ref[cell]["loss"]), PAR_LOSS_RTOL)
+            check(f"{pre} val abs", abs(seen[cell]["val"] - ref[cell]["val"]), PAR_VAL_ATOL)
+        for dtype, out in seen["chronos_serve"].items():
+            want = ref["chronos_serve"][dtype]
+            check(f"{pre} (1,2) Chronos-2 c512 {str(dtype)[6:]} forecasts / std",
+                  float(np.max(np.abs(out - want)) / want.std()), PAR_FORECAST_TOL[dtype])
+        for name, out in seen["serve"].items():
+            want = ref["serve"]["dp2"]
+            check(f"{pre} {name} TimesFM c512 bf16 forecasts / std", float(np.max(np.abs(out - want)) / want.std()),
+                  PAR_FORECAST_TOL[torch.bfloat16])
+    # The weights trained under the (1, 2) mesh, whole: TimesFM's from the checkpoint rank 0
+    # wrote, Chronos's as rank 0 gathered them.
+    base = ranks[0]["base"]
+    if not base.get("ckpt_bit_equal"):
+        failed.append("the checkpoint written under the mesh, loaded without one, differs from the gathered weights")
+    def spread(out, want) -> str:
+        diff = np.abs(out - want) / want.std()
+        return f"max {diff.max():.3g}, median {np.median(diff):.3g}"
+
+    serve, b32 = ref["chronos_serve"], ref["chronos_serve_b32"]
+    lines.append(f"without a mesh, Chronos-2 c512 |diff| / std: fp32 at batch 32 against 64 "
+                 f"{spread(b32[torch.float32], serve[torch.float32])}; bf16 at batch 32 against 64 "
+                 f"{spread(b32[torch.bfloat16], serve[torch.bfloat16])}; bf16 against fp32 "
+                 f"{spread(serve[torch.bfloat16], serve[torch.float32])}")
+    for r, seen in enumerate(ranks):
+        lines.append(f"rank {r}: (1,2) Chronos-2 c512 bf16 |diff| / std "
+                     f"{spread(seen['chronos_serve'][torch.bfloat16], serve[torch.bfloat16])}")
+    lines.append(f"(1,2) checkpoint loaded without a mesh bit-equal to the gathered weights: "
+                 f"{base.get('ckpt_bit_equal')} (rank 0 held ffn_up {base['local_ffn_up']} of each layer)")
+    tree = _leaves(load_checkpoint(base["ckpt"])["adapter_params"])
+    check("(1,2) TimesFM baseline weights (the checkpoint) abs", _max_diff(tree, ref["base"]["adapter"]),
+          PAR_WEIGHT_ATOL)
+    with np.load(f"{workdir}/chronos_mesh.npz") as chronos:
+        check("(1,2) Chronos-2 baseline weights abs", _max_diff(dict(chronos), ref["chronos"]["adapter"]),
+              PAR_WEIGHT_ATOL)
+    return lines, failed
+
+
+def nccl_one_rank(seed: int, trees: dict, kind: str) -> None:
+    """One rank, NCCL, mesh (1, 1): TimesFM multimodal c512 fp32 on the fused path, its step
+    captured as one CUDA graph with its data-axis all-reduce, against the same run without
+    a mesh (bit-equal or not, and both runs' train series/s; run in turns: no mesh, mesh,
+    mesh, no mesh); then the trained decoder's autoregressive decode through ``Forecaster``,
+    a CUDA graph with the mesh and without it (bit-equal or not)."""
+    from multimodal_timesfm_torch import parallel
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models.bridge import load_jax_params
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    parallel.initialize_multihost(f"localhost:{free_port()}", 1, 0)
+    try:
+        mesh = parallel.make_mesh(parallel.MeshConfig(data_parallel=1, model_parallel=1))
+        backend = torch.distributed.get_backend()
+        dec = MultimodalDecoder(TimesFM2p5Adapter(TimesFMConfig()),
+                                MultimodalDecoderConfig(text_embedding_dims=384), device="cpu")
+        load_jax_params(dec, trees["timesfm"])
+        dec = dec.cuda()
+        train, val = make_samples(512, 256, seed, TRAIN_HORIZON), make_samples(512, 64, seed + 1, TRAIN_HORIZON)
+        runs = {}
+        with tempfile.TemporaryDirectory() as workdir:
+            for label in ("no mesh", "mesh (1,1)", "mesh (1,1) again", "no mesh again"):
+                load_jax_params(dec.fusion, trees["timesfm"]["fusion"])
+                args = TrainingArguments(
+                    output_dir=workdir, per_device_train_batch_size=64, per_device_eval_batch_size=64,
+                    num_train_epochs=2, learning_rate=TRAIN_LR, weight_decay=0.01, eval_strategy="epoch",
+                    save_strategy="no", logging_strategy="no", seed=seed)
+                trainer = MultimodalTrainer(dec, args, train, val, "multimodal", device="cuda",
+                                            mesh=mesh if "mesh (" in label else None)
+                losses, vals = trainer.train_epochs_fused(2)
+                for key in ("B1f", "B1b"):
+                    GRAPH_LAUNCHES[key] = (GRAPH_LAUNCHES.get(key, 0)
+                                           + (trainer.graph_replays - trainer.graph_captures) * 20)
+                runs[label] = (losses, vals, _arrays(dec.fusion), trainer.graph_captures, trainer.graph_replays,
+                               trainer.last_throughput)
+        # Horizon 512: 4 rounds at context 512; 128 series in batches of 64, served twice.
+        serve = make_samples(512, 128, seed + 23, horizon=512)
+        decodes = {}
+        for label, m in (("no mesh", None), ("mesh (1,1)", mesh)):
+            fc = Forecaster(dec, batch_size=64, device="cuda", mesh=m)
+            got = [fc.forecast_dataset(512, serve, multimodal=True, denormalize=True, autoregressive=True)
+                   for _ in range(2)]
+            GRAPH_LAUNCHES["B1f"] = GRAPH_LAUNCHES.get("B1f", 0) + 20 * 4 * (fc.graph_replays - fc.graph_captures)
+            decodes[label] = (got, fc.graph_captures, fc.graph_replays)
+    finally:
+        torch.distributed.destroy_process_group()
+    ref, ours = runs["no mesh"], runs["mesh (1,1)"]
+    bit_equal = (np.array_equal(ref[0], ours[0]) and np.array_equal(ref[1], ours[1])
+                 and all(np.array_equal(ref[2][k], ours[2][k]) for k in ref[2]))
+    worst = max(float(np.max(np.abs(ours[0] - ref[0]) / np.abs(ref[0]))), 0.0)
+    rates = ", ".join(f"{label} {r[5]:.1f}" for label, r in runs.items())
+    print(f"[parallel] one rank, {backend}, mesh (1,1), TimesFM mm c512 fp32 fused, 256 series at batch 64, "
+          f"2 epochs: graph captures {ours[3]} (replays {ours[4]}), the step's all-reduce in the graph; losses "
+          f"and fusion weights bit-equal to the run without a mesh: {bit_equal} (train losses rel {worst:.3g}, "
+          f"limit {PAR_LOSS_RTOL:g}) | train series/s in turns on {kind}: {rates}", flush=True)
+    if ours[3] < 1 or worst > PAR_LOSS_RTOL or _max_diff(ours[2], ref[2]) > PAR_WEIGHT_ATOL:
+        raise AssertionError("one-rank NCCL mesh: no graph capture, or the run departs from the one without a mesh")
+    plain = decodes["no mesh"][0]
+    got, captures, replays = decodes["mesh (1,1)"]
+    decode_equal = all(np.array_equal(a, w) for a, w in zip(got, plain))
+    spread = max(float(np.max(np.abs(a - w)) / w.std()) for a, w in zip(got, plain))
+    print(f"[parallel] one rank, {backend}, mesh (1,1), Forecaster.forecast_autoregressive of the trained "
+          f"decoder, horizon 512 (4 rounds at context 512), 128 series at batch 64, twice: decode graph captures "
+          f"{captures} (replays {replays}; without a mesh {decodes['no mesh'][1]} / {decodes['no mesh'][2]}), "
+          f"forecasts bit-equal to the decode without a mesh: {decode_equal} (max |diff| / std {spread:.3g}, "
+          f"limit {PAR_FORECAST_TOL[torch.float32]:g}); at mp = 1 the graph holds no collective, the rows are "
+          f"gathered after it", flush=True)
+    if captures < 1 or spread > PAR_FORECAST_TOL[torch.float32]:
+        raise AssertionError("one-rank NCCL mesh: no decode graph, or the decode departs from the one without a mesh")
+
+
+def parallel_tune(seed: int, kind: str) -> None:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    multimodal_timesfm_torch.tune --vectorized`` (4 trials, one group, two a rank, gloo on
+    the one card) on phase 10's split tree and cache, held per run id to the same CLI on one
+    rank; rank 0 alone writes the results and the sweep state."""
+    from multimodal_timesfm_torch import tune
+
+    tree = SWEEP_TREE if (SWEEP_TREE / "sweep.json").exists() else sweep_tree(seed)[0]
+    argv = [*tune_argv(tree, 4), "--seed", str(seed), "--vectorized"]
+    for label in ("tune1", "tune2"):
+        shutil.rmtree(tree / label, ignore_errors=True)
+    start = time.perf_counter()
+    if tune.main([*argv, "--output-dir", str(tree / "tune1")]) != 0:
+        raise AssertionError("tune CLI on one rank failed")
+    one_s = time.perf_counter() - start
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")]))}
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "multimodal_timesfm_torch.tune", *argv, "--output-dir", str(tree / "tune2")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    two_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"tune CLI over two ranks exited {proc.returncode}")
+    one, two = (_sweep_results(tree / label / "sweep_results.jsonl") for label in ("tune1", "tune2"))
+    records = [json.loads(line) for line in (tree / "tune2" / "sweep_results.jsonl").read_text().splitlines()]
+    finished = [r["run_id"] for r in records if "val/best_loss" in r]
+    state = (tree / "tune2" / "sweep_state.jsonl").read_text().splitlines()
+    errors = [r for r in (*one.values(), *two.values()) if "error" in r]
+    if errors or len(one) != 4 or set(one) != set(two) or len(finished) != 4 or len(state) != 4:
+        raise AssertionError(f"tune over two ranks: runs {sorted(one)} / {finished}, {len(state)} observations, "
+                             f"errors {errors[:2]}")
+    worst = {key: max(abs(two[r][key] - one[r][key]) / abs(one[r][key]) for r in one)
+             for key in ("val/best_loss", "test/mse", "test/mae")}
+    print(f"[parallel] `python -m torch.distributed.run --standalone --nproc-per-node 2 -m "
+          f"multimodal_timesfm_torch.tune --offline --vectorized --count 4` on phase 10's tree (one group of 4, "
+          f"two trials a rank, gloo on {kind}): {two_s:.1f} s against {one_s:.1f} s on one rank in-process; "
+          f"one record per run and {len(state)} observations (rank 0 writes); per run id, max |two ranks - one| "
+          f"/ |one|: " + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()) + f" (limit {SWEEP_RTOL})",
+          flush=True)
+    if max(worst.values()) > SWEEP_RTOL:
+        raise AssertionError("tune over two ranks departs from one rank")
+
+
+def parallel_phase(seed: int) -> None:
+    """Phase 11: two ranks on the one card (gloo) over the (2, 1) and (1, 2) meshes against
+    the same runs without a mesh (run meanwhile in this process), one NCCL rank on a (1, 1)
+    mesh, and the tune CLI over two ranks."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    kind = torch.cuda.get_device_name(0)
+    for backward, dtype, batch, seq in ((False, torch.float32, 64, 97), (False, torch.bfloat16, 64, 97),
+                                        (False, torch.float32, 64, 67), (True, torch.float32, 64, 67)):
+        print(f"[route] B4{'b' if backward else 'f'} {str(dtype)[6:]} B={batch} S={seq} H=6 D=64 (12 heads over "
+              f"mp=2): {_kernels.chronos_route(backward, dtype, batch, seq, 6, 64)}", flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        start = time.perf_counter()
+        ranks = torch.multiprocessing.start_processes(
+            parallel_rank, args=(2, free_port(), seed, workdir), nprocs=2, join=False, start_method="spawn")
+        try:
+            ref = parallel_work(seed, None, workdir)
+            ref_s = time.perf_counter() - start
+            while not ranks.join():
+                pass
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        ranks_s = time.perf_counter() - start
+        seen = []
+        for rank in range(2):
+            with open(f"{workdir}/rank{rank}.pkl", "rb") as f:
+                seen.append(pickle.load(f))
+        lines, failed = parallel_checks(ref, seen, workdir)
+        for line in lines:
+            print(f"[parallel] {line}", flush=True)
+        if failed:
+            raise AssertionError(f"phase 11: {failed}")
+        for rank, out in enumerate(seen):
+            missing = [k for k in ("B1f", "B1b", "B4f", "B4b") if out["launches"][k] == 0]
+            print(f"[parallel] rank {rank} (gloo, {kind}) launches: {out['launches']}", flush=True)
+            if missing:
+                raise AssertionError(f"rank {rank} launched no {missing}")
+            for key, n in out["launches"].items():
+                RANK_LAUNCHES[key] = RANK_LAUNCHES.get(key, 0) + n
+        for key, n in ref.pop("graph_launches").items():
+            GRAPH_LAUNCHES[key] = GRAPH_LAUNCHES.get(key, 0) + n
+        print(f"[parallel] two ranks on one card: {ranks_s:.1f} s (the runs without a mesh meanwhile in this "
+              f"process, {ref_s:.1f} s)", flush=True)
+    nccl_one_rank(seed, ref["trees"], kind)
+    parallel_tune(seed, kind)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3245,6 +3757,8 @@ def main() -> int:
                         help="only time the eager chronos_mm_h32 bf16 training epoch")
     parser.add_argument("--dispatch-times", action="store_true",
                         help="only time one call of the B1 entry point: custom op against autograd.Function")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="only build the kernels and run phase 11 (the mesh)")
     args = parser.parse_args()
     if args.chronos_only and not args.kernel_times:
         parser.error("--chronos-only needs --kernel-times")
@@ -3286,6 +3800,16 @@ def main() -> int:
             dispatch_times()
         print(f"[gpu] {gpu}")
         return 0
+    if args.parallel_only:
+        sharded_chronos_checks(args.seed)
+        for counter in launch_counters().values():
+            counter.launches = 0
+        start = time.perf_counter()
+        parallel_phase(args.seed)
+        print(f"[phase] parallel: {time.perf_counter() - start:.1f} s | launches here {launch_counts()}, "
+              f"replayed {GRAPH_LAUNCHES}, on the ranks {RANK_LAUNCHES}", flush=True)
+        print(f"[gpu] {gpu}")
+        return 0
     if args.kernel_times:
         if hasattr(_kernels, "attention_route"):
             print_routes()
@@ -3316,9 +3840,10 @@ def main() -> int:
         for counter in launch_counters().values():
             counter.launches = 0
         GRAPH_LAUNCHES.clear()
+        RANK_LAUNCHES.clear()
         out = phase(name, fn, *a)
         for key, n in launch_counts().items():
-            launches[key] += n + GRAPH_LAUNCHES.get(key, 0)
+            launches[key] += n + GRAPH_LAUNCHES.get(key, 0) + RANK_LAUNCHES.get(key, 0)
         return out
 
     tree, decoders, reference = main_path("serving", slice_phase, args.seed)
@@ -3336,6 +3861,8 @@ def main() -> int:
     main_path("pretrained to served", pretrained_phase, args.seed)
     torch.cuda.empty_cache()
     main_path("sweeps", sweep_phase, args.seed)
+    torch.cuda.empty_cache()
+    main_path("parallel", parallel_phase, args.seed)
     idle = [key for key, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")

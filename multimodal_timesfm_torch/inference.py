@@ -7,13 +7,19 @@ output patch autoregressively, and can denormalize predictions with the
 per-sample z-score ``mean``/``std`` metadata the Time-MMD loader records.
 It serves any adapter: TimesFM-2.5 and Chronos-2.
 
+Over a (data, model) mesh (``parallel/``), each rank forecasts its contiguous
+rows of every padded batch (``batch_size`` must divide by the data axis, as
+in JAX), with the decoder sharded over the model axis by ``shard_params_fn``;
+the forecasts are gathered to every rank as host arrays.
+
 On CUDA the whole autoregressive decode of a batch (round 0 with its
 optional text, then the context slides) is one CUDA graph, the counterpart
 of JAX's one compiled decode program (``inference.py:236-268``): captured
 once per (batch, context, chunk, rounds, text shape, dtype) after one eager run, then
 replayed; the graphs sit in a bounded LRU of JAX's size (8). A graph reads
 the parameters' storage, so weights loaded in place (``bridge.load_jax_params``)
-are what it serves. On the CPU the same decode runs eagerly.
+are what it serves. On the CPU the same decode runs eagerly, and on a mesh
+whose collectives ride gloo too (a CUDA graph cannot capture them).
 """
 
 from __future__ import annotations
@@ -27,6 +33,15 @@ import torch
 
 from multimodal_timesfm_torch.data.collate import StackedDataset, stack_samples
 from multimodal_timesfm_torch.models.decoder import MultimodalDecoder
+from multimodal_timesfm_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_gather_rows,
+    axis_group,
+    axis_size,
+    check_mesh,
+    graphs_capture_collectives,
+    local_rows,
+)
 from multimodal_timesfm_torch.utils.cache import lru_get
 from multimodal_timesfm_torch.utils.platform import resolve_device
 
@@ -43,9 +58,10 @@ class Forecaster:
     """A decoder, in eval mode on one device, serving batched forecasts.
 
     The decoder is moved to ``device``: CUDA by default, where its absence
-    raises; pass ``device="cpu"`` to serve on the CPU. ``mesh`` and
-    ``shard_params_fn`` (multi-device serving in the JAX package) are not
-    ported yet and raise.
+    raises; pass ``device="cpu"`` to serve on the CPU. ``mesh``
+    (``parallel.make_mesh``) splits each batch over its data axis;
+    ``shard_params_fn`` (``parallel.shard_params``) shards the decoder, in
+    place, over its model axis.
     """
 
     def __init__(
@@ -56,19 +72,27 @@ class Forecaster:
         mesh: Any = None,
         shard_params_fn: Any = None,
     ) -> None:
-        if mesh is not None or shard_params_fn is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh, shard_params_fn) is not ported yet (ROADMAP queue A, item 10)"
+        check_mesh(mesh, "Forecaster")
+        if shard_params_fn is not None and mesh is None:
+            raise ValueError("shard_params_fn needs a mesh to shard over")
+        dp = axis_size(mesh, DATA_AXIS)
+        if batch_size % dp != 0:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be divisible by the mesh data "
+                f"axis ({dp}) for sharded serving"
             )
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        if shard_params_fn is not None:
+            shard_params_fn(self.model, mesh)
+        self.mesh = mesh
         self.batch_size = batch_size
         self._warned_ar_text = False
         # Captured decode graphs by (batch, context, chunk, rounds, text shape, dtype); each
         # pins a graph and its static buffers, so the LRU is bounded as JAX's is.
         self._ar_graphs: OrderedDict = OrderedDict()
         self._fn_cache_max = 8
-        self._use_graphs = self.device.type == "cuda"
+        self._use_graphs = self.device.type == "cuda" and graphs_capture_collectives(mesh)
         self.graph_captures = 0
         self.graph_replays = 0
 
@@ -82,19 +106,21 @@ class Forecaster:
         masks: np.ndarray,
         text_embeddings: np.ndarray | None,
     ) -> np.ndarray:
-        """Run ``fn(context, masks, text)`` over fixed-size batches, padding the last."""
+        """Run ``fn(context, masks, text)`` over fixed-size batches, padding the last; on a
+        mesh each rank runs its rows of each batch and the outputs are gathered."""
         outs = []
         b = self.batch_size
+
+        def rows(arr: np.ndarray) -> torch.Tensor:
+            return self._stage(local_rows(_pad_rows(arr, b), self.mesh))
+
         with torch.inference_mode():
             for i in range(0, context.shape[0], b):
-                ctx = context[i : i + b]
-                real = ctx.shape[0]
-                txt = None
-                if text_embeddings is not None:
-                    txt = self._stage(_pad_rows(text_embeddings[i : i + b], b))
-                out = fn(
-                    self._stage(_pad_rows(ctx, b)), self._stage(_pad_rows(masks[i : i + b], b)), txt
-                )
+                real = min(b, context.shape[0] - i)
+                txt = None if text_embeddings is None else rows(text_embeddings[i : i + b])
+                out = fn(rows(context[i : i + b]), rows(masks[i : i + b]), txt)
+                if self.mesh is not None:
+                    out = all_gather_rows(out, axis_group(self.mesh, DATA_AXIS))
                 outs.append(out.cpu().numpy()[:real])
         return np.concatenate(outs, axis=0)
 

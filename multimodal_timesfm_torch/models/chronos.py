@@ -41,6 +41,7 @@ from multimodal_timesfm_torch.ops.attention import NEG_INF, takes_kernels
 from multimodal_timesfm_torch.ops.chronos_attention import fused_chronos_attention
 from multimodal_timesfm_torch.ops.patching import patchify
 from multimodal_timesfm_torch.ops.qkv_attention import split_heads
+from multimodal_timesfm_torch.parallel.collectives import copy_to_model, scatter_to_model
 
 _SCALE_EPS = 1e-10
 
@@ -199,13 +200,18 @@ class ChronosEncoderLayer(nn.Module):
         additive fp32 key mask (0 or finfo.min) of JAX's composition."""
         attn = self.attn
         normed = self.attn_norm(h)
+        if attn.q.parallel is not None:
+            # Column-parallel q, k, v: this rank's heads, from a replicated input.
+            normed = copy_to_model(normed, attn.q.parallel[1])
         # One GEMM over the concatenated q|k|v weights: its (B, S, 3*H*D) output
         # is what the kernel reads in place (JAX's fused path concatenates too).
+        # H is this rank's heads: all of them, or H/mp under tensor parallelism,
+        # with ``bias`` this rank's (H/mp, S, S) slice.
         qkv = dense(normed, torch.cat([attn.q.weight, attn.k.weight, attn.v.weight]))
         if takes_kernels(h):
             ctx = fused_chronos_attention(qkv, mask, bias)
         else:
-            q, k, v = split_heads(qkv, self.num_heads, self.head_dim)
+            q, k, v = split_heads(qkv, attn.q.weight.shape[0] // self.head_dim, self.head_dim)
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) + bias[None] + mask
             # The composed fp32 softmax of JAX's default path, cast once.
             weights = torch.softmax(logits, dim=-1).to(h.dtype)
@@ -247,8 +253,14 @@ class ChronosEncoder(nn.Module):
         batch, seq, _ = x.shape
         buckets = _buckets(seq, cfg.rel_pos_buckets, cfg.rel_pos_max_distance, x.device)
         # (H, S, S) fp32, gathered once per call: autograd sums its cotangent
-        # over the layers into the (buckets, H) table.
-        bias = self.rel_pos_bias[buckets].permute(2, 0, 1).float().contiguous()
+        # over the layers into the (buckets, H) table. Under tensor parallelism
+        # the replicated table is cut to this rank's heads, and its gradient
+        # summed over the model axis.
+        table = self.rel_pos_bias
+        q = self.layers[0].attn.q if len(self.layers) else None
+        if q is not None and q.parallel is not None:
+            table = scatter_to_model(table, q.parallel[1], dim=1)
+        bias = table[buckets].permute(2, 0, 1).float().contiguous()
         valid = attention_mask > 0
         if takes_kernels(x):
             # Attention-group ids: the segment for a valid token, an id of its

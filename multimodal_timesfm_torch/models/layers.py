@@ -33,6 +33,12 @@ from multimodal_timesfm_torch.ops.qkv_attention import (
     split_heads,
     supports_qkv_fused,
 )
+from multimodal_timesfm_torch.parallel.collectives import (
+    ModelAxis,
+    copy_to_model,
+    reduce_from_model,
+    scatter_to_model,
+)
 
 # 1/ln(2): softplus(0) * _R_SOFTPLUS_0 == 1, so a zero per-dim scale is 1/sqrt(D).
 _R_SOFTPLUS_0 = 1.442695041
@@ -66,12 +72,15 @@ def _bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class _DenseBf16(torch.autograd.Function):
-    """:func:`dense` when x and the weight are both bf16, with JAX's VJP of it.
+    """:func:`gemm` when x and the weight are both bf16, with JAX's VJP of it.
 
     ``aten::mm.dtype`` has no derivative, so the backward is written out: the
-    bf16 cotangent times the bf16 weight (dx) and the bf16 input (dW), each
-    accumulated in fp32 and cast once to its operand's dtype; the bias
-    gradient is the fp32 sum of the cotangent.
+    cotangent, as bf16, times the bf16 weight (dx) and the bf16 input (dW),
+    each accumulated in fp32 and cast once to its operand's dtype; the bias
+    gradient is the fp32 sum of the cotangent. The result is cast to
+    ``out_dtype``: x's dtype for :func:`dense`, fp32 for a row-parallel block
+    whose partial sums are reduced before the cast (a bf16 cotangent of
+    either is exact as bf16).
 
     A (T, out, in) weight with x (T, ..., in) and a (T, out) bias is T
     independent GEMMs run as one batched GEMM: the form the vmap rule gives a
@@ -81,21 +90,23 @@ class _DenseBf16(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    def forward(
+        x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, out_dtype: torch.dtype
+    ) -> torch.Tensor:
         if weight.dim() == 3:
             x3 = x.reshape(x.shape[0], -1, x.shape[-1])
             y = _bmm32(x3, weight.transpose(1, 2))
             if bias is not None:
                 y = y + bias.float()[:, None, :]
-            return y.to(x.dtype).reshape(*x.shape[:-1], weight.shape[1])
+            return y.to(out_dtype).reshape(*x.shape[:-1], weight.shape[1])
         y = _mm32(x.reshape(-1, x.shape[-1]), weight.t())
         if bias is not None:
             y = y + bias.float()
-        return y.to(x.dtype).reshape(*x.shape[:-1], weight.shape[0])
+        return y.to(out_dtype).reshape(*x.shape[:-1], weight.shape[0])
 
     @staticmethod
     def setup_context(ctx, inputs, output) -> None:
-        x, weight, bias = inputs
+        x, weight, bias, _ = inputs
         ctx.save_for_backward(x, weight)
         ctx.bias_dtype = None if bias is None else bias.dtype
 
@@ -103,6 +114,7 @@ class _DenseBf16(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         x, weight = ctx.saved_tensors
         dx = dw = db = None
+        g = g.to(weight.dtype)
         if weight.dim() == 3:
             x3 = x.reshape(x.shape[0], -1, x.shape[-1])
             g3 = g.reshape(g.shape[0], -1, g.shape[-1])
@@ -112,7 +124,7 @@ class _DenseBf16(torch.autograd.Function):
                 dw = _bmm32(g3.transpose(1, 2), x3).to(weight.dtype)
             if ctx.needs_input_grad[2]:
                 db = g3.float().sum(dim=1).to(ctx.bias_dtype)
-            return dx, dw, db
+            return dx, dw, db, None
         x2 = x.reshape(-1, x.shape[-1])
         g2 = g.reshape(-1, g.shape[-1])
         if ctx.needs_input_grad[0]:
@@ -121,36 +133,43 @@ class _DenseBf16(torch.autograd.Function):
             dw = _mm32(g2.t(), x2).to(weight.dtype)
         if ctx.needs_input_grad[2]:
             db = g2.float().sum(dim=0).to(ctx.bias_dtype)
-        return dx, dw, db
+        return dx, dw, db, None
 
     @staticmethod
-    def vmap(info, in_dims, x, weight, bias):
-        x_dim, w_dim, b_dim = in_dims
+    def vmap(info, in_dims, x, weight, bias, out_dtype):
+        x_dim, w_dim, b_dim, _ = in_dims
         trials = info.batch_size
         x = trials_first(x, x_dim, trials)
         if w_dim is None and b_dim is None:
-            return _DenseBf16.apply(x, weight, bias), 0
+            return _DenseBf16.apply(x, weight, bias, out_dtype), 0
         weight = trials_first(weight, w_dim, trials)
         if bias is not None:
             bias = trials_first(bias, b_dim, trials)
-        return _DenseBf16.apply(x, weight, bias), 0
+        return _DenseBf16.apply(x, weight, bias, out_dtype), 0
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-    """``x @ weight.T + bias`` accumulated in fp32, bias added in fp32, one cast to x's dtype.
+def gemm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, out_dtype: torch.dtype
+) -> torch.Tensor:
+    """``x @ weight.T + bias`` accumulated in fp32, bias added in fp32, one cast to ``out_dtype``.
 
     x and weight both bf16 (a bf16-stored weight under bf16 compute): a bf16
     GEMM with an fp32 result (:class:`_DenseBf16`). Otherwise, as JAX
     promotes mixed operands, both go to fp32 first.
     """
     if x.dtype == torch.bfloat16 and weight.dtype == torch.bfloat16:
-        return _DenseBf16.apply(x, weight, bias)
+        return _DenseBf16.apply(x, weight, bias, out_dtype)
     b = None if bias is None else bias.float()
     # Contiguous, so that ATen's linear takes its flattened GEMM with the bias fused
     # whether or not the weight requires grad (it picks another path for a strided
     # input when it does not): a module and an exported program on the same weights
     # then give the same bits.
-    return F.linear(x.float().contiguous(), weight.float(), b).to(x.dtype)
+    return F.linear(x.float().contiguous(), weight.float(), b).to(out_dtype)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`gemm` cast to x's dtype."""
+    return gemm(x, weight, bias, x.dtype)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -239,7 +258,17 @@ def layer_norm(
 
 
 class Dense(nn.Module):
-    """Affine map with an (out, in) weight; see :func:`dense`."""
+    """Affine map with an (out, in) weight; see :func:`dense`.
+
+    ``parallel`` is None, or (kind, axis) once ``parallel.shard_params`` gave
+    this rank a block of the weight (``kind`` "column": rows of the weight and
+    the bias, the input replicated; "row": columns of the weight, the input a
+    block of features, the partial products kept in fp32 and summed over the
+    model axis, the replicated bias added once after the sum, one cast to x's
+    dtype: the rounding of the unsharded GEMM, as GSPMD reduces the fp32 dot).
+    """
+
+    parallel: tuple[str, ModelAxis] | None = None
 
     def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator, bias: bool = True) -> None:
         super().__init__()
@@ -256,7 +285,22 @@ class Dense(nn.Module):
         return module
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias)
+        if self.parallel is None:
+            return dense(x, self.weight, self.bias)
+        kind, axis = self.parallel
+        if kind == "column":
+            return dense(copy_to_model(x, axis), self.weight, self.bias)
+        y = reduce_from_model(gemm(x, self.weight, None, torch.float32), axis)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+    def row_input(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated input of this Dense cut to the features its row-parallel block
+        reads (``x`` as it is when the Dense is not row-parallel)."""
+        if self.parallel is None or self.parallel[0] != "row":
+            return x
+        return scatter_to_model(x, self.parallel[1])
 
 
 class RMSNorm(nn.Module):
@@ -346,7 +390,7 @@ class Attention(nn.Module):
         if seq == 1:
             bias = None if self.qkv.bias is None else self.qkv.bias[2 * hd :]
             out = dense(x, self.qkv.weight[2 * hd :], bias)
-            return self.out(out.to(x.dtype))
+            return self.out(self.out.row_input(out.to(x.dtype)))
 
         qkv = self.qkv(x)  # (B, S, 3*H*D), column blocks q|k|v
         if self.per_dim_scale is not None:
@@ -379,7 +423,9 @@ class Attention(nn.Module):
             else:
                 out = plain_causal_attention(q, k, v, key_valid)
             out = out.reshape(batch, seq, hd)
-        return self.out(out.to(x.dtype))
+        # qkv is replicated (every rank runs every head); a row-parallel out reads
+        # this rank's block of the heads' features.
+        return self.out(self.out.row_input(out.to(x.dtype)))
 
 
 class TransformerLayer(nn.Module):

@@ -14,7 +14,11 @@ The port's counterpart of ``examples/time_mmd/sweep_lib.py``:
     anything is staged, and failures isolated per trial and per group.
 
 Both build the backbone through ``time_mmd/models.py`` and run on CUDA unless
-``device`` names another device.
+``device`` names another device. Over a mesh (``parallel/``, every rank
+running the same sweep), a trial's trainer and evaluator split its batches
+over the data axis, and a vectorized group whose size the data axis divides
+splits its trials over it (the device budget is then per device); rank 0
+alone writes and removes files.
 """
 
 from __future__ import annotations
@@ -28,16 +32,16 @@ import numpy as np
 import torch
 
 from multimodal_timesfm_torch.data.collate import stack_samples
-from multimodal_timesfm_torch.models.bridge import load_jax_params
 from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
 from multimodal_timesfm_torch.models.layers import fold_frozen_tree_affines, fold_frozen_tree_seq1
+from multimodal_timesfm_torch.parallel.mesh import DATA_AXIS, axis_size, barrier, check_mesh, is_main_rank
 from multimodal_timesfm_torch.time_mmd.configs import ForecastConfig, ModelConfig
 from multimodal_timesfm_torch.time_mmd.cross_validation import DomainSpec, load_fold_datasets
 from multimodal_timesfm_torch.time_mmd.models import build_adapter, init_decoder_params
 from multimodal_timesfm_torch.training import vectorized
 from multimodal_timesfm_torch.training.checkpoint import load_checkpoint
 from multimodal_timesfm_torch.training.evaluator import MultimodalEvaluator
-from multimodal_timesfm_torch.training.trainer import MultimodalTrainer, _refuse_unported
+from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
 from multimodal_timesfm_torch.training_args import TrainingArguments
 from multimodal_timesfm_torch.types import TrainingMode
 from multimodal_timesfm_torch.utils.logging import get_logger
@@ -168,9 +172,9 @@ def train_and_evaluate(
 
     checkpoint = load_checkpoint(training_args.checkpoint_dir / "best_model.ckpt")
     best_val_loss = checkpoint["best_val_loss"]
-    load_jax_params(trainer.trainable_module, checkpoint[trainer._params_key])
+    trainer.load_trained_params(checkpoint[trainer._params_key])
 
-    evaluator = MultimodalEvaluator(trainer.eval_model, device=trainer.device)
+    evaluator = MultimodalEvaluator(trainer.eval_model, device=trainer.device, mesh=mesh)
     test_metrics = evaluator.evaluate(
         test_dataset,
         batch_size=training_args.per_device_eval_batch_size,
@@ -192,7 +196,8 @@ def train_and_evaluate(
         logged["test/mean_pinball"] = test_metrics["mean_pinball"]
     run.log(logged, step=trainer.global_step)
 
-    if training_args.checkpoint_dir.exists():
+    barrier()  # every rank has read the best checkpoint
+    if is_main_rank() and training_args.checkpoint_dir.exists():
         shutil.rmtree(training_args.checkpoint_dir)
     return dict(test_metrics)
 
@@ -239,10 +244,12 @@ def train_and_evaluate_many(
     copies of the trained backbone (``vectorized_max_trials``), and a larger
     group raises with the computed budget (logged as that group's error). A
     config that fails validation, or a group that fails, logs its error to its
-    runs and the rest still run; if every trial fails, this raises. ``mesh`` is
-    not ported yet (ROADMAP queue A, item 10) and raises.
+    runs and the rest still run; if every trial fails, this raises. With a
+    ``mesh``, a group whose size its data axis divides splits its trials over it
+    (the budget then holds per device: ``T_max x dp`` trials); another group runs
+    unsharded on every rank, with a warning.
     """
-    _refuse_unported(mesh=(mesh, mesh is not None, "10"))
+    check_mesh(mesh, "train_and_evaluate_many")
     target = resolve_device(device)
     train_dataset, val_dataset, test_dataset = _fold_datasets(
         model_config, forecast_config, cache_dir, augment_splits, require_pretrained_text
@@ -285,20 +292,34 @@ def train_and_evaluate_many(
             # The frozen norms' gains and the query scale into the adjacent weights.
             fold_frozen_tree_affines(decoder.adapter)
 
+        # Shard the trial axis over the mesh when the group divides evenly; otherwise run
+        # the group unsharded on every rank (trials stay correct either way).
+        group_mesh = mesh
+        if mesh is not None and len(group) % axis_size(mesh, DATA_AXIS) != 0:
+            _logger.warning(
+                "Group of %d trials not divisible by mesh data axis (%d); running unsharded",
+                len(group), axis_size(mesh, DATA_AXIS),
+            )
+            group_mesh = None
+        dp = axis_size(group_mesh, DATA_AXIS)
+
         trained = getattr(decoder, trainable_key)
         trainable_bytes = sum(p.numel() * 4 for p in trained.parameters())
         hbm = vectorized.device_hbm_bytes()
         max_t = vectorized.vectorized_max_trials(trainable_bytes, hbm)
-        if len(group) > max_t:
+        # The budget is per device: each holds len(group) / dp trials.
+        per_device_trials = len(group) // dp
+        if per_device_trials > max_t:
             raise ValueError(
                 f"Vectorized {mode} group of {len(group)} trials exceeds the device budget: each "
                 f"trial carries 5 fp32 copies of the {trainable_bytes / 1e6:.0f}MB trained tree "
                 f"(params + AdamW mu/nu + best + grads) = {5 * trainable_bytes / 1e9:.2f}GB/trial, "
-                f"and 75% of the {hbm / 1e9:.1f}GB device memory fits {max_t} trial(s). Split the "
-                f"sweep into groups of <= {max_t} (--count) or run sequentially."
+                f"and 75% of the {hbm / 1e9:.1f}GB device memory fits {max_t} trial(s) per device "
+                f"({per_device_trials} would land on each of {dp} device(s)). Split the "
+                f"sweep into groups of <= {max_t * dp} (--count) or run sequentially."
             )
         inits = vectorized.replicate_trainables(
-            {k: v.detach().clone() for k, v in trained.named_parameters()}, len(group)
+            {k: v.detach().clone() for k, v in trained.named_parameters()}, len(group), group_mesh
         )
         decoder.to(target)
 
@@ -335,12 +356,14 @@ def train_and_evaluate_many(
                 eval_batch_size=training_args.per_device_eval_batch_size,
                 loss_type=training_args.loss_type,
                 trainable_key=trainable_key,
+                mesh=group_mesh,
             )
             mse, mae = vectorized.evaluate_vectorized(
                 decoder, results.best_trainable, test_d,
                 horizon_len=forecast_config.horizon_len,
                 batch_size=training_args.per_device_eval_batch_size,
                 trainable_key=trainable_key,
+                mesh=group_mesh,
             )
         finally:
             # This group's programs pin its decoder and trial buffers: free them now.

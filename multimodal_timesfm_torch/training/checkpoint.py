@@ -112,8 +112,18 @@ def _reconstruct(subtype: Any, shape: Any, code: Any) -> _PendingArray:
     return _PendingArray()
 
 
-def _frombuffer(buf: Any, dtype: Any, shape: Any, order: str) -> np.ndarray | torch.Tensor:
-    return _array(buf, dtype, shape, order)
+def _frombuffer(
+    buf: Any, dtype: Any, shape: Any, order: str, axis_order: Any = None
+) -> np.ndarray | torch.Tensor:
+    """numpy's ``_frombuffer``. A numpy that pickles an array whose strides permute its
+    axes (a stack of transposed kernels, say) without a copy passes order "K", the shape
+    in memory order and the axis order that permutes it back."""
+    if order != "K" or axis_order is None:
+        return _array(buf, dtype, shape, order)
+    arr = _array(buf, dtype, shape, "C")
+    if isinstance(arr, torch.Tensor):
+        return arr.permute(*axis_order).contiguous()
+    return np.ascontiguousarray(arr.transpose(axis_order))
 
 
 def _scalar(dtype: Any, raw: bytes) -> Any:

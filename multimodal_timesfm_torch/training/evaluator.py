@@ -5,7 +5,9 @@ per-sample MSE and MAE over the dataset, computed in padded static batches
 (the last batch is filled by wrapping around with zero-weight rows), summed
 on the device and read once. ``quantile_metrics=True`` adds the mean pinball
 loss over the adapter's quantile levels and the weighted quantile loss
-``2 * sum(pinball) / sum(|y|)``.
+``2 * sum(pinball) / sum(|y|)``. Over a mesh the batch is padded to the data
+axis, as JAX pads it, each rank evaluates its rows of each batch, and the
+sums are summed over the data axis.
 """
 
 from __future__ import annotations
@@ -18,6 +20,15 @@ import torch
 
 from multimodal_timesfm_torch.data.collate import StackedDataset, stack_samples
 from multimodal_timesfm_torch.models.decoder import MultimodalDecoder
+from multimodal_timesfm_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_reduce_sum,
+    axis_group,
+    axis_size,
+    check_mesh,
+    local_rows,
+    pad_to_multiple,
+)
 from multimodal_timesfm_torch.types import EvaluationMetrics
 from multimodal_timesfm_torch.utils.platform import resolve_device
 
@@ -25,12 +36,17 @@ from multimodal_timesfm_torch.utils.platform import resolve_device
 class MultimodalEvaluator:
     """Computes evaluation metrics for a decoder, on CUDA unless ``device`` says otherwise.
 
-    The decoder is moved to the device.
+    The decoder is moved to the device. ``mesh`` (``parallel.make_mesh``) splits each
+    batch over its data axis; a decoder sharded over its model axis is evaluated as it is.
     """
 
-    def __init__(self, model: MultimodalDecoder, device: str | torch.device | None = None) -> None:
+    def __init__(
+        self, model: MultimodalDecoder, device: str | torch.device | None = None, mesh: Any = None
+    ) -> None:
+        check_mesh(mesh, "MultimodalEvaluator")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.mesh = mesh
 
     @torch.no_grad()
     def evaluate(
@@ -59,11 +75,14 @@ class MultimodalEvaluator:
             raise RuntimeError("Evaluation dataset is empty.")
 
         horizon_len = int(data.horizon.shape[1])
-        num_batches = math.ceil(n / batch_size)
-        take = np.resize(np.arange(n), num_batches * batch_size).reshape(num_batches, batch_size)
-        weights = np.zeros(num_batches * batch_size, np.float32)
+        b = pad_to_multiple(batch_size, axis_size(self.mesh, DATA_AXIS))
+        num_batches = math.ceil(n / b)
+        take = np.resize(np.arange(n), num_batches * b).reshape(num_batches, b)
+        weights = np.zeros(num_batches * b, np.float32)
         weights[:n] = 1.0
-        weights = weights.reshape(num_batches, batch_size)
+        # This rank's contiguous rows of every batch (all of them without a mesh).
+        take = local_rows(take, self.mesh, dim=1)
+        weights = local_rows(weights.reshape(num_batches, b), self.mesh, dim=1)
         text = data.text_embeddings if multimodal else None
         if quantile_metrics:
             levels, mean_channel = self.model.adapter.quantile_loss_spec
@@ -94,7 +113,10 @@ class MultimodalEvaluator:
             total_se = total_se + torch.sum(err * err * w) / horizon_len
             total_ae = total_ae + torch.sum(torch.abs(err) * w) / horizon_len
 
-        se, ae, pb, ab = (float(t) for t in torch.stack([total_se, total_ae, total_pb, total_abs]).cpu())
+        totals = torch.stack([total_se, total_ae, total_pb, total_abs])
+        if self.mesh is not None:
+            totals = all_reduce_sum([totals], axis_group(self.mesh, DATA_AXIS))[0]
+        se, ae, pb, ab = (float(t) for t in totals.cpu())
         metrics = EvaluationMetrics(mse=se / n, mae=ae / n)
         if quantile_metrics:
             metrics["mean_pinball"] = pb / n

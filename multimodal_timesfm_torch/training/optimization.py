@@ -30,6 +30,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from multimodal_timesfm_torch.parallel.collectives import ModelAxis, reduce_from_model
+
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -77,19 +79,33 @@ def make_schedule(
     raise NotImplementedError(f"Unsupported lr_scheduler_type: {lr_scheduler_type!r}")
 
 
-def _global_norm_fp32(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum, in tensor order, of each tensor's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+def _global_norm_fp32(grads: Sequence[torch.Tensor], model_axis: ModelAxis | None = None,
+                      sharded: Sequence[bool] = ()) -> torch.Tensor:
+    """sqrt of the sum, in tensor order, of each tensor's fp32 sum of squares.
+
+    With ``model_axis``, the tensors flagged in ``sharded`` are this rank's
+    blocks: their squares are summed over the axis, the replicated ones
+    counted once, which is the norm of the whole (logical) tensors.
+    """
+    squares = [torch.sum(torch.square(g.float())) for g in grads]
+    if model_axis is None:
+        return torch.sqrt(sum(squares))
+    whole = sum(s for s, flag in zip(squares, sharded) if flag)
+    whole = reduce_from_model(torch.as_tensor(whole, dtype=torch.float32, device=squares[0].device), model_axis)
+    return torch.sqrt(sum((s for s, flag in zip(squares, sharded) if not flag), whole))
 
 
-def clip_by_global_norm_fp32(grads: Sequence[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+def clip_by_global_norm_fp32(grads: Sequence[torch.Tensor], max_norm: float,
+                             model_axis: ModelAxis | None = None,
+                             sharded: Sequence[bool] = ()) -> list[torch.Tensor]:
     """Scale ``grads`` by ``max_norm / norm`` when their global norm reaches ``max_norm``.
 
     The norm accumulates each tensor's sum of squares in fp32 whatever the
     gradients' dtype; below ``max_norm`` the gradients pass unchanged. The
-    choice is made on the device (no host synchronisation).
+    choice is made on the device (no host synchronisation). ``model_axis``
+    and ``sharded``: see :func:`_global_norm_fp32`.
     """
-    norm = _global_norm_fp32(grads)
+    norm = _global_norm_fp32(grads, model_axis, sharded)
     keep = norm < max_norm
     return [torch.where(keep, g, ((g.float() / norm) * max_norm).to(g.dtype)) for g in grads]
 
@@ -112,8 +128,12 @@ class _Adam:
         b1: float = 0.9,
         b2: float = 0.999,
         eps: float = 1e-8,
+        model_axis: ModelAxis | None = None,
+        sharded: Sequence[bool] = (),
     ) -> None:
         self.params = list(params)
+        # Tensor parallelism: which params are this rank's blocks, for the clip's norm.
+        self.model_axis, self.sharded = model_axis, tuple(sharded)
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
@@ -151,7 +171,7 @@ class AdamW(_Adam):
         """One update from ``grads`` (one per parameter, in order)."""
         self._check(grads)
         if self.max_grad_norm > 0:
-            grads = clip_by_global_norm_fp32(grads, self.max_grad_norm)
+            grads = clip_by_global_norm_fp32(grads, self.max_grad_norm, self.model_axis, self.sharded)
         lr, c1, c2 = self._advance()
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             g32 = g.float()
@@ -181,7 +201,7 @@ class FusedOptimizer(_Adam):
         lr, c1, c2 = self._advance()
         g32 = [g.float() for g in grads]
         if self.max_grad_norm > 0:
-            norm = _global_norm_fp32(g32)
+            norm = _global_norm_fp32(g32, self.model_axis, self.sharded)
             clip = self.max_grad_norm / torch.clamp_min(norm, self.max_grad_norm)
             g32 = torch._foreach_mul(g32, clip)
         m32 = torch._foreach_add(

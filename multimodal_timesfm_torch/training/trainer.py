@@ -45,8 +45,18 @@ a pickle file, or with ``ckpt_backend="orbax"`` a directory of safetensors
 and JSON), and resuming reads the port's payloads and those the JAX trainer
 wrote (an optax chain or fused state, bf16 moments included).
 
-Not ported yet, and refused when asked for: ``mesh``/``shard_params_fn``
-(ROADMAP queue A item 10).
+Over a (data, model) mesh (``parallel/``; one process per device, every
+rank running the same calls): each rank takes its contiguous rows of every
+micro-batch (the batch padded to the data axis, as JAX pads it), its loss is
+its weighted sum over the global ``max(sum(weights) * H, 1)``, and the
+gradients are summed over the data axis (a mean would be wrong wherever the
+padding rows fall unevenly); losses and validation sums are summed the same
+way. ``shard_params_fn`` (``parallel.shard_params``) shards the decoder over
+the model axis in place and turns the folds off, as in JAX; the clip's norm is
+that of the whole tensors. Checkpoints hold whole arrays (rank 0 writes what
+the ranks gather); a restore reloads them whole and shards them again. On
+CUDA the fused path captures its step with the collectives when they ride
+NCCL; under gloo (two ranks on one card) the step runs eagerly.
 """
 
 from __future__ import annotations
@@ -68,6 +78,23 @@ from multimodal_timesfm_torch.models.layers import (
     StackedTransformer,
     fold_frozen_tree_affines,
     fold_frozen_tree_seq1,
+)
+from multimodal_timesfm_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_reduce_sum,
+    axis_group,
+    axis_size,
+    barrier,
+    check_mesh,
+    graphs_capture_collectives,
+    is_main_rank,
+    local_rows,
+)
+from multimodal_timesfm_torch.parallel.sharding import (
+    gather_params,
+    local_blocks,
+    sharded_params,
+    unshard_params,
 )
 from multimodal_timesfm_torch.training.checkpoint import (
     BACKENDS,
@@ -123,9 +150,9 @@ def build_epoch_indices(
     """Epoch index and weight arrays in the layout (steps, accum, B).
 
     Rows are padded to static shapes with index 0 and weight 0; a weighted
-    loss makes padded rows inert. ``dp`` pads the batch to a multiple of a
-    data-parallel axis (1 here). The same numpy draws as the JAX package's,
-    so a shared seed gives a shared batch order.
+    loss makes padded rows inert. ``dp`` pads the batch to a multiple of the
+    mesh's data axis (1 without one). The same numpy draws as the JAX
+    package's, so a shared seed gives a shared batch order.
     """
     idx = rng.permutation(n) if shuffle else np.arange(n)
     num_batches = math.ceil(n / batch)
@@ -142,14 +169,6 @@ def build_epoch_indices(
 
     shape = (num_steps, accum, b_padded)
     return take.reshape(shape).astype(np.int32), weights.reshape(shape), num_batches
-
-
-def _refuse_unported(**knobs: tuple[Any, bool, str]) -> None:
-    for name, (value, asked, item) in knobs.items():
-        if asked:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to the PyTorch trainer yet (ROADMAP queue A, item {item})"
-            )
 
 
 def _cast_floats(module: torch.nn.Module, dtype: torch.dtype) -> None:
@@ -203,11 +222,17 @@ class MultimodalTrainer:
         ``log(metrics, step=...)``) receives the JAX trainer's keys at its
         steps: ``train/loss`` and ``train/lr`` per step or per epoch as
         ``args.logging_strategy`` says, and ``val/loss`` every epoch.
+        ``mesh`` (``parallel.make_mesh``) splits every batch over its data
+        axis; ``shard_params_fn(module, mesh)`` (``parallel.shard_params``)
+        shards the decoder, in place, over its model axis.
         """
-        _refuse_unported(
-            mesh=(mesh, mesh is not None, "10"),
-            shard_params_fn=(shard_params_fn, shard_params_fn is not None, "10"),
-        )
+        check_mesh(mesh, "MultimodalTrainer")
+        if shard_params_fn is not None and mesh is None:
+            raise ValueError("shard_params_fn needs a mesh to shard over")
+        self.mesh = mesh
+        self._dp = axis_size(mesh, DATA_AXIS)
+        self._data_group = axis_group(mesh, DATA_AXIS)
+        self._shard_params_fn = shard_params_fn
         if ckpt_backend not in BACKENDS:
             raise ValueError(f"ckpt_backend must be one of {BACKENDS}, got {ckpt_backend!r}")
         self.ckpt_backend = ckpt_backend
@@ -244,8 +269,13 @@ class MultimodalTrainer:
         self.trainable = list(self.trainable_module.parameters())
 
         # --- the frozen child: folded in fp32 first, then cast (JAX's order) ---
-        # The folds apply to a frozen TimesFM stack only (not to Chronos-2).
-        foldable = multimodal and isinstance(getattr(model.adapter, "stacked_xf", None), StackedTransformer)
+        # The folds apply to a frozen TimesFM stack only (not to Chronos-2), and not under
+        # tensor parallelism: the sharding rules key on the qkv/out names they replace.
+        foldable = (
+            multimodal
+            and shard_params_fn is None
+            and isinstance(getattr(model.adapter, "stacked_xf", None), StackedTransformer)
+        )
         patch = model.adapter.patch_len
         self._folded_seq1 = bool(
             fold_frozen_seq1
@@ -264,6 +294,8 @@ class MultimodalTrainer:
             if frozen_cast_dtype is not None:
                 _cast_floats(frozen, frozen_cast_dtype)
             self.eval_model = model.with_children(**{frozen_key: frozen})
+        if shard_params_fn is not None:
+            shard_params_fn(self.eval_model, mesh)
 
         # --- the module the training step differentiates ---
         self._trainable_cast_dtype = trainable_cast_dtype
@@ -288,8 +320,11 @@ class MultimodalTrainer:
         )
         moment_dtype = torch.bfloat16 if args.adam_moment_dtype == "bfloat16" else None
         optimizer_cls = FusedOptimizer if fused_optimizer else AdamW
+        shards = sharded_params(self.trainable_module)
         self.optimizer = optimizer_cls(
-            self.trainable, self.schedule, args.weight_decay, args.max_grad_norm, moment_dtype
+            self.trainable, self.schedule, args.weight_decay, args.max_grad_norm, moment_dtype,
+            model_axis=next((axis for _, axis in shards.values()), None),
+            sharded=[p in shards for p in self.trainable],
         )
 
         self._rng = np.random.default_rng(args.seed if args.seed is not None else 0)
@@ -308,13 +343,15 @@ class MultimodalTrainer:
             self._val_device = self._to_device(self.val_data)
         else:
             _logger.info("Dataset exceeds device budget; gathering micro-batches on the host")
-        self._val_indices: tuple[np.ndarray, np.ndarray, int] | None = None
+        self._val_indices: tuple[np.ndarray, np.ndarray, int, np.ndarray | None] | None = None
 
         # The captured optimizer step of the fused path (CUDA, no accumulation):
-        # (graph, index buffer, weight buffer, loss output), kept across runs.
-        self._step_graph: tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+        # (graph, index buffer, weight buffer, weight-sum buffer, loss output),
+        # kept across runs.
+        self._step_graph: tuple | None = None
         self.graph_captures = 0
         self.graph_replays = 0
+        self._warned_eager_step = False
 
         self.current_epoch = 0
         self.start_epoch = 0
@@ -334,32 +371,52 @@ class MultimodalTrainer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in tree.items()}
 
     @staticmethod
-    def _gather(staged: dict[str, torch.Tensor], idx: torch.Tensor, weights: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Rows ``idx`` of each staged array, gathered on the device, with their weights."""
+    def _gather(
+        staged: dict[str, torch.Tensor], idx: torch.Tensor, weights: torch.Tensor, wsum: torch.Tensor
+    ) -> dict[str, torch.Tensor]:
+        """Rows ``idx`` of each staged array, gathered on the device, with their weights
+        and the weight sum of the whole micro-batch (over every rank of a mesh)."""
         mb = {k: torch.index_select(v, 0, idx) for k, v in staged.items()}
         mb["weights"] = weights
+        mb["wsum"] = wsum
         return mb
 
     def _micro_batch(
         self, data: StackedDataset, staged: dict[str, torch.Tensor] | None, idx: np.ndarray,
-        weights: np.ndarray,
+        weights: np.ndarray, wsum: np.ndarray,
     ) -> dict[str, torch.Tensor]:
         """Rows ``idx`` of each dataset array, gathered on the device when it holds them."""
         w = torch.from_numpy(np.ascontiguousarray(weights)).to(self.device)
+        ws = torch.tensor(float(wsum), device=self.device)
         if staged is not None:
-            return self._gather(staged, torch.from_numpy(idx.astype(np.int64)).to(self.device), w)
+            return self._gather(staged, torch.from_numpy(idx.astype(np.int64)).to(self.device), w, ws)
         arrays = {"context": data.context, "horizon": data.horizon}
         if data.text_embeddings is not None:
             arrays["text"] = data.text_embeddings
         mb = {k: torch.from_numpy(np.ascontiguousarray(v[idx])).to(self.device) for k, v in arrays.items()}
         mb["weights"] = w
+        mb["wsum"] = ws
         return mb
 
+    def _rank_rows(
+        self, perm: np.ndarray, weights: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(this rank's rows of the (..., B) index and weight arrays, the weight sum of each
+        whole micro-batch); without a mesh the arrays are kept whole. The weights are 0/1,
+        so the sums are exact in fp32."""
+        wsum = weights.sum(axis=-1)
+        return local_rows(perm, self.mesh, dim=-1), local_rows(weights, self.mesh, dim=-1), wsum
+
+    def _sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the mesh's data axis (``t`` itself without a mesh)."""
+        return t if self.mesh is None else all_reduce_sum([t], self._data_group)[0]
+
     def _loss(self, mb: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Weighted training loss; the weights zero out padded rows."""
+        """Weighted training loss; the weights zero out padded rows. On a mesh, this rank's
+        share: its rows' weighted sum over the whole micro-batch's denominator."""
         context, horizon, weights = mb["context"], mb["horizon"], mb["weights"]
         masks = torch.zeros_like(context, dtype=torch.bool)
-        denom = torch.clamp_min(torch.sum(weights) * self.horizon_len, 1.0)
+        denom = torch.clamp_min(mb["wsum"] * self.horizon_len, 1.0)
         text = mb.get("text")
         if self.args.loss_type == "mse":
             point = self.model(self.horizon_len, context, masks, text)
@@ -374,7 +431,7 @@ class MultimodalTrainer:
         masks = torch.zeros_like(mb["context"], dtype=torch.bool)
         point = self.eval_model(self.horizon_len, mb["context"], masks, mb.get("text"))
         err = point.float() - mb["horizon"]
-        denom = torch.clamp_min(torch.sum(mb["weights"]) * self.horizon_len, 1.0)
+        denom = torch.clamp_min(mb["wsum"] * self.horizon_len, 1.0)
         return torch.sum(err * err * mb["weights"][:, None]) / denom
 
     def _optimizer_step(self, micro_batches: list[dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -383,8 +440,9 @@ class MultimodalTrainer:
 
         The gradient is the mean over the step's micro-batches, accumulated in
         the masters' dtype; without accumulation the gradients go to the
-        optimizer as the backward gives them. Nothing here reads a value back
-        to the host.
+        optimizer as the backward gives them. On a mesh the gradients are summed
+        over the data axis (one fp32 all-reduce) and the losses are this rank's
+        shares. Nothing here reads a value back to the host.
         """
         accum = len(micro_batches)
         if self._trainable_cast_dtype is not None:
@@ -402,6 +460,8 @@ class MultimodalTrainer:
                     grads = [torch.zeros_like(p) for p in self.trainable]
                 grads = [a + gi / accum for a, gi in zip(grads, g)]
             losses.append(loss.detach())
+        if self.mesh is not None:
+            grads = all_reduce_sum(grads, self._data_group)
         self.optimizer.step(grads)
         return torch.stack(losses)
 
@@ -426,20 +486,22 @@ class MultimodalTrainer:
             self.args.per_device_train_batch_size,
             True,
             self.args.gradient_accumulation_steps,
-            1,
+            self._dp,
             self._rng,
         )
+        perm, weights, wsum = self._rank_rows(perm, weights)
         staged = self._train_device if self._device_resident else None
         t0 = time.perf_counter()
         num_steps, accum, _ = perm.shape
         losses = [
             self._optimizer_step([
-                self._micro_batch(self.train_data, staged, perm[s, a], weights[s, a])
+                self._micro_batch(self.train_data, staged, perm[s, a], weights[s, a], wsum[s, a])
                 for a in range(accum)
             ])
             for s in range(num_steps)
         ]
-        loss_matrix = torch.stack(losses).cpu().numpy()  # (num_steps, accum); waits for the epoch
+        # (num_steps, accum); waits for the epoch
+        loss_matrix = self._sum_over_data(torch.stack(losses)).cpu().numpy()
         loss_arr = loss_matrix.reshape(-1)[:num_batches]
         elapsed = time.perf_counter() - t0
         self.last_throughput = len(self.train_data) / max(elapsed, 1e-9)
@@ -471,28 +533,42 @@ class MultimodalTrainer:
                 )
 
     @torch.no_grad()
-    def _val_loss(self, idx: torch.Tensor, weights: torch.Tensor, num_batches: int) -> torch.Tensor:
+    def _val_loss(
+        self, idx: torch.Tensor, weights: torch.Tensor, num_batches: int, wsum: torch.Tensor
+    ) -> torch.Tensor:
         """Mean validation MSE over the first ``num_batches`` rows of (steps, B) device
-        indices and weights, as a device scalar."""
-        mse = [self._eval_mse(self._gather(self._val_device, idx[s], weights[s])) for s in range(num_batches)]
-        return torch.stack(mse).mean()
+        indices and weights (on a mesh this rank's rows, with each step's whole weight
+        sum), as a device scalar summed over the data axis."""
+        mse = [
+            self._eval_mse(self._gather(self._val_device, idx[s], weights[s], wsum[s]))
+            for s in range(num_batches)
+        ]
+        return self._sum_over_data(torch.stack(mse).mean())
+
+    def _val_arrays(self) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+        """The validation order: (steps, B) indices and weights of this rank's rows, the
+        step count, and each step's whole weight sum."""
+        perm, weights, num_batches = build_epoch_indices(
+            len(self.val_data), self.args.per_device_eval_batch_size, False, 1, self._dp, self._rng
+        )
+        perm, weights, wsum = self._rank_rows(perm[:, 0], weights[:, 0])
+        return perm, weights, num_batches, wsum
 
     @torch.no_grad()
     def validate_epoch(self) -> float:
         """One validation epoch; the average per-micro-batch MSE."""
         if self._val_indices is None:
-            self._val_indices = build_epoch_indices(
-                len(self.val_data), self.args.per_device_eval_batch_size, False, 1, 1, self._rng
-            )
-        perm, weights, num_batches = self._val_indices
+            self._val_indices = self._val_arrays()
+        perm, weights, num_batches, wsum = self._val_indices
         if self._device_resident:
-            idx = torch.from_numpy(perm[:, 0].astype(np.int64)).to(self.device)
-            return float(self._val_loss(idx, torch.from_numpy(weights[:, 0]).to(self.device), num_batches))
+            idx = torch.from_numpy(perm.astype(np.int64)).to(self.device)
+            ws = torch.from_numpy(wsum).to(self.device)
+            return float(self._val_loss(idx, torch.from_numpy(weights).to(self.device), num_batches, ws))
         mse = [
-            self._eval_mse(self._micro_batch(self.val_data, None, perm[s, 0], weights[s, 0]))
+            self._eval_mse(self._micro_batch(self.val_data, None, perm[s], weights[s], wsum[s]))
             for s in range(num_batches)
         ]
-        return float(torch.stack(mse).mean().cpu())
+        return float(self._sum_over_data(torch.stack(mse).mean()).cpu())
 
     @property
     def folded_seq1(self) -> bool:
@@ -515,42 +591,58 @@ class MultimodalTrainer:
             and self.args.save_strategy in ("no", "best")
         )
 
-    def _step_runner(self, perm: torch.Tensor, weights: torch.Tensor) -> Callable[[int, int], torch.Tensor]:
+    def _step_runner(
+        self, perm: torch.Tensor, weights: torch.Tensor, wsum: torch.Tensor
+    ) -> Callable[[int, int], torch.Tensor]:
         """``run(e, s)``: optimizer step ``s`` of epoch ``e`` of (E, steps, accum, B) device
-        indices and weights; returns its (accum,) losses.
+        indices and weights and (E, steps, accum) whole-batch weight sums; returns its
+        (accum,) losses.
 
         On CUDA without accumulation the step is a CUDA graph: captured once per
         trainer, after one eager step on a side stream (which is the step it
         stands for), then replayed with the step's rows copied into its static
-        index and weight buffers. Elsewhere the same step runs eagerly.
+        index and weight buffers. A mesh's collectives are captured with it when
+        they ride NCCL; gloo's cannot be, and the step then runs eagerly, as it
+        does elsewhere.
         """
         staged = self._train_device
         accum = perm.shape[2]
-        if self.device.type != "cuda" or accum != 1:
+
+        capturable = graphs_capture_collectives(self.mesh)
+        if self.device.type != "cuda" or accum != 1 or not capturable:
+            if self.device.type == "cuda" and accum == 1 and not self._warned_eager_step:
+                self._warned_eager_step = True
+                _logger.warning(
+                    "The fused step runs eagerly: the mesh's collectives ride gloo, which a "
+                    "CUDA graph cannot capture"
+                )
+
             def eager(e: int, s: int) -> torch.Tensor:
                 return self._optimizer_step(
-                    [self._gather(staged, perm[e, s, a], weights[e, s, a]) for a in range(accum)]
+                    [self._gather(staged, perm[e, s, a], weights[e, s, a], wsum[e, s, a]) for a in range(accum)]
                 )
             return eager
 
         def run(e: int, s: int) -> torch.Tensor:
             if self._step_graph is None:
                 idx, w = perm[e, s, 0].clone(), weights[e, s, 0].clone()
+                ws = wsum[e, s, 0].clone()
                 side = torch.cuda.Stream(self.device)
                 side.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(side):
-                    loss = self._optimizer_step([self._gather(staged, idx, w)])
+                    loss = self._optimizer_step([self._gather(staged, idx, w, ws)])
                 torch.cuda.current_stream(self.device).wait_stream(side)
                 loss.record_stream(torch.cuda.current_stream(self.device))
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
-                    out = self._optimizer_step([self._gather(staged, idx, w)])
-                self._step_graph = (graph, idx, w, out)
+                    out = self._optimizer_step([self._gather(staged, idx, w, ws)])
+                self._step_graph = (graph, idx, w, ws, out)
                 self.graph_captures += 1
                 return loss
-            graph, idx, w, out = self._step_graph
+            graph, idx, w, ws, out = self._step_graph
             idx.copy_(perm[e, s, 0])
             w.copy_(weights[e, s, 0])
+            ws.copy_(wsum[e, s, 0])
             graph.replay()
             self.graph_replays += 1
             return out
@@ -576,18 +668,19 @@ class MultimodalTrainer:
         accum = self.args.gradient_accumulation_steps
         draws = [
             build_epoch_indices(
-                len(self.train_data), self.args.per_device_train_batch_size, True, accum, 1, self._rng
+                len(self.train_data), self.args.per_device_train_batch_size, True, accum, self._dp, self._rng
             )
             for _ in range(num_epochs)
         ]
         num_batches = draws[0][2]
-        perm = torch.from_numpy(np.stack([d[0] for d in draws]).astype(np.int64)).to(self.device)
-        weights = torch.from_numpy(np.stack([d[1] for d in draws])).to(self.device)
-        val_perm, val_weights, val_nb = build_epoch_indices(
-            len(self.val_data), self.args.per_device_eval_batch_size, False, 1, 1, self._rng
-        )
-        val_idx = torch.from_numpy(val_perm[:, 0].astype(np.int64)).to(self.device)
-        val_w = torch.from_numpy(val_weights[:, 0]).to(self.device)
+        perm, weights, wsum = self._rank_rows(np.stack([d[0] for d in draws]), np.stack([d[1] for d in draws]))
+        perm = torch.from_numpy(perm.astype(np.int64)).to(self.device)
+        weights = torch.from_numpy(np.ascontiguousarray(weights)).to(self.device)
+        wsum = torch.from_numpy(wsum).to(self.device)
+        val_perm, val_weights, val_nb, val_wsum = self._val_arrays()
+        val_idx = torch.from_numpy(val_perm.astype(np.int64)).to(self.device)
+        val_w = torch.from_numpy(np.ascontiguousarray(val_weights)).to(self.device)
+        val_wsum = torch.from_numpy(val_wsum).to(self.device)
 
         start = self.best_val_loss if np.isfinite(self.best_val_loss) else np.finfo(np.float32).max
         best_val = torch.tensor(start, dtype=torch.float32, device=self.device)
@@ -597,11 +690,11 @@ class MultimodalTrainer:
         val_losses = torch.empty(num_epochs, device=self.device)
 
         t0 = time.perf_counter()
-        run = self._step_runner(perm, weights)
+        run = self._step_runner(perm, weights, wsum)
         for e in range(num_epochs):
             for s in range(num_steps):
                 train_losses[e, s] = run(e, s)
-            val_loss = self._val_loss(val_idx, val_w, val_nb)
+            val_loss = self._val_loss(val_idx, val_w, val_nb, val_wsum)
             val_losses[e] = val_loss
             is_best = val_loss < best_val
             best_val = torch.where(is_best, val_loss, best_val)
@@ -609,7 +702,7 @@ class MultimodalTrainer:
                 with torch.no_grad():
                     for b, p in zip(best, self.trainable):
                         b.copy_(torch.where(is_best, p, b))
-        loss_cube = train_losses.cpu().numpy()  # the run's one wait
+        loss_cube = self._sum_over_data(train_losses).cpu().numpy()  # the run's one wait
         val_arr = val_losses.cpu().numpy()
         elapsed = time.perf_counter() - t0
         self.last_throughput = num_epochs * len(self.train_data) / max(elapsed, 1e-9)
@@ -632,24 +725,53 @@ class MultimodalTrainer:
 
     def _build_checkpoint(self, params: list[torch.Tensor] | None = None) -> dict:
         """The checkpoint payload; ``params`` (one per trained tensor) in place of the
-        live trained parameters when given."""
+        live trained parameters when given. Whole arrays: the blocks of sharded tensors
+        are gathered (every rank must call this)."""
         opt = self.optimizer
         module = self.trainable_module
+
+        def whole(values: list[torch.Tensor] | None) -> dict:
+            return export_jax_params(
+                module, gather_params(module, None if values is None else dict(zip(self.trainable, values)))
+            )
+
         return {
             "epoch": self.current_epoch,
             "global_step": self.global_step,
-            "optimizer_state": {
-                "count": np.int32(opt.count),
-                "mu": export_jax_params(module, dict(zip(self.trainable, opt.mu))),
-                "nu": export_jax_params(module, dict(zip(self.trainable, opt.nu))),
-            },
+            "optimizer_state": {"count": np.int32(opt.count), "mu": whole(opt.mu), "nu": whole(opt.nu)},
             # Resuming under the other optimizer is refused by name.
             "optimizer_is_fused": isinstance(opt, FusedOptimizer),
             "best_val_loss": self.best_val_loss,
-            self._params_key: export_jax_params(
-                module, None if params is None else dict(zip(self.trainable, params))
-            ),
+            self._params_key: whole(params),
         }
+
+    def _save(self, path: Any, checkpoint: dict) -> None:
+        """Rank 0 writes; every rank waits until the file is there."""
+        if is_main_rank():
+            save_checkpoint(path, checkpoint, backend=self.ckpt_backend)
+        barrier()
+
+    def load_trained_params(self, tree: Any, moments: tuple[Any, Any] | None = None) -> None:
+        """Load a JAX-layout tree of whole arrays into the trained parameters (and, with
+        ``moments``, the (mu, nu) trees into the optimizer's slots). Under tensor
+        parallelism the trained child is gathered whole, loaded, and sharded again by
+        ``shard_params_fn``, as JAX re-applies it on restore (every rank must call this)."""
+        module = self.trainable_module
+        sharded = bool(sharded_params(module))
+        if sharded:
+            unshard_params(module)
+        load_jax_params(module, tree)
+        slots = []
+        if moments is not None:
+            slots = [(opt_slots, jax_tree_arrays(module, t))
+                     for opt_slots, t in zip((self.optimizer.mu, self.optimizer.nu), moments)]
+        if sharded:
+            self._shard_params_fn(module, self.mesh)
+        with torch.no_grad():
+            for opt_slots, arrays in slots:
+                blocks = local_blocks(module, {p: torch.from_numpy(arrays[p]) for p in self.trainable})
+                for p, slot in zip(self.trainable, opt_slots):
+                    slot.copy_(blocks[p])
 
     def resume_from_checkpoint(self, path: Any) -> None:
         """Restore the trained parameters, optimizer state and counters; call before ``train()``.
@@ -682,15 +804,10 @@ class MultimodalTrainer:
                 UserWarning,
                 stacklevel=2,
             )
-        load_jax_params(self.trainable_module, checkpoint[self._params_key])
         # The port's {"count", "mu", "nu"}, or the ScaleByAdamState of a JAX chain
         # or fused state; moments of either dtype are cast to the live slots'.
         count, mu, nu = adam_state(checkpoint["optimizer_state"])
-        with torch.no_grad():
-            for slots, tree in ((self.optimizer.mu, mu), (self.optimizer.nu, nu)):
-                arrays = jax_tree_arrays(self.trainable_module, tree)
-                for p, slot in zip(self.trainable, slots):
-                    slot.copy_(torch.from_numpy(arrays[p]))
+        self.load_trained_params(checkpoint[self._params_key], (mu, nu))
         self.optimizer.count = count
         self.start_epoch = checkpoint["epoch"] + 1
         self.current_epoch = self.start_epoch
@@ -711,14 +828,12 @@ class MultimodalTrainer:
         checkpoint = self._build_checkpoint()
         if self.args.save_strategy == "epoch":
             path = self.args.checkpoint_dir / f"checkpoint_epoch_{self.current_epoch}.ckpt"
-            save_checkpoint(path, checkpoint, backend=self.ckpt_backend)
+            self._save(path, checkpoint)
             _logger.info("Saved checkpoint at epoch %d", self.current_epoch)
-            if self.args.save_total_limit is not None:
+            if self.args.save_total_limit is not None and is_main_rank():
                 rotate_checkpoints(self.args.checkpoint_dir, self.args.save_total_limit)
         if is_best:
-            save_checkpoint(
-                self.args.checkpoint_dir / "best_model.ckpt", checkpoint, backend=self.ckpt_backend
-            )
+            self._save(self.args.checkpoint_dir / "best_model.ckpt", checkpoint)
             _logger.info("Saved best model checkpoint at epoch %d", self.current_epoch)
 
     def train(self) -> None:
@@ -745,7 +860,7 @@ class MultimodalTrainer:
         if self.args.load_best_model_at_end:
             best_path = self.args.checkpoint_dir / "best_model.ckpt"
             if best_path.exists():
-                load_jax_params(self.trainable_module, load_checkpoint(best_path)[self._params_key])
+                self.load_trained_params(load_checkpoint(best_path)[self._params_key])
                 _logger.info("Loaded best model at end of training")
         _logger.info("Training completed")
 
@@ -793,9 +908,7 @@ class MultimodalTrainer:
             checkpoint = self._build_checkpoint(self._fused_best["trainable"])
             checkpoint["optimizer_state_is_final"] = True
             self.global_step = live_step
-            save_checkpoint(
-                self.args.checkpoint_dir / "best_model.ckpt", checkpoint, backend=self.ckpt_backend
-            )
+            self._save(self.args.checkpoint_dir / "best_model.ckpt", checkpoint)
             _logger.info("Saved best model checkpoint at epoch %d", best_epoch)
         self.current_epoch = self.args.num_train_epochs - 1
 

@@ -28,6 +28,11 @@ after one eager step (the step it stands for) and replayed, as
 ``MultimodalTrainer._step_runner`` does. The step programs and their graphs
 sit in a bounded LRU of 8 and are reused by later calls of the same
 structure; the eager step is the reference.
+
+Over a mesh, the trial axis is split over its data axis (T must divide by it,
+as in JAX): each rank trains its contiguous block of trials, with no
+communication during training (the step's CUDA graph is as above), and the
+per-trial results are gathered to every rank.
 """
 
 from __future__ import annotations
@@ -41,11 +46,15 @@ import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
-from multimodal_timesfm_torch.training.trainer import (
-    _refuse_unported,
-    build_epoch_indices,
-    quantile_objective,
+from multimodal_timesfm_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_gather_rows,
+    axis_group,
+    axis_rank,
+    axis_size,
+    check_mesh,
 )
+from multimodal_timesfm_torch.training.trainer import build_epoch_indices, quantile_objective
 from multimodal_timesfm_torch.utils.cache import lru_get
 
 Trainable = dict[str, torch.Tensor]
@@ -338,15 +347,28 @@ def _stage(data: dict, device: torch.device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)).to(device) for k, v in data.items()}
 
 
+def trial_block(t_trials: int, mesh: Any) -> tuple[int, int]:
+    """(first trial, trial count) of this rank's contiguous block of ``t_trials`` over the
+    mesh's data axis; (0, T) without a mesh. Raises unless the axis divides T."""
+    dp = axis_size(mesh, DATA_AXIS)
+    if t_trials % dp != 0:
+        raise ValueError(
+            f"trial count ({t_trials}) must be divisible by the mesh data axis "
+            f"({dp}) to shard trials across devices"
+        )
+    per = t_trials // dp
+    return axis_rank(mesh, DATA_AXIS) * per, per
+
+
 @dataclasses.dataclass
 class TrialResults:
-    """Per-trial outputs; arrays lead with the trial axis T."""
+    """Per-trial outputs; arrays lead with the trial axis T (all T on every rank)."""
 
     train_losses: np.ndarray  # (T, E, num_micro_batches)
     val_losses: np.ndarray  # (T, E)
     best_val: np.ndarray  # (T,)
     best_epoch: np.ndarray  # (T,) int
-    best_trainable: Trainable  # (T, ...) tensors on the model's device
+    best_trainable: Trainable  # (T, ...) tensors on the model's device; this rank's block on a mesh
     graph_captures: int = 0  # CUDA-graph captures and replays of the step in this call
     graph_replays: int = 0
 
@@ -379,7 +401,9 @@ def run_vectorized_trials(
             grad. Its ``trainable_key`` child is replaced per trial, never written.
         trainable_inits: the trained child's tensors by parameter name
             (``named_parameters`` of that child), each with a leading (T, ...) trial
-            axis: ``stack_trainables`` or ``replicate_trainables``.
+            axis; on a mesh only this rank's (T / dp, ...) block of it, as
+            ``replicate_trainables(..., mesh)`` and ``TrialResults.best_trainable``
+            give it.
         train_data / val_data: "context", "horizon" (and "text") arrays, shared by
             the trials.
         hyperparams: (T,) arrays "learning_rate", "weight_decay", "warmup_steps"
@@ -388,21 +412,24 @@ def run_vectorized_trials(
         seed, seed_stride: trial t draws its epoch orders from
             ``default_rng(seed + t * seed_stride)`` as a ``MultimodalTrainer(seed=...)``
             does; ``seed_stride=0`` gives every trial the order a sequential sweep's trials get.
-        mesh: not ported yet (ROADMAP queue A, item 10); raises.
+        mesh: splits the trial axis over its data axis (``parallel.make_mesh``); the
+            model must not be sharded over its model axis.
 
     Returns:
         TrialResults, the best trainable per trial tracked on the device.
     """
-    _refuse_unported(mesh=(mesh, mesh is not None, "10"))
+    check_mesh(mesh, "run_vectorized_trials")
     device = _device_of(model)
     model.requires_grad_(False)
-    t_trials = int(np.shape(hyperparams["learning_rate"])[0])
+    t_all = int(np.shape(hyperparams["learning_rate"])[0])
+    first, t_trials = trial_block(t_all, mesh)
+    hyperparams = {k: np.asarray(v)[first : first + t_trials] for k, v in hyperparams.items()}
     n_train = int(np.shape(train_data["context"])[0])
     n_val = int(np.shape(val_data["context"])[0])
 
     perms, weightss = [], []
     num_batches = 0
-    for t in range(t_trials):
+    for t in range(first, first + t_trials):
         rng = np.random.default_rng(seed + t * seed_stride)
         ep_p, ep_w = [], []
         for _ in range(num_epochs):
@@ -459,12 +486,13 @@ def run_vectorized_trials(
                 keep = is_best.reshape((t_trials,) + (1,) * (b.dim() - 1))
                 b.copy_(torch.where(keep, program.params[k], b))
 
-    loss_cube = train_losses.cpu().numpy()  # the run's one wait
-    val_arr = val_losses.cpu().numpy()
+    group = axis_group(mesh, DATA_AXIS)
+    loss_cube = all_gather_rows(train_losses, group).cpu().numpy()  # the run's one wait
+    val_arr = all_gather_rows(val_losses, group).cpu().numpy()
     return TrialResults(
-        train_losses=loss_cube.reshape(t_trials, num_epochs, -1)[:, :, :num_batches],
+        train_losses=loss_cube.reshape(t_all, num_epochs, -1)[:, :, :num_batches],
         val_losses=val_arr,
-        best_val=best_val.cpu().numpy(),
+        best_val=all_gather_rows(best_val, group).cpu().numpy(),
         best_epoch=np.argmin(val_arr, axis=1),
         best_trainable=best,
         graph_captures=program.graph_captures - captures0,
@@ -477,11 +505,13 @@ def stack_trainables(trainables: list[Trainable]) -> Trainable:
     return {k: torch.stack([torch.as_tensor(t[k]) for t in trainables]) for k in trainables[0]}
 
 
-def replicate_trainables(trainable: Trainable, t_trials: int) -> Trainable:
+def replicate_trainables(trainable: Trainable, t_trials: int, mesh: Any = None) -> Trainable:
     """``t_trials`` copies of ONE init on the trial axis, as read-only expanded views (the
     T-wide stack is never materialised: ``run_vectorized_trials`` copies it into its
-    buffers). The sweep library's staging: every trial starts from the same init."""
-    return {k: torch.as_tensor(v).detach().expand(t_trials, *np.shape(v)) for k, v in trainable.items()}
+    buffers); on a mesh only this rank's block of them. The sweep library's staging:
+    every trial starts from the same init."""
+    count = trial_block(t_trials, mesh)[1]
+    return {k: torch.as_tensor(v).detach().expand(count, *np.shape(v)) for k, v in trainable.items()}
 
 
 def device_hbm_bytes(default: int = 16 << 30) -> int:
@@ -526,8 +556,10 @@ def evaluate_vectorized(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Sample-weighted test MSE and MAE per trial (``MultimodalEvaluator``'s aggregation),
     the decoder under ``vmap`` over the trial axis of ``trainables``. Returns (T,) x 2.
-    ``mesh`` is not ported yet (ROADMAP queue A, item 10) and raises."""
-    _refuse_unported(mesh=(mesh, mesh is not None, "10"))
+    On a ``mesh``, ``trainables`` is this rank's block of trials (``TrialResults.
+    best_trainable``): each rank evaluates its block and the values of all T are
+    gathered to every rank."""
+    check_mesh(mesh, "evaluate_vectorized")
     device = _device_of(model)
     n = int(np.shape(data["context"])[0])
     perm, w, nb = build_epoch_indices(n, batch_size, False, 1, 1, np.random.default_rng(0))
@@ -548,4 +580,5 @@ def evaluate_vectorized(
         total = torch.clamp_min(torch.sum(torch.stack(cnt)), 1.0)
         mse = torch.stack(se, dim=1).sum(dim=1) / total
         mae = torch.stack(ae, dim=1).sum(dim=1) / total
-    return mse.cpu().numpy(), mae.cpu().numpy()
+    group = axis_group(mesh, DATA_AXIS)
+    return all_gather_rows(mse, group).cpu().numpy(), all_gather_rows(mae, group).cpu().numpy()

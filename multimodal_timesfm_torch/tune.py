@@ -16,13 +16,29 @@ trials grouped by structure at once over one shared backbone
 (``time_mmd/sweep_lib.train_and_evaluate_many``), then feeds the finished
 trials back to the TPE state. ``python -m multimodal_timesfm_torch.tune_baseline``
 runs the same in baseline mode.
+
+Over N ranks (one per device) the CLI runs under ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \\
+        -m multimodal_timesfm_torch.tune --sweep-config SWEEP.yml --offline ...
+
+Every rank runs the same sweep over a (data, model) mesh of all N ranks
+(data-parallel), as the JAX CLI does with more than one device: a trial's
+batches, or a vectorized group's trials, split over the data axis. Rank 0
+alone writes ``sweep_results.jsonl`` and the sweep state.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
+from typing import Any
 
+import torch.distributed
+
+from multimodal_timesfm_torch.parallel.distributed import initialize_multihost
+from multimodal_timesfm_torch.parallel.mesh import barrier, make_mesh
 from multimodal_timesfm_torch.time_mmd.configs import ForecastConfig, ModelConfig
 from multimodal_timesfm_torch.time_mmd.sweep_lib import train_and_evaluate, train_and_evaluate_many
 from multimodal_timesfm_torch.training_args import TrainingArguments
@@ -68,8 +84,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def main(argv: list[str] | None = None, mode: str = MODE) -> int:
-    args = parse_args(argv)
+def _sweep(args: argparse.Namespace, mode: str, mesh: Any) -> int:
     logger = setup_logger()
 
     model_config = ModelConfig.from_yaml(args.model_config) if args.model_config else ModelConfig()
@@ -102,6 +117,7 @@ def main(argv: list[str] | None = None, mode: str = MODE) -> int:
             pretrained_dir=args.pretrained_dir,
             require_pretrained_text=args.require_pretrained_text,
             device=args.device,
+            mesh=mesh,
         )
 
     if args.vectorized:
@@ -122,6 +138,7 @@ def main(argv: list[str] | None = None, mode: str = MODE) -> int:
             LocalRun(f"local-{offset + t}", sweep.sample(), results_path)
             for t in range(1 if args.count is None else args.count)
         ]
+        barrier()  # every rank has read the numbering before rank 0 writes
         for run in runs:
             # Claim the run ids on disk before training: a killed group otherwise
             # leaves no record, and a relaunch would reuse the ids.
@@ -138,6 +155,7 @@ def main(argv: list[str] | None = None, mode: str = MODE) -> int:
             require_pretrained_text=args.require_pretrained_text,
             mode=mode,
             device=args.device,
+            mesh=mesh,
         )
         # The finished trials go to the TPE engine's durable state: a relaunch in the
         # same output directory resumes with these observations.
@@ -178,6 +196,20 @@ def main(argv: list[str] | None = None, mode: str = MODE) -> int:
 
     logger.info("Sweep agent finished")
     return 0
+
+
+def main(argv: list[str] | None = None, mode: str = MODE) -> int:
+    args = parse_args(argv)
+    # Launched over more than one rank (torch.distributed.run): one mesh of all of them.
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_multihost(backend="gloo" if args.device == "cpu" else None)
+        mesh = make_mesh()
+    try:
+        return _sweep(args, mode, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

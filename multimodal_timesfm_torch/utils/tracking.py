@@ -12,6 +12,9 @@ Tree-structured Parzen Estimator (TPE) over the parsed space, pure numpy,
 fed back from each trial's logged target metric and kept durably in
 ``sweep_state.jsonl``; anything else samples at random. From the same seed
 it draws the same configs as the JAX package's engine.
+
+Under a process group (one sweep run by every rank of a mesh) every rank
+samples and observes the same trials, and rank 0 alone writes the two files.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+
+from multimodal_timesfm_torch.parallel.mesh import barrier, is_main_rank
 
 
 def try_import_wandb() -> Any:
@@ -36,7 +41,8 @@ def try_import_wandb() -> Any:
 
 
 class LocalRun:
-    """Minimal stand-in for a wandb Run: .config attribute access + .log to JSONL."""
+    """Minimal stand-in for a wandb Run: .config attribute access + .log to JSONL (written
+    by rank 0 of a process group)."""
 
     def __init__(self, run_id: str, config: dict[str, Any], log_path: Path) -> None:
         self.id = run_id
@@ -48,8 +54,9 @@ class LocalRun:
     def log(self, metrics: dict[str, Any], step: int | None = None) -> None:
         record = {"run_id": self.id, "step": step, "time": time.time(), **metrics}
         self.summary.update(metrics)
-        with open(self._log_path, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if is_main_rank():
+            with open(self._log_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
 
     def __enter__(self) -> "LocalRun":
         return self
@@ -320,6 +327,8 @@ class LocalSweep:
             return
         oriented = -value if self.metric.get("goal") == "maximize" else value
         self._observations.append((dict(config), float(oriented)))
+        if not is_main_rank():
+            return
         self._state_path.parent.mkdir(parents=True, exist_ok=True)
         with open(self._state_path, "a") as f:
             f.write(json.dumps({"config": dict(config), "value": float(oriented)}) + "\n")
@@ -338,6 +347,7 @@ class LocalSweep:
         failures = 0
         n_trials = 1 if count is None else count  # explicit 0 runs zero trials
         offset = self.next_trial_index()  # resumed sweeps continue numbering
+        barrier()  # every rank has read the numbering before rank 0 writes
         for trial in range(n_trials):
             run = LocalRun(f"local-{offset + trial}", {}, results_path)
             try:

@@ -100,6 +100,40 @@ def test_bf16_moments_come_back_as_their_bits(tmp_path):
         np.testing.assert_array_equal(leaf.float().numpy(), np.asarray(value, np.float32), err_msg=name)
 
 
+class _Permuted:
+    """Pickles as a numpy that keeps a permuted array's layout pickles it: numpy's
+    ``_frombuffer`` with order "K", the shape in memory order and the axis order back."""
+
+    def __init__(self, arr, axis_order):
+        self.arr, self.axis_order = arr, axis_order
+
+    def __reduce_ex__(self, protocol):
+        from numpy._core import numeric
+
+        base = np.ascontiguousarray(self.arr.transpose(np.argsort(self.axis_order)))
+        return numeric._frombuffer, (pickle.PickleBuffer(base), base.dtype, base.shape, "K", self.axis_order)
+
+
+def test_unpickler_reads_arrays_pickled_in_a_permuted_layout(tmp_path):
+    """A stack of transposed kernels (strides neither C nor F order), as ``np.stack`` of
+    ``arr.T`` leaves makes it, in the five-argument form a newer numpy writes: read back
+    equal, C-contiguous; an object dtype is still refused."""
+    stack = np.stack([np.arange(12, dtype=np.float32).reshape(3, 4).T + i for i in range(2)])
+    assert not (stack.flags.c_contiguous or stack.flags.f_contiguous)
+    path = tmp_path / "permuted.ckpt"
+    with open(path, "wb") as f:
+        pickle.dump({"k": _Permuted(stack, (0, 2, 1)), "c": _Permuted(np.arange(6.0).reshape(2, 3), (0, 1))},
+                    f, protocol=5)
+    ours = tcheckpoint.load_checkpoint(path)
+    np.testing.assert_array_equal(ours["k"], stack)
+    assert ours["k"].flags.c_contiguous
+    np.testing.assert_array_equal(ours["c"], np.arange(6.0).reshape(2, 3))
+    with open(path, "wb") as f:
+        pickle.dump({"o": _Permuted(np.array([None, 1], dtype=object), (0,))}, f, protocol=5)
+    with pytest.raises(pickle.UnpicklingError):
+        tcheckpoint.load_checkpoint(path)
+
+
 class _System:
     def __reduce__(self):
         return (os.system, ("echo unpickled",))

@@ -152,8 +152,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     port = MultimodalDecoder(adapter, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Forecaster(port)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(RuntimeError, match="Forecaster with a mesh needs an initialised process group"):
         Forecaster(port, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="shard_params_fn needs a mesh"):
+        Forecaster(port, device="cpu", shard_params_fn=lambda m, mesh: m)
 
 
 def test_horizon_guard_and_quantile_head():

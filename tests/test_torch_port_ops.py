@@ -131,6 +131,12 @@ def _imported_modules(path: Path) -> set[str]:
 def test_port_imports_no_jax():
     files = sorted((REPO / "multimodal_timesfm_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    # The parallel layer is walked too, and imports as a package.
+    import multimodal_timesfm_torch.parallel  # noqa: F401
+
+    parallel_files = set((REPO / "multimodal_timesfm_torch" / "parallel").glob("*.py"))
+    assert {f.name for f in parallel_files} >= {"__init__.py", "mesh.py", "sharding.py", "distributed.py"}
+    assert parallel_files <= set(files)
     bad = [
         f"{f.relative_to(REPO)}: {name}"
         for f in files
@@ -160,13 +166,15 @@ def test_the_pretrained_to_served_path_imports_no_optional_package():
 
 
 def test_the_sweep_path_imports_no_jax_or_pandas():
-    """The split CLI, the vectorized trials, the sweep library, the tracking copy and the
-    tune CLIs are walked by the guard above, and import neither the JAX package,
-    ``examples`` nor pandas (the split CLI writes with the ``csv`` module), at any level."""
+    """The split CLI, the vectorized trials, the sweep library, the tracking copy, the tune
+    CLIs and the parallel layer under them are walked by the guard above, and import
+    neither the JAX package, ``examples`` nor pandas (the split CLI writes with the ``csv``
+    module), at any level."""
     port = REPO / "multimodal_timesfm_torch"
     files = [port / name for name in (
         "time_mmd/split.py", "time_mmd/sweep_lib.py", "training/vectorized.py", "utils/tracking.py",
-        "tune.py", "tune_baseline.py",
+        "tune.py", "tune_baseline.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
+        "parallel/distributed.py", "parallel/collectives.py",
     )]
     walked = set(sorted((REPO / "multimodal_timesfm_torch").rglob("*.py")))
     assert all(f in walked for f in files)

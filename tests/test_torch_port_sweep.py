@@ -273,9 +273,22 @@ def test_trials_match_independent_runs():
     assert res.graph_captures == res.graph_replays == 0  # the CPU runs each step eagerly
 
 
+class _TwoRankMesh:
+    """The shape of a (2, 1) mesh seen from its data rank 1, for the trial arithmetic."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (2, 1)[dim]
+
+    def get_local_rank(self, axis):
+        return 1 if axis == "data" else 0
+
+
 def test_program_cache_is_bounded_and_mesh_is_refused():
     """Nine structures leave eight trial programs cached; ``release_programs`` drops a
-    model's; ``mesh`` raises naming ROADMAP item 10."""
+    model's; a ``mesh`` without an initialised process group is refused (a trial count
+    that the data axis does not divide: tests/test_torch_port_parallel.py)."""
     decoder, _ = _port_decoder()
     train, val = _data(16, 1), _data(8, 2)
     init = dict(decoder.fusion.named_parameters())
@@ -286,11 +299,15 @@ def test_program_cache_is_bounded_and_mesh_is_refused():
     assert len(tvec._PROGRAMS) == tvec._CACHE_MAX == 8
     tvec.release_programs(decoder)
     assert not tvec._PROGRAMS
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="run_vectorized_trials with a mesh needs an initialised process group"):
         tvec.run_vectorized_trials(decoder, init, train, val, _hp([1e-3], [0.0], [0.0]), horizon_len=HORIZON,
                                    batch_size=8, num_epochs=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="evaluate_vectorized with a mesh needs an initialised process group"):
         tvec.evaluate_vectorized(decoder, init, val, horizon_len=HORIZON, batch_size=8, mesh=object())
+    with pytest.raises(ValueError, match=r"trial count \(3\) must be divisible by the mesh data axis \(2\)"):
+        tvec.trial_block(3, _TwoRankMesh())
+    assert tvec.trial_block(4, _TwoRankMesh()) == (2, 2)
+    assert tvec.trial_block(3, None) == (0, 3)
     assert tvec.vectorized_max_trials(800_000_000, 80 << 30) == 16
     assert tvec.vectorized_max_trials(800_000_000, 16 << 30) == 3  # JAX's v5e figure
 
@@ -558,7 +575,7 @@ def test_vectorized_group_over_budget_is_refused(sweep_tree, tmp_path, monkeypat
             sweep_tree / "cache", {"train"}, None, mode="baseline", device="cpu",
         )
     assert all("exceeds the device budget" in run.summary["error"] for run in runs)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="train_and_evaluate_many with a mesh needs an initialised process group"):
         sweep_lib.train_and_evaluate_many(runs, None, None, None, None, set(), None, mesh=object())
 
 

@@ -446,9 +446,14 @@ def test_trainer_needs_cuda_unless_told_cpu(monkeypatch, tmp_path):
     [("mesh", object()), ("shard_params_fn", lambda p, m: p)],
 )
 def test_trainer_refuses_unported_knobs(tmp_path, knob, value):
+    """The parallel knobs are validated before anything is built: a mesh needs an
+    initialised process group, and ``shard_params_fn`` needs a mesh to shard over (the
+    mesh's own errors, the divisions and the sharding rules:
+    tests/test_torch_port_parallel.py)."""
     port, _, _ = _decoder_pair()
     args = TrainingArguments(output_dir=str(tmp_path), **_train_kwargs())
-    with pytest.raises(NotImplementedError, match=f"{knob}=.*ROADMAP queue A, item"):
+    error, match = {"mesh": (RuntimeError, "process group"), "shard_params_fn": (ValueError, "needs a mesh")}[knob]
+    with pytest.raises(error, match=match):
         MultimodalTrainer(port, args, _samples(4, 0), _samples(4, 1), "multimodal", device="cpu",
                           **{knob: value})
 
