@@ -133,7 +133,8 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    batching rule raises) and the plain attention made to raise: phase 8's
    tree split by the port's split CLI, the fold cached by the cache CLI, then
    ``python -m multimodal_timesfm_torch.tune --offline --vectorized`` in-process
-   (TimesFM-2.5 200M fp32, 8 trials in one structural group) and the same 8
+   (TimesFM-2.5 at full width and ``CUT_LAYERS`` (4) of its 20 layers, fp32,
+   8 trials in one structural group) and the same 8
    configs through the sequential CLI, ``val/best_loss`` and ``test/mse`` per
    trial within ``SWEEP_RTOL``; the JAX bench's ``timesfm_mm_sweepT16``
    (bench.py:510-650: 16 trials in one group against sequential T=1 runs, and
@@ -150,13 +151,14 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
 11. parallel (the ``(data, model)`` mesh of ``multimodal_timesfm_torch/parallel/``):
    two ranks spawned on the one card with gloo (NCCL refuses two ranks on
    one device; their fused steps run eagerly), weights from ``--seed`` at
-   full width, over a (2, 1) mesh (TimesFM-2.5 200M multimodal c512 fp32,
+   full width and ``CUT_LAYERS`` (4) layers, over a (2, 1) mesh (TimesFM-2.5
+   multimodal c512 fp32,
    256 series at batch 64, two epochs of the loop and two of the fused path;
    ``MultimodalEvaluator``; four distinct trials of ``run_vectorized_trials``,
    two a rank; ``Forecaster`` c512 bf16, 192 series in batches of 64) and a
    (1, 2) mesh (TimesFM baseline c512 fp32, 128 series at batch 32, its
    checkpoint loaded without a mesh bit-equal to the gathered weights;
-   Chronos-2 120M baseline at ``chronos_mm_h32``'s 67 tokens and serving at
+   Chronos-2 baseline at ``chronos_mm_h32``'s 67 tokens and serving at
    c512, fp32 and bf16, B4f/B4b at 6 heads a rank; the same ``Forecaster``
    cell), each reading (``[parallel]``) beside its limit against the same run
    without a mesh, done meanwhile in this process; every rank must launch
@@ -166,16 +168,39 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    ``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
    multimodal_timesfm_torch.tune --vectorized`` on phase 10's tree, held per
    run id to the same CLI on one rank. Before the main paths phase 2 checks
-   B4 at its 6-head shapes.
+   B4 at its 6-head shapes;
+12. aoti package (run after phase 9): TimesFM-2.5 200M in fp32 and bf16 and
+   Chronos-2 120M in bf16 at full width and depth, context 512, exported as
+   AOTInductor packages (``serving.export_program(format="aoti")``) compiled
+   on the card, the three at once, each in a child process of this script
+   (``--compile-package``) from the geometry alone, then re-pointed at
+   weights drawn from ``--seed``; served from their files beside the same
+   decoders' ``torch.export`` programs: compile and load seconds, series/s of
+   the package, ``Forecaster`` and the program in turn on 192 series in
+   batches of 64, 20 B1f or 16 B4f launches per batch through the package,
+   the package bit-equal between calls and loads and within ``AOTI_TOL`` of
+   ``Forecaster`` (with the bf16-against-fp32 control printed), one profiled
+   call's idle share. Inductor links the package with ``-fopenmp``: the phase
+   takes the first of ``$CXX``, ``g++``, ``c++`` that can.
+
+The ``[profile]`` lines read ``utils/profiling.py``'s traces
+(``device_profile``: the device's activity only; ``op_profile``: the host's
+ops and shapes too, for ``gemm_efficiency``). The headline phase measures the
+fixed cost of one fused call (a 1-epoch against the 3-epoch call of
+``timesfm_mm_c32``) and the eager step's GEMM efficiency, and prints a
+``[roofline]`` line (``multimodal_timesfm_torch.roofline``) beside the measured
+share of the bf16 peak; the training phase prints one for ``timesfm_mm_c512``
+from its bf16 fused epoch.
 
 The ``kernels`` line lists every kernel with its launches on the main-path
-phases (3 to 11; each starts its counters at 0; a kernel captured in a CUDA
+phases (3 to 12; each starts its counters at 0; a kernel captured in a CUDA
 graph counts once per replay; phase 11 adds its ranks' counts) and its
-numbers at its main-path shape in bf16.
+numbers at its main-path shape in bf16; a ``[launches]`` line splits B4's
+counted launches by the route the library's plan gives each shape.
 
 ``python3 chip_smoke.py --parallel-only`` only builds the kernels, checks B4
 at phase 11's 6-head shapes and runs phase 11 (making phase 10's tree
-itself). ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
+itself); ``--aoti-only`` only builds the kernels and runs phase 12. ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
 checks and times every kernel at its main-path shapes in fp32 and bf16 (the
 six causal kernels, unless ``--chronos-only``; B4f and B4b with and without
 dbias at 128 x 67, 128 x 67 at 6 heads and 16 x 577), with the port imported from DIR (another
@@ -254,6 +279,12 @@ TWIN_LOSS_RTOL, TWIN_GRAD_RTOL, TWIN_PARAM_FRAC = 1e-4, 1e-2, 1e-2
 # few % of gradient noise moves a parameter by a fraction of lr: the share of
 # elements more than 0.1 lr apart is printed, 0.121 at the first reading).
 TWIN_BF16_LOSS_RTOL, TWIN_BF16_GRAD_RTOL = 2e-2, 0.1
+# Phase 11, and the tune CLI runs of phase 10 that phase 11 repeats over two ranks, run
+# their backbones at full width and CUT_LAYERS layers (TimesFM-2.5's 20 and Chronos-2's 16
+# cut): the mesh's arithmetic and the CLI's bookkeeping are the same in every layer, and
+# the script's time limit holds phase 12's three compiles. Phase 11's bf16 forecast limit
+# (PAR_FORECAST_TOL) was set at full depth.
+CUT_LAYERS = 4
 # The JAX bench's headline cells (bench.py:366-374, configured as bench.py:219-337):
 # (name, mode, batch, series, timed epochs); context and horizon 32, bf16 compute,
 # learning rate 1e-4, one warm-up run of the timed epochs first.
@@ -372,33 +403,37 @@ def time_ms(fn, iters: int) -> float:
 
 
 def device_profile(fn) -> tuple[float, list[tuple[str, float]]]:
-    """Run ``fn`` once under torch.profiler (CUDA activity only).
+    """Run ``fn`` once under ``utils.profiling.trace`` with the device's activity only (the
+    host keeps its unprofiled pace) and read the trace back with ``summarize_trace``.
 
     Returns the host wall time in ms and [(kernel name, device ms)], largest
     first; the list is empty when the profiler records no device activity.
     """
+    from multimodal_timesfm_torch.utils import profiling
+
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()]
-    return wall_ms, sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir, host=False):
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        summary = profiling.summarize_trace(log_dir, top=None)
+    return wall_ms, [(name, ms) for name, ms, _ in summary["top_ops"]]
 
 
-def op_profile(fn) -> list[tuple[str, int, float]]:
-    """Run ``fn`` once eagerly under torch.profiler (CPU and CUDA activity): [(aten op,
-    calls, device ms of the kernels it launched itself)], largest first. A CUDA-graph
-    replay hides the ops behind its kernels, so this reads an eager call."""
+def op_profile(fn) -> tuple[dict, dict]:
+    """Run ``fn`` once eagerly under ``utils.profiling.trace`` (the host's ops with their
+    shapes, and the device's activity): (``summarize_trace``, ``gemm_efficiency`` against
+    the bf16 peak) of that trace. A CUDA-graph replay hides the ops behind its kernels, so
+    this reads an eager call."""
+    from multimodal_timesfm_torch.utils import profiling
+
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.key.startswith("aten::") and e.self_device_time_total > 0]
-    return sorted(rows, key=lambda r: -r[2])
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            fn()
+        return profiling.summarize_trace(log_dir), profiling.gemm_efficiency(log_dir, PEAK_FLOPS[torch.bfloat16])
 
 
 def device_ms(fn, iters: int) -> tuple[float, float]:
@@ -1410,7 +1445,9 @@ def training_phase(seed: int, tree: dict, decoders: dict, reference) -> None:
                 flush=True,
             )
             if (mode, ctx, dtype) == ("multimodal", 512, torch.bfloat16):
-                fused_against_loop(label, trainer, counters, fwd_key, bwd_key, steps, wall, busy)
+                rate = fused_against_loop(label, trainer, counters, fwd_key, bwd_key, steps, wall, busy)
+                eff = eager_step_gemms(f"train {label}", trainer)
+                roofline_line("timesfm_mm_c512", rate, eff)
 
         twin_check("multimodal context 512", "multimodal", 512,
                    {"cuda": decoders[torch.float32], "cpu": reference}, tree, seed, workdir)
@@ -1427,10 +1464,11 @@ def training_phase(seed: int, tree: dict, decoders: dict, reference) -> None:
 
 
 def fused_against_loop(label: str, trainer, counters: dict, fwd_key: str, bwd_key: str, steps: int,
-                       loop_wall: float, loop_busy: float) -> None:
+                       loop_wall: float, loop_busy: float) -> float:
     """The same trainer on the fused path (the step a CUDA graph): a warm-up epoch (one eager
     step, the capture, replays), a timed epoch and a profiled one, against the per-epoch
-    loop's profiled epoch; the captured kernels' replays go into the launch count."""
+    loop's profiled epoch; the captured kernels' replays go into the launch count. Returns
+    the timed epoch's train series/s."""
     before = {key: fn.launches for key, fn in counters.items()}
     replays0, captures0 = trainer.graph_replays, trainer.graph_captures
     trainer.train_epochs_fused(1)
@@ -1456,6 +1494,7 @@ def fused_against_loop(label: str, trainer, counters: dict, fwd_key: str, bwd_ke
         f"idle {1 - loop_busy / loop_wall:.3f}",
         flush=True,
     )
+    return rate
 
 
 def bench_data(mode: str, batch: int, samples: int, seed: int):
@@ -1546,6 +1585,40 @@ def fused_twin(label: str, mode: str, decoders: dict, tree: dict, seed: int, wor
         raise AssertionError(f"twin {label}: card and CPU disagree")
 
 
+def eager_step_gemms(label: str, trainer) -> float:
+    """One eager optimizer step of ``trainer`` over a batch of its staged rows under
+    ``op_profile``: prints its device time and its GEMMs' efficiency against the bf16 peak
+    (``utils.profiling.gemm_efficiency``), and returns the duration-weighted efficiency."""
+    batch = trainer.args.per_device_train_batch_size
+    staged = trainer._train_device
+    idx = torch.arange(batch, device=trainer.device)
+    ones = torch.ones(batch, device=trainer.device)
+    summary, gemms = op_profile(lambda: trainer._optimizer_step([trainer._gather(staged, idx, ones, ones.sum())]))
+    busy = summary["device_busy_ms"]
+    print(
+        f"[profile] {label}: one eager optimizer step, device busy {busy:.3f} ms, host ops "
+        f"{summary['host_ms']:.3f} ms | GEMM ops {gemms['flop_ms']:.3f} ms of device time "
+        f"({gemms['flop_ms'] / busy:.3f} of busy), weighted efficiency {gemms['weighted_eff']:.4f} of "
+        f"{PEAK_FLOPS[torch.bfloat16]:.3g} FLOP/s | "
+        + ", ".join(f"{op} x{n} {ms:.3f} ms {eff:.3f}" for op, n, ms, _, eff in gemms["top_gemms"][:6]),
+        flush=True,
+    )
+    return gemms["weighted_eff"]
+
+
+def roofline_line(workload: str, rate: float, eff: float, fixed_s: float | None = None) -> None:
+    """The ``[roofline]`` line of ``workload`` (``multimodal_timesfm_torch.roofline`` at the
+    GEMM efficiency ``eff`` measured here and the fixed cost ``fixed_s``, the module's
+    constant when None) beside the measured share of peak: ``rate`` x FLOPs/series / peak."""
+    from multimodal_timesfm_torch import roofline
+
+    out, _ = roofline.roofline(workload, eff, roofline.FIXED_DISPATCH_S if fixed_s is None else fixed_s)
+    share = rate * out["flops_per_series"] / roofline.PEAK
+    print(f"[roofline] {workload}: measured {rate:.1f} train series/s = {share:.4f} of the "
+          f"{roofline.PEAK:.3g} FLOP/s bf16 peak, on {torch.cuda.get_device_name(0)} | roofline at "
+          f"eff {eff:.4f}: {json.dumps(out)}", flush=True)
+
+
 def headline_phase(seed: int, tree: dict, decoders: dict) -> None:
     """The JAX bench's headline cells on the fused path: train series/s over the timed
     epochs after a warm-up run, a profiled epoch (idle share, GEMM share, top kernels), the
@@ -1601,17 +1674,19 @@ def headline_phase(seed: int, tree: dict, decoders: dict) -> None:
                 f"| {top}",
                 flush=True,
             )
-            staged = trainer._train_device
-            idx = torch.arange(batch, device=trainer.device)
-            ones = torch.ones(batch, device=trainer.device)
-            ops = op_profile(lambda: trainer._optimizer_step([trainer._gather(staged, idx, ones, ones.sum())]))
-            op_ms = sum(ms for _, _, ms in ops)
-            print(
-                f"[profile] {name}: one eager optimizer step by aten op (device ms of its own kernels, "
-                f"{op_ms:.3f} ms in all): "
-                + ", ".join(f"{op} x{n} {ms:.3f} ms ({ms / op_ms:.3f})" for op, n, ms in ops[:10]),
-                flush=True,
-            )
+            eff = eager_step_gemms(name, trainer)
+            if name == "timesfm_mm_c32":
+                # The fixed cost of one fused call: a 1-epoch call against the 3-epoch one.
+                start = time.perf_counter()
+                trainer.train_epochs_fused(epochs)
+                many_s = time.perf_counter() - start
+                start = time.perf_counter()
+                trainer.train_epochs_fused(1)
+                one_s = time.perf_counter() - start
+                fixed_s = one_s - (many_s - one_s) / (epochs - 1)
+                print(f"[roofline] {name}: fixed cost of one fused call {fixed_s:.6f} s (1 epoch "
+                      f"{one_s:.6f} s, {epochs} epochs {many_s:.6f} s, on {kind})", flush=True)
+                roofline_line(name, rate, eff, fixed_s)
             del trainer
             torch.cuda.empty_cache()
 
@@ -1676,6 +1751,21 @@ def launch_counters() -> dict[str, object]:
 
 def launch_counts() -> dict[str, int]:
     return {key: fn.launches for key, fn in launch_counters().items()}
+
+
+def b4_routes() -> dict[str, int]:
+    """B4f's and B4b's launches since their ``.shapes`` tallies were cleared, by the route
+    the library's plan gives each shape ("B4f one-pass", "B4f tiled", "B4b fp32", ...)."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    names = ("fp32", "one-pass", "tiled")
+    out: dict[str, int] = {}
+    for key in ("B4f", "B4b"):
+        for (dtype, batch, seq, heads, dim), n in launch_counters()[key].shapes.items():
+            route = _kernels.chronos_plan(key == "B4b", dtype, batch, seq, heads, dim)["route"]
+            label = f"{key} {names[route]}"
+            out[label] = out.get(label, 0) + n
+    return out
 
 
 def expect_launches(label: str, before: dict[str, int], want: dict[str, int]) -> dict[str, int]:
@@ -2684,6 +2774,206 @@ def pretrained_phase(seed: int) -> None:
         raise AssertionError(f"the pretrained-to-served and sweep paths imported {imported}")
 
 
+# --- phase 12: the AOTInductor package -----------------------------------------
+
+# A package against Forecaster on the same weights, on the card: max |diff| <= TOL x std of
+# Forecaster's forecasts. Inductor fuses and reorders the elementwise work, so the two are
+# not bit-equal. TimesFM fp32: summation order only (1e-4); TimesFM bf16: roundings in
+# another order carried through 20 layers (0.15). Chronos-2 bf16: 0.2, phase 11's bf16
+# forecast limit: through 16 layers of random weights a reordering alone moves bf16
+# forecasts by up to 0.15 x std (a batch of 32 against 64, or the mesh), bf16 against fp32
+# by 0.27. Each bf16 cell also prints that control: Forecaster in bf16 against Forecaster in
+# fp32 on the same weights.
+AOTI_TOL = {("timesfm-2.5-200m", torch.float32): 1e-4, ("timesfm-2.5-200m", torch.bfloat16): 0.15,
+            ("chronos-2-120m", torch.bfloat16): 0.2}
+AOTI_CONTEXT = 512  # 192 series in batches of 64, horizon 128
+# Both at full depth: a package's compile time is mostly the compiling process's own start
+# (Chronos-2's took 159.3 s at 16 layers and 162.0 s at 4, beside TimesFM-2.5's two).
+AOTI_LAYERS = {"timesfm-2.5-200m": 20, "chronos-2-120m": 16}
+
+
+def openmp_cxx() -> str:
+    """The first of ``$CXX``, ``g++`` and ``c++`` that links a program with ``-fopenmp``:
+    Inductor links a package's C++ wrapper with it. A GCC installed without its
+    ``libgomp.spec`` compiles but cannot link it."""
+    candidates = [c for c in (os.environ.get("CXX"), "g++", "c++") if c]
+    with tempfile.TemporaryDirectory() as d:
+        source = Path(d) / "omp.cc"
+        source.write_text("int main() { return 0; }\n")
+        for cxx in candidates:
+            try:
+                done = subprocess.run([cxx, "-fopenmp", str(source), "-o", str(Path(d) / "omp")],
+                                      capture_output=True, text=True, timeout=120)
+            except FileNotFoundError:
+                continue
+            if done.returncode == 0:
+                return cxx
+            print(f"[aoti] {cxx} does not link -fopenmp: {done.stderr.strip()[-200:]}", flush=True)
+    raise AssertionError(f"no C++ compiler among {candidates} links -fopenmp, which AOTInductor needs")
+
+
+def _served_decoder(name: str, dtype: torch.dtype, device: str = "cuda"):
+    from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.models.timesfm import TimesFM2p5Adapter, TimesFMConfig
+
+    cls, cfg = {"timesfm-2.5-200m": (TimesFM2p5Adapter, TimesFMConfig()),
+                "chronos-2-120m": (Chronos2Adapter, Chronos2Config())}[name]
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, num_layers=AOTI_LAYERS[name])
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+    return MultimodalDecoder(cls(cfg), dec_cfg, device=device)
+
+
+def compile_package(name: str, dtype: str, out: str) -> None:
+    """A child process of phase 12: the package of ``name`` in ``dtype`` at AOTI_CONTEXT,
+    compiled on the card from a decoder of that geometry with its initial weights (a
+    package holds no weights; the parent re-points it); prints its compile seconds."""
+    from multimodal_timesfm_torch.serving import export_program
+
+    decoder = _served_decoder(name, getattr(torch, dtype))
+    start = time.perf_counter()
+    export_program(decoder, HORIZON, AOTI_CONTEXT, out, multimodal=True, format="aoti")
+    print(json.dumps({"compile_s": time.perf_counter() - start}), flush=True)
+
+
+def aoti_phase(seed: int) -> None:
+    """TimesFM-2.5 200M (fp32, bf16) and Chronos-2 120M (bf16) at full width and depth as
+    AOTInductor packages at context 512: the three compiled on the card at once, each in a
+    child process of its own from the geometry alone, then re-pointed
+    (``save_program_params``) at weights drawn from ``seed``; beside each, the same
+    decoder's ``torch.export`` program. Served from their files with ``load_program``:
+    load seconds; series/s of the package, ``Forecaster`` and the program in turn on the
+    same 192 series; B1f or B4f launches, one per layer and batch, through the package; the
+    package bit-equal between calls and between two loads, and within AOTI_TOL of
+    Forecaster; one profiled package call's idle share (``utils.profiling``)."""
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.serving import export_program, load_program, save_program_params
+    from multimodal_timesfm_torch.utils import profiling
+
+    kind = torch.cuda.get_device_name(0)
+    cxx = openmp_cxx()
+    print(f"[aoti] Inductor's host C++ compiler: {cxx}", flush=True)
+    root = Path(__file__).resolve().parent / "build" / "aoti"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ctx = AOTI_CONTEXT
+    cells = {cell: root / f"{cell[0]}_{str(cell[1])[6:]}" for cell in AOTI_TOL}
+    env = {**os.environ, "CXX": cxx, "TORCHINDUCTOR_COMPILE_THREADS": "3"}
+    start = time.perf_counter()
+    children = {cell: subprocess.Popen(
+        [sys.executable, __file__, "--compile-package", cell[0], str(cell[1])[6:], str(path / "aoti")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env) for cell, path in cells.items()}
+    try:
+        # Meanwhile: the weights, the data, Forecaster's forecasts and the programs.
+        trees, fp32_refs, setup = {}, {}, {}
+        for name, dtype in cells:
+            decoder = _served_decoder(name, dtype, device="cpu")
+            if name not in trees:
+                trees[name] = random_jax_params(decoder, seed)
+            load_jax_params(decoder, trees[name])
+            decoder = decoder.cuda()
+            data = make_samples(ctx, 192, seed + ctx, patch=decoder.adapter.patch_len)
+            context = np.stack([d["context"] for d in data])
+            text = np.stack([d["text_embeddings"] for d in data])
+            fc = Forecaster(decoder, batch_size=64, device="cuda")
+            ref = fc.forecast(HORIZON, context, text_embeddings=text)
+            if name not in fp32_refs:
+                fp32 = ref if dtype == torch.float32 else None
+                if fp32 is None:
+                    fp32_decoder = _served_decoder(name, torch.float32, device="cpu")
+                    load_jax_params(fp32_decoder, trees[name])
+                    fp32 = Forecaster(fp32_decoder.cuda(), batch_size=64, device="cuda").forecast(
+                        HORIZON, context, text_embeddings=text)
+                    del fp32_decoder
+                fp32_refs[name] = fp32
+            export_program(decoder, HORIZON, ctx, cells[(name, dtype)] / "program", multimodal=True)
+            setup[(name, dtype)] = (decoder, fc, context, text, ref)
+        compiled = {}
+        for cell, child in children.items():
+            out, err = child.communicate(timeout=900)
+            if child.returncode != 0:
+                raise AssertionError(f"compiling the {cell} package failed:\n{err[-3000:]}")
+            compiled[cell] = json.loads(out.strip().splitlines()[-1])["compile_s"]
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    wall_s = time.perf_counter() - start
+    print(f"[aoti] three packages compiled at once on the card, one child process each (Inductor's "
+          f"compile workers 3 a child): {', '.join(f'{n} {str(d)[6:]} {s:.1f} s' for (n, d), s in compiled.items())}"
+          f"; {wall_s:.1f} s from their start to the last, the parent's setup alongside", flush=True)
+
+    for (name, dtype), path in cells.items():
+        decoder, fc, context, text, ref = setup.pop((name, dtype))
+        label = f"{name} ({AOTI_LAYERS[name]} layers) context {ctx} {str(dtype)[6:]}"
+        save_program_params(path / "aoti", decoder)
+        start = time.perf_counter()
+        package, manifest = load_program(path / "aoti", device="cuda")
+        load_s = time.perf_counter() - start
+        if manifest["format"] != "aoti" or manifest["platforms"] != ["cuda"]:
+            raise AssertionError(f"{label}: manifest {manifest['format']}, {manifest['platforms']}")
+        program, _ = load_program(path / "program", device="cuda")
+        for serve in (package, program):  # warm-up
+            serve_padded(serve, context[:64], text[:64], 64)
+        torch.cuda.synchronize()
+        key, per = ("B4f" if name.startswith("chronos") else "B1f"), AOTI_LAYERS[name]
+        rates: dict[str, list[float]] = {"package": [], "Forecaster": [], "program": []}
+        outs = []
+        for _ in range(SERVE_REPEATS):  # in turn, on the same data
+            before = launch_counts()
+            start = time.perf_counter()
+            outs.append(serve_padded(package, context, text, 64))
+            rates["package"].append(len(context) / (time.perf_counter() - start))
+            seen = expect_launches(f"{label} package", before, {key: per * 3})
+            start = time.perf_counter()
+            fc.forecast(HORIZON, context, text_embeddings=text)
+            rates["Forecaster"].append(len(context) / (time.perf_counter() - start))
+            start = time.perf_counter()
+            serve_padded(program, context, text, 64)
+            rates["program"].append(len(context) / (time.perf_counter() - start))
+        again = serve_padded(load_program(path / "aoti", device="cuda")[0], context, text, 64)
+        if not all(np.array_equal(o, outs[0]) for o in (*outs, again)):
+            raise AssertionError(f"{label}: the package's forecasts differ between calls or loads")
+        if outs[0].shape != ref.shape or not np.isfinite(outs[0]).all():
+            raise AssertionError(f"{label}: bad forecasts, shape {outs[0].shape}")
+        std = float(ref.std())
+        diff = np.abs(outs[0] - ref) / std
+        limit = AOTI_TOL[(name, dtype)]
+        if not diff.max() <= limit:
+            raise AssertionError(f"{label}: package and Forecaster differ by {diff.max():.4g} x std > {limit}")
+        control = np.abs(ref - fp32_refs[name]) / std
+        with tempfile.TemporaryDirectory() as log_dir:
+            with profiling.trace(log_dir, host=False):
+                start = time.perf_counter()
+                serve_padded(package, context, text, 64)
+                wall = (time.perf_counter() - start) * 1e3
+            summary = profiling.summarize_trace(log_dir, top=4)
+        busy = summary["device_busy_ms"]
+        top = ", ".join(f"{k[:70]} {ms:.3f} ms" for k, ms, _ in summary["top_ops"])
+        size = (path / "aoti" / "package.pt2").stat().st_size / 1e6
+        median = {k: float(np.median(v)) for k, v in rates.items()}
+        print(
+            f"[aoti] {label}: package compiled in {compiled[(name, dtype)]:.1f} s (package.pt2 {size:.2f} MB; "
+            f"re-pointed at the seed's weights in params.npz), loaded in {load_s:.2f} s | 192 series in "
+            f"batches of 64, median of {SERVE_REPEATS} calls in turn: package {median['package']:.1f} series/s "
+            f"({', '.join(f'{r:.1f}' for r in rates['package'])}), Forecaster {median['Forecaster']:.1f} "
+            f"({', '.join(f'{r:.1f}' for r in rates['Forecaster'])}), program {median['program']:.1f} "
+            f"({', '.join(f'{r:.1f}' for r in rates['program'])}) on {kind} | profiled package call: wall "
+            f"{wall:.3f} ms, busy {busy:.3f} ms, idle {1 - busy / wall:.3f} | {top} | launches {seen} per "
+            f"call ({per} per batch) | |package - Forecaster| / std: max {diff.max():.4g} <= {limit}, median "
+            f"{float(np.median(diff)):.3g}; control, Forecaster against its fp32 twin: max "
+            f"{control.max():.4g}, median {float(np.median(control)):.3g} | bit-equal between calls and loads",
+            flush=True,
+        )
+        del decoder, fc, package, program
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    imported = sorted(m for m in ("jax", "multimodal_timesfm_tpu", "bench", "orbax") if m in sys.modules)
+    if imported:
+        raise AssertionError(f"the AOTI phase imported {imported}")
+
 def serving_times(seed: int, repeats: int = 7) -> None:
     """TimesFM-2.5 200M served through Forecaster at context 512 (200 series in batches of
     64, multimodal, horizon 128), fp32 and bf16: the median series/s of ``repeats`` calls
@@ -2995,7 +3285,7 @@ def sweep_tree(seed: int) -> tuple[Path, float, float]:
         raise AssertionError("split CLI failed")
     split_s = time.perf_counter() - start
     (tmp / "model.json").write_text(json.dumps({
-        "adapter": {"type": "timesfm", "patch_len": 32},
+        "adapter": {"type": "timesfm", "patch_len": 32, "arch": {"num_layers": CUT_LAYERS}},
         "fusion": {"text_encoder_type": "english", "text_embedding_dims": 384}}))
     (tmp / "forecast.json").write_text(json.dumps({"context_len": 32, "horizon_len": 32}))
     start = time.perf_counter()
@@ -3057,8 +3347,9 @@ def sweep_cli_part(seed: int, kind: str) -> None:
     print(f"[sweep] workflow: phase 8's tree split by `python -m multimodal_timesfm_torch.time_mmd.split "
           f"--train-ratio 0.6 --val-ratio 0.2` ({n_train} of 500 monthly rows to a train split) and the "
           f"MiniLM-L6 snapshot in {split_s:.1f} s; the fold's caches (train --augment, val, test) by the "
-          f"cache CLI in {cache_s:.1f} s; `tune --offline --vectorized --count 8` (TimesFM-2.5 200M fp32, "
-          f"one group of 8 at batch 32, 2 epochs) in {seconds['vectorized']:.1f} s, the same 8 configs "
+          f"cache CLI in {cache_s:.1f} s; `tune --offline --vectorized --count 8` (TimesFM-2.5 at full "
+          f"width, {CUT_LAYERS} layers, fp32, one group of 8 at batch 32, 2 epochs) in "
+          f"{seconds['vectorized']:.1f} s, the same 8 configs "
           f"through the sequential CLI in {seconds['sequential']:.1f} s on {kind}; per trial, max "
           f"|vectorized - sequential| / |sequential|: val/best_loss {worst['val/best_loss']:.2g}, "
           f"test/mse {worst['test/mse']:.2g}, test/mae {worst['test/mae']:.2g} (tol {SWEEP_RTOL}); "
@@ -3343,9 +3634,11 @@ def parallel_work(seed: int, meshes: dict | None, workdir: str, rank: int = 0) -
 
     def decoder(family: str, dtype: torch.dtype = torch.float32):
         if family == "timesfm":
-            adapter = TimesFM2p5Adapter(dataclasses.replace(TimesFMConfig(), compute_dtype=dtype))
+            adapter = TimesFM2p5Adapter(dataclasses.replace(TimesFMConfig(), num_layers=CUT_LAYERS,
+                                                            compute_dtype=dtype))
         else:
-            adapter = Chronos2Adapter(dataclasses.replace(Chronos2Config(), compute_dtype=dtype))
+            adapter = Chronos2Adapter(dataclasses.replace(Chronos2Config(), num_layers=CUT_LAYERS,
+                                                          compute_dtype=dtype))
         dec = MultimodalDecoder(adapter, dec_cfg, device="cpu")
         if family not in trees:
             trees[family] = random_jax_params(dec, seed)
@@ -3364,7 +3657,7 @@ def parallel_work(seed: int, meshes: dict | None, workdir: str, rank: int = 0) -
         for key, n in per_step.items():
             out["graph_launches"][key] = out["graph_launches"].get(key, 0) + (replays - captures) * n
 
-    # TimesFM-2.5 200M multimodal, context 512 (16 tokens), fp32, the (2, 1) mesh: 256
+    # TimesFM-2.5 (CUT_LAYERS layers) multimodal, context 512 (16 tokens), fp32, the (2, 1) mesh: 256
     # series at batch 64, two epochs of the loop, then two of the fused path.
     dec = decoder("timesfm")
     train, val = make_samples(512, 256, seed, TRAIN_HORIZON), make_samples(512, 64, seed + 1, TRAIN_HORIZON)
@@ -3376,7 +3669,7 @@ def parallel_work(seed: int, meshes: dict | None, workdir: str, rank: int = 0) -
     losses, vals = trainer.train_epochs_fused(2)
     out["mm_fused"] = {"losses": losses, "vals": vals, "fusion": _arrays(dec.fusion),
                        "captures": trainer.graph_captures, "replays": trainer.graph_replays}
-    count_replays(trainer.graph_captures, trainer.graph_replays, {"B1f": 20, "B1b": 20})
+    count_replays(trainer.graph_captures, trainer.graph_replays, {"B1f": CUT_LAYERS, "B1b": CUT_LAYERS})
     # MultimodalEvaluator on 200 series at batch 64 (the last batch padded), the (2, 1) mesh.
     evaluator = MultimodalEvaluator(dec, device="cuda", mesh=dp)
     out["evaluate"] = dict(evaluator.evaluate(make_samples(512, 200, seed + 2, TRAIN_HORIZON), batch_size=64))
@@ -3393,7 +3686,7 @@ def parallel_work(seed: int, meshes: dict | None, workdir: str, rank: int = 0) -
                                               mesh=dp)
     out["trials"] = {"train": res.train_losses, "val": res.val_losses, "best": res.best_val, "mse": mse,
                      "mae": mae, "block": next(iter(res.best_trainable.values())).shape[0]}
-    count_replays(res.graph_captures, res.graph_replays, {"B1f": 20, "B1b": 20})
+    count_replays(res.graph_captures, res.graph_replays, {"B1f": CUT_LAYERS, "B1b": CUT_LAYERS})
     vectorized.release_programs(dec)
     del dec, trainer, evaluator, res
     torch.cuda.empty_cache()
@@ -3415,7 +3708,7 @@ def parallel_work(seed: int, meshes: dict | None, workdir: str, rank: int = 0) -
             from multimodal_timesfm_torch.training.checkpoint import load_checkpoint
 
             # Loaded into a TimesFM adapter without a mesh: bit-equal to the gathered weights.
-            plain = TimesFM2p5Adapter(TimesFMConfig())
+            plain = TimesFM2p5Adapter(TimesFMConfig(num_layers=CUT_LAYERS))
             load_jax_params(plain, load_checkpoint(out["base"]["ckpt"])["adapter_params"])
             trained = trainer.trainable_module.parameters()
             out["base"]["ckpt_bit_equal"] = all(
@@ -3424,7 +3717,7 @@ def parallel_work(seed: int, meshes: dict | None, workdir: str, rank: int = 0) -
     del dec, trainer
     torch.cuda.empty_cache()
 
-    # Chronos-2 120M baseline at chronos_mm_h32's geometry (context 32, 67 tokens, horizon
+    # Chronos-2 (CUT_LAYERS layers) baseline at chronos_mm_h32's geometry (context 32, 67 tokens, horizon
     # 32), fp32, the (1, 2) mesh: 256 series at batch 64, one epoch (B4f/B4b at 6 heads).
     dec = decoder("chronos")
     train = make_samples(32, 256, seed + 7, CHRONOS_HORIZON, patch=16)
@@ -3590,7 +3883,7 @@ def nccl_one_rank(seed: int, trees: dict, kind: str) -> None:
     try:
         mesh = parallel.make_mesh(parallel.MeshConfig(data_parallel=1, model_parallel=1))
         backend = torch.distributed.get_backend()
-        dec = MultimodalDecoder(TimesFM2p5Adapter(TimesFMConfig()),
+        dec = MultimodalDecoder(TimesFM2p5Adapter(TimesFMConfig(num_layers=CUT_LAYERS)),
                                 MultimodalDecoderConfig(text_embedding_dims=384), device="cpu")
         load_jax_params(dec, trees["timesfm"])
         dec = dec.cuda()
@@ -3608,7 +3901,7 @@ def nccl_one_rank(seed: int, trees: dict, kind: str) -> None:
                 losses, vals = trainer.train_epochs_fused(2)
                 for key in ("B1f", "B1b"):
                     GRAPH_LAUNCHES[key] = (GRAPH_LAUNCHES.get(key, 0)
-                                           + (trainer.graph_replays - trainer.graph_captures) * 20)
+                                           + (trainer.graph_replays - trainer.graph_captures) * CUT_LAYERS)
                 runs[label] = (losses, vals, _arrays(dec.fusion), trainer.graph_captures, trainer.graph_replays,
                                trainer.last_throughput)
         # Horizon 512: 4 rounds at context 512; 128 series in batches of 64, served twice.
@@ -3618,7 +3911,8 @@ def nccl_one_rank(seed: int, trees: dict, kind: str) -> None:
             fc = Forecaster(dec, batch_size=64, device="cuda", mesh=m)
             got = [fc.forecast_dataset(512, serve, multimodal=True, denormalize=True, autoregressive=True)
                    for _ in range(2)]
-            GRAPH_LAUNCHES["B1f"] = GRAPH_LAUNCHES.get("B1f", 0) + 20 * 4 * (fc.graph_replays - fc.graph_captures)
+            replayed = fc.graph_replays - fc.graph_captures
+            GRAPH_LAUNCHES["B1f"] = GRAPH_LAUNCHES.get("B1f", 0) + CUT_LAYERS * 4 * replayed
             decodes[label] = (got, fc.graph_captures, fc.graph_replays)
     finally:
         torch.distributed.destroy_process_group()
@@ -3627,7 +3921,8 @@ def nccl_one_rank(seed: int, trees: dict, kind: str) -> None:
                  and all(np.array_equal(ref[2][k], ours[2][k]) for k in ref[2]))
     worst = max(float(np.max(np.abs(ours[0] - ref[0]) / np.abs(ref[0]))), 0.0)
     rates = ", ".join(f"{label} {r[5]:.1f}" for label, r in runs.items())
-    print(f"[parallel] one rank, {backend}, mesh (1,1), TimesFM mm c512 fp32 fused, 256 series at batch 64, "
+    print(f"[parallel] one rank, {backend}, mesh (1,1), TimesFM ({CUT_LAYERS} layers) mm c512 fp32 fused, 256 "
+          f"series at batch 64, "
           f"2 epochs: graph captures {ours[3]} (replays {ours[4]}), the step's all-reduce in the graph; losses "
           f"and fusion weights bit-equal to the run without a mesh: {bit_equal} (train losses rel {worst:.3g}, "
           f"limit {PAR_LOSS_RTOL:g}) | train series/s in turns on {kind}: {rates}", flush=True)
@@ -3736,8 +4031,8 @@ def parallel_phase(seed: int) -> None:
                 RANK_LAUNCHES[key] = RANK_LAUNCHES.get(key, 0) + n
         for key, n in ref.pop("graph_launches").items():
             GRAPH_LAUNCHES[key] = GRAPH_LAUNCHES.get(key, 0) + n
-        print(f"[parallel] two ranks on one card: {ranks_s:.1f} s (the runs without a mesh meanwhile in this "
-              f"process, {ref_s:.1f} s)", flush=True)
+        print(f"[parallel] two ranks on one card, both backbones at {CUT_LAYERS} layers: {ranks_s:.1f} s (the runs "
+              f"without a mesh meanwhile in this process, {ref_s:.1f} s)", flush=True)
     nccl_one_rank(seed, ref["trees"], kind)
     parallel_tune(seed, kind)
 
@@ -3759,6 +4054,10 @@ def main() -> int:
                         help="only time one call of the B1 entry point: custom op against autograd.Function")
     parser.add_argument("--parallel-only", action="store_true",
                         help="only build the kernels and run phase 11 (the mesh)")
+    parser.add_argument("--aoti-only", action="store_true",
+                        help="only build the kernels and run phase 12 (the AOTInductor packages)")
+    parser.add_argument("--compile-package", nargs=3, metavar=("NAME", "DTYPE", "OUT"),
+                        help="phase 12's child process: compile one package")
     args = parser.parse_args()
     if args.chronos_only and not args.kernel_times:
         parser.error("--chronos-only needs --kernel-times")
@@ -3774,6 +4073,9 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run from the repository root", file=sys.stderr)
         return 1
+    if args.compile_package:
+        compile_package(*args.compile_package)
+        return 0
 
     t0 = time.perf_counter()
     lib_path = _kernels.library_path()
@@ -3798,6 +4100,14 @@ def main() -> int:
             training_times(args.seed)
         if args.dispatch_times:
             dispatch_times()
+        print(f"[gpu] {gpu}")
+        return 0
+    if args.aoti_only:
+        for counter in launch_counters().values():
+            counter.launches = 0
+        start = time.perf_counter()
+        aoti_phase(args.seed)
+        print(f"[phase] aoti package: {time.perf_counter() - start:.1f} s | launches {launch_counts()}", flush=True)
         print(f"[gpu] {gpu}")
         return 0
     if args.parallel_only:
@@ -3835,15 +4145,20 @@ def main() -> int:
     # The main paths: every launch counter starts at 0 just before each and is read
     # just after; the kernels line reports their sum.
     launches = {key: 0 for key, *_ in KERNELS}
+    routes: dict[str, int] = {}
 
     def main_path(name: str, fn, *a):
         for counter in launch_counters().values():
             counter.launches = 0
+        for key in ("B4f", "B4b"):
+            launch_counters()[key].shapes.clear()
         GRAPH_LAUNCHES.clear()
         RANK_LAUNCHES.clear()
         out = phase(name, fn, *a)
         for key, n in launch_counts().items():
             launches[key] += n + GRAPH_LAUNCHES.get(key, 0) + RANK_LAUNCHES.get(key, 0)
+        for route, n in b4_routes().items():
+            routes[route] = routes.get(route, 0) + n
         return out
 
     tree, decoders, reference = main_path("serving", slice_phase, args.seed)
@@ -3860,6 +4175,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_path("pretrained to served", pretrained_phase, args.seed)
     torch.cuda.empty_cache()
+    main_path("aoti package", aoti_phase, args.seed)
+    torch.cuda.empty_cache()
     main_path("sweeps", sweep_phase, args.seed)
     torch.cuda.empty_cache()
     main_path("parallel", parallel_phase, args.seed)
@@ -3867,6 +4184,8 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     print(f"[launches] main paths: {launches}")
+    print(f"[launches] B4 by route, this process's counted launches (replays, all one-pass, and the "
+          f"ranks' not split): {routes}")
     print(json.dumps({"kernels": kernel_entries(rows, launches)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({

@@ -1,15 +1,17 @@
-"""Export a (fine-tuned) forecaster as a ``torch.export`` artifact for serving.
+"""Export a (fine-tuned) forecaster as a ``torch.export`` program or an AOTInductor package.
 
     python -m multimodal_timesfm_torch.export --output exported/ \\
         [--model-config M.yml] [--pretrained-dir SNAPSHOT] [--fusion-checkpoint CKPT] \\
         [--context-len 32] [--horizon 32] [--multimodal] [--full-outputs] [--seed 0] \\
-        [--device cpu]
+        [--format program|aoti] [--device cpu]
 
 The port's counterpart of ``scripts/export_saved_model.py``, with its flags
-except ``--format`` (one format: ``serving.export_program``) plus
-``--device``, the device the program is traced on (CUDA unless told
-otherwise; either way the artifact serves on both, through
-``serving.load_program``). ``--fusion-checkpoint`` takes a port or a JAX
+plus ``--device``, the device the model is traced on (CUDA unless told
+otherwise). ``--format program`` (the default; JAX's ``stablehlo``) writes
+the ``ExportedProgram``, which serves on both devices; ``--format aoti``
+(JAX's ``savedmodel``, which is JAX's default) compiles it with AOTInductor
+for the tracing device, the only one it serves on. Both load through
+``serving.load_program``. ``--fusion-checkpoint`` takes a port or a JAX
 trainer checkpoint; every trained subtree it carries is applied.
 """
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import argparse
 
-from multimodal_timesfm_torch.serving import export_program
+from multimodal_timesfm_torch.serving import FORMATS, export_program
 from multimodal_timesfm_torch.time_mmd.configs import ModelConfig
 from multimodal_timesfm_torch.time_mmd.models import apply_checkpoint, build_decoder
 from multimodal_timesfm_torch.utils.logging import setup_logger
@@ -36,6 +38,13 @@ def _parse_args(argv: list[str] | None) -> argparse.Namespace:
     parser.add_argument("--horizon", type=int, default=32)
     parser.add_argument("--multimodal", action="store_true")
     parser.add_argument("--full-outputs", action="store_true", help="Also emit all channels.")
+    parser.add_argument(
+        "--format",
+        choices=sorted(FORMATS),
+        default="program",
+        help="program: the torch.export program (serves on both devices); aoti: it compiled by "
+        "AOTInductor for the tracing device.",
+    )
     parser.add_argument("--output", type=str, required=True)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, help="Device to trace on (default: CUDA).")
@@ -60,6 +69,7 @@ def main(argv: list[str] | None = None) -> int:
         output_dir=args.output,
         multimodal=args.multimodal,
         full_outputs=args.full_outputs,
+        format=args.format,
     )
     return 0
 

@@ -125,7 +125,7 @@ def _kernel_fwd(
 ) -> torch.Tensor:
     """The forward of both entry points: plain on the CPU, else the kernel, counted on ``counter``."""
     if q.device.type == "cpu":
-        return plain_causal_attention(q, k, v, key_valid)
+        return plain_causal_attention(q, k, v, key_valid).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _kernels.attention_fwd(q, k, v, key_valid, out)
     counter.launches += 1

@@ -27,6 +27,8 @@ device and is not carried over: the kernel reads (H, S, S) directly.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from multimodal_timesfm_torch.ops import _kernels
@@ -113,12 +115,15 @@ def fused_chronos_attention(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Te
 
     Returns:
         (B, S, H*D) in qkv's dtype. ``fused_chronos_attention.launches``
-        counts forward kernel launches.
+        counts forward kernel launches, and ``.shapes`` counts them by
+        (dtype, B, S, H, D), from which ``ops._kernels.chronos_plan`` gives the
+        route each took.
     """
     return _chronos_op(qkv, seg, bias)
 
 
 fused_chronos_attention.launches = 0
+fused_chronos_attention.shapes = collections.Counter()
 
 
 def fused_chronos_attention_bwd(
@@ -130,7 +135,8 @@ def fused_chronos_attention_bwd(
     A CPU tensor runs :func:`plain_chronos_attention_bwd`; any other launches
     the backward kernels or raises. Without ``need_dbias`` neither the
     partial sums nor the reduction of the bias gradient run.
-    ``fused_chronos_attention_bwd.launches`` counts kernel launches.
+    ``fused_chronos_attention_bwd.launches`` counts kernel launches, ``.shapes``
+    counts them by (dtype, B, S, H, D).
     """
     if qkv.device.type == "cpu":
         return plain_chronos_attention_bwd(qkv, seg, bias, g, need_dbias)
@@ -139,20 +145,23 @@ def fused_chronos_attention_bwd(
     dbias = torch.empty_like(bias) if need_dbias else None
     _kernels.chronos_attention_bwd(qkv, seg, bias, g.contiguous(), dqkv, dbias, heads, dim)
     fused_chronos_attention_bwd.launches += 1
+    fused_chronos_attention_bwd.shapes[(qkv.dtype, *qkv.shape[:2], heads, dim)] += 1
     return dqkv, dbias
 
 
 fused_chronos_attention_bwd.launches = 0
+fused_chronos_attention_bwd.shapes = collections.Counter()
 
 
 def _forward(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """The op's implementation: plain on a CPU tensor, else the kernel, counted."""
     if qkv.device.type == "cpu":
-        return plain_chronos_attention(qkv, seg, bias)
+        return plain_chronos_attention(qkv, seg, bias).contiguous()
     heads, dim = _geometry(qkv, bias)
     out = torch.empty((*qkv.shape[:2], heads * dim), dtype=qkv.dtype, device=qkv.device)
     _kernels.chronos_attention_fwd(qkv, seg, bias, out, heads, dim)
     fused_chronos_attention.launches += 1
+    fused_chronos_attention.shapes[(qkv.dtype, *qkv.shape[:2], heads, dim)] += 1
     return out
 
 

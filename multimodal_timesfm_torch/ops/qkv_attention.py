@@ -103,7 +103,7 @@ fused_qkv_causal_attention_bwd.launches = 0
 def _forward(qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
     """The op's implementation: plain on a CPU tensor, else the kernel, counted."""
     if qkv.device.type == "cpu":
-        return plain_qkv_causal_attention(qkv, key_valid, num_heads, head_dim)
+        return plain_qkv_causal_attention(qkv, key_valid, num_heads, head_dim).contiguous()
     batch, seq, _ = qkv.shape
     out = torch.empty((batch, seq, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     q, k, v = split_heads(qkv, num_heads, head_dim)

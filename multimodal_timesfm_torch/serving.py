@@ -1,31 +1,46 @@
-"""Serving export: a ``torch.export`` program with its weights beside it.
+"""Serving export: a ``torch.export`` program or an AOTInductor package, weights beside it.
 
-Counterpart of the JAX package's StableHLO artifact (``serving.py:236-412``:
-``export_stablehlo``, ``load_stablehlo``, ``save_stablehlo_params``). An
-artifact directory holds:
+Counterpart of the JAX package's two serving formats: the StableHLO artifact
+(``serving.py:236-412``: ``export_stablehlo``, ``load_stablehlo``,
+``save_stablehlo_params``) and the TF SavedModel (``export_saved_model``,
+``serving.py:39``). An artifact directory holds:
 
-  * ``program.pt2``: the forecast pipeline (preprocess -> fusion -> backbone
-    -> postprocess) traced by ``torch.export`` as a function of
-    ``(params, context[, text_embeddings])``, the batch dimension symbolic,
-    context and horizon static, masks all-valid, as in JAX. Its outputs are
-    ``point_forecast``, plus ``full_forecast`` with ``full_outputs``;
+  * the forecast pipeline (preprocess -> fusion -> backbone -> postprocess)
+    traced by ``torch.export`` as a function of ``(params, context[,
+    text_embeddings])``, the batch dimension symbolic, context and horizon
+    static, masks all-valid, as in JAX. Its outputs are ``point_forecast``,
+    plus ``full_forecast`` with ``full_outputs``. In one of two formats:
+
+    - ``program`` (StableHLO's counterpart): ``program.pt2``, the
+      ``ExportedProgram`` itself, served by interpreting its graph;
+    - ``aoti`` (the SavedModel's counterpart): ``package.pt2``, the same
+      program compiled ahead of time by AOTInductor
+      (``torch._inductor.aoti_compile_and_package``) into a shared library
+      for the device it was traced on (Triton for the fused elementwise work
+      and cuBLAS for the GEMMs on the card, C++ on the CPU), served from
+      C++;
   * ``params.npz``: the weights, outside the program for JAX's reasons (the
-    program stays small, and a fine-tune re-points it with
+    program stays small, and a fine-tune re-points either format with
     :func:`save_program_params`): raw-byte leaves keyed by the port's
     parameter names, bf16 kept as its 2-byte data, read with
     ``allow_pickle=False``;
-  * ``manifest.json``: JAX's keys, ``"format": "torch.export"``.
+  * ``manifest.json``: JAX's keys, ``"format"`` ``"torch.export"`` or
+    ``"aoti"``; a package's ``"platforms"`` names the one device type it
+    was compiled for.
 
 The kernels stay in the artifact. JAX's export forces XLA attention because
 Pallas is not portable across platforms; here the traced graph holds the
 port's attention custom ops (``torch.ops.mtt.*``, traced under
-``ops.attention.kernel_route``), so an artifact exported on the CPU launches
-the Hopper kernels when served on the card (the program is moved with
+``ops.attention.kernel_route``). A program exported on the CPU launches the
+Hopper kernels when it is served on the card (it is moved with
 ``torch.export.passes.move_to_device_pass``) and serves with their plain
-versions on the CPU. :func:`load_program` imports torch, numpy and the
-modules that register those ops, and no model code.
-
-The TF SavedModel export of the JAX package has no counterpart here.
+versions on the CPU. The custom ops are opaque to Inductor, so a package
+calls them through PyTorch's dispatcher: it loads into a Python process that
+has imported the modules registering them, which :func:`load_program` does,
+and there the hand-written kernels launch from inside the package. A package
+is tolerance-equal to the eager model, not bit-equal, since Inductor fuses
+and reorders the elementwise work. :func:`load_program` imports torch, numpy
+and the op modules, and no model code.
 """
 
 from __future__ import annotations
@@ -46,6 +61,9 @@ from multimodal_timesfm_torch.utils.platform import resolve_device
 _logger = get_logger()
 
 _PROGRAM_FILE = "program.pt2"
+_PACKAGE_FILE = "package.pt2"
+# The export formats (the CLI's --format) and the manifest's name for each.
+FORMATS = {"program": "torch.export", "aoti": "aoti"}
 _PARAMS_FILE = "params.npz"
 _MANIFEST_FILE = "manifest.json"
 # dtype name -> (numpy dtype of the raw bytes, torch dtype)
@@ -168,18 +186,23 @@ def export_program(
     output_dir: str | Path,
     multimodal: bool = False,
     full_outputs: bool = False,
+    format: str = "program",
 ) -> Path:
-    """Export the forecast pipeline as a ``torch.export`` artifact (JAX ``export_stablehlo``).
+    """Export the forecast pipeline (JAX ``export_stablehlo``, or ``export_saved_model``).
 
     Traced on the decoder's device with its weights as the ``params`` input
     (a dict keyed by the decoder's parameter names) and a symbolic batch;
     the weights are written to ``params.npz``, not into the program.
-    :func:`load_program` serves the artifact.
+    ``format`` is ``"program"`` (the ``ExportedProgram``) or ``"aoti"`` (it
+    compiled by AOTInductor for the decoder's device, which is the only
+    device the package serves on). :func:`load_program` serves either.
     """
     from torch.export import Dim
 
     from multimodal_timesfm_torch.ops.attention import kernel_route
 
+    if format not in FORMATS:
+        raise ValueError(f"unknown export format {format!r}; expected one of {sorted(FORMATS)}")
     device = next(decoder.parameters()).device
     params = _named_tensors(decoder)
     patch = decoder.adapter.patch_len
@@ -195,53 +218,76 @@ def export_program(
     pipeline = _Pipeline(decoder, horizon, multimodal, full_outputs)
     with torch.no_grad(), kernel_route(), _unpacked(decoder.adapter):
         program = torch.export.export(pipeline, args, dynamic_shapes=shapes, strict=False)
-    # The example inputs hold the weights: saved with the program they would double the
-    # artifact and defeat keeping the weights outside it.
-    program.example_inputs = None
-
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    torch.export.save(program, output_dir / _PROGRAM_FILE)
+    if format == "aoti":
+        from torch._inductor import aoti_compile_and_package
+
+        # Inductor compiles against the example inputs; the package does not keep them. It
+        # keeps a fused chain of low-precision ops in fp32 unless told to round where each op
+        # rounds, as the eager model does (a bf16 Chronos-2 drifts 0.2 x std from it otherwise).
+        aoti_compile_and_package(program, package_path=str(output_dir / _PACKAGE_FILE),
+                                 inductor_configs={"emulate_precision_casts": True})
+    else:
+        # The example inputs hold the weights: saved with the program they would double the
+        # artifact and defeat keeping the weights outside it.
+        program.example_inputs = None
+        torch.export.save(program, output_dir / _PROGRAM_FILE)
     _write_npz_atomic(output_dir / _PARAMS_FILE, _raw_leaves(params))
     (output_dir / _MANIFEST_FILE).write_text(json.dumps({
-        "format": "torch.export",
+        "format": FORMATS[format],
         "horizon": horizon,
         "context_len": context_len,
         "num_patches": num_patches,
         "text_dims": text_dims,
         "multimodal": multimodal,
         "full_outputs": full_outputs,
-        "platforms": ["cpu", "cuda"],
+        # A program serves on either device; a package on the one it was compiled for.
+        "platforms": [device.type] if format == "aoti" else ["cpu", "cuda"],
         "leaf_spec": _leaf_spec(params),
         "list_lens": {},
     }, indent=2))
     _logger.info(
-        "Exported torch.export artifact to %s (horizon=%d, context=%d, multimodal=%s, full=%s, "
-        "traced on %s)", output_dir, horizon, context_len, multimodal, full_outputs, device,
+        "Exported %s artifact to %s (horizon=%d, context=%d, multimodal=%s, full=%s, traced on %s)",
+        FORMATS[format], output_dir, horizon, context_len, multimodal, full_outputs, device,
     )
     return output_dir
 
 
 def load_program(artifact_dir: str | Path, device: str | torch.device | None = None) -> tuple[Callable, dict]:
-    """Load an :func:`export_program` artifact into a serving callable (JAX ``load_stablehlo``).
+    """Load an :func:`export_program` artifact of either format into a serving callable (JAX
+    ``load_stablehlo``).
 
     Returns ``(serve_fn, manifest)``; ``serve_fn(context[, text_embeddings])``
     takes arrays or tensors with any batch size and returns the program's
     output dict of tensors on ``device``. ``device`` is CUDA unless the
     caller passes another (the CPU serves with the kernels' plain versions).
-    The weights go to the device once, here. No pickle is read and no model
-    code is imported.
+    A program serves on any device; a package only on the device type it
+    was compiled for, and another raises. The weights go to the device once,
+    here. No pickle is read and no model code is imported.
     """
-    from torch.export.passes import move_to_device_pass
-
     _register_ops()
     device = resolve_device(device)
     artifact_dir = Path(artifact_dir)
     manifest = json.loads((artifact_dir / _MANIFEST_FILE).read_text())
-    if manifest.get("format") != "torch.export":
-        raise ValueError(f"{artifact_dir} holds a {manifest.get('format')!r} artifact, not torch.export")
-    program = move_to_device_pass(torch.export.load(artifact_dir / _PROGRAM_FILE), device)
-    module = program.module()
+    if manifest.get("format") == "aoti":
+        if device.type not in manifest["platforms"]:
+            raise ValueError(
+                f"{artifact_dir} holds an AOTInductor package compiled for {manifest['platforms']}; it "
+                f"cannot serve on {device.type!r} (export it again on that device)"
+            )
+        from torch._inductor import aoti_load_package
+
+        index = -1 if device.index is None else device.index  # -1: the current device
+        module = aoti_load_package(str(artifact_dir / _PACKAGE_FILE), device_index=index)
+    elif manifest.get("format") == "torch.export":
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(torch.export.load(artifact_dir / _PROGRAM_FILE), device)
+        module = program.module()
+    else:
+        raise ValueError(f"{artifact_dir} holds a {manifest.get('format')!r} artifact, not one of "
+                         f"{sorted(FORMATS.values())}")
     with np.load(artifact_dir / _PARAMS_FILE, allow_pickle=False) as npz:
         params = {k: v.to(device) for k, v in _read_params(npz, manifest["leaf_spec"]).items()}
 
@@ -262,7 +308,7 @@ def load_program(artifact_dir: str | Path, device: str | torch.device | None = N
 
 
 def save_program_params(artifact_dir: str | Path, params: Any) -> None:
-    """Re-point an exported artifact at new weights (JAX ``save_stablehlo_params``).
+    """Re-point an exported artifact of either format at new weights (JAX ``save_stablehlo_params``).
 
     ``params`` is a decoder (its parameters and buffers) or a name -> tensor
     mapping. It is checked against the manifest's leaf spec before anything

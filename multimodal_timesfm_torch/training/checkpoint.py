@@ -10,19 +10,29 @@ is ``best_model.ckpt``. Two backends:
   * ``orbax``: the counterpart of JAX's orbax directory, without orbax: a
     directory holding the arrays as one safetensors file
     (``utils/safetensors.py``) and the tree's structure and scalars as JSON.
-    It is written to a sibling temporary directory and renamed. A directory
-    that JAX's orbax wrote is refused by name: reading orbax's own format is
-    not ported.
+    It is written to a sibling temporary directory and renamed.
 
-:func:`load_checkpoint` reads either backend, and pickles written by the JAX
-package too, through a restricted unpickler: it rebuilds numpy arrays and
-scalars, containers, and the optax state classes a JAX trainer stores
-(:class:`EmptyState`, :class:`ScaleByAdamState`, :class:`ScaleByScheduleState`,
-here as stand-ins with the same fields; neither optax nor JAX is imported).
-bf16 arrays (``ml_dtypes.bfloat16``, the JAX trainer's bf16 Adam moments)
-come back as ``torch.bfloat16`` tensors holding the same 2-byte data. Any
-other global a file names raises ``pickle.UnpicklingError`` naming it, so a
-foreign file cannot run code on load.
+:func:`load_checkpoint` reads either backend, and what the JAX package
+writes too:
+
+  * its pickles, through a restricted unpickler: it rebuilds numpy arrays and
+    scalars, containers, and the optax state classes a JAX trainer stores
+    (:class:`EmptyState`, :class:`ScaleByAdamState`,
+    :class:`ScaleByScheduleState`, here as stand-ins with the same fields;
+    neither optax nor JAX is imported). Any other global a file names raises
+    ``pickle.UnpicklingError`` naming it, so a foreign file cannot run code on
+    load;
+  * its orbax directories (``ocp.StandardCheckpointer``), read with
+    ``tensorstore`` alone: ``_METADATA`` is JSON holding the tree's key paths
+    (``key_type`` 2 a dict key, 1 a sequence index) and each leaf's type, and
+    each array is zarr v2 in an OCDBT store under its dotted key path. As an
+    orbax restore without a target does, NamedTuples come back as dicts and
+    tuples as lists; :func:`restructure_like` rebuilds them against a
+    template (:func:`jax_optimizer_state`). Where ``tensorstore`` does not
+    import, such a directory is refused by name.
+
+bf16 arrays (the JAX trainer's bf16 Adam moments) come back as
+``torch.bfloat16`` tensors holding the same 2-byte data.
 """
 
 from __future__ import annotations
@@ -238,14 +248,118 @@ def _save_dir(path: Path, payload: dict) -> None:
     tmp.rename(path)
 
 
+# -- the JAX package's orbax directories, read with tensorstore --
+
+
+def _orbax_leaf(ts: Any, path: Path, key: str, value_type: str) -> Any:
+    if value_type == "None":
+        return None
+    if value_type not in ("np.ndarray", "scalar"):
+        raise ValueError(f"{path}: leaf {key!r} has value type {value_type!r}, not an array or scalar")
+    spec = {"driver": "zarr", "kvstore": {"driver": "ocdbt", "base": f"file://{path.resolve()}", "path": key + "/"}}
+    arr = ts.open(spec).result().read().result()
+    if value_type == "scalar":
+        return arr.item()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return arr
+
+
+def _load_orbax(path: Path) -> dict:
+    """The tree of an orbax directory the JAX package wrote, in plain containers."""
+    try:
+        import tensorstore as ts
+    except ImportError:
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory (the JAX package's orbax backend); reading "
+            "it needs tensorstore, which does not import here — save it with the pickle backend"
+        ) from None
+    meta_file = path / "_METADATA"
+    if not meta_file.exists():
+        raise ValueError(f"{path} is an orbax checkpoint directory without _METADATA")
+    meta = json.loads(meta_file.read_text())
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
+        raise ValueError(f"{path}: only orbax's OCDBT store of zarr v2 arrays is read (use_ocdbt "
+                         f"{meta.get('use_ocdbt')}, use_zarr3 {meta.get('use_zarr3')})")
+    root: dict = {}
+    sequences: set[int] = set()  # ids of the nodes indexed by position (key_type 1)
+    for entry in meta["tree_metadata"].values():
+        keys = entry["key_metadata"]
+        node = root
+        for key, child in zip(keys, keys[1:]):
+            node = node.setdefault(key["key"], {})
+            if child["key_type"] == 1:
+                sequences.add(id(node))
+        dotted = ".".join(k["key"] for k in keys)
+        node[keys[-1]["key"]] = _orbax_leaf(ts, path, dotted, entry["value_metadata"]["value_type"])
+
+    def finish(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        if id(node) in sequences:
+            return [finish(node[k]) for k in sorted(node, key=int)]
+        return {k: finish(v) for k, v in node.items()}
+
+    return finish(root)
+
+
+def restructure_like(template: Any, restored: Any) -> Any:
+    """Rebuild plain-container ``restored`` data into ``template``'s structure (JAX
+    ``restructure_like``).
+
+    An orbax restore gives NamedTuples (optax's states) back as dicts keyed
+    by field name and tuples as lists. This walks the template and wraps the
+    restored values in its container types, matching NamedTuple fields by
+    name. A template leaf (None, say) takes the restored value as it is.
+    """
+    if template is None:
+        return restored
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        if not template._fields:  # EmptyState
+            return type(template)()
+        if isinstance(restored, dict):
+            return type(template)(
+                **{f: restructure_like(getattr(template, f), restored.get(f)) for f in template._fields}
+            )
+        if restored is None:
+            raise ValueError(
+                f"checkpoint is missing data for {type(template).__name__} (fields {template._fields})"
+            )
+        return type(template)(*(restructure_like(t, r) for t, r in zip(template, restored)))
+    if isinstance(template, (list, tuple)):
+        if restored is None or len(restored) != len(template):
+            raise ValueError(
+                f"checkpoint sequence length {None if restored is None else len(restored)} "
+                f"!= template length {len(template)}"
+            )
+        seq = [restructure_like(t, r) for t, r in zip(template, restored)]
+        return tuple(seq) if isinstance(template, tuple) else seq
+    if isinstance(template, dict):
+        if not isinstance(restored, dict):
+            raise ValueError(f"checkpoint node {type(restored).__name__} != template dict")
+        return {k: restructure_like(v, restored.get(k)) for k, v in template.items()}
+    return restored
+
+
+def jax_optimizer_state(fused: bool, clip: bool, bf16_moments: bool) -> Any:
+    """The structure of the JAX trainer's optax state, its leaves None: one
+    :class:`ScaleByAdamState` with the fused stepper; else the chain of JAX
+    ``make_optimizer``: the clip's :class:`EmptyState` when ``max_grad_norm`` > 0,
+    then ``optax.adamw``'s own chain (fp32 moments) or the low-memory Adam core, the
+    decayed weights and the scheduled learning rate in line (bf16 moments)."""
+    adam = ScaleByAdamState(None, None, None)
+    if fused:
+        return adam
+    core = (adam, EmptyState(), ScaleByScheduleState(None))
+    chain = core if bf16_moments else (core,)
+    return (EmptyState(), *chain) if clip else chain
+
+
 def _load_dir(path: Path) -> dict:
     meta_file = path / _TREE_FILE
     if not meta_file.exists():
         if any((path / name).exists() for name in _ORBAX_MARKERS) or any(path.glob("*.ocdbt")):
-            raise ValueError(
-                f"{path} is an orbax checkpoint directory (the JAX package's orbax backend); "
-                "reading orbax's format is not ported — save it with the pickle backend"
-            )
+            return _load_orbax(path)
         raise ValueError(f"{path} is a directory without {_TREE_FILE}: not a checkpoint")
     meta = json.loads(meta_file.read_text())
     if meta.get("format") != _FORMAT:
@@ -274,8 +388,9 @@ def save_checkpoint(path: Path | str, payload: dict, backend: str = "pickle") ->
 
 
 def load_checkpoint(path: Path | str) -> Any:
-    """Load a checkpoint of either backend (a directory is the ``orbax`` one), or a
-    pickle written by the JAX package, through the restricted unpickler."""
+    """Load a checkpoint of either backend (a directory is the ``orbax`` one), or what
+    the JAX package wrote: a pickle, through the restricted unpickler, or an orbax
+    directory, its NamedTuples and tuples as dicts and lists."""
     path = Path(path)
     if path.is_dir():
         return _load_dir(path)

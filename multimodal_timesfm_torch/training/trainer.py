@@ -99,7 +99,9 @@ from multimodal_timesfm_torch.parallel.sharding import (
 from multimodal_timesfm_torch.training.checkpoint import (
     BACKENDS,
     adam_state,
+    jax_optimizer_state,
     load_checkpoint,
+    restructure_like,
     rotate_checkpoints,
     save_checkpoint,
 )
@@ -776,9 +778,9 @@ class MultimodalTrainer:
     def resume_from_checkpoint(self, path: Any) -> None:
         """Restore the trained parameters, optimizer state and counters; call before ``train()``.
 
-        Reads either backend, and checkpoints the JAX trainer wrote (its optax
-        chain or fused state, fp32 or bf16 moments). Training continues at the
-        epoch after the checkpointed one. A checkpoint
+        Reads either backend, and checkpoints the JAX trainer wrote (pickles and
+        orbax directories; its optax chain or fused state, fp32 or bf16 moments).
+        Training continues at the epoch after the checkpointed one. A checkpoint
         written under the other ``fused_optimizer`` setting raises; a ``best``
         checkpoint of the fused path (best weights, end-of-run optimizer state)
         warns.
@@ -805,8 +807,17 @@ class MultimodalTrainer:
                 stacklevel=2,
             )
         # The port's {"count", "mu", "nu"}, or the ScaleByAdamState of a JAX chain
-        # or fused state; moments of either dtype are cast to the live slots'.
-        count, mu, nu = adam_state(checkpoint["optimizer_state"])
+        # or fused state; moments of either dtype are cast to the live slots'. A JAX
+        # orbax directory gives optax's NamedTuples back as dicts and tuples as lists
+        # (its fused state as the port's dict): rebuilt against the state JAX's
+        # optimizer has under these arguments, as JAX rebuilds it against its live one.
+        state = checkpoint["optimizer_state"]
+        if isinstance(state, list):
+            template = jax_optimizer_state(
+                live_fused, self.args.max_grad_norm > 0, self.args.adam_moment_dtype == "bfloat16"
+            )
+            state = restructure_like(template, state)
+        count, mu, nu = adam_state(state)
         self.load_trained_params(checkpoint[self._params_key], (mu, nu))
         self.optimizer.count = count
         self.start_epoch = checkpoint["epoch"] + 1

@@ -12,6 +12,7 @@ from typing import Any, Literal, NotRequired, TypedDict
 
 import numpy as np
 import numpy.typing as npt
+import torch
 
 TrainingMode = Literal["multimodal", "baseline"]
 
@@ -32,6 +33,16 @@ class PreprocessedSample(TypedDict):
     horizon: npt.NDArray[np.float32]
     text_embeddings: NotRequired[npt.NDArray[np.float32]]
     metadata: dict[str, Any]
+
+
+class Batch(TypedDict):
+    """A collated batch: tensors on the host or the device (JAX ``types.Batch``, whose
+    arrays are numpy or jax). ``text_embeddings`` is present in multimodal mode."""
+
+    context: torch.Tensor
+    horizon: torch.Tensor
+    text_embeddings: NotRequired[torch.Tensor]
+    metadata: list[dict[str, Any]]
 
 
 class CheckpointBase(TypedDict):

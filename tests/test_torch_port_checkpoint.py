@@ -5,12 +5,15 @@ fused stepper, and baseline mode with bf16 Adam moments); the port's
 restricted unpickler loads them without optax, JAX or ml_dtypes, and a port
 trainer resumed from one runs its next epoch as a JAX trainer resumed from
 the same file does, to the tolerances of ``tests/test_torch_port_train.py``
-(losses rtol 2e-3, trained parameters atol 5e-4).
+(losses rtol 2e-3, trained parameters atol 5e-4). The same holds for the
+directories the JAX trainer writes with ``ckpt_backend="orbax"``, read with
+tensorstore.
 """
 
 import fractions
 import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -34,25 +37,66 @@ CASES = {
 }
 
 
-def _jax_checkpoint(tmp_path, case):
-    """(path of the epoch-0 checkpoint a JAX trainer wrote, the JAX trainer resumed from
-    it, the port trainer, the data)."""
+def _jax_checkpoint(tmp_path, case, backend="pickle"):
+    """(path of the epoch-0 checkpoint a JAX trainer wrote with ``backend``, the JAX trainer
+    resumed from it, the port trainer)."""
     mode, args_over, knobs = CASES[case]
     train, val = _samples(12, 1, 32), _samples(4, 2, 32)
     kw = _train_kwargs(num_train_epochs=2, save_strategy="epoch", **args_over)
     _, jdec, tree = _decoder_pair(seed=6)
     writer = JTrainer(jdec, jax.tree.map(jnp.asarray, tree), JArgs(output_dir=str(tmp_path / "w"), **kw),
-                      train, val, mode, fuse_epochs=False, **knobs)
+                      train, val, mode, fuse_epochs=False, ckpt_backend=backend, **knobs)
     writer.train_epoch()
     writer.save_ckpt(writer.validate_epoch())
     path = writer.args.checkpoint_dir / "checkpoint_epoch_0.ckpt"
     resumed = JTrainer(jdec, jax.tree.map(jnp.asarray, tree), JArgs(output_dir=str(tmp_path / "j"), **kw),
-                       train, val, mode, fuse_epochs=False, **knobs)
+                       train, val, mode, fuse_epochs=False, ckpt_backend=backend, **knobs)
     resumed.resume_from_checkpoint(path)
     port, _, _ = _decoder_pair(seed=6)
     trainer = MultimodalTrainer(port, TrainingArguments(output_dir=str(tmp_path / "p"), **kw),
                                 train, val, mode, device="cpu", **knobs)
     return path, resumed, trainer
+
+
+def _resume_and_compare(path, jt, pt):
+    """Resume the port trainer from ``path`` and run its next epoch against the JAX trainer
+    resumed from the same checkpoint: losses rtol 2e-3, trained parameters atol 5e-4."""
+    pt.resume_from_checkpoint(path)
+    assert (pt.start_epoch, pt.global_step, pt.optimizer.count) == (jt.start_epoch, jt.global_step, 2)
+    assert pt.best_val_loss == jt.best_val_loss
+    ours = (pt.train_epoch(), pt.validate_epoch())
+    ref = (jt.train_epoch(), jt.validate_epoch())
+    np.testing.assert_allclose(ours, ref, rtol=2e-3)
+    mine = _leaves(export_jax_params(pt.trainable_module))
+    theirs = _leaves(jax.device_get(jt.state.trainable))
+    assert mine.keys() == theirs.keys()
+    for name in theirs:
+        np.testing.assert_allclose(mine[name], np.asarray(theirs[name], np.float32), atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_port_resumes_a_jax_orbax_checkpoint_as_jax_does(tmp_path, case):
+    """A directory JAX's orbax backend wrote: read with tensorstore, the optimizer state
+    rebuilt against JAX's (fused: the port's dict; chain: the tuple of optax states), and
+    the next epoch as a JAX trainer resumed from the same directory runs it."""
+    path, jt, pt = _jax_checkpoint(tmp_path, case, backend="orbax")
+    assert path.is_dir() and (path / "_METADATA").exists()
+    state = tcheckpoint.load_checkpoint(path)["optimizer_state"]
+    if case == "multimodal fused":
+        assert isinstance(state, dict) and set(state) == {"count", "mu", "nu"}
+    else:
+        assert isinstance(state, list)
+        args = pt.args
+        template = tcheckpoint.jax_optimizer_state(False, args.max_grad_norm > 0,
+                                                   args.adam_moment_dtype == "bfloat16")
+        rebuilt = tcheckpoint.restructure_like(template, state)
+        with open(_jax_checkpoint(tmp_path / "pickled", case)[0], "rb") as f:
+            pickled = tcheckpoint._RestrictedUnpickler(f).load()["optimizer_state"]
+        types = lambda node: [type(x).__name__ for x in node]  # noqa: E731
+        assert types(rebuilt) == types(pickled), (types(rebuilt), types(pickled))
+    _resume_and_compare(path, jt, pt)
+    if "bf16" in case:
+        assert pt.optimizer.mu[0].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -205,9 +249,37 @@ def test_rotation_removes_directories_and_files(tmp_path):
     assert tcheckpoint.load_checkpoint(tmp_path / "checkpoint_epoch_2.ckpt")["epoch"] == 2
 
 
-def test_a_jax_orbax_directory_is_refused_by_name(tmp_path):
+def test_a_jax_orbax_directory_is_refused_by_name(tmp_path, monkeypatch):
+    """Where tensorstore does not import, a JAX orbax directory is refused, naming both."""
     jcheckpoint.save_checkpoint(tmp_path / "best_model.ckpt", {"epoch": 0, "w": np.ones(2, np.float32)},
                                 backend="orbax")
     assert (tmp_path / "best_model.ckpt").is_dir()
-    with pytest.raises(ValueError, match="orbax checkpoint directory"):
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ValueError, match="orbax checkpoint directory.*tensorstore"):
         tcheckpoint.load_checkpoint(tmp_path / "best_model.ckpt")
+
+
+def test_a_jax_orbax_directory_reads_as_jax_restores_it(tmp_path):
+    """Every leaf of a JAX orbax payload (arrays of several dtypes, bf16 as its 2-byte data,
+    Python scalars, None, nested lists) as orbax itself restores it without a target."""
+    import ml_dtypes
+
+    payload = {
+        "epoch": 3, "best_val_loss": 0.25, "optimizer_is_fused": False, "note": None,
+        "fusion_params": {"layers": [{"kernel": np.arange(6, dtype=np.float32).reshape(2, 3)},
+                                     {"kernel": np.full((3, 2), -1.5, np.float32)}]},
+        "moments": [np.linspace(-2, 2, 7).astype(ml_dtypes.bfloat16), np.arange(4, dtype=np.int32)],
+    }
+    jcheckpoint.save_checkpoint(tmp_path / "ck", payload, backend="orbax")
+    theirs = jcheckpoint.load_checkpoint(tmp_path / "ck")
+    ours = tcheckpoint.load_checkpoint(tmp_path / "ck")
+    assert jax.tree.structure(ours, is_leaf=lambda x: isinstance(x, torch.Tensor)) == jax.tree.structure(theirs)
+    assert (ours["epoch"], ours["best_val_loss"], ours["optimizer_is_fused"], ours["note"]) == (3, 0.25, False, None)
+    bf16 = ours["moments"][0]
+    assert bf16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bf16.view(torch.int16).numpy(), theirs["moments"][0].view(np.int16))
+    for name, mine in _leaves({k: ours[k] for k in ("fusion_params",)}).items():
+        theirs_leaf = _leaves({"fusion_params": theirs["fusion_params"]})[name]
+        assert mine.dtype == theirs_leaf.dtype
+        np.testing.assert_array_equal(mine, theirs_leaf, err_msg=name)
+    np.testing.assert_array_equal(ours["moments"][1], theirs["moments"][1])

@@ -141,9 +141,55 @@ def test_port_imports_no_jax():
         f"{f.relative_to(REPO)}: {name}"
         for f in files
         for name in _imported_modules(f)
-        if name.split(".")[0] in ("jax", "jaxlib", "multimodal_timesfm_tpu", "examples")
+        if name.split(".")[0] in ("jax", "jaxlib", "multimodal_timesfm_tpu", "examples", "bench", "orbax")
     ]
     assert not bad, bad
+
+
+def test_the_completion_modules_import_no_bench_or_orbax():
+    """The profiling module, the roofline, the checkpoints (orbax directories are read with
+    tensorstore) and serving import neither the root ``bench`` nor ``orbax``, nor JAX, at
+    any level; they are walked by the guard above too."""
+    port = REPO / "multimodal_timesfm_torch"
+    files = [port / name for name in ("utils/profiling.py", "roofline.py", "training/checkpoint.py", "serving.py")]
+    bad = [
+        f"{f.relative_to(REPO)}: {name}"
+        for f in files
+        for name in _imported_modules(f)
+        if name.split(".")[0] in ("bench", "orbax", "jax", "jaxlib", "multimodal_timesfm_tpu")
+    ]
+    assert not bad, bad
+
+
+_TOP_LEVEL = """
+import sys
+import typing
+import torch
+import multimodal_timesfm_torch as port
+from multimodal_timesfm_torch import Batch, EvaluationMetrics, PreprocessedSample, RawSample, TrainingMode
+hints = typing.get_type_hints(Batch)
+assert hints["context"] is hints["horizon"] is torch.Tensor
+assert set(hints) == {"context", "horizon", "text_embeddings", "metadata"}
+assert not torch.cuda.is_initialized()
+assert "multimodal_timesfm_torch.ops._kernels" not in sys.modules
+assert not [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "multimodal_timesfm_tpu")]
+print(port.__version__)
+"""
+
+
+def test_the_top_level_exports_the_jax_packages_names():
+    """``__version__`` equals the JAX package's and the five names of its ``__init__`` are
+    re-exported; importing the top level builds no kernel and does not touch CUDA (a fresh
+    interpreter, JAX blocked)."""
+    import subprocess
+    import sys
+
+    import multimodal_timesfm_tpu
+
+    code = "import sys\nfor m in ('jax', 'jaxlib', 'multimodal_timesfm_tpu'):\n    sys.modules[m] = None\n" + _TOP_LEVEL
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == multimodal_timesfm_tpu.__version__
 
 
 def test_the_pretrained_to_served_path_imports_no_optional_package():
