@@ -181,7 +181,22 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    the package bit-equal between calls and loads and within ``AOTI_TOL`` of
    ``Forecaster`` (with the bf16-against-fp32 control printed), one profiled
    call's idle share. Inductor links the package with ``-fopenmp``: the phase
-   takes the first of ``$CXX``, ``g++``, ``c++`` that can.
+   takes the first of ``$CXX``, ``g++``, ``c++`` that can;
+13. native serving (after phase 12, on its packages): ``mtt_serve``, a libtorch
+   program with no Python in its process (``csrc/mtt_serve.cpp``), and the attention
+   ops registered in C++ (``csrc/mtt_ops.cpp``), built by ``native.py`` with the first
+   of ``$CXX``, ``g++``, ``c++`` that compiles, its CUDA half linked to the kernel
+   library (the build starts in a thread right after the kernels' and runs alongside the
+   other phases; the server's NEEDED entries must name no Python); before the main
+   paths, the four CUDA ops of that registration, loaded here as ``mtt_native``, each
+   bit-equal to the Python op at its main-path shapes (B1f 64 x 64, B2f 8 x 512, B3f 2 x
+   2100 at 16 x 80 heads; B4f 128 x 67 and 16 x 577 at 12 x 64) in fp32 and bf16; then
+   the server in a subprocess on each of phase 12's packages, 192 series in batches of
+   64, timed in turn with the package loaded here: its forecasts bit-equal to this
+   process's package's (every timed pass bit-equal to its first, batch by batch), within
+   ``AOTI_TOL`` of ``Forecaster``, 20 B1f or 16 B4f launches a batch through the C++
+   registration and nothing else, its matmul flags this process's; process start and
+   load seconds, series/s beside the package's (``[native]``).
 
 The ``[profile]`` lines read ``utils/profiling.py``'s traces
 (``device_profile``: the device's activity only; ``op_profile``: the host's
@@ -193,14 +208,17 @@ share of the bf16 peak; the training phase prints one for ``timesfm_mm_c512``
 from its bf16 fused epoch.
 
 The ``kernels`` line lists every kernel with its launches on the main-path
-phases (3 to 12; each starts its counters at 0; a kernel captured in a CUDA
-graph counts once per replay; phase 11 adds its ranks' counts) and its
+phases (3 to 13; each starts its counters at 0; a kernel captured in a CUDA
+graph counts once per replay; phase 11 adds its ranks' counts, phase 13 the
+server's) and its
 numbers at its main-path shape in bf16; a ``[launches]`` line splits B4's
 counted launches by the route the library's plan gives each shape.
 
 ``python3 chip_smoke.py --parallel-only`` only builds the kernels, checks B4
 at phase 11's 6-head shapes and runs phase 11 (making phase 10's tree
-itself); ``--aoti-only`` only builds the kernels and runs phase 12. ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
+itself); ``--aoti-only`` only builds the kernels and runs phase 12;
+``--native-only`` builds the kernels and the native server, checks the C++ ops and
+runs phases 12 and 13. ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
 checks and times every kernel at its main-path shapes in fp32 and bf16 (the
 six causal kernels, unless ``--chronos-only``; B4f and B4b with and without
 dbias at 128 x 67, 128 x 67 at 6 heads and 16 x 577), with the port imported from DIR (another
@@ -2790,6 +2808,7 @@ AOTI_CONTEXT = 512  # 192 series in batches of 64, horizon 128
 # Both at full depth: a package's compile time is mostly the compiling process's own start
 # (Chronos-2's took 159.3 s at 16 layers and 162.0 s at 4, beside TimesFM-2.5's two).
 AOTI_LAYERS = {"timesfm-2.5-200m": 20, "chronos-2-120m": 16}
+AOTI_ROOT = Path(__file__).resolve().parent / "build" / "aoti"
 
 
 def openmp_cxx() -> str:
@@ -2836,7 +2855,7 @@ def compile_package(name: str, dtype: str, out: str) -> None:
     print(json.dumps({"compile_s": time.perf_counter() - start}), flush=True)
 
 
-def aoti_phase(seed: int) -> None:
+def aoti_phase(seed: int) -> dict:
     """TimesFM-2.5 200M (fp32, bf16) and Chronos-2 120M (bf16) at full width and depth as
     AOTInductor packages at context 512: the three compiled on the card at once, each in a
     child process of its own from the geometry alone, then re-pointed
@@ -2845,7 +2864,10 @@ def aoti_phase(seed: int) -> None:
     load seconds; series/s of the package, ``Forecaster`` and the program in turn on the
     same 192 series; B1f or B4f launches, one per layer and batch, through the package; the
     package bit-equal between calls and between two loads, and within AOTI_TOL of
-    Forecaster; one profiled package call's idle share (``utils.profiling``)."""
+    Forecaster; one profiled package call's idle share (``utils.profiling``). Returns, for
+    phase 13, each cell's package directory, data, the package's forecasts, Forecaster's and
+    the package's median series/s; the packages stay under ``build/aoti/`` (AOTI_ROOT) until
+    :func:`remove_packages`."""
     from multimodal_timesfm_torch.inference import Forecaster
     from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.serving import export_program, load_program, save_program_params
@@ -2854,10 +2876,11 @@ def aoti_phase(seed: int) -> None:
     kind = torch.cuda.get_device_name(0)
     cxx = openmp_cxx()
     print(f"[aoti] Inductor's host C++ compiler: {cxx}", flush=True)
-    root = Path(__file__).resolve().parent / "build" / "aoti"
+    root = AOTI_ROOT
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     ctx = AOTI_CONTEXT
+    served = {}
     cells = {cell: root / f"{cell[0]}_{str(cell[1])[6:]}" for cell in AOTI_TOL}
     env = {**os.environ, "CXX": cxx, "TORCHINDUCTOR_COMPILE_THREADS": "3"}
     start = time.perf_counter()
@@ -2967,12 +2990,170 @@ def aoti_phase(seed: int) -> None:
             f"{control.max():.4g}, median {float(np.median(control)):.3g} | bit-equal between calls and loads",
             flush=True,
         )
+        served[(name, dtype)] = {"path": path / "aoti", "context": context, "text": text, "outs": outs[0],
+                                 "ref": ref, "package_rate": median["package"]}
         del decoder, fc, package, program
         torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
     imported = sorted(m for m in ("jax", "multimodal_timesfm_tpu", "bench", "orbax") if m in sys.modules)
     if imported:
         raise AssertionError(f"the AOTI phase imported {imported}")
+    return served
+
+
+def remove_packages() -> None:
+    shutil.rmtree(AOTI_ROOT, ignore_errors=True)
+
+
+# Phase 13: phase 12's packages served by mtt_serve, a process that runs libtorch and no Python
+# (multimodal_timesfm_torch/native.py builds it from csrc/mtt_serve.cpp and csrc/mtt_ops.cpp).
+NATIVE_OPS = {"B1f": "fused_qkv_causal_attention", "B2f": "fused_causal_attention",
+              "B3f": "flash_causal_attention", "B4f": "fused_chronos_attention"}
+# Each forward op of the C++ registration at its main-path shapes (B, S, H, D): TimesFM's
+# 16 x 80 heads at 16 tokens in batches of 64 (B1f), 512 tokens (B2f) and 2,100 (B3f);
+# Chronos-2's 12 x 64 heads at 67 tokens (B4f one-pass) and 577 (B4f tiled).
+NATIVE_CHECK_SHAPES = (("B1f", (64, 64, 16, 80)), ("B2f", (8, 512, 16, 80)), ("B3f", (2, 2100, 16, 80)),
+                       ("B4f", (128, 67, 12, 64)), ("B4f", (16, 577, 12, 64)))
+# The server's launches, added to the main paths' counts as phase 11's ranks' are.
+NATIVE_LAUNCHES: dict[str, int] = {}
+
+
+def needed(path: Path) -> list[str]:
+    """The NEEDED entries of an ELF file's dynamic section (``readelf -d``)."""
+    done = subprocess.run(["readelf", "-d", str(path)], capture_output=True, text=True, check=True)
+    return [line.split("[", 1)[1].rstrip("]") for line in done.stdout.splitlines() if "(NEEDED)" in line]
+
+
+def native_build_result(future):
+    """The finished build: printed, and the server held to linking no Python."""
+    made = future.result()
+    libs = needed(made.server)
+    python = [lib for lib in libs if lib.startswith("libpython") or lib.startswith("libtorch_python")]
+    if python:
+        raise AssertionError(f"mtt_serve links {python}")
+    print(f"[native] built {made.directory.name} with {made.compiler} in {made.seconds:.1f} s, alongside "
+          f"the work of this process (mtt_serve, libmtt_ops.so, libmtt_native.so; the CUDA ops linked to "
+          f"the kernel library, not recompiled) | mtt_serve NEEDED: {', '.join(libs)}", flush=True)
+    return made
+
+
+def native_op_checks(seed: int, future) -> None:
+    """The four CUDA ops of the C++ registration, loaded as ``mtt_native``, each bit-equal to
+    the Python op (``torch.ops.mtt``) at the main-path shapes in fp32 and bf16, on inputs
+    with padded and empty key rows (B1f-B3f, q, k, v strided views of one projection) and
+    three segments with padded tokens (B4f), each call one launch of the C++ op's counter.
+    The Python ops' launches made here are comparisons and are taken back off their
+    counters."""
+    from multimodal_timesfm_torch import native
+    from multimodal_timesfm_torch.ops.qkv_attention import split_heads
+
+    made = native_build_result(future)
+    ops = native.load_check_ops()
+    counters = launch_counters()
+    saved = {key: (fn.launches, dict(getattr(fn, "shapes", {}))) for key, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for key, (batch, seq, heads, dim) in NATIVE_CHECK_SHAPES:
+                name = NATIVE_OPS[key]
+                if key == "B4f":
+                    qkv, seg, bias, _ = chronos_inputs((batch, seq, heads, dim), 3, True, dtype, gen)
+                    args = (qkv, seg, bias)
+                else:
+                    qkv = (torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+                           / dim ** 0.25).to(dtype)
+                    valid = left_padded_valid(batch, seq, gen)
+                    valid[-1] = False  # a row with no valid key
+                    args = ((qkv, valid, heads, dim) if key == "B1f"
+                            else (*split_heads(qkv, heads, dim), valid))
+                before = native.launch_counts(made.check_ops)[name]
+                out = getattr(ops, name)(*args)
+                ref = getattr(torch.ops.mtt, name)(*args)
+                torch.cuda.synchronize()
+                launched = native.launch_counts(made.check_ops)[name] - before
+                if launched != 1:
+                    raise AssertionError(f"mtt_native::{name} launched its kernel {launched} times, not once")
+                if out.shape != ref.shape or not torch.equal(out, ref):
+                    err = float((out.float() - ref.float()).abs().max()) if out.shape == ref.shape else math.inf
+                    raise AssertionError(f"mtt_native::{name} {str(dtype)[6:]} {batch}x{seq}: differs from "
+                                         f"the Python op by {err:.4g}")
+                print(f"[native] mtt_native::{name} ({key}) {str(dtype)[6:]} B,S,H,D {batch},{seq},{heads},"
+                      f"{dim}: bit-equal to torch.ops.mtt.{name}, one launch", flush=True)
+    finally:
+        for key, fn in counters.items():
+            fn.launches = saved[key][0]
+            if hasattr(fn, "shapes"):
+                fn.shapes.clear()
+                fn.shapes.update(saved[key][1])
+
+
+def python_flags() -> dict:
+    """This process's matmul flags, under the server's names."""
+    matmul = torch.backends.cuda.matmul
+    return {"allow_tf32_cublas": bool(matmul.allow_tf32),
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "allow_bf16_reduced_precision_reduction": bool(matmul.allow_bf16_reduced_precision_reduction),
+            "allow_fp16_reduced_precision_reduction": bool(matmul.allow_fp16_reduced_precision_reduction)}
+
+
+def native_phase(served: dict, future) -> None:
+    """Phase 12's three packages served by ``mtt_serve`` in a subprocess (``native.serve``):
+    the same 192 series in batches of 64, one pass for the forecasts and SERVE_REPEATS timed
+    passes, each held bit-equal to the first batch by batch, timed in turn with the package
+    loaded in this process (``load_program``: a pass before the server and one after). The
+    server's forecasts must be bit-equal to this process's package's (phase 12's and this
+    phase's) and within AOTI_TOL of Forecaster's; its launches 20 B1f (TimesFM) or 16 B4f
+    (Chronos-2) a batch and nothing else; its matmul flags this process's."""
+    from multimodal_timesfm_torch import native
+    from multimodal_timesfm_torch.serving import load_program
+
+    future.result()
+    kind = torch.cuda.get_device_name(0)
+    flags = python_flags()
+    for (name, dtype), cell in served.items():
+        label = f"{name} ({AOTI_LAYERS[name]} layers) context {AOTI_CONTEXT} {str(dtype)[6:]}"
+        context, text, path = cell["context"], cell["text"], cell["path"]
+        key, per = ("B4f", AOTI_LAYERS[name]) if name.startswith("chronos") else ("B1f", AOTI_LAYERS[name])
+        package, _ = load_program(path, device="cuda")
+        serve_padded(package, context[:64], text[:64], 64)  # warm-up
+        python_rates, python_outs = [], []
+        for turn in range(2):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            python_outs.append(serve_padded(package, context, text, 64))
+            python_rates.append(len(context) / (time.perf_counter() - start))
+            if turn == 0:
+                outputs, info = native.serve(path, context, text, device="cuda", batch=64, repeat=SERVE_REPEATS)
+        got = outputs["point_forecast"]
+        for what, want in (("phase 12's package", cell["outs"]), ("this phase's package", python_outs[0]),
+                           ("this phase's package, second pass", python_outs[1])):
+            if got.shape != want.shape or not np.array_equal(got, want):
+                err = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+                raise AssertionError(f"{label}: mtt_serve's forecasts differ from {what} by {err:.4g}")
+        std = float(cell["ref"].std())
+        diff = float(np.abs(got - cell["ref"]).max()) / std
+        if not diff <= AOTI_TOL[(name, dtype)]:
+            raise AssertionError(f"{label}: mtt_serve and Forecaster differ by {diff:.4g} x std")
+        want = {op: (per * info["batches"] if op == NATIVE_OPS[key] else 0) for op in native.OPS}
+        if info["launches"] != want:
+            raise AssertionError(f"{label}: mtt_serve launched {info['launches']}, expected {want}")
+        if info["flags"] != flags:
+            raise AssertionError(f"{label}: mtt_serve's matmul flags {info['flags']} are not this process's {flags}")
+        NATIVE_LAUNCHES[key] = NATIVE_LAUNCHES.get(key, 0) + per * info["batches"]
+        rates = info["series_per_s"]
+        print(f"[native] {label}: mtt_serve (no Python in its process) started in {info['start_s']:.3f} s, "
+              f"loaded in {info['load_s']:.3f} s (package {info['package_load_s']:.3f} s, params.npz "
+              f"{info['load_s'] - info['package_load_s']:.3f} s), {info['wall_s']:.3f} s in all | 192 series in "
+              f"batches of 64, in turn: mtt_serve median {float(np.median(rates)):.1f} series/s "
+              f"({', '.join(f'{r:.1f}' for r in rates)}), the package in this process "
+              f"{float(np.median(python_rates)):.1f} ({', '.join(f'{r:.1f}' for r in python_rates)}; phase 12 "
+              f"{cell['package_rate']:.1f}) on {kind} | {per} {key} ({NATIVE_OPS[key]}) launches a batch over "
+              f"{info['batches']} batches | bit-equal to the package served in this process, every pass bit-equal "
+              f"to the first; |mtt_serve - Forecaster| / std {diff:.4g} <= {AOTI_TOL[(name, dtype)]} | matmul "
+              f"flags {info['flags']}", flush=True)
+        del package
+        torch.cuda.empty_cache()
+    remove_packages()
+
 
 def serving_times(seed: int, repeats: int = 7) -> None:
     """TimesFM-2.5 200M served through Forecaster at context 512 (200 series in batches of
@@ -4056,6 +4237,8 @@ def main() -> int:
                         help="only build the kernels and run phase 11 (the mesh)")
     parser.add_argument("--aoti-only", action="store_true",
                         help="only build the kernels and run phase 12 (the AOTInductor packages)")
+    parser.add_argument("--native-only", action="store_true",
+                        help="only build the kernels and mtt_serve, check the C++ ops, run phases 12 and 13")
     parser.add_argument("--compile-package", nargs=3, metavar=("NAME", "DTYPE", "OUT"),
                         help="phase 12's child process: compile one package")
     args = parser.parse_args()
@@ -4107,7 +4290,24 @@ def main() -> int:
             counter.launches = 0
         start = time.perf_counter()
         aoti_phase(args.seed)
+        remove_packages()
         print(f"[phase] aoti package: {time.perf_counter() - start:.1f} s | launches {launch_counts()}", flush=True)
+        print(f"[gpu] {gpu}")
+        return 0
+    if not (args.parallel_only or args.kernel_times):
+        from multimodal_timesfm_torch import native
+
+        native_future = native.start_build(True)  # the compilers run alongside what follows
+    if args.native_only:
+        start = time.perf_counter()
+        native_op_checks(args.seed, native_future)
+        print(f"[phase] native ops: {time.perf_counter() - start:.1f} s", flush=True)
+        start = time.perf_counter()
+        served = aoti_phase(args.seed)
+        print(f"[phase] aoti package: {time.perf_counter() - start:.1f} s", flush=True)
+        start = time.perf_counter()
+        native_phase(served, native_future)
+        print(f"[phase] native serving: {time.perf_counter() - start:.1f} s | launches {NATIVE_LAUNCHES}", flush=True)
         print(f"[gpu] {gpu}")
         return 0
     if args.parallel_only:
@@ -4141,6 +4341,7 @@ def main() -> int:
     rows.update(phase("chronos kernels", chronos_kernel_phase, args.seed))
     rows.update(phase("flash kernels", flash_kernel_phase, args.seed))
     phase("vmap rules", vmap_rule_checks, args.seed)
+    phase("native ops", native_op_checks, args.seed, native_future)
 
     # The main paths: every launch counter starts at 0 just before each and is read
     # just after; the kernels line reports their sum.
@@ -4154,9 +4355,11 @@ def main() -> int:
             launch_counters()[key].shapes.clear()
         GRAPH_LAUNCHES.clear()
         RANK_LAUNCHES.clear()
+        NATIVE_LAUNCHES.clear()
         out = phase(name, fn, *a)
         for key, n in launch_counts().items():
-            launches[key] += n + GRAPH_LAUNCHES.get(key, 0) + RANK_LAUNCHES.get(key, 0)
+            launches[key] += (n + GRAPH_LAUNCHES.get(key, 0) + RANK_LAUNCHES.get(key, 0)
+                              + NATIVE_LAUNCHES.get(key, 0))
         for route, n in b4_routes().items():
             routes[route] = routes.get(route, 0) + n
         return out
@@ -4175,8 +4378,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_path("pretrained to served", pretrained_phase, args.seed)
     torch.cuda.empty_cache()
-    main_path("aoti package", aoti_phase, args.seed)
+    served = main_path("aoti package", aoti_phase, args.seed)
     torch.cuda.empty_cache()
+    main_path("native serving", native_phase, served, native_future)
+    del served
     main_path("sweeps", sweep_phase, args.seed)
     torch.cuda.empty_cache()
     main_path("parallel", parallel_phase, args.seed)

@@ -35,9 +35,13 @@ port's attention custom ops (``torch.ops.mtt.*``, traced under
 Hopper kernels when it is served on the card (it is moved with
 ``torch.export.passes.move_to_device_pass``) and serves with their plain
 versions on the CPU. The custom ops are opaque to Inductor, so a package
-calls them through PyTorch's dispatcher: it loads into a Python process that
-has imported the modules registering them, which :func:`load_program` does,
-and there the hand-written kernels launch from inside the package. A package
+calls them through PyTorch's dispatcher by name, and any process that has
+them registered serves it: a Python process that has imported the modules
+registering them, which :func:`load_program` does, or ``mtt_serve``, a
+libtorch program with no Python in it that loads their C++ registration
+(``csrc/mtt_serve.cpp``, ``csrc/mtt_ops.cpp``, built and driven by
+``native.py``), as TF Serving serves JAX's SavedModel. Either way the
+hand-written kernels launch from inside the package. A package
 is tolerance-equal to the eager model, not bit-equal, since Inductor fuses
 and reorders the elementwise work. :func:`load_program` imports torch, numpy
 and the op modules, and no model code.
