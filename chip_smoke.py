@@ -7,11 +7,14 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the four sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the six sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
-   ``chronos_attention.cu``, ``chronos_attention_bwd.cu``, sharing
-   ``chronos_common.cuh``) with nvcc for sm_90a, one nvcc per source started together; print the
-   build seconds, the compiler's register and shared-memory report, and the
+   their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
+   sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
+   sharing ``chronos_common.cuh``) with nvcc for sm_90a, one nvcc per source started
+   together; print the build seconds, the compiler's register, shared-memory and spill
+   report, the SASS count per kernel family of HMMA (mma.sync), HGMMA (wgmma) and UTMALDG
+   (TMA tile loads), failing if a wgmma-route family holds no HGMMA or UTMALDG, and the
    card's name and power limit;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16, on every query row (rows with no valid key included):
@@ -29,7 +32,11 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    bit-equal; all at the
    shapes the serving and training paths give them, and at edge shapes. The
    route and tiles of each kernel at its main-path shapes are printed
-   (``[route]``). The kernel, the plain version and
+   (``[route]``: in bf16 at head_dim 80 the causal kernels take the wgmma/TMA route
+   from the border the dispatch rule sets, mma.sync below it). First the bf16 borders
+   between those two routes: both routes' forward and backward at S = 16 to 2,048
+   (D = 80, about 8,192 tokens a call), checked and timed in turns, one ``[gate]`` line
+   per length and one per border. The kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
    timed (device time from torch.profiler, and CUDA events around
@@ -219,11 +226,12 @@ at phase 11's 6-head shapes and runs phase 11 (making phase 10's tree
 itself); ``--aoti-only`` only builds the kernels and runs phase 12;
 ``--native-only`` builds the kernels and the native server, checks the C++ ops and
 runs phases 12 and 13. ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
-checks and times every kernel at its main-path shapes in fp32 and bf16 (the
-six causal kernels, unless ``--chronos-only``; B4f and B4b with and without
-dbias at 128 x 67, 128 x 67 at 6 heads and 16 x 577), with the port imported from DIR (another
-checkout, such as the parent commit's) when given, so that two trees compare
-on one card. ``python3 chip_smoke.py --serving-times [--root DIR]`` only
+prints the routes and the ``[gate]`` borders and checks and times every kernel at its
+main-path shapes in fp32 and bf16 (the six causal kernels and the borders, unless
+``--chronos-only``; B4f and B4b with and without dbias at 128 x 67, 128 x 67 at 6 heads
+and 16 x 577); with DIR (another checkout, such as the parent commit's) the library of
+that checkout is built too and its B2f, B2b, B3f and B3b are timed against this one's on
+the same bf16 inputs, in turns, in the same run. ``python3 chip_smoke.py --serving-times [--root DIR]`` only
 times TimesFM serving at context 512 (fp32 and bf16, seven calls each), with
 the port imported from DIR when given. ``python3 chip_smoke.py
 --training-times [--root DIR]`` only times the eager ``chronos_mm_h32`` bf16
@@ -321,27 +329,29 @@ TRAIN_LR = 1e-4
 # Baseline mode updates all 200M random weights: at 1e-4 one Adam step,
 # about lr * sign(g) on every weight, raised the loss from 15.6 to 283.
 BASELINE_LR = 1e-5
-CU_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd.cu"
 CU_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd.cu"
 CU_CHRONOS_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention.cu"
-# Every kernel of the port: (key, wrapper, CUDA source, the TPU kernel it
-# replaces, (B, S, H, D) of the main-path shape it is timed at in bf16).
+# The bf16 wgmma/TMA route the dispatch gives B1f, B2 and B3 at their main-path shapes.
+CU_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_hopper.cu"
+CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
+# Every kernel of the port: (key, wrapper, CUDA source of the route its main-path shape
+# takes in bf16, the TPU kernel it replaces, (B, S, H, D) of that shape).
 # B1f at serving context 2048 (64 tokens, batch 64) and B2f at context 16384
 # (512 tokens, batch 8); B1b at training context 512 (16 tokens, batch 256)
 # and B2b at context 16384 (512 tokens, batch 16); B3 at context 67,200
 # (2,100 tokens, batch 2); B4 at Chronos-2's fine-tune (67 tokens, batch 128).
 KERNELS = (
-    ("B1f", "fused_qkv_causal_attention", CU_SOURCE,
+    ("B1f", "fused_qkv_causal_attention", CU_HOPPER_SOURCE,
      "multimodal_timesfm_tpu/ops/qkv_attention.py:111", (64, 64, 16, 80)),
     ("B1b", "fused_qkv_causal_attention_bwd", CU_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/qkv_attention.py:141", (256, 16, 16, 80)),
-    ("B2f", "fused_causal_attention", CU_SOURCE,
+    ("B2f", "fused_causal_attention", CU_HOPPER_SOURCE,
      "multimodal_timesfm_tpu/ops/attention.py:174", (8, 512, 16, 80)),
-    ("B2b", "fused_causal_attention_bwd", CU_BWD_SOURCE,
+    ("B2b", "fused_causal_attention_bwd", CU_HOPPER_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/attention.py:189", (16, 512, 16, 80)),
-    ("B3f", "flash_causal_attention", CU_SOURCE,
+    ("B3f", "flash_causal_attention", CU_HOPPER_SOURCE,
      "multimodal_timesfm_tpu/ops/attention.py:322", (2, 2100, 16, 80)),
-    ("B3b", "flash_causal_attention_bwd", CU_BWD_SOURCE,
+    ("B3b", "flash_causal_attention_bwd", CU_HOPPER_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/attention.py:322", (2, 2100, 16, 80)),
     ("B4f", "fused_chronos_attention", CU_CHRONOS_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
@@ -371,10 +381,18 @@ def kernel_entries(rows: dict[str, dict], launches: dict[str, int]) -> list[dict
     return entries
 
 
-def sass_mma_report(lib_path) -> list[str]:
-    """Per kernel family of the library, from ``cuobjdump -sass``: how many of its compiled
-    instantiations contain tensor-core instructions (HMMA), and the fewest they hold. Lines
-    naming no tool when the toolkit has no cuobjdump."""
+# The SASS instructions sass_mma_report counts per kernel family: mma.sync's (HMMA),
+# wgmma's (HGMMA) and TMA's tile loads (UTMALDG).
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+# The kernel families of the wgmma route, which must hold HGMMA and UTMALDG.
+WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
+                  "attention_bwd_dkdv_wgmma_kernel")
+
+
+def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
+    """Per kernel family of the library, from ``cuobjdump -sass``: for each compiled
+    instantiation, how many of each of :data:`SASS_OPS` it holds. None when the toolkit
+    has no cuobjdump."""
     import re
     from pathlib import Path
 
@@ -382,19 +400,41 @@ def sass_mma_report(lib_path) -> list[str]:
 
     tool = Path(_kernels.nvcc_path()).with_name("cuobjdump")
     if not tool.is_file():
-        return [f"no {tool}: SASS not read"]
+        return None
     out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True)
-    counts: dict[str, list[int]] = {}
+    counts: dict[str, list[dict[str, int]]] = {}
     family = None
     for line in out.stdout.splitlines():
         found = re.search(r"Function : \S*?(\d+)((?:chronos|attention)_\w*?kernel)", line)
         if found:
             family = found.group(2)
-            counts.setdefault(family, []).append(0)
-        elif family is not None and "HMMA" in line:
-            counts[family][-1] += 1
-    return [f"{name}: {sum(n > 0 for n in found)} of {len(found)} instantiations run HMMA "
-            f"(fewest {min(found)})" for name, found in sorted(counts.items())]
+            counts.setdefault(family, []).append(dict.fromkeys(SASS_OPS, 0))
+        elif family is not None:
+            op = re.search(r"\b(HMMA|HGMMA|UTMALDG)\b", line)
+            if op:
+                counts[family][-1][op.group(1)] += 1
+    return counts
+
+
+def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
+    """One line per kernel family of the library: how many of its compiled instantiations
+    hold tensor-core instructions of mma.sync (HMMA) and of wgmma (HGMMA) and TMA tile
+    loads (UTMALDG), and the fewest they hold. With ``require_wgmma`` (a library of this
+    checkout), raises if a family of the wgmma route is missing or holds no HGMMA or no
+    UTMALDG; a line naming no tool when the toolkit has no cuobjdump."""
+    counts = sass_counts(lib_path)
+    if counts is None:
+        return ["no cuobjdump: SASS not read"]
+    lines = []
+    for name, found in sorted(counts.items()):
+        parts = [f"{sum(c[op] > 0 for c in found)} of {len(found)} instantiations run {op} "
+                 f"(fewest {min(c[op] for c in found)})" for op in SASS_OPS]
+        lines.append(f"{name}: " + ", ".join(parts))
+    for name in WGMMA_FAMILIES if require_wgmma else ():
+        found = counts.get(name, [])
+        if not found or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in found):
+            raise AssertionError(f"SASS: {name} does not run HGMMA and UTMALDG in every instantiation: {found}")
+    return lines
 
 
 def gpu_line() -> str:
@@ -1098,14 +1138,124 @@ def flash_kernel_phase(seed: int) -> dict[str, dict]:
     return rows
 
 
-def kernel_times(seed: int, chronos_only: bool = False) -> None:
+# The lengths the bf16 border between the wgmma and mma.sync routes is measured at (D = 80,
+# 16 heads, about 8,192 tokens a call: B = 8192 // S).
+BORDER_LENGTHS = (16, 32, 64, 128, 192, 256, 512, 1024, 2048)
+
+
+# A route counts as the faster at a length when its device time is below this share of the
+# other's: the spread between two readings of one kernel in one run is 2-4%.
+BORDER_MARGIN = 0.95
+
+
+def route_borders(seed: int) -> None:
+    """The bf16 border between the causal kernels' wgmma and mma.sync routes: at each of
+    :data:`BORDER_LENGTHS` the forward and the backward on both routes (the library's route
+    override), checked against the plain versions and timed in turns (mma.sync, wgmma,
+    wgmma, mma.sync; device time from torch.profiler, so the host's cost of a call is not
+    counted); one ``[gate]`` line per length, then one per border: the least S from which
+    the wgmma route is the faster (by :data:`BORDER_MARGIN`) at every measured length,
+    beside the least S the dispatch rule gives it."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.attention import (
+        fused_causal_attention,
+        fused_causal_attention_bwd,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    heads, dim, dtype = 16, 80, torch.bfloat16
+    faster: dict[str, list[bool]] = {"forward": [], "backward": []}
+    try:
+        for seq in BORDER_LENGTHS:
+            batch = max(1, 8192 // seq)
+            q, k, v, g = (torch.randn(batch, seq, heads, dim, generator=gen, device="cuda") for _ in range(4))
+            q, k, v, g = (q / math.sqrt(dim)).to(dtype), k.to(dtype), v.to(dtype), g.to(dtype)
+            valid = left_padded_valid(batch, seq, gen)
+            fwd = lambda: fused_causal_attention(q, k, v, valid)  # noqa: E731
+            bwd = lambda: fused_causal_attention_bwd(q, k, v, valid, g)  # noqa: E731
+            ref, ref_b = plain_causal_attention(q, k, v, valid), plain_attention_bwd(q, k, v, valid, g)
+            times = {"mma.sync": [], "wgmma": []}
+            for route in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+                _kernels.set_route(route)
+                if not times[route]:
+                    compare(f"{route} route S={seq}", fwd(), ref)
+                    compare_bwd(f"{route} route S={seq} backward", bwd(), ref_b)
+                times[route].append((device_ms(fwd, 20)[0], device_ms(bwd, 10)[0]))
+            mean = {r: [sum(t[i] for t in ts) / len(ts) for i in (0, 1)] for r, ts in times.items()}
+            for i, name in enumerate(("forward", "backward")):
+                faster[name].append(mean["wgmma"][i] < BORDER_MARGIN * mean["mma.sync"][i])
+            print(f"[gate] bf16 D={dim} H={heads} S={seq} B={batch}, device ms: forward mma.sync "
+                  f"{mean['mma.sync'][0]:.4f} ms, wgmma {mean['wgmma'][0]:.4f} ms; backward mma.sync "
+                  f"{mean['mma.sync'][1]:.4f} ms, wgmma {mean['wgmma'][1]:.4f} ms (both within "
+                  f"tolerance of the plain versions)", flush=True)
+    finally:
+        _kernels.set_route("rule")
+    for name, wins in faster.items():
+        measured = next((s for i, s in enumerate(BORDER_LENGTHS) if all(wins[i:])), None)
+        rule = next((s for s in BORDER_LENGTHS
+                     if "wgmma" in _kernels.attention_route(name == "backward", dtype, s, dim)), None)
+        print(f"[gate] bf16 {name} border: the wgmma route is the faster (by {1 - BORDER_MARGIN:.0%}) "
+              f"from S={measured} on (of {BORDER_LENGTHS}); the dispatch rule takes it from S={rule}",
+              flush=True)
+
+
+def parent_kernels(root: str):
+    """The ``ops/_kernels.py`` of the checkout at ``root`` (the parent commit's, say) as a
+    module of its own: its library builds from that checkout's ``csrc/`` into that
+    checkout's ``build/``, and its wrappers launch that library's kernels."""
+    import importlib.util
+
+    path = Path(root).resolve() / "multimodal_timesfm_torch" / "ops" / "_kernels.py"
+    spec = importlib.util.spec_from_file_location("parent_kernels", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.library()
+    return module
+
+
+def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q, k, v, valid,
+                          g) -> None:
+    """One ``[kernels]`` line: the causal kernel ``key`` (B2f, B2b, B3f, B3b) of the parent
+    checkout's library against this one's on the same bf16 inputs at ``shape``, timed in
+    turns (parent, change, change, parent; device time from torch.profiler), with the
+    largest difference between the two outputs."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    backward = key.endswith("b")
+    outs = {name: tuple(torch.empty_like(q) for _ in range(3 if backward else 1))
+            for name in ("parent", "change")}
+    mods = {"parent": parent, "change": _kernels}
+
+    def call(name):
+        if backward:
+            return lambda: mods[name].attention_bwd(q, k, v, valid, g, *outs[name])
+        return lambda: mods[name].attention_fwd(q, k, v, valid, *outs[name])
+
+    times: dict[str, list[float]] = {"parent": [], "change": []}
+    iters = 5 if shape[1] > 1000 else 20
+    for name in ("parent", "change", "change", "parent"):
+        times[name].append(device_ms(call(name), iters)[0])
+    torch.cuda.synchronize()
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
+    batch, seq, heads, dim = shape
+    print(f"[kernels] {key} parent against change B={batch} S={seq} H={heads} D={dim} bfloat16: device ms "
+          f"parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f}, change {times['change'][0]:.4f} / "
+          f"{times['change'][1]:.4f} ({_kernels.attention_route(backward, torch.bfloat16, seq, dim)}); "
+          f"max |parent - change| {diff:.3g}", flush=True)
+
+
+def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None) -> None:
     """Every kernel at its main-path shapes, fp32 and bf16, checked against its plain version
     and timed beside the plain version, SDPA and the bound (``[kernels]`` lines): the six
     causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) left-padded (skipped with ``chronos_only``),
     then B4f, B4b without dbias and B4b with dbias at Chronos-2's fine-tune (128 x 67 tokens)
     and its serving at context 8192 (16 x 577), and at the fine-tune's shape with its 12 heads
-    over a model axis of 2 (128 x 67 x 6), one segment. With ``--root`` the port comes
-    from another checkout (the parent commit, say), so that two trees compare on one card."""
+    over a model axis of 2 (128 x 67 x 6), one segment. With ``root`` (``--root``: another
+    checkout, such as the parent commit's) the bf16 B2f, B2b, B3f and B3b rows are followed
+    by that checkout's kernels against this one's on the same inputs, so that the two compare
+    on one card in one run."""
     from multimodal_timesfm_torch.ops.attention import (
         flash_causal_attention,
         flash_causal_attention_bwd,
@@ -1124,6 +1274,7 @@ def kernel_times(seed: int, chronos_only: bool = False) -> None:
 
     forward = {"B2f": fused_causal_attention, "B3f": flash_causal_attention}
     backward = {"B2b": fused_causal_attention_bwd, "B3b": flash_causal_attention_bwd}
+    parent = parent_kernels(root) if root is not None and not chronos_only else None
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     for key, name, _, _, shape in KERNELS:
         if key.startswith("B4") or chronos_only:
@@ -1154,6 +1305,8 @@ def kernel_times(seed: int, chronos_only: bool = False) -> None:
                 check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
                                  lambda: plain_attention_bwd(q, k, v, valid, g4),
                                  sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
+            if parent is not None and dtype == torch.bfloat16 and key[:2] in ("B2", "B3"):
+                parent_against_change(key, shape, parent, q, k, v, valid, g4)
     for shape in (dict(KERNELS_BY_KEY)["B4f"], (128, 67, 6, 64), (16, 577, 12, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
@@ -4224,7 +4377,9 @@ def main() -> int:
     parser.add_argument("--kernel-times", action="store_true",
                         help="only check and time every kernel at its main-path shapes")
     parser.add_argument("--root", default=None,
-                        help="with --kernel-times: import the port from this checkout instead")
+                        help="with --kernel-times: also time this checkout's causal kernels (B2, B3) "
+                             "beside this one's; with --serving-times or --training-times: import the "
+                             "port from this checkout instead")
     parser.add_argument("--chronos-only", action="store_true",
                         help="with --kernel-times: only the Chronos rows (B4f, B4b)")
     parser.add_argument("--serving-times", action="store_true",
@@ -4246,7 +4401,7 @@ def main() -> int:
         parser.error("--chronos-only needs --kernel-times")
     if args.root is not None and not (args.kernel_times or args.serving_times or args.training_times):
         parser.error("--root needs --kernel-times, --serving-times or --training-times")
-    if args.root is not None:
+    if args.root is not None and not args.kernel_times:
         sys.path.insert(0, args.root)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4270,7 +4425,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}")
-    for line in sass_mma_report(lib_path):
+    for line in sass_mma_report(lib_path, require_wgmma=args.root is None or args.kernel_times):
         print(f"[build] SASS {line}")
     gpu = gpu_line()
     print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda} | port from "
@@ -4321,9 +4476,10 @@ def main() -> int:
         print(f"[gpu] {gpu}")
         return 0
     if args.kernel_times:
-        if hasattr(_kernels, "attention_route"):
-            print_routes()
-        kernel_times(args.seed, args.chronos_only)
+        print_routes()
+        if not args.chronos_only:
+            route_borders(args.seed)
+        kernel_times(args.seed, args.chronos_only, args.root)
         print(f"[gpu] {gpu}")
         return 0
     print_routes()
@@ -4334,6 +4490,7 @@ def main() -> int:
         print(f"[phase] {name}: {time.perf_counter() - start:.1f} s", flush=True)
         return out
 
+    phase("route borders", route_borders, args.seed)
     rows = phase("forward kernels", kernel_phase, args.seed)
     rows.update(phase("backward kernels", backward_kernel_phase, args.seed))
     phase("edge shapes", edge_checks, args.seed)

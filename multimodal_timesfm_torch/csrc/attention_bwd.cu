@@ -29,7 +29,11 @@
 // ld_out = 3*H*D, so dq|dk|dv land where JAX's _bwd_kernel writes them; the
 // whole-sequence entry point passes (B, S, H, D) tensors.
 //
-// The shape of FlashAttention-2's backward without its dQ atomics: two
+// bf16 at head_dim 80 from S = 128 (the border chip_smoke.py's [gate] lines
+// measure), with q, k, v and g readable by TMA, takes the wgmma/TMA route of
+// attention_bwd_hopper.cu (three kernels, the statistics in a pass of their
+// own). The routes here, for every other shape (bf16 mma.sync) and for fp32,
+// take the shape of FlashAttention-2's backward without its dQ atomics: two
 // kernels on the caller's stream, no atomics, the same result from launch
 // to launch.
 //   1. dq: one block per query tile. Pass 1 walks the key tiles once,
@@ -891,9 +895,22 @@ cudaError_t dispatch_mma(const bf16* q, const bf16* k, const bf16* v, const uint
 
 }  // namespace
 
+// The bf16 wgmma/TMA route (attention_bwd_hopper.cu).
+extern "C" int hopper_bwd_takes(int S, int D);
+extern "C" int hopper_bwd_layout(const void* q, const void* k, const void* v, const void* g,
+                                 long long ld_in, long long ld_g);
+extern "C" void hopper_bwd_config(int* cfg);
+extern "C" int hopper_attention_bwd(const void* q, const void* k, const void* v, const void* valid,
+                                    const void* g, void* dq, void* dk, void* dv, void* stats,
+                                    int B, int S, int H, long long ld_in, long long ld_g,
+                                    long long ld_out, void* stream);
+
 // dtype: 0 = float32, 1 = bfloat16. valid: (B, S) bytes, nonzero = valid key.
-// stats: 3 * B * H * S floats of scratch. Returns the CUDA error of the
-// launches (0 on success); launches on `stream` and does not synchronize.
+// stats: 3 * B * H * Sp floats of scratch, Sp = S rounded up to 64. Returns
+// the CUDA error of the launches (0 on success); launches on `stream` and
+// does not synchronize. bf16 takes the wgmma/TMA route where
+// hopper_bwd_takes(S, D) and its layout rule (q, k, v and g rows and bases
+// 16-byte aligned) hold, and the mma.sync route otherwise.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* valid,
                              const void* g, void* dq, void* dk, void* dv, void* stats, int dtype,
                              int B, int S, int H, int D, long long ld_in, long long ld_g,
@@ -908,20 +925,22 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
                              static_cast<const float*>(v), vm, static_cast<const float*>(g),
                              static_cast<float*>(dq), static_cast<float*>(dk),
                              static_cast<float*>(dv), sc, B, S, H, D, ld_in, ld_g, ld_out, st);
-  if (dtype == 1)
-    return (int)dispatch_mma(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                             static_cast<const bf16*>(v), vm, static_cast<const bf16*>(g),
-                             static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                             static_cast<bf16*>(dv), sc, B, S, H, D, ld_in, ld_g, ld_out, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hopper_bwd_takes(S, D) && hopper_bwd_layout(q, k, v, g, ld_in, ld_g))
+    return hopper_attention_bwd(q, k, v, valid, g, dq, dk, dv, stats, B, S, H, ld_in, ld_g, ld_out,
+                                stream);
+  return (int)dispatch_mma(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), vm, static_cast<const bf16*>(g),
+                           static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                           sc, B, S, H, D, ld_in, ld_g, ld_out, st);
 }
 
-// The route and tiles attention_bwd takes for (dtype, S, D), for reports:
-// cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync m16n8k16), threads,
-// query rows per head and block of the dq kernel, keys per head and block of
-// the dkdv kernel, heads per block, padded head_dim, output columns per
-// block, dL as a hi + lo pair (1) or one bf16 operand (0)}. Returns 0, or
-// cudaErrorInvalidValue.
+// The route and tiles attention_bwd takes for (dtype, S, D) with a layout
+// every route reads, for reports: cfg = {route (0: fp32 CUDA cores, 1: bf16
+// mma.sync m16n8k16, 2: bf16 wgmma + TMA), threads, query rows per head and
+// block of the dq kernel, keys per head and block of the dkdv kernel, heads
+// per block, padded head_dim, output columns per block, dL as a hi + lo pair
+// (1) or one bf16 operand (0)}. Returns 0, or cudaErrorInvalidValue.
 extern "C" int attention_bwd_config(int dtype, int S, int D, int* cfg) {
   if (S <= 0 || D <= 0 || D > kMaxDim) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -931,6 +950,10 @@ extern "C" int attention_bwd_config(int dtype, int S, int D, int* cfg) {
     return 0;
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hopper_bwd_takes(S, D)) {
+    hopper_bwd_config(cfg);
+    return 0;
+  }
   const int nk = mma_nk(D);
   const int qw = mma_qw(S, nk);
   const int c[8] = {1, kThreadsMma, 16 * qw, 16 * qw, 4 / qw, 16 * nk, 16 * mma_nko(nk),

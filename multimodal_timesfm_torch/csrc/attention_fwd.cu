@@ -22,14 +22,20 @@
 // columns and ld_in = 3*H*D; for (B, S, H, D) tensors ld_in = H*D. Offsets
 // are 64-bit; any S the card's memory holds is addressed, head_dim 1..256.
 //
-// Both routes take two passes over the key tiles: pass 1 keeps a running row
-// max m and sum s of exp(l - m), pass 2 recomputes the logits, forms
-// W = exp(l - m) / s, rounds it to the compute dtype and accumulates W V. A
-// one-pass online softmax would round the unnormalised weights instead, a
-// different result. Both visit only the key tiles the skip rule of
+// Routes. bf16 at head_dim 80 from S = 64 (the border chip_smoke.py's
+// [gate] lines measure), with q, k, v readable by TMA, takes the wgmma/TMA
+// route of attention_fwd_hopper.cu: one pass with an online softmax, which
+// rounds the unnormalised weights exp(l - m_running) to bf16 where JAX
+// rounds the normalised ones (2^-9 relative per weight either way; its
+// header and tests/test_torch_port_attention_hopper.py). The two routes
+// here, for every other shape (bf16 mma.sync) and for fp32, take two passes
+// over the key tiles: pass 1 keeps a running row max m and sum s of
+// exp(l - m), pass 2 recomputes the logits, forms W = exp(l - m) / s,
+// rounds it to the compute dtype as JAX does and accumulates W V. All visit
+// only the key tiles the skip rule of
 // attention_common.cuh keeps (tiles above the causal diagonal and fully
 // padded left tiles are not loaded; a query tile holding a row with no valid
-// key walks them all), and both load the next key (and value) tile with
+// key walks them all); the two here load the next key (and value) tile with
 // cp.async into a two-stage ring while the current one computes.
 //
 // bf16 route, on the tensor cores. 128 threads, 4 warps; each warp owns 16
@@ -58,9 +64,9 @@
 //
 // What bounds it on an H100: at the main-path shapes the work is small
 // against the bytes (chip_smoke.py prints both bounds), but each block
-// re-reads its key tiles from L2, and the bf16 route runs mma.sync, which
-// reaches about half of the card's bf16 rate (wgmma needs 64-row warpgroup
-// tiles and, with TMA, a 128-byte swizzle a 160-byte row does not fit). The
+// re-reads its key tiles from L2, and the bf16 route here runs mma.sync,
+// which reaches about half of the card's bf16 rate (the wgmma route fits a
+// 160-byte row by splitting it into 64- and 16-column blocks). The
 // exponentials (two per logit) run on the SFU. The fp32 route is bound by
 // the CUDA cores' 67 TFLOP/s.
 
@@ -537,9 +543,33 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, const void
 
 }  // namespace
 
+// The bf16 wgmma/TMA route (attention_fwd_hopper.cu).
+extern "C" int hopper_fwd_takes(int S, int D);
+extern "C" int hopper_fwd_layout(const void* q, const void* k, const void* v, long long ld_in);
+extern "C" void hopper_fwd_config(int* cfg);
+extern "C" int hopper_attention_fwd(const void* q, const void* k, const void* v, const void* valid,
+                                    void* out, int B, int S, int H, long long ld_in,
+                                    long long ld_out, void* stream);
+
+namespace {
+int route_override = 0;
+}  // namespace
+
+// For measuring the border between the bf16 routes (chip_smoke.py's [gate]
+// lines): 0 = the dispatch rule, 1 = mma.sync only, 2 = wgmma at every S its
+// layout rule allows. Applies to attention_fwd and attention_bwd alike.
+extern "C" int attention_set_route(int route) {
+  if (route < 0 || route > 2) return (int)cudaErrorInvalidValue;
+  route_override = route;
+  return 0;
+}
+extern "C" int mtt_attention_route_override() { return route_override; }
+
 // dtype: 0 = float32, 1 = bfloat16. valid: (B, S) bytes, nonzero = valid key.
 // Returns the CUDA error of the launch (0 on success); launches on `stream`
-// and does not synchronize.
+// and does not synchronize. bf16 takes the wgmma/TMA route where
+// hopper_fwd_takes(S, D) and its layout rule (q, k, v rows and bases 16-byte
+// aligned) hold, and the mma.sync route otherwise.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, const void* valid,
                              void* out, int dtype, int B, int S, int H, int D, long long ld_in,
                              long long ld_out, void* stream) {
@@ -547,14 +577,17 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, const 
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_f32(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
-  if (dtype == 1) return (int)dispatch_mma(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hopper_fwd_takes(S, D) && hopper_fwd_layout(q, k, v, ld_in))
+    return hopper_attention_fwd(q, k, v, valid, out, B, S, H, ld_in, ld_out, stream);
+  return (int)dispatch_mma(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
 }
 
-// The route and tiles attention_fwd takes for (dtype, S, D), for reports:
-// cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync m16n8k16), threads,
-// query rows per head and block, keys per tile, heads per block, padded
-// head_dim, output columns per block}. Returns 0, or cudaErrorInvalidValue.
+// The route and tiles attention_fwd takes for (dtype, S, D) with a layout
+// every route reads, for reports: cfg = {route (0: fp32 CUDA cores, 1: bf16
+// mma.sync m16n8k16, 2: bf16 wgmma + TMA), threads, query rows per head and
+// block, keys per tile, heads per block, padded head_dim, output columns per
+// block}. Returns 0, or cudaErrorInvalidValue.
 extern "C" int attention_fwd_config(int dtype, int S, int D, int* cfg) {
   if (S <= 0 || D <= 0 || D > kMaxDim) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -564,6 +597,10 @@ extern "C" int attention_fwd_config(int dtype, int S, int D, int* cfg) {
     return 0;
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hopper_fwd_takes(S, D)) {
+    hopper_fwd_config(cfg);
+    return 0;
+  }
   const int nk = mma_nk(D);
   const int qw = mma_qw(S, nk);
   const int c[7] = {1, kThreadsMma, 16 * qw, 16 * qw, 4 / qw, 16 * nk, 16 * mma_nko(nk)};

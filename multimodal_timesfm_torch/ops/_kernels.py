@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(
     CSRC / name
-    for name in ("attention_fwd.cu", "attention_bwd.cu", "chronos_attention.cu", "chronos_attention_bwd.cu")
+    for name in ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_hopper.cu",
+                 "attention_bwd_hopper.cu", "chronos_attention.cu", "chronos_attention_bwd.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -125,10 +126,23 @@ def library() -> ctypes.CDLL:
         fn.restype = i32
     lib.chronos_attention_config.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.chronos_attention_config.restype = i32
+    lib.attention_set_route.argtypes = [i32]
+    lib.attention_set_route.restype = i32
     return lib
 
 
-_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16")
+_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-specialised")
+ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2}
+
+
+def set_route(name: str) -> None:
+    """Which bf16 route the causal attention kernels take: ``"rule"`` (the library's
+    dispatch rule, the default), ``"mma.sync"`` (never the wgmma route) or ``"wgmma"``
+    (the wgmma route at every S its layout rule allows). For measuring the border between
+    the two (``chip_smoke.py``'s ``[gate]`` lines); process-wide, in the library."""
+    err = library().attention_set_route(ROUTE_NAMES[name])
+    if err != 0:
+        raise RuntimeError(f"attention_set_route({name!r}) failed with CUDA error {err}")
 
 
 def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> str:
@@ -143,8 +157,11 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
     text = (f"{_ROUTES[route]}, {threads} threads, {rows} query rows x {keys} keys per tile, "
             f"{heads} head(s) per block, head_dim {dim} padded to {padded}, {cols} output "
             f"columns per block")
-    if backward and route == 1:
+    if backward and route != 0:
         text += ", dL as " + ("a hi + lo bf16 pair" if cfg[7] else "one bf16 operand")
+    if route == 2:
+        text += (", one pass" if not backward else ", 3 kernels (row statistics, dQ, dK and dV)")
+        text += ", 2 consumer warpgroups of 64 rows + 1 TMA producer warpgroup"
     return text
 
 
@@ -275,9 +292,9 @@ def attention_bwd(
 
     q, k, v as for :func:`attention_fwd`; g: the output's cotangent, a
     (B, S, H, D) view with its own row stride; dq, dk, dv: (B, S, H, D) views
-    sharing one row stride, written whole. A (3, B, H, S) fp32 scratch for the
-    row statistics is allocated here. Raises ``RuntimeError`` if a launch is
-    refused.
+    sharing one row stride, written whole. A (3, B, H, S rounded up to 64) fp32
+    scratch for the row statistics is allocated here. Raises ``RuntimeError``
+    if a launch is refused.
     """
     lib = library()
     outs = (("dq", dq), ("dk", dk), ("dv", dv))
@@ -287,7 +304,8 @@ def attention_bwd(
     _check_heads_view("g", g, shape, g.stride(1))
     for name, t in outs:
         _check_heads_view(name, t, shape, dq.stride(1))
-    stats = torch.empty(3 * batch * heads * seq, dtype=torch.float32, device=q.device)
+    padded = -(-seq // 64) * 64
+    stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attention_bwd(
