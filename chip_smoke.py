@@ -7,11 +7,13 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the six sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the eight sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
    their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
    sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
-   sharing ``chronos_common.cuh``) with nvcc for sm_90a, one nvcc per source started
+   sharing ``chronos_common.cuh``, and their bf16 wgmma/TMA route at head_dim 64
+   ``chronos_attention_hopper.cu``, ``chronos_attention_bwd_hopper.cu``, sharing
+   ``chronos_hopper.cuh``) with nvcc for sm_90a, one nvcc per source started
    together; print the build seconds, the compiler's register, shared-memory and spill
    report, the SASS count per kernel family of HMMA (mma.sync), HGMMA (wgmma) and UTMALDG
    (TMA tile loads), failing if a wgmma-route family holds no HGMMA or UTMALDG, and the
@@ -28,7 +30,8 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    entry points; the Chronos kernels (B4f/B4b) with one segment, and three
    segments with padded tokens, dbias included, on every route and tile
    shape (S = 5, 16, 17, 48, 64, 67, 70, 80, 81, 96, 97, 113, 128, 129, 193,
-   200, 577; head dims 16 to 256); every backward launched twice and held
+   200, 577; head dims 16 to 256), and on the wgmma route forced at 16 x 577,
+   64 x 193, 64 x 97 and its tails; every backward launched twice and held
    bit-equal; all at the
    shapes the serving and training paths give them, and at edge shapes. The
    route and tiles of each kernel at its main-path shapes are printed
@@ -36,7 +39,10 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    from the border the dispatch rule sets, mma.sync below it). First the bf16 borders
    between those two routes: both routes' forward and backward at S = 16 to 2,048
    (D = 80, about 8,192 tokens a call), checked and timed in turns, one ``[gate]`` line
-   per length and one per border. The kernel, the plain version and
+   per length and one per border; then the same for the Chronos kernels' wgmma route
+   against their mma.sync routes at S = 64 to 577 (D = 64, 12 heads, about 9,232
+   tokens a call; device time held to a CUDA graph replay's event time). The kernel,
+   the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
    timed (device time from torch.profiler, and CUDA events around
@@ -90,7 +96,9 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    batch 128 (67 tokens) in fp32 and bf16 (the frozen encoder stored in
    bf16), baseline at batch 128 in fp32
    (dbias on the path), and multimodal with 2 future patches packed 16 to a
-   row at batch 512 (segment masking on the path); 16 B4f and 16 B4b
+   row at batch 512 (segment masking on the path); then at context 8192 (577
+   tokens, batch 16) in bf16, multimodal and baseline, the path of B4b on the
+   wgmma route (its route checked); 16 B4f and 16 B4b
    launches per micro-batch; a profiled epoch per cell; and a one-step twin
    on the CPU in both modes, the baseline one holding the ``rel_pos_bias``
    gradient to the stated tolerance;
@@ -334,6 +342,18 @@ CU_CHRONOS_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention.cu"
 # The bf16 wgmma/TMA route the dispatch gives B1f, B2 and B3 at their main-path shapes.
 CU_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_hopper.cu"
 CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
+# The bf16 wgmma/TMA route the dispatch gives B4f and B4b at head_dim 64 past the Chronos
+# borders (Chronos-2 serving at contexts 2048 and 8192, the c8192 fine-tune).
+CU_CHRONOS_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_hopper.cu"
+CU_CHRONOS_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_hopper.cu"
+# The Chronos wgmma route's rows of the kernels line: (key, wrapper, source, TPU kernel,
+# the route's main-path shape: serving and fine-tuning at context 8192, 577 tokens).
+CHRONOS_WGMMA_KERNELS = (
+    ("B4f", "fused_chronos_attention", CU_CHRONOS_HOPPER_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (16, 577, 12, 64)),
+    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_HOPPER_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (16, 577, 12, 64)),
+)
 # Every kernel of the port: (key, wrapper, CUDA source of the route its main-path shape
 # takes in bf16, the TPU kernel it replaces, (B, S, H, D) of that shape).
 # B1f at serving context 2048 (64 tokens, batch 64) and B2f at context 16384
@@ -381,12 +401,30 @@ def kernel_entries(rows: dict[str, dict], launches: dict[str, int]) -> list[dict
     return entries
 
 
+def wgmma_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line's entries of the Chronos wgmma route (CHRONOS_WGMMA_KERNELS):
+    this process's counted launches on that route (``routes``, from b4_routes) and the
+    measured row at the route's main-path shape in bf16."""
+    entries = []
+    for key, name, cu, replaces, shape in CHRONOS_WGMMA_KERNELS:
+        batch, seq, heads, dim = shape
+        entries.append({
+            "name": f"{name} (wgmma route)", "route": "cuda", "source": cu, "replaces": replaces,
+            "launches": routes.get(f"{key} wgmma", 0),
+            "shape": f"B={batch} S={seq} H={heads} D={dim} bfloat16",
+            **rows[row_key(key, shape, torch.bfloat16)],
+        })
+    return entries
+
+
 # The SASS instructions sass_mma_report counts per kernel family: mma.sync's (HMMA),
 # wgmma's (HGMMA) and TMA's tile loads (UTMALDG).
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 # The kernel families of the wgmma route, which must hold HGMMA and UTMALDG.
 WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
-                  "attention_bwd_dkdv_wgmma_kernel")
+                  "attention_bwd_dkdv_wgmma_kernel", "chronos_fwd_wgmma_kernel",
+                  "chronos_bwd_rows_kernel", "chronos_bwd_dkdv_wgmma_kernel",
+                  "chronos_bwd_dbias_wgmma_kernel")
 
 
 def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
@@ -504,6 +542,48 @@ def device_ms(fn, iters: int) -> tuple[float, float]:
     return (device if device > 0 else event), event
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean time per call of ``fn`` between two CUDA events around the replay of one CUDA
+    graph of ``iters`` calls: no host cost between the launches, and no kernel left out."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+# A profiler reading below this share of its graph-replay reading has kernels missing from
+# the trace (one such trace read 0.3072 ms of B3b against an event time of 0.5332 ms on an
+# H100 80GB HBM3 at 700 W), and the event reading stands.
+HELD_SHARE = 0.95
+
+
+def held_ms(fn, iters: int) -> tuple[float, float, float, float]:
+    """(reading, device ms, event ms, graph ms) per call of ``fn``: the device time from the
+    profiler held to the CUDA-event time of a graph replay of the same calls
+    (:func:`graph_ms`); the reading is the device time unless it falls below HELD_SHARE of
+    the graph's event time."""
+    device, event = device_ms(fn, iters)
+    graph = graph_ms(fn, iters)
+    return (device if device >= HELD_SHARE * graph else graph), device, event, graph
+
+
 def left_padded_valid(batch: int, seq: int, gen: torch.Generator) -> torch.Tensor:
     """(B, S) bool key mask, row b valid from a random pad length in [0, S/2); row 0 unpadded."""
     pads = torch.randint(0, seq // 2, (batch,), generator=gen, device="cuda")
@@ -546,12 +626,19 @@ def compare(what: str, out: torch.Tensor, ref: torch.Tensor) -> float:
 
 def time_kernel(name: str, shape: tuple[int, int, int, int], dtype: torch.dtype, err: float,
                 tol: tuple[float, float], kernel, plain, library, bound: tuple[float, str], iters: int,
-                library_name: str) -> dict:
+                library_name: str, held: bool = False) -> dict:
     """Device and event times of a kernel, its plain version and the library yardstick; the
-    row of the ``kernels`` line, with ``err`` (checked against ``tol``) and the bound."""
+    row of the ``kernels`` line, with ``err`` (checked against ``tol``) and the bound. With
+    ``held`` the kernel's device time is held to a graph replay's event time (held_ms)."""
     batch, seq, heads, dim = shape
     bound_ms, bound_by = bound
-    ms, ms_ev = device_ms(kernel, iters)
+    if held:
+        ms, device, ms_ev, graph = held_ms(kernel, iters)
+        print(f"[kernels] {name} B={batch} S={seq} held: device {device:.4f} ms, graph replay {graph:.4f} ms"
+              f"{'' if ms == device else ' (the trace left kernels out: the event time stands)'}",
+              flush=True)
+    else:
+        ms, ms_ev = device_ms(kernel, iters)
     plain_ms, plain_ev = device_ms(plain, max(2, iters // 4))
     library_ms, library_ev = device_ms(library, iters)
     print(
@@ -980,7 +1067,7 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
         "fused_chronos_attention", shape, dtype, err_f, KERNEL_TOL[dtype],
         lambda: fused_chronos_attention(qkv, seg, bias),
         lambda: plain_chronos_attention(qkv, seg, bias), sdpa,
-        chronos_bound(*shape, seg, dtype, backward=False), 2 * iters, "sdpa",
+        chronos_bound(*shape, seg, dtype, backward=False), 2 * iters, "sdpa", held=True,
     )
     qd, kd, vd = (t.detach().requires_grad_() for t in (qh, kh, vh))
     out = torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=1.0)
@@ -991,13 +1078,14 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
         "fused_chronos_attention_bwd (no dbias)", shape, dtype, err_b, BWD_TOL[dtype],
         lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
         lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, False), sdpa_bwd,
-        chronos_bound(*shape, seg, dtype, backward=True), iters, "sdpa backward",
+        chronos_bound(*shape, seg, dtype, backward=True), iters, "sdpa backward", held=True,
     )
     time_kernel(
         "fused_chronos_attention_bwd (with dbias)", shape, dtype, max(err_b, err_db), BWD_TOL[dtype],
         lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True),
         lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, True), sdpa_bwd,
         chronos_bound(*shape, seg, dtype, backward=True, dbias=True), iters, "sdpa backward",
+        held=True,
     )
     return fwd, bwd
 
@@ -1077,18 +1165,50 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
               (3, 200, 2, 20, 3, True), (3, 70, 2, 32, 1, True), (3, 70, 2, 128, 3, True),
               (2, 70, 2, 256, 3, True), (9, 200, 2, 64, 3, True), (17, 97, 2, 64, 3, True),
               (4, 5, 2, 64, 1, False)]
+    timed = (main_shape, dict((k, shape) for k, *_, shape in CHRONOS_WGMMA_KERNELS)["B4f"])
     for dtype in (torch.float32, torch.bfloat16):
         for batch, seq, heads, dim, segments, padded in cases:
             shape = (batch, seq, heads, dim)
             qkv, seg, bias, g = chronos_inputs(shape, segments, padded, dtype, gen)
             what = f"B4 {shape} {segments} segment(s){' padded' if padded else ''}"
             errs = check_chronos(what, qkv, seg, bias, g)
-            if shape != main_shape or segments != 1:
+            if shape not in timed or segments != 1:
                 continue
-            fwd, bwd = chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10)
+            fwd, bwd = chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10 if seq < 100 else 5)
             rows[row_key("B4f", shape, dtype)] = fwd
             rows[row_key("B4b", shape, dtype)] = bwd
+    wgmma_route_checks(gen)
     return rows
+
+
+# The Chronos wgmma route's own checks (bf16, head_dim 64, the route forced at every S):
+# Chronos-2's 577, 193 and 97 tokens, one segment and three with padded tokens; the
+# one-row tails S = 64 k + 1 (65, 129), S = 64 (no tail), 17 and 200 (a work item whose
+# second warpgroup's rows all lie past S), 2 and 3 heads, odd batches.
+WGMMA_ROUTE_CASES = ([(batch, seq, 12, 64, *variant)
+                      for batch, seq in ((16, 577), (64, 193), (64, 97))
+                      for variant in ((1, False), (3, True))]
+                     + [(4, 65, 2, 64, 3, True), (3, 129, 12, 64, 3, True), (5, 64, 12, 64, 3, True),
+                        (7, 17, 3, 64, 3, True), (2, 200, 2, 64, 1, False), (9, 200, 2, 64, 3, True)])
+
+
+def wgmma_route_checks(gen: torch.Generator) -> None:
+    """B4f and B4b (with and without dbias) on the wgmma route at WGMMA_ROUTE_CASES against
+    their plain versions on every element, two backward launches bit-equal."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    try:
+        _kernels.set_chronos_route("wgmma")
+        for batch, seq, heads, dim, segments, padded in WGMMA_ROUTE_CASES:
+            shape = (batch, seq, heads, dim)
+            qkv, seg, bias, g = chronos_inputs(shape, segments, padded, torch.bfloat16, gen)
+            route = _kernels.chronos_plan(True, torch.bfloat16, batch, seq, heads, dim)["route"]
+            if route != 3 or _kernels.chronos_plan(False, torch.bfloat16, batch, seq, heads, dim)["route"] != 3:
+                raise AssertionError(f"B4 {shape}: the forced wgmma route is not the plan's")
+            check_chronos(f"B4 wgmma route {shape} {segments} segment(s){' padded' if padded else ''}",
+                          qkv, seg, bias, g)
+    finally:
+        _kernels.set_chronos_route("rule")
 
 
 def flash_kernel_phase(seed: int) -> dict[str, dict]:
@@ -1201,6 +1321,70 @@ def route_borders(seed: int) -> None:
               flush=True)
 
 
+# The lengths the bf16 border between the Chronos wgmma route and the mma.sync routes
+# (one-pass, tiled) is measured at: head_dim 64, 12 heads, about CHRONOS_BORDER_TOKENS tokens
+# a call (B = CHRONOS_BORDER_TOKENS // S): 16 x 577, Chronos-2's serving batch at context 8192.
+CHRONOS_BORDER_LENGTHS = (64, 80, 97, 128, 193, 577)
+CHRONOS_BORDER_TOKENS = 16 * 577
+
+
+def chronos_route_borders(seed: int) -> None:
+    """The bf16 border between the Chronos attention's wgmma route and its mma.sync routes:
+    at each of CHRONOS_BORDER_LENGTHS the forward, the backward without dbias and with dbias
+    on both (the library's route override), checked against the plain versions and timed in
+    turns (mma.sync, wgmma, wgmma, mma.sync; held_ms: device time held to a graph replay's
+    event time); one ``[gate]`` line per length, then one per direction: the least S from
+    which the wgmma route is the faster (by BORDER_MARGIN, the backward in both modes) at
+    every measured length, beside the least S the dispatch rule gives it."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        fused_chronos_attention_bwd,
+        plain_chronos_attention,
+        plain_chronos_attention_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    heads, dim, dtype = 12, 64, torch.bfloat16
+    faster: dict[str, list[bool]] = {"forward": [], "backward": []}
+    try:
+        for seq in CHRONOS_BORDER_LENGTHS:
+            batch = max(1, CHRONOS_BORDER_TOKENS // seq)
+            qkv, seg, bias, g = chronos_inputs((batch, seq, heads, dim), 1, False, dtype, gen)
+            calls = (lambda: fused_chronos_attention(qkv, seg, bias),
+                     lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
+                     lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True))
+            ref = plain_chronos_attention(qkv, seg, bias)
+            ref_b, ref_db = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
+            times: dict[str, list[tuple[float, ...]]] = {"mma.sync": [], "wgmma": []}
+            for route in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+                _kernels.set_chronos_route(route)
+                if not times[route]:
+                    compare(f"chronos {route} route S={seq}", calls[0](), ref)
+                    compare_bwd(f"chronos {route} route S={seq} backward", calls[2](), (ref_b, ref_db))
+                times[route].append(tuple(held_ms(fn, 20 if i == 0 else 10)[0] for i, fn in enumerate(calls)))
+            mean = {r: [sum(t[i] for t in ts) / len(ts) for i in range(3)] for r, ts in times.items()}
+            wins = [mean["wgmma"][i] < BORDER_MARGIN * mean["mma.sync"][i] for i in range(3)]
+            faster["forward"].append(wins[0])
+            faster["backward"].append(wins[1] and wins[2])
+            plans = {d: _kernels.chronos_route(d == "backward", dtype, batch, seq, heads, dim).split(",")[0]
+                     for d in ("forward", "backward")}
+            print(f"[gate] chronos bf16 D={dim} H={heads} S={seq} B={batch}, held device ms (mma.sync / "
+                  f"wgmma): forward {mean['mma.sync'][0]:.4f} / {mean['wgmma'][0]:.4f}, backward "
+                  f"{mean['mma.sync'][1]:.4f} / {mean['wgmma'][1]:.4f}, with dbias {mean['mma.sync'][2]:.4f} "
+                  f"/ {mean['wgmma'][2]:.4f} (both routes within tolerance of the plain versions; the "
+                  f"rule: forward {plans['forward']}, backward {plans['backward']})", flush=True)
+    finally:
+        _kernels.set_chronos_route("rule")
+    for name, wins in faster.items():
+        measured = next((s for i, s in enumerate(CHRONOS_BORDER_LENGTHS) if all(wins[i:])), None)
+        rule = next((s for s in CHRONOS_BORDER_LENGTHS if _kernels.chronos_plan(
+            name == "backward", dtype, max(1, CHRONOS_BORDER_TOKENS // s), s, heads, dim)["route"] == 3), None)
+        print(f"[gate] chronos bf16 {name} border: the wgmma route is the faster (by "
+              f"{1 - BORDER_MARGIN:.0%}) from S={measured} on (of {CHRONOS_BORDER_LENGTHS}); the dispatch "
+              f"rule takes it from S={rule}", flush=True)
+
+
 def parent_kernels(root: str):
     """The ``ops/_kernels.py`` of the checkout at ``root`` (the parent commit's, say) as a
     module of its own: its library builds from that checkout's ``csrc/`` into that
@@ -1246,6 +1430,40 @@ def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q,
           f"max |parent - change| {diff:.3g}", flush=True)
 
 
+def chronos_parent_against_change(shape: tuple[int, int, int, int], parent, qkv, seg, bias, g) -> None:
+    """One ``[kernels]`` line: B4f, B4b without dbias and B4b with dbias of the parent
+    checkout's library against this one's on the same bf16 inputs at ``shape``, timed in
+    turns (parent, change, change, parent; held_ms), with the largest differences between
+    the two outputs and each library's route."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    batch, seq, heads, dim = shape
+    mods = {"parent": parent, "change": _kernels}
+    outs = {name: (torch.empty(batch, seq, heads * dim, dtype=qkv.dtype, device="cuda"),
+                   torch.empty_like(qkv), torch.empty_like(bias)) for name in mods}
+
+    def calls(name):
+        mod, (out, dqkv, dbias) = mods[name], outs[name]
+        return (lambda: mod.chronos_attention_fwd(qkv, seg, bias, out, heads, dim),
+                lambda: mod.chronos_attention_bwd(qkv, seg, bias, g, dqkv, None, heads, dim),
+                lambda: mod.chronos_attention_bwd(qkv, seg, bias, g, dqkv, dbias, heads, dim))
+
+    times: dict[str, list[tuple[float, ...]]] = {"parent": [], "change": []}
+    for name in ("parent", "change", "change", "parent"):
+        times[name].append(tuple(held_ms(fn, 20 if i == 0 else 10)[0] for i, fn in enumerate(calls(name))))
+    torch.cuda.synchronize()
+    diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(outs["parent"], outs["change"])]
+    parts = []
+    for i, what in enumerate(("B4f", "B4b (no dbias)", "B4b (with dbias)")):
+        p, c = [t[i] for t in times["parent"]], [t[i] for t in times["change"]]
+        parts.append(f"{what} parent {p[0]:.4f} / {p[1]:.4f}, change {c[0]:.4f} / {c[1]:.4f} "
+                     f"({sum(p) / sum(c):.2f}x)")
+    print(f"[kernels] B4 parent against change B={batch} S={seq} H={heads} D={dim} bfloat16, held device "
+          f"ms: {'; '.join(parts)} | max |parent - change| out {diffs[0]:.3g}, dqkv {diffs[1]:.3g}, dbias "
+          f"{diffs[2]:.3g} | parent: {parent.chronos_route(True, qkv.dtype, batch, seq, heads, dim)}; "
+          f"change: {_kernels.chronos_route(True, qkv.dtype, batch, seq, heads, dim)}", flush=True)
+
+
 def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None) -> None:
     """Every kernel at its main-path shapes, fp32 and bf16, checked against its plain version
     and timed beside the plain version, SDPA and the bound (``[kernels]`` lines): the six
@@ -1274,7 +1492,7 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
 
     forward = {"B2f": fused_causal_attention, "B3f": flash_causal_attention}
     backward = {"B2b": fused_causal_attention_bwd, "B3b": flash_causal_attention_bwd}
-    parent = parent_kernels(root) if root is not None and not chronos_only else None
+    parent = parent_kernels(root) if root is not None else None
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     for key, name, _, _, shape in KERNELS:
         if key.startswith("B4") or chronos_only:
@@ -1307,11 +1525,14 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
                                  sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
             if parent is not None and dtype == torch.bfloat16 and key[:2] in ("B2", "B3"):
                 parent_against_change(key, shape, parent, q, k, v, valid, g4)
-    for shape in (dict(KERNELS_BY_KEY)["B4f"], (128, 67, 6, 64), (16, 577, 12, 64)):
+    for shape in (dict(KERNELS_BY_KEY)["B4f"], (128, 67, 6, 64), (64, 97, 12, 64), (64, 193, 12, 64),
+                  (16, 577, 12, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
             errs = check_chronos(f"B4 {shape} 1 segment(s)", qkv, seg, bias, g)
             chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10 if shape[1] < 100 else 5)
+            if parent is not None and dtype == torch.bfloat16 and shape[1] > 67:
+                chronos_parent_against_change(shape, parent, qkv, seg, bias, g)
 
 
 def make_samples(context: int, count: int, seed: int, horizon: int = HORIZON, patch: int = 32) -> list[dict]:
@@ -1924,17 +2145,20 @@ def launch_counts() -> dict[str, int]:
     return {key: fn.launches for key, fn in launch_counters().items()}
 
 
+# The Chronos plan's routes (chronos_attention_config), by number.
+B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma")
+
+
 def b4_routes() -> dict[str, int]:
     """B4f's and B4b's launches since their ``.shapes`` tallies were cleared, by the route
     the library's plan gives each shape ("B4f one-pass", "B4f tiled", "B4b fp32", ...)."""
     from multimodal_timesfm_torch.ops import _kernels
 
-    names = ("fp32", "one-pass", "tiled")
     out: dict[str, int] = {}
     for key in ("B4f", "B4b"):
         for (dtype, batch, seq, heads, dim), n in launch_counters()[key].shapes.items():
             route = _kernels.chronos_plan(key == "B4b", dtype, batch, seq, heads, dim)["route"]
-            label = f"{key} {names[route]}"
+            label = f"{key} {B4_ROUTES[route]}"
             out[label] = out.get(label, 0) + n
     return out
 
@@ -1946,6 +2170,20 @@ def expect_launches(label: str, before: dict[str, int], want: dict[str, int]) ->
     if delta != full:
         raise AssertionError(f"{label}: launches {delta}, expected {full}")
     return {key: n for key, n in delta.items() if n}
+
+
+def expect_route(label: str, backward: bool, shape: tuple[int, int], route: str) -> None:
+    """B4f's (or B4b's) route at (B, S) = ``shape``, 12 x 64 heads, bf16, as the library's plan
+    gives it, must be ``route`` (one of B4_ROUTES); prints it."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    batch, seq = shape
+    plan = _kernels.chronos_plan(backward, torch.bfloat16, batch, seq, 12, 64)
+    if B4_ROUTES[plan["route"]] != route:
+        raise AssertionError(f"{label}: B4{'b' if backward else 'f'} at B={batch} S={seq} takes the "
+                             f"{B4_ROUTES[plan['route']]} route, expected {route}")
+    print(f"[route] {label}: B4{'b' if backward else 'f'} B={batch} S={seq}: "
+          f"{_kernels.chronos_route(backward, torch.bfloat16, batch, seq, 12, 64)}", flush=True)
 
 
 def long_context_phase(seed: int, tree: dict, decoders: dict) -> None:
@@ -2044,6 +2282,8 @@ def chronos_serving_phase(seed: int) -> tuple[dict, dict, object]:
             preds[(dtype, ctx)] = out
         seen = expect_launches(f"chronos context {ctx} {dtype}", before,
                                {"B4f": 16 * -(-n // bs) * SERVE_REPEATS})
+        if dtype == torch.bfloat16 and ctx >= 2048:
+            expect_route(f"chronos context {ctx} {dtype}", False, (bs, ctx // 16 + 65), "wgmma")
         print(
             f"[chronos] context {ctx} ({ctx // 16 + 65} tokens) {str(dtype)[6:]}: {n} series, median of "
             f"{SERVE_REPEATS} calls {float(np.median(rates)):.1f} series/s "
@@ -2086,21 +2326,28 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
 
     kind = torch.cuda.get_device_name(0)
     _, packed, _ = chronos_decoders(seed, dataclasses.replace(Chronos2Config(), max_output_patches=2, pack=16))
-    # (bench workload, mode, dtype, decoder, batch, steps per epoch, trainer knobs); context
-    # 32, horizon 32; the bf16 cell stores the frozen encoder in bf16, as bench.py:317 does
+    # (workload, mode, dtype, decoder, context, batch, steps per epoch, trainer knobs);
+    # horizon 32. The JAX bench's cells at context 32 (the bf16 one stores the frozen
+    # encoder in bf16, as bench.py:317 does), then the fine-tune at context 8192 (577
+    # tokens, Chronos-2's longest served context), full width and depth, bf16, in both
+    # modes: the path of B4b past the one-pass route (the wgmma route; with dbias in
+    # baseline mode).
     cells = (
-        ("chronos_mm_h32", "multimodal", torch.float32, decoders[torch.float32], 128, 3, {}),
-        ("chronos_mm_h32", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 128, 3,
+        ("chronos_mm_h32", "multimodal", torch.float32, decoders[torch.float32], 32, 128, 3, {}),
+        ("chronos_mm_h32", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 32, 128, 3,
          {"frozen_cast_dtype": torch.bfloat16}),
-        ("chronos_baseline_h32", "baseline", torch.float32, decoders[torch.float32], 128, 3, {}),
-        ("chronos_mm_h32_mop2", "multimodal", torch.float32, packed[torch.float32], 512, 3, {}),
+        ("chronos_baseline_h32", "baseline", torch.float32, decoders[torch.float32], 32, 128, 3, {}),
+        ("chronos_mm_h32_mop2", "multimodal", torch.float32, packed[torch.float32], 32, 512, 3, {}),
+        ("chronos_mm_c8192", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 8192, 16, 2,
+         {"frozen_cast_dtype": torch.bfloat16}),
+        ("chronos_baseline_c8192", "baseline", torch.bfloat16, decoders[torch.bfloat16], 8192, 16, 2, {}),
     )
     with tempfile.TemporaryDirectory() as workdir:
-        for name, mode, dtype, decoder, batch, steps, knobs in cells:
+        for name, mode, dtype, decoder, context, batch, steps, knobs in cells:
             label = f"{name} {mode} {str(dtype)[6:]}"
             load_jax_params(decoder, tree)
-            train = make_samples(32, steps * batch, seed, CHRONOS_HORIZON, patch=16)
-            val = make_samples(32, batch, seed + 1, CHRONOS_HORIZON, patch=16)
+            train = make_samples(context, steps * batch, seed, CHRONOS_HORIZON, patch=16)
+            val = make_samples(context, batch, seed + 1, CHRONOS_HORIZON, patch=16)
             args = TrainingArguments(
                 output_dir=workdir, per_device_train_batch_size=batch,
                 per_device_eval_batch_size=batch, num_train_epochs=3,
@@ -2128,13 +2375,17 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
                 flush=True,
             )
             seen = expect_launches(label, before, {"B4f": 16 * (3 * steps + 1), "B4b": 16 * 3 * steps})
+            if context == 8192:
+                for backward in (False, True):
+                    expect_route(label, backward, (batch, context // 16 + 65), "wgmma")
             if not all(np.isfinite(x) for x in (warm, loss, val_loss)):
                 raise AssertionError(f"{label}: non-finite loss {warm}, {loss}, {val_loss}")
             moved = float((decoder.adapter.encoder.rel_pos_bias.detach() - table).abs().max())
             if (mode == "baseline") != (moved > 0):
                 raise AssertionError(f"{label}: rel_pos_bias moved by {moved} in {mode} mode")
             print(
-                f"[train] {label}: batch {batch}, {steps} steps per epoch | train loss {warm:.5f} -> "
+                f"[train] {label}: context {context}, batch {batch}, {steps} steps per epoch | train "
+                f"loss {warm:.5f} -> "
                 f"{loss:.5f}, val loss {val_loss:.5f} | {series_per_s:.1f} train series/s after "
                 f"warm-up on {kind} | launches {seen} (16 per micro-batch each way, 16 per "
                 f"validation batch) | rel_pos_bias moved {moved:.3g} | encoder weights stored in "
@@ -4479,6 +4730,7 @@ def main() -> int:
         print_routes()
         if not args.chronos_only:
             route_borders(args.seed)
+        chronos_route_borders(args.seed)
         kernel_times(args.seed, args.chronos_only, args.root)
         print(f"[gpu] {gpu}")
         return 0
@@ -4491,6 +4743,7 @@ def main() -> int:
         return out
 
     phase("route borders", route_borders, args.seed)
+    phase("chronos route borders", chronos_route_borders, args.seed)
     rows = phase("forward kernels", kernel_phase, args.seed)
     rows.update(phase("backward kernels", backward_kernel_phase, args.seed))
     phase("edge shapes", edge_checks, args.seed)
@@ -4543,12 +4796,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_path("parallel", parallel_phase, args.seed)
     idle = [key for key, n in launches.items() if n == 0]
+    idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     print(f"[launches] main paths: {launches}")
     print(f"[launches] B4 by route, this process's counted launches (replays, all one-pass, and the "
           f"ranks' not split): {routes}")
-    print(json.dumps({"kernels": kernel_entries(rows, launches)}))
+    print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({
         "ok": True,

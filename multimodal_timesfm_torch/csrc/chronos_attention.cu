@@ -19,8 +19,10 @@
 // dqkv (B, S, 3*H*D) in the same layout. Any S, head_dim 1..256, no atomics:
 // two launches give bit-equal dqkv and dbias.
 //
-// Three routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
-// H, D), and chronos_attention_config reports it.
+// Four routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
+// H, D), and chronos_attention_config reports it. Route 4 below (the wgmma
+// route, numbered 3 in the plan) comes first where chronos_hopper_takes says
+// so; routes 1 and 2 take the bf16 calls it leaves.
 //
 // 1. bf16 one-pass (S padded to 16 up to 128 in the forward, 96 in the
 //    backward; head_dim <= 64), on the tensor cores. A block takes one head
@@ -47,7 +49,8 @@
 //    each warp adds its rows of dL over the group's batch rows in registers,
 //    in batch order, and writes one (H, S, S) partial per group; a last
 //    kernel sums the ceil(B / G) partials in group order (none when G = B).
-// 2. bf16 tiled (longer S, or head_dim > 64), on the tensor cores: one block
+// 2. bf16 tiled (longer S or head_dim > 64, where route 4 does not take
+//    them), on the tensor cores: one block
 //    per (64-row query tile, head, batch row), 4 warps x 16 rows, 64-key
 //    tiles through a two-slot cp.async ring, two passes (pass 1 an online
 //    row max and sum, pass 2 W = exp(l - m) / s rounded to bf16 in the
@@ -69,8 +72,18 @@
 //    whole row is one tile the forward and the dq kernel compute the logits
 //    (and dW) once. dbias: per-batch-row partials summed in batch order. The
 //    bias is read per (batch row, head) from L2.
+// 4. bf16 wgmma + TMA at head_dim 64 (chronos_attention_hopper.cu,
+//    chronos_attention_bwd_hopper.cu, sharing chronos_hopper.cuh), from the
+//    border kFwdFrom / kBwdFrom there (measured by chip_smoke.py's Chronos
+//    [gate] lines; chronos_set_route forces it on or off): persistent blocks
+//    of two consumer warpgroups and a TMA producer warpgroup, 128-row work
+//    items, 64-row tiles of q, k, v and g read in place by TMA. Forward: one
+//    pass, online softmax. Backward: row statistics, dQ, dK and dV kernels,
+//    and a dbias kernel whose blocks loop over the batch (no plane per batch
+//    row; partials per group of batch rows only where the blocks alone do
+//    not fill the card).
 //
-// Why routes 2 and 3 read the bias per batch row. The (H, S, S) bias (16 MB
+// Why routes 2 to 4 read the bias from L2. The (H, S, S) bias (16 MB
 // at S = 577) stays in the H100's 50 MB L2, so re-reading it costs L2
 // traffic only, and staging it in shared memory costs a 4-byte cp.async per
 // entry (rows of an odd S are not 16-byte aligned). Measured at 16 x 577
@@ -81,7 +94,12 @@
 // 4 / 8. Backward: staged 1.076 ms, L2 1.099, clusters 1.12-1.57; fp32
 // forward and backward: L2 fastest, clusters 4-50% slower. Route 1 does
 // group batch rows (a block takes G of them and stages the bias strip once:
-// its loads then serve G rows and the strip is read as 8-byte pairs).
+// its loads then serve G rows and the strip is read as 8-byte pairs). Route
+// 4 (bf16 forward, 16 x 577, the same card): copying each stage's block into
+// shared memory with the producer warpgroup's three idle warps (4-byte
+// cp.async, coalesced) ran nearly twice as long as each consumer thread's
+// own reads from L2 in its accumulator layout (the copies could not keep
+// up); reading it once for two batch rows was no faster.
 //
 // Bias bytes read per launch (fp32 bias, 4 bytes), at the main shapes:
 //   S = 67, B = 128, H = 12 (fine-tune), bf16: G = 3, 43 groups x 12 heads
@@ -92,7 +110,12 @@
 //     (27.6 MB).
 //   S = 577, B = 16, H = 12 (serving at context 8192), bf16 tiled: each
 //     bias entry once per pass and batch row, 2 x 16 x 12 x 577^2 x 4 =
-//     511 MB from L2 (the 16 MB bias read from device memory about once).
+//     511 MB from L2 (the 16 MB bias read from device memory about once);
+//     the backward 3 x 255 MB, and with dbias 256 MB of per-batch-row
+//     partials written and read back. Route 4: forward once per batch row,
+//     255 MB; backward once per batch row in each of its three walks, 767
+//     MB, and once per dbias block and batch group (16 MB at 16 x 577), with
+//     no partials where one group fills the card.
 // Segment ids (and the backward's row statistics) come by cp.async in the
 // same commit groups as the tiles.
 //
@@ -241,6 +264,14 @@ cudaError_t launch_onepass_nq(int nq, const bf16* qkv, const int* seg, const flo
 
 // --------------------------------------------------------- bf16 tiled route
 
+}  // namespace
+
+// Route 3, chronos_attention_hopper.cu.
+extern "C" int chronos_hopper_fwd(const void* qkv, const void* seg, const void* bias, void* out,
+                                  int B, int S, int H, void* stream);
+
+namespace {
+
 template <int NK, int NKO>
 __global__ void __launch_bounds__(kThreadsMma)
     chronos_fwd_tiled_kernel(const bf16* __restrict__ qkv, const int* __restrict__ seg,
@@ -367,6 +398,8 @@ cudaError_t dispatch_bf16(const bf16* qkv, const int* seg, const float* bias, bf
   const int vec = D % 8 == 0 && aligned16(qkv);
   const int pair_out = D % 2 == 0 && aligned4(out);
   const Plan p = make_plan(false, 1, B, S, H, D);
+  if (p.route == 3)
+    return static_cast<cudaError_t>(chronos_hopper_fwd(qkv, seg, bias, out, B, S, H, stream));
   const int nk = p.dp / 16;
   if (p.route == 1) {
 #define MTT_LAUNCH(NK) \
@@ -580,7 +613,8 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
 // The plan chronos_attention_fwd (backward = 0) or chronos_attention_bwd
 // (backward = 1) takes for (dtype, B, S, H, D), for reports and for sizing the
 // dbias partials: cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync
-// m16n8k16 one-pass, 2: bf16 mma.sync tiled), threads, query rows per block,
+// m16n8k16 one-pass, 2: bf16 mma.sync tiled, 3: bf16 wgmma + TMA), threads,
+// query rows per block (per work item on route 3),
 // keys per tile, passes over the keys, batch rows per block, blocks along
 // the batch (the (H, S, S) dbias partials the backward sums), padded
 // head_dim, output columns per block, dL as a hi + lo bf16 pair (1) or not

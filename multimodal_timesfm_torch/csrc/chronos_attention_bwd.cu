@@ -917,9 +917,15 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
+// Route 3, chronos_attention_bwd_hopper.cu.
+extern "C" int chronos_hopper_bwd(const void* qkv, const void* seg, const void* bias,
+                                  const void* g, void* dqkv, void* dbias, void* stats, int groups,
+                                  int B, int S, int H, void* stream);
+
 // g (B, S, H*D) and dqkv (B, S, 3*H*D) contiguous in qkv's dtype, dqkv
-// written whole; stats: 3*B*H*S floats of scratch. dbias (H, S, S) fp32 and
-// partials are both null or both given: with them, dbias is written whole,
+// written whole; stats: 3*B*H*Sp floats of scratch, Sp = S rounded up to 64.
+// dbias (H, S, S) fp32 and partials are both null or both given: with them,
+// dbias is written whole,
 // and partials holds the (H, S, S) partial sums of dL when the plan has more
 // than one of them (chronos_attention_config's `groups` planes; one float
 // otherwise). Returns the CUDA error of the launches.
@@ -939,7 +945,10 @@ extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const voi
   const float* bs = static_cast<const float*>(bias);
   float* sc = static_cast<float*>(stats);
   cudaError_t err =
-      dtype == 0
+      p.route == 3
+          ? static_cast<cudaError_t>(
+                chronos_hopper_bwd(qkv, seg, bias, g, dqkv, part, stats, p.groups, B, S, H, stream))
+      : dtype == 0
           ? dispatch_f32(p, static_cast<const float*>(qkv), sg, bs, static_cast<const float*>(g),
                          static_cast<float*>(dqkv), sc, part, B, S, H, D, st)
           : dispatch_bf16(p, static_cast<const bf16*>(qkv), sg, bs, static_cast<const bf16*>(g),

@@ -13,6 +13,11 @@
 
 #include <algorithm>
 
+// Whether route 3 takes a bf16 call (chronos_attention_hopper.cu), and its
+// backward's dbias partials (chronos_attention_bwd_hopper.cu).
+extern "C" int chronos_hopper_takes(int backward, int S, int D);
+extern "C" int chronos_hopper_dbias_groups(int B, int S, int H);
+
 namespace {
 
 using mtt::bf16;
@@ -35,7 +40,12 @@ constexpr int kMaxGroup = 8;          // batch rows per block of the one-pass ro
 // Routes: 0 = fp32 on the CUDA cores, 1 = bf16 mma.sync one-pass (the whole
 // key row of a warp's 16 query rows in registers, several batch rows per
 // block, the bias strip in shared memory once per block), 2 = bf16 mma.sync
-// tiled (64-row query and key tiles, two passes, one batch row per block).
+// tiled (64-row query and key tiles, two passes, one batch row per block),
+// 3 = bf16 wgmma + TMA at head_dim 64 (chronos_attention_hopper.cu,
+// chronos_attention_bwd_hopper.cu: persistent warp-specialised blocks, 128
+// rows a work item, one pass forward, dbias summed over the batch in the
+// kernel, in groups only where its blocks are too few), taken where
+// chronos_hopper_takes says so (the measured border) before the other two.
 struct Plan {
   int route;
   int threads;  // per block
@@ -69,6 +79,14 @@ inline Plan make_plan(bool backward, int dtype, int B, int S, int H, int D) {
   if (dtype == 0) {
     const int tb = 16 * f32_tm(S, D, backward);
     p = {0, kThreadsF32, tb, tb, S <= tb ? 1 : 2, 1, B, D, D, 0};
+    return p;
+  }
+  if (chronos_hopper_takes(backward ? 1 : 0, S, D)) {
+    // passes: the forward's one walk over the keys; the backward's three
+    // (statistics and dQ over the keys, dK and dV over the queries); groups:
+    // the backward's dbias partials.
+    const int groups = backward ? chronos_hopper_dbias_groups(B, S, H) : 1;
+    p = {3, 384, 128, 64, backward ? 3 : 1, (B + groups - 1) / groups, groups, 64, 64, backward ? 1 : 0};
     return p;
   }
   const int nk = mma_nk(D);

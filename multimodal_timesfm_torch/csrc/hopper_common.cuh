@@ -1,5 +1,7 @@
-// Hopper-only pieces of the causal attention kernels' wgmma route
-// (attention_fwd_hopper.cu, attention_bwd_hopper.cu): mbarriers, TMA tile
+// Hopper-only pieces of the wgmma routes of the causal attention kernels
+// (attention_fwd_hopper.cu, attention_bwd_hopper.cu, head_dim 80) and of the
+// Chronos-2 ones (chronos_attention_hopper.cu, chronos_attention_bwd_hopper.cu,
+// head_dim 64, the kDim64 pieces below): mbarriers, TMA tile
 // loads through tensor maps, shared-memory matrix descriptors and the
 // warpgroup products (wgmma.mma_async) the kernels are built from, all as
 // inline PTX for sm_90a, plus the host side: the tensor maps, encoded with
@@ -238,7 +240,53 @@ __device__ __forceinline__ void wgmma_rs16(float (&d)[10][4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 64) += A B over one k-step: A in registers, B MN-major (head_dim 64).
+__device__ __forceinline__ void wgmma_rs64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MTT_D4(d, 0), MTT_D4(d, 1), MTT_D4(d, 2), MTT_D4(d, 3), MTT_D4(d, 4), MTT_D4(d, 5),
+        MTT_D4(d, 6), MTT_D4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef MTT_D4
+
+// ---- head_dim 64 (the Chronos-2 route, chronos_attention_hopper.cu): a row
+// of 64 bf16 values is exactly one 128-byte swizzle row, so a 64 x 64 tile is
+// one TMA box of kTile64 bytes and one descriptor; A B^T takes four k-steps
+// and P B runs N = 64.
+constexpr int kDim64 = 64;
+constexpr int kTile64 = kBlock64;
+
+// Rows [row, row + 64) of head `head`, batch row `batch`, of a (B, S, H*64)
+// map into a tile at `dst`.
+__device__ __forceinline__ void load_tile64(uint8_t* dst, const CUtensorMap* m, uint64_t* bar,
+                                            int head, int row, int batch) {
+  tma_load(dst, m, bar, head * kDim64, row, batch);
+}
+// A 64-row tile at shared address `tile` as the K-major operand of A B^T, and
+// as the MN-major B of P B (a k-step of 16 rows is 2048 bytes on).
+__device__ __forceinline__ uint64_t kmajor64(uint32_t tile) {
+  return make_desc(tile, 16, 1024, kSwizzle128);
+}
+__device__ __forceinline__ uint64_t mnmajor64(uint32_t tile) {
+  return make_desc(tile, 8192, 1024, kSwizzle128);
+}
+// Issue acc = A B^T over 64 columns (four k-steps) and out += P B over 64
+// rows of B; the caller fences, commits and waits.
+__device__ __forceinline__ void issue_abt64(float (&acc)[8][4], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss64(acc, desc_add(a, kk * 32), desc_add(b, kk * 32), kk);
+}
+__device__ __forceinline__ void issue_pb64(float (&out)[8][4], const uint32_t (&p)[4][4],
+                                           uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs64(out, p[kk], desc_add(b, kk * 2048));
+}
 
 // Issue acc = A B^T over the 80 columns (five k-steps); the caller fences,
 // commits and waits.
@@ -399,6 +447,25 @@ inline cudaError_t encode_operand(OperandMaps* m, const void* base, int B, int S
   r = encode(&m->c16, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
              box16, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of one (B, S, H, 64) bf16 operand at `base`, as encode_operand's:
+// boxes of 64 rows by the 64 columns of one head, 128-byte swizzle.
+inline cudaError_t encode_operand64(CUtensorMap* m, const void* base, int B, int S, int H,
+                                    long long ld) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * kDim64, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(ld) * 2 * static_cast<cuuint64_t>(S)};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {64, kRows, 1};
+  const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

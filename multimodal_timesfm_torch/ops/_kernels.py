@@ -28,7 +28,8 @@ CSRC = _PKG / "csrc"
 SOURCES = tuple(
     CSRC / name
     for name in ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_hopper.cu",
-                 "attention_bwd_hopper.cu", "chronos_attention.cu", "chronos_attention_bwd.cu")
+                 "attention_bwd_hopper.cu", "chronos_attention.cu", "chronos_attention_bwd.cu",
+                 "chronos_attention_hopper.cu", "chronos_attention_bwd_hopper.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -126,8 +127,9 @@ def library() -> ctypes.CDLL:
         fn.restype = i32
     lib.chronos_attention_config.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.chronos_attention_config.restype = i32
-    lib.attention_set_route.argtypes = [i32]
-    lib.attention_set_route.restype = i32
+    for fn in (lib.attention_set_route, lib.chronos_set_route):
+        fn.argtypes = [i32]
+        fn.restype = i32
     return lib
 
 
@@ -143,6 +145,17 @@ def set_route(name: str) -> None:
     err = library().attention_set_route(ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"attention_set_route({name!r}) failed with CUDA error {err}")
+
+
+def set_chronos_route(name: str) -> None:
+    """Which bf16 route the Chronos attention kernels take at head_dim 64: ``"rule"`` (the
+    library's dispatch rule, the default), ``"mma.sync"`` (never the wgmma route: the
+    one-pass or tiled mma.sync route by their own limits) or ``"wgmma"`` (the wgmma route at
+    every S). For measuring the border (``chip_smoke.py``'s Chronos ``[gate]`` lines);
+    process-wide, in the library."""
+    err = library().chronos_set_route(ROUTE_NAMES[name])
+    if err != 0:
+        raise RuntimeError(f"chronos_set_route({name!r}) failed with CUDA error {err}")
 
 
 def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> str:
@@ -165,7 +178,8 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
     return text
 
 
-_CHRONOS_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16 one-pass", "bf16 mma.sync m16n8k16 tiled")
+_CHRONOS_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16 one-pass", "bf16 mma.sync m16n8k16 tiled",
+                   "bf16 wgmma + TMA, warp-specialised")
 _CHRONOS_KEYS = ("route", "threads", "rows", "keys", "passes", "group", "groups", "padded", "cols", "split_dl")
 
 
@@ -186,6 +200,15 @@ def chronos_plan(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads
 def chronos_route(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads: int, dim: int) -> str:
     """:func:`chronos_plan` as one line of text."""
     p = chronos_plan(backward, dtype, batch, seq, heads, dim)
+    if p["route"] == 3:
+        text = (f"{_CHRONOS_ROUTES[3]}, persistent blocks of {p['threads']} threads (2 consumer "
+                f"warpgroups of 64 rows + 1 TMA producer warpgroup), work items of {p['rows']} rows, "
+                f"{p['keys']}-row tiles, head_dim {dim}")
+        if backward:
+            return text + (f", 3 kernels (row statistics, dQ, dK and dV) and a 4th for dbias (its blocks "
+                           f"summed over the batch in order, in {p['groups']} group(s) of {p['group']} batch "
+                           f"rows), dL as a hi + lo bf16 pair")
+        return text + ", one pass (online softmax)"
     text = (f"{_CHRONOS_ROUTES[p['route']]}, {p['threads']} threads, {p['rows']} query rows x "
             f"{p['keys']} keys per tile, {'one pass' if p['passes'] == 1 else 'two passes'}, "
             f"{p['group']} batch row(s) per block ({p['groups']} blocks along the batch), head_dim "
@@ -318,6 +341,12 @@ def attention_bwd(
         raise RuntimeError(f"attention_bwd launch failed with CUDA error {err}")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy of it when its data does not start 16-byte aligned (the
+    wgmma route reads qkv and g by TMA, which needs that; PyTorch's allocator gives it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_chronos(
     qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor, num_heads: int, head_dim: int,
     others: tuple[tuple[str, torch.Tensor], ...],
@@ -355,6 +384,7 @@ def chronos_attention_fwd(
     batch, seq, heads, dim = _check_chronos(qkv, seg, bias, num_heads, head_dim, (("out", out),))
     if tuple(out.shape) != (batch, seq, heads * dim):
         raise ValueError(f"out has shape {tuple(out.shape)}, expected {(batch, seq, heads * dim)}")
+    qkv = _aligned16(qkv)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.chronos_attention_fwd(
@@ -374,7 +404,7 @@ def chronos_attention_bwd(
     qkv, seg, bias as for :func:`chronos_attention_fwd`; g: (B, S, H*D) and
     dqkv: (B, S, 3*H*D), contiguous in qkv's dtype, dqkv written whole;
     dbias: (H, S, S) fp32, written whole, or None to skip the bias gradient.
-    Allocates a (3, B, H, S) fp32 scratch for the row statistics and, with
+    Allocates a (3, B, H, S rounded up to 64) fp32 scratch for the row statistics and, with
     dbias, the (H, S, S) fp32 partial sums of dL the plan needs (one per
     block along the batch; none when there is one). Raises ``RuntimeError``
     if a launch is refused.
@@ -384,7 +414,9 @@ def chronos_attention_bwd(
     batch, seq, heads, dim = _check_chronos(qkv, seg, bias, num_heads, head_dim, outs)
     if tuple(g.shape) != (batch, seq, heads * dim) or dqkv.shape != qkv.shape:
         raise ValueError(f"g {tuple(g.shape)} or dqkv {tuple(dqkv.shape)} does not match qkv")
-    stats = torch.empty(3 * batch * heads * seq, dtype=torch.float32, device=qkv.device)
+    qkv, g = _aligned16(qkv), _aligned16(g)
+    padded = -(-seq // 64) * 64
+    stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=qkv.device)
     partials = None
     if dbias is not None:
         if dbias.device != qkv.device:
