@@ -7,17 +7,19 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the eight sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the ten sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
    their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
    sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
    sharing ``chronos_common.cuh``, and their bf16 wgmma/TMA route at head_dim 64
    ``chronos_attention_hopper.cu``, ``chronos_attention_bwd_hopper.cu``, sharing
-   ``chronos_hopper.cuh``) with nvcc for sm_90a, one nvcc per source started
+   ``chronos_hopper.cuh``; the backwards' bf16 one-pass persistent route for short
+   sequences, ``attention_bwd_short_hopper.cu`` and ``chronos_attention_bwd_short_hopper.cu``,
+   sharing ``hopper_short.cuh``) with nvcc for sm_90a, one nvcc per source started
    together; print the build seconds, the compiler's register, shared-memory and spill
    report, the SASS count per kernel family of HMMA (mma.sync), HGMMA (wgmma) and UTMALDG
-   (TMA tile loads), failing if a wgmma-route family holds no HGMMA or UTMALDG, and the
-   card's name and power limit;
+   (TMA tile loads), failing if a wgmma-route family holds no HGMMA or UTMALDG, or a
+   persistent-route family no HMMA or UTMALDG, and the card's name and power limit;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16, on every query row (rows with no valid key included):
    the causal kernels (B1f/B1b, B2f/B2b, and the same kernels behind the
@@ -36,12 +38,17 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    shapes the serving and training paths give them, and at edge shapes. The
    route and tiles of each kernel at its main-path shapes are printed
    (``[route]``: in bf16 at head_dim 80 the causal kernels take the wgmma/TMA route
-   from the border the dispatch rule sets, mma.sync below it). First the bf16 borders
+   from the border the dispatch rule sets, mma.sync below it, and the backward the
+   persistent one-pass route up to 64 tokens). First the bf16 borders
    between those two routes: both routes' forward and backward at S = 16 to 2,048
    (D = 80, about 8,192 tokens a call), checked and timed in turns, one ``[gate]`` line
    per length and one per border; then the same for the Chronos kernels' wgmma route
    against their mma.sync routes at S = 64 to 577 (D = 64, 12 heads, about 9,232
-   tokens a call; device time held to a CUDA graph replay's event time). The kernel,
+   tokens a call; device time held to a CUDA graph replay's event time); then the
+   borders of the backwards' persistent route: B1b at S = 8 to 128 (D = 80, 16 heads,
+   B = 8,192 / S) against the mma.sync route and, from 64, the wgmma route, and B4b at
+   S = 16 to 96 (D = 64, 12 heads, B = 9,232 / S), without and with dbias, against the
+   one-pass or tiled mma.sync route and the wgmma route (held times, in turns). The kernel,
    the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
@@ -188,7 +195,8 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    Chronos-2 120M in bf16 at full width and depth, context 512, exported as
    AOTInductor packages (``serving.export_program(format="aoti")``) compiled
    on the card, the three at once, each in a child process of this script
-   (``--compile-package``) from the geometry alone, then re-pointed at
+   (``--compile-package``, started before phase 8, so that the compiles run
+   beside phases 8 and 9) from the geometry alone, then re-pointed at
    weights drawn from ``--seed``; served from their files beside the same
    decoders' ``torch.export`` programs: compile and load seconds, series/s of
    the package, ``Forecaster`` and the program in turn on 192 series in
@@ -226,7 +234,7 @@ The ``kernels`` line lists every kernel with its launches on the main-path
 phases (3 to 13; each starts its counters at 0; a kernel captured in a CUDA
 graph counts once per replay; phase 11 adds its ranks' counts, phase 13 the
 server's) and its
-numbers at its main-path shape in bf16; a ``[launches]`` line splits B4's
+numbers at its main-path shape in bf16; a ``[launches]`` line splits B1b's and B4's
 counted launches by the route the library's plan gives each shape.
 
 ``python3 chip_smoke.py --parallel-only`` only builds the kernels, checks B4
@@ -236,15 +244,17 @@ itself); ``--aoti-only`` only builds the kernels and runs phase 12;
 runs phases 12 and 13. ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
 prints the routes and the ``[gate]`` borders and checks and times every kernel at its
 main-path shapes in fp32 and bf16 (the six causal kernels and the borders, unless
-``--chronos-only``; B4f and B4b with and without dbias at 128 x 67, 128 x 67 at 6 heads
-and 16 x 577); with DIR (another checkout, such as the parent commit's) the library of
-that checkout is built too and its B2f, B2b, B3f and B3b are timed against this one's on
-the same bf16 inputs, in turns, in the same run. ``python3 chip_smoke.py --serving-times [--root DIR]`` only
+``--chronos-only``; B4f and B4b with and without dbias at 128 x 67, 128 x 67 at 6 heads,
+64 x 97, 64 x 193 and 16 x 577); with DIR (another checkout, such as the parent commit's)
+the library of that checkout is built too and its B1b, B2f, B2b, B3f and B3b, and its B4
+at every one of those shapes, are timed against this one's on the same bf16 inputs, in
+turns, in the same run (B1b and B4 held to a graph replay's event time). ``python3 chip_smoke.py --serving-times [--root DIR]`` only
 times TimesFM serving at context 512 (fp32 and bf16, seven calls each), with
 the port imported from DIR when given. ``python3 chip_smoke.py
---training-times [--root DIR]`` only times the eager ``chronos_mm_h32`` bf16
-training epoch (seven epochs after two of warm-up), with the port imported
-from DIR when given. ``python3 chip_smoke.py --dispatch-times`` only times
+--training-times [--root DIR]`` only times three eager bf16 training cells (TimesFM
+multimodal at context 512, ``chronos_mm_h32``, ``chronos_baseline_h32``: seven epochs after
+two of warm-up, and one profiled epoch with the attention backward's share of busy time),
+with the port imported from DIR when given. ``python3 chip_smoke.py --dispatch-times`` only times
 the host's cost of one call of the fused-qkv attention entry point as the
 ``torch.library`` custom op it is and as an ``autograd.Function`` around the
 same launch, in inference, in a forward with grad, and forward and backward.
@@ -337,8 +347,11 @@ TRAIN_LR = 1e-4
 # Baseline mode updates all 200M random weights: at 1e-4 one Adam step,
 # about lr * sign(g) on every weight, raised the loss from 15.6 to 283.
 BASELINE_LR = 1e-5
-CU_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd.cu"
 CU_CHRONOS_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention.cu"
+# The bf16 one-pass persistent route the dispatch gives B1b (up to 64 tokens) and B4b (up to
+# 80) at their main-path shapes.
+CU_SHORT_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_short_hopper.cu"
+CU_CHRONOS_SHORT_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_short_hopper.cu"
 # The bf16 wgmma/TMA route the dispatch gives B1f, B2 and B3 at their main-path shapes.
 CU_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_hopper.cu"
 CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
@@ -363,7 +376,7 @@ CHRONOS_WGMMA_KERNELS = (
 KERNELS = (
     ("B1f", "fused_qkv_causal_attention", CU_HOPPER_SOURCE,
      "multimodal_timesfm_tpu/ops/qkv_attention.py:111", (64, 64, 16, 80)),
-    ("B1b", "fused_qkv_causal_attention_bwd", CU_BWD_SOURCE,
+    ("B1b", "fused_qkv_causal_attention_bwd", CU_SHORT_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/qkv_attention.py:141", (256, 16, 16, 80)),
     ("B2f", "fused_causal_attention", CU_HOPPER_SOURCE,
      "multimodal_timesfm_tpu/ops/attention.py:174", (8, 512, 16, 80)),
@@ -375,7 +388,7 @@ KERNELS = (
      "multimodal_timesfm_tpu/ops/attention.py:322", (2, 2100, 16, 80)),
     ("B4f", "fused_chronos_attention", CU_CHRONOS_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
-    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_SOURCE,
+    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_SHORT_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (128, 67, 12, 64)),
 )
 KERNELS_BY_KEY = tuple((key, shape) for key, _, _, _, shape in KERNELS)
@@ -403,7 +416,7 @@ def kernel_entries(rows: dict[str, dict], launches: dict[str, int]) -> list[dict
 
 def wgmma_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
     """The ``kernels`` line's entries of the Chronos wgmma route (CHRONOS_WGMMA_KERNELS):
-    this process's counted launches on that route (``routes``, from b4_routes) and the
+    this process's counted launches on that route (``routes``, from route_launches) and the
     measured row at the route's main-path shape in bf16."""
     entries = []
     for key, name, cu, replaces, shape in CHRONOS_WGMMA_KERNELS:
@@ -425,6 +438,9 @@ WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
                   "attention_bwd_dkdv_wgmma_kernel", "chronos_fwd_wgmma_kernel",
                   "chronos_bwd_rows_kernel", "chronos_bwd_dkdv_wgmma_kernel",
                   "chronos_bwd_dbias_wgmma_kernel")
+# The kernel families of the backwards' persistent one-pass route (mma.sync fed by TMA),
+# which must hold HMMA and UTMALDG.
+PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel")
 
 
 def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
@@ -459,7 +475,8 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
     hold tensor-core instructions of mma.sync (HMMA) and of wgmma (HGMMA) and TMA tile
     loads (UTMALDG), and the fewest they hold. With ``require_wgmma`` (a library of this
     checkout), raises if a family of the wgmma route is missing or holds no HGMMA or no
-    UTMALDG; a line naming no tool when the toolkit has no cuobjdump."""
+    UTMALDG, or a family of the persistent route no HMMA or no UTMALDG; a line naming no
+    tool when the toolkit has no cuobjdump."""
     counts = sass_counts(lib_path)
     if counts is None:
         return ["no cuobjdump: SASS not read"]
@@ -472,6 +489,10 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
         found = counts.get(name, [])
         if not found or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run HGMMA and UTMALDG in every instantiation: {found}")
+    for name in PERSISTENT_FAMILIES if require_wgmma else ():
+        found = counts.get(name, [])
+        if not found or any(c["HMMA"] == 0 or c["UTMALDG"] == 0 for c in found):
+            raise AssertionError(f"SASS: {name} does not run HMMA and UTMALDG in every instantiation: {found}")
     return lines
 
 
@@ -1073,6 +1094,7 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
     out = torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=1.0)
     gh = g.unflatten(-1, (heads, dim)).transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(out, (qd, kd, vd), gh, retain_graph=True)  # noqa: E731
+    sdpa_db, sdpa_db_name = sdpa_dbias_fn(qd, kd, vd, seg, bias, gh)
     # The main path's backward: multimodal mode, the bias frozen (no dbias).
     bwd = time_kernel(
         "fused_chronos_attention_bwd (no dbias)", shape, dtype, err_b, BWD_TOL[dtype],
@@ -1083,11 +1105,37 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
     time_kernel(
         "fused_chronos_attention_bwd (with dbias)", shape, dtype, max(err_b, err_db), BWD_TOL[dtype],
         lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True),
-        lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, True), sdpa_bwd,
-        chronos_bound(*shape, seg, dtype, backward=True, dbias=True), iters, "sdpa backward",
+        lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, True), sdpa_db,
+        chronos_bound(*shape, seg, dtype, backward=True, dbias=True), iters, sdpa_db_name,
         held=True,
     )
     return fwd, bwd
+
+
+def sdpa_dbias_fn(qd: torch.Tensor, kd: torch.Tensor, vd: torch.Tensor, seg: torch.Tensor,
+                  bias: torch.Tensor, gh: torch.Tensor):
+    """The yardstick of B4b with dbias: SDPA's backward on the memory-efficient backend with
+    its float mask built from a bias that requires grad, so that the call also gives the
+    bias's gradient (the mask's, summed over the batch). Returns (the timed call, its name);
+    where the installed PyTorch refuses a mask gradient on that backend, SDPA's backward
+    without it, named so, so that no row reads as a loss to a call that computes less."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaf = bias.detach().requires_grad_()
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=chronos_sdpa_mask(seg, leaf, qd.dtype), scale=1.0)
+        call = lambda: torch.autograd.grad(out, (qd, kd, vd, leaf), gh, retain_graph=True)  # noqa: E731
+        call()
+        return call, "sdpa backward with dbias"
+    except RuntimeError as exc:
+        print(f"[kernels] SDPA refuses a mask gradient on the memory-efficient backend ({exc}); "
+              "the with-dbias yardstick computes no dbias", flush=True)
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=chronos_sdpa_mask(seg, bias, qd.dtype), scale=1.0)
+        return (lambda: torch.autograd.grad(out, (qd, kd, vd), gh, retain_graph=True),
+                "sdpa backward (no dbias)")
 
 
 def check_chronos(what: str, qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
@@ -1148,7 +1196,8 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     # and as a sweep group's 4 x 128 folded rows, 97 at 512, 193 at 2048, 577 at 8192),
     # each with one segment and with three segments and padded tokens; 80 = 16 packed
     # rows of 5 (at batch 256: 6 batch rows per block, a short
-    # last group); then the edges of the one-pass limit and of the 16-row steps (S = 16, 17,
+    # last group; at 512, dV's terms cancel often enough that W as one bf16 value fails
+    # BWD_TOL on the persistent route); then the edges of the one-pass limit and of the 16-row steps (S = 16, 17,
     # 48, 129; 5), every one-pass tile count (S = 64, 81, 96, 113, 128: the forward's 4, 6,
     # 6, 8, 8 warps, the backward's 4, 6, 6 and the tiled route past 96), head dims 16 (one
     # k-step), 20 (rows not 16-byte aligned, one-pass and tiled), 32, 128, 256, and odd
@@ -1157,7 +1206,7 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
              for batch, seq in ((128, 67), (512, 67), (64, 97), (64, 193), (16, 577))
              for variant in ((1, False), (3, True))]
     cases += SHARDED_CHRONOS_CASES
-    cases += [(32, 80, 12, 64, 16, False), (256, 80, 12, 64, 16, False),
+    cases += [(32, 80, 12, 64, 16, False), (256, 80, 12, 64, 16, False), (512, 80, 12, 64, 16, False),
               (4, 16, 12, 64, 1, False), (4, 17, 12, 64, 3, True), (4, 48, 12, 64, 3, True),
               (4, 64, 12, 64, 3, True), (4, 81, 12, 64, 1, False), (4, 96, 12, 64, 3, True),
               (4, 113, 12, 64, 1, False), (4, 128, 12, 64, 3, True),
@@ -1385,6 +1434,122 @@ def chronos_route_borders(seed: int) -> None:
               f"rule takes it from S={rule}", flush=True)
 
 
+# The lengths the bf16 borders of the backwards' persistent one-pass route are measured at:
+# B1b at head_dim 80, 16 heads, B = 8,192 // S (the route takes S <= 64); B4b at head_dim 64,
+# 12 heads, B = CHRONOS_BORDER_TOKENS // S (the route takes S <= 80).
+PERSISTENT_BORDER_LENGTHS = (8, 16, 32, 48, 64, 96, 128)
+CHRONOS_PERSISTENT_BORDER_LENGTHS = (16, 32, 48, 64, 67, 80, 96)
+
+
+def persistent_border_line(what: str, lengths: tuple[int, ...], wins: list[bool], rule: list[bool]) -> None:
+    """One ``[gate]`` line per border of the persistent route: the lengths where it is the
+    faster by BORDER_MARGIN than every other route measured there, the longest S up to which
+    it is at every measured length, and the lengths the dispatch rule gives it."""
+    won = [s for s, w in zip(lengths, wins) if w]
+    upto = next((lengths[i - 1] for i, w in enumerate(wins) if not w), lengths[-1]) if wins[0] else None
+    print(f"[gate] {what} border: the persistent route is the faster (by {1 - BORDER_MARGIN:.0%}) than "
+          f"every other route at S={won} (of {lengths}), at every length up to S={upto}; the dispatch "
+          f"rule takes it at S={[s for s, r in zip(lengths, rule) if r]}", flush=True)
+
+
+def persistent_route_borders(seed: int, chronos_only: bool = False) -> None:
+    """The bf16 borders of the backwards' persistent one-pass route. B1b (unless
+    ``chronos_only``): at each of PERSISTENT_BORDER_LENGTHS the fused-qkv backward on the
+    persistent route (up to 64 tokens; the rule's there), the mma.sync route and, from 64, the
+    wgmma route (the library's route override), checked against the plain version (the persistent route's
+    two launches bit-equal) and timed in turns (each route, then the same in reverse; held_ms);
+    B4b: the same at CHRONOS_PERSISTENT_BORDER_LENGTHS, without and with dbias, against the
+    one-pass or tiled mma.sync route and the wgmma route. One ``[gate]`` line per length, then
+    one per border (persistent_border_line)."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention_bwd,
+        plain_chronos_attention_bwd,
+    )
+    from multimodal_timesfm_torch.ops.qkv_attention import (
+        fused_qkv_causal_attention_bwd,
+        plain_qkv_attention_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    dtype = torch.bfloat16
+
+    def in_turns(routes: list[str], set_route, calls, check) -> dict[str, list[float]]:
+        # The persistent route is the rule's at every length it is timed at.
+        times: dict[str, list[tuple[float, ...]]] = {r: [] for r in routes}
+        for route in routes + routes[::-1]:
+            set_route("rule" if route == "persistent" else route)
+            if not times[route]:
+                check(route)
+            times[route].append(tuple(held_ms(fn, 10)[0] for fn in calls))
+        set_route("rule")
+        return {r: [sum(t[i] for t in ts) / len(ts) for i in range(len(calls))] for r, ts in times.items()}
+
+    def faster(mean: dict[str, list[float]]) -> bool:
+        return "persistent" in mean and all(
+            p < BORDER_MARGIN * o for r, ms in mean.items() if r != "persistent"
+            for p, o in zip(mean["persistent"], ms))
+
+    if not chronos_only:
+        heads, dim = 16, 80
+        wins, rule = [], []
+        try:
+            for seq in PERSISTENT_BORDER_LENGTHS:
+                batch = 8192 // seq
+                qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+                qkv[..., : heads * dim] /= math.sqrt(dim)
+                qkv = qkv.to(dtype)
+                valid = left_padded_valid(batch, seq, gen)
+                g = padded_cotangent((batch, seq, heads * dim), valid, dtype, gen)
+                bwd = lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim)  # noqa: E731
+                ref = plain_qkv_attention_bwd(qkv, valid, g, heads, dim)
+
+                def check(route):
+                    compare_bwd(f"B1b {route} route S={seq}", bwd(), ref)
+                    if route == "persistent":
+                        same_twice(f"B1b persistent route S={seq}", bwd)
+
+                routes = (["persistent"] if seq <= 64 else []) + ["mma.sync"] + (["wgmma"] if seq >= 64 else [])
+                mean = in_turns(routes, _kernels.set_route, (bwd,), check)
+                wins.append(faster(mean))
+                rule.append(_kernels.attention_route_number(True, dtype, seq, dim) == 3)
+                print(f"[gate] B1b persistent bf16 D={dim} H={heads} S={seq} B={batch}, held device ms: "
+                      + ", ".join(f"{r} {m[0]:.4f}" for r, m in mean.items())
+                      + (" (the persistent route takes S <= 64)" if seq > 64 else "")
+                      + f"; every route within tolerance of the plain version; the rule: "
+                        f"{_kernels.attention_route(True, dtype, seq, dim).split(',')[0]}", flush=True)
+        finally:
+            _kernels.set_route("rule")
+        persistent_border_line("B1b bf16 backward", PERSISTENT_BORDER_LENGTHS, wins, rule)
+
+    heads, dim = 12, 64
+    wins, rule = [], []
+    try:
+        for seq in CHRONOS_PERSISTENT_BORDER_LENGTHS:
+            batch = max(1, CHRONOS_BORDER_TOKENS // seq)
+            qkv, seg, bias, g = chronos_inputs((batch, seq, heads, dim), 1, False, dtype, gen)
+            calls = (lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
+                     lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True))
+            ref = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
+
+            def check(route):
+                compare_bwd(f"B4b {route} route S={seq}", calls[1](), ref)
+
+            routes = (["persistent"] if seq <= 80 else []) + ["mma.sync", "wgmma"]
+            mean = in_turns(routes, _kernels.set_chronos_route, calls, check)
+            wins.append(faster(mean))
+            rule.append(_kernels.chronos_plan(True, dtype, batch, seq, heads, dim)["route"] == 4)
+            print(f"[gate] B4b persistent bf16 D={dim} H={heads} S={seq} B={batch}, held device ms "
+                  f"(no dbias / with dbias): "
+                  + ", ".join(f"{r} {m[0]:.4f} / {m[1]:.4f}" for r, m in mean.items())
+                  + (" (the persistent route takes S <= 80)" if seq > 80 else "")
+                  + f"; every route within tolerance of the plain version; the rule: "
+                    f"{_kernels.chronos_route(True, dtype, batch, seq, heads, dim).split(',')[0]}", flush=True)
+    finally:
+        _kernels.set_chronos_route("rule")
+    persistent_border_line("B4b bf16 backward", CHRONOS_PERSISTENT_BORDER_LENGTHS, wins, rule)
+
+
 def parent_kernels(root: str):
     """The ``ops/_kernels.py`` of the checkout at ``root`` (the parent commit's, say) as a
     module of its own: its library builds from that checkout's ``csrc/`` into that
@@ -1401,15 +1566,24 @@ def parent_kernels(root: str):
 
 def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q, k, v, valid,
                           g) -> None:
-    """One ``[kernels]`` line: the causal kernel ``key`` (B2f, B2b, B3f, B3b) of the parent
-    checkout's library against this one's on the same bf16 inputs at ``shape``, timed in
-    turns (parent, change, change, parent; device time from torch.profiler), with the
-    largest difference between the two outputs."""
+    """One ``[kernels]`` line: the causal kernel ``key`` (B1b, B2f, B2b, B3f, B3b) of the
+    parent checkout's library against this one's on the same bf16 inputs at ``shape``, timed
+    in turns (parent, change, change, parent; device time from torch.profiler, B1b's held to
+    a graph replay's event time), with the largest difference between the two outputs. B1b
+    writes dq|dk|dv into one fused (B, S, 3*H*D) gradient, as its entry point does."""
     from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.qkv_attention import split_heads
 
     backward = key.endswith("b")
-    outs = {name: tuple(torch.empty_like(q) for _ in range(3 if backward else 1))
-            for name in ("parent", "change")}
+    batch, seq, heads, dim = shape
+
+    def fresh():
+        if key == "B1b":
+            return split_heads(torch.empty(batch, seq, 3 * heads * dim, dtype=q.dtype, device="cuda"),
+                               heads, dim)
+        return tuple(torch.empty_like(q) for _ in range(3 if backward else 1))
+
+    outs = {name: fresh() for name in ("parent", "change")}
     mods = {"parent": parent, "change": _kernels}
 
     def call(name):
@@ -1419,14 +1593,16 @@ def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q,
 
     times: dict[str, list[float]] = {"parent": [], "change": []}
     iters = 5 if shape[1] > 1000 else 20
+    held = key == "B1b"
     for name in ("parent", "change", "change", "parent"):
-        times[name].append(device_ms(call(name), iters)[0])
+        times[name].append(held_ms(call(name), iters)[0] if held else device_ms(call(name), iters)[0])
     torch.cuda.synchronize()
     diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
-    batch, seq, heads, dim = shape
-    print(f"[kernels] {key} parent against change B={batch} S={seq} H={heads} D={dim} bfloat16: device ms "
-          f"parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f}, change {times['change'][0]:.4f} / "
-          f"{times['change'][1]:.4f} ({_kernels.attention_route(backward, torch.bfloat16, seq, dim)}); "
+    ratio = sum(times["parent"]) / sum(times["change"])
+    print(f"[kernels] {key} parent against change B={batch} S={seq} H={heads} D={dim} bfloat16: "
+          f"{'held ' if held else ''}device ms parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f}, "
+          f"change {times['change'][0]:.4f} / {times['change'][1]:.4f} ({ratio:.2f}x; change: "
+          f"{_kernels.attention_route(backward, torch.bfloat16, seq, dim)}); "
           f"max |parent - change| {diff:.3g}", flush=True)
 
 
@@ -1471,9 +1647,9 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
     then B4f, B4b without dbias and B4b with dbias at Chronos-2's fine-tune (128 x 67 tokens)
     and its serving at context 8192 (16 x 577), and at the fine-tune's shape with its 12 heads
     over a model axis of 2 (128 x 67 x 6), one segment. With ``root`` (``--root``: another
-    checkout, such as the parent commit's) the bf16 B2f, B2b, B3f and B3b rows are followed
-    by that checkout's kernels against this one's on the same inputs, so that the two compare
-    on one card in one run."""
+    checkout, such as the parent commit's) the bf16 B1b, B2f, B2b, B3f and B3b rows, and
+    every bf16 B4 shape, are followed by that checkout's kernels against this one's on the
+    same inputs, so that the two compare on one card in one run."""
     from multimodal_timesfm_torch.ops.attention import (
         flash_causal_attention,
         flash_causal_attention_bwd,
@@ -1523,7 +1699,7 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
                 check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
                                  lambda: plain_attention_bwd(q, k, v, valid, g4),
                                  sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
-            if parent is not None and dtype == torch.bfloat16 and key[:2] in ("B2", "B3"):
+            if parent is not None and dtype == torch.bfloat16 and (key[:2] in ("B2", "B3") or key == "B1b"):
                 parent_against_change(key, shape, parent, q, k, v, valid, g4)
     for shape in (dict(KERNELS_BY_KEY)["B4f"], (128, 67, 6, 64), (64, 97, 12, 64), (64, 193, 12, 64),
                   (16, 577, 12, 64)):
@@ -1531,7 +1707,7 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
             qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
             errs = check_chronos(f"B4 {shape} 1 segment(s)", qkv, seg, bias, g)
             chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10 if shape[1] < 100 else 5)
-            if parent is not None and dtype == torch.bfloat16 and shape[1] > 67:
+            if parent is not None and dtype == torch.bfloat16:
                 chronos_parent_against_change(shape, parent, qkv, seg, bias, g)
 
 
@@ -2145,20 +2321,27 @@ def launch_counts() -> dict[str, int]:
     return {key: fn.launches for key, fn in launch_counters().items()}
 
 
-# The Chronos plan's routes (chronos_attention_config), by number.
-B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma")
+# The Chronos plan's routes (chronos_attention_config), and the causal backward's
+# (attention_bwd_config), by number.
+B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent")
+B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent")
+# The wrappers whose launches route_launches splits by route.
+ROUTED_KEYS = ("B1b", "B4f", "B4b")
 
 
-def b4_routes() -> dict[str, int]:
-    """B4f's and B4b's launches since their ``.shapes`` tallies were cleared, by the route
-    the library's plan gives each shape ("B4f one-pass", "B4f tiled", "B4b fp32", ...)."""
+def route_launches() -> dict[str, int]:
+    """B1b's, B4f's and B4b's launches since their ``.shapes`` tallies were cleared, by the
+    route the library gives each shape ("B1b persistent", "B4f one-pass", "B4b fp32", ...)."""
     from multimodal_timesfm_torch.ops import _kernels
 
     out: dict[str, int] = {}
-    for key in ("B4f", "B4b"):
+    for key in ROUTED_KEYS:
         for (dtype, batch, seq, heads, dim), n in launch_counters()[key].shapes.items():
-            route = _kernels.chronos_plan(key == "B4b", dtype, batch, seq, heads, dim)["route"]
-            label = f"{key} {B4_ROUTES[route]}"
+            if key == "B1b":
+                label = f"{key} {B1_ROUTES[_kernels.attention_route_number(True, dtype, seq, dim)]}"
+            else:
+                route = _kernels.chronos_plan(key == "B4b", dtype, batch, seq, heads, dim)["route"]
+                label = f"{key} {B4_ROUTES[route]}"
             out[label] = out.get(label, 0) + n
     return out
 
@@ -3250,19 +3433,54 @@ def _served_decoder(name: str, dtype: torch.dtype, device: str = "cuda"):
 def compile_package(name: str, dtype: str, out: str) -> None:
     """A child process of phase 12: the package of ``name`` in ``dtype`` at AOTI_CONTEXT,
     compiled on the card from a decoder of that geometry with its initial weights (a
-    package holds no weights; the parent re-points it); prints its compile seconds."""
+    package holds no weights; the parent re-points it); prints its compile seconds. Runs
+    below the parent's CPU priority (it compiles beside the parent's phases), as do
+    Inductor's compile workers, which inherit it."""
     from multimodal_timesfm_torch.serving import export_program
 
+    os.nice(10)
     decoder = _served_decoder(name, getattr(torch, dtype))
     start = time.perf_counter()
     export_program(decoder, HORIZON, AOTI_CONTEXT, out, multimodal=True, format="aoti")
     print(json.dumps({"compile_s": time.perf_counter() - start}), flush=True)
 
 
-def aoti_phase(seed: int) -> dict:
+def _kill(children: list) -> None:
+    for child in children:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def start_package_compiles() -> dict:
+    """Phase 12's three package compiles, one child process each (``--compile-package``,
+    Inductor's compile workers 3 a child), started ahead of the phase so that they run beside
+    the phases before it; each child's output goes to files beside its package under
+    AOTI_ROOT. Returns what :func:`aoti_phase` waits for; children still running when this
+    process exits are killed."""
+    import atexit
+
+    cxx = openmp_cxx()
+    print(f"[aoti] Inductor's host C++ compiler: {cxx}", flush=True)
+    shutil.rmtree(AOTI_ROOT, ignore_errors=True)
+    AOTI_ROOT.mkdir(parents=True)
+    cells = {cell: AOTI_ROOT / f"{cell[0]}_{str(cell[1])[6:]}" for cell in AOTI_TOL}
+    env = {**os.environ, "CXX": cxx, "TORCHINDUCTOR_COMPILE_THREADS": "3"}
+    children = {}
+    for cell, path in cells.items():
+        with open(f"{path}.out", "w") as out, open(f"{path}.err", "w") as err:
+            children[cell] = subprocess.Popen(
+                [sys.executable, __file__, "--compile-package", cell[0], str(cell[1])[6:], str(path / "aoti")],
+                stdout=out, stderr=err, text=True, env=env)
+    atexit.register(_kill, list(children.values()))
+    return {"cells": cells, "children": children, "start": time.perf_counter()}
+
+
+def aoti_phase(seed: int, started: dict | None = None) -> dict:
     """TimesFM-2.5 200M (fp32, bf16) and Chronos-2 120M (bf16) at full width and depth as
     AOTInductor packages at context 512: the three compiled on the card at once, each in a
-    child process of its own from the geometry alone, then re-pointed
+    child process of its own from the geometry alone (``started`` by
+    :func:`start_package_compiles`, or here), then re-pointed
     (``save_program_params``) at weights drawn from ``seed``; beside each, the same
     decoder's ``torch.export`` program. Served from their files with ``load_program``:
     load seconds; series/s of the package, ``Forecaster`` and the program in turn on the
@@ -3278,19 +3496,10 @@ def aoti_phase(seed: int) -> dict:
     from multimodal_timesfm_torch.utils import profiling
 
     kind = torch.cuda.get_device_name(0)
-    cxx = openmp_cxx()
-    print(f"[aoti] Inductor's host C++ compiler: {cxx}", flush=True)
-    root = AOTI_ROOT
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    started = started or start_package_compiles()
+    cells, children = started["cells"], started["children"]
     ctx = AOTI_CONTEXT
     served = {}
-    cells = {cell: root / f"{cell[0]}_{str(cell[1])[6:]}" for cell in AOTI_TOL}
-    env = {**os.environ, "CXX": cxx, "TORCHINDUCTOR_COMPILE_THREADS": "3"}
-    start = time.perf_counter()
-    children = {cell: subprocess.Popen(
-        [sys.executable, __file__, "--compile-package", cell[0], str(cell[1])[6:], str(path / "aoti")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env) for cell, path in cells.items()}
     try:
         # Meanwhile: the weights, the data, Forecaster's forecasts and the programs.
         trees, fp32_refs, setup = {}, {}, {}
@@ -3318,19 +3527,19 @@ def aoti_phase(seed: int) -> dict:
             setup[(name, dtype)] = (decoder, fc, context, text, ref)
         compiled = {}
         for cell, child in children.items():
-            out, err = child.communicate(timeout=900)
+            child.wait(timeout=900)
             if child.returncode != 0:
+                err = Path(f"{cells[cell]}.err").read_text()
                 raise AssertionError(f"compiling the {cell} package failed:\n{err[-3000:]}")
+            out = Path(f"{cells[cell]}.out").read_text()
             compiled[cell] = json.loads(out.strip().splitlines()[-1])["compile_s"]
     finally:
-        for child in children.values():
-            if child.poll() is None:
-                child.kill()
-                child.wait()
-    wall_s = time.perf_counter() - start
+        _kill(list(children.values()))
+    wall_s = time.perf_counter() - started["start"]
     print(f"[aoti] three packages compiled at once on the card, one child process each (Inductor's "
           f"compile workers 3 a child): {', '.join(f'{n} {str(d)[6:]} {s:.1f} s' for (n, d), s in compiled.items())}"
-          f"; {wall_s:.1f} s from their start to the last, the parent's setup alongside", flush=True)
+          f"; {wall_s:.1f} s from their start to the last, what ran before this phase and its setup "
+          "alongside", flush=True)
 
     for (name, dtype), path in cells.items():
         decoder, fc, context, text, ref = setup.pop((name, dtype))
@@ -3589,44 +3798,68 @@ def serving_times(seed: int, repeats: int = 7) -> None:
 
 
 def training_times(seed: int, epochs: int = 7) -> None:
-    """The eager ``chronos_mm_h32`` bf16 cell of the Chronos training phase (batch 128, 3
-    steps an epoch, context 32, horizon 32, frozen encoder stored in bf16): train series/s
-    of ``epochs`` epochs after two of warm-up, with the port imported from ``--root`` when
-    given. The per-epoch loop is host-bound (the chronos training phase's profile shows
-    the card idle most of an epoch), so this reads the
-    dispatch cost of the Chronos attention entry points with grad."""
+    """Three bf16 fine-tune cells of the training phases, with the port imported from
+    ``--root`` when given: TimesFM-2.5 multimodal at context 512 (batch 256, 16 tokens: B1b on
+    its main-path shape), and Chronos-2's ``chronos_mm_h32`` (multimodal, the frozen encoder
+    stored in bf16) and ``chronos_baseline_h32`` (baseline: dbias on the path), batch 128, 67
+    tokens, context and horizon 32, bf16 compute; 3 steps an epoch. Per cell the median train
+    series/s of ``epochs`` epochs after two of warm-up, then one profiled epoch: the device's
+    busy time, idle share and the attention backward's kernels' share of busy (B1b: kernels
+    named ``attention_bwd``; B4b: ``chronos_bwd``). The per-epoch loop is host-bound, so
+    series/s moves with the host; the share is the device's reading."""
     from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
     from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
     from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
     from multimodal_timesfm_torch.training_args import TrainingArguments
 
-    cfg = Chronos2Config()
     dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
-    tree = random_jax_params(MultimodalDecoder(Chronos2Adapter(cfg), dec_cfg, device="cpu"), seed)
-    decoder = MultimodalDecoder(
-        Chronos2Adapter(dataclasses.replace(cfg, compute_dtype=torch.bfloat16)), dec_cfg, device="cuda")
-    load_jax_params(decoder, tree)
-    batch, steps = 128, 3
-    train = make_samples(32, steps * batch, seed, CHRONOS_HORIZON, patch=16)
-    val = make_samples(32, batch, seed + 1, CHRONOS_HORIZON, patch=16)
-    with tempfile.TemporaryDirectory() as workdir:
-        args = TrainingArguments(
-            output_dir=workdir, per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
-            num_train_epochs=3, learning_rate=TRAIN_LR, weight_decay=0.01, eval_strategy="epoch",
-            save_strategy="no", logging_strategy="no", seed=seed)
-        trainer = MultimodalTrainer(decoder, args, train, val, "multimodal", device="cuda",
-                                    frozen_cast_dtype=torch.bfloat16)
-        rates = []
-        for epoch in range(epochs + 2):
-            loss = trainer.train_epoch()
-            if not np.isfinite(loss):
-                raise AssertionError(f"training-times: loss {loss}")
-            if epoch >= 2:
-                rates.append(trainer.last_throughput)
-    print(f"[training-times] chronos_mm_h32 multimodal bfloat16, batch {batch}, {steps} steps an epoch: "
-          f"median of {epochs} epochs {float(np.median(rates)):.1f} train series/s "
-          f"({', '.join(f'{r:.1f}' for r in rates)})", flush=True)
+
+    def chronos():
+        cfg = Chronos2Config()
+        tree = random_jax_params(MultimodalDecoder(Chronos2Adapter(cfg), dec_cfg, device="cpu"), seed)
+        decoder = MultimodalDecoder(
+            Chronos2Adapter(dataclasses.replace(cfg, compute_dtype=torch.bfloat16)), dec_cfg, device="cuda")
+        load_jax_params(decoder, tree)
+        return decoder
+
+    # (workload, decoder, mode, context, patch, horizon, batch, trainer knobs, backward kernels)
+    cells = (
+        ("timesfm_mm_c512", lambda: _timesfm_decoder(seed, torch.bfloat16), "multimodal", 512, 32,
+         TRAIN_HORIZON, 256, {}, ("B1b", "attention_bwd")),
+        ("chronos_mm_h32", chronos, "multimodal", 32, 16, CHRONOS_HORIZON, 128,
+         {"frozen_cast_dtype": torch.bfloat16}, ("B4b", "chronos_bwd")),
+        ("chronos_baseline_h32", chronos, "baseline", 32, 16, CHRONOS_HORIZON, 128, {},
+         ("B4b", "chronos_bwd")),
+    )
+    steps = 3
+    for name, build, mode, context, patch, horizon, batch, knobs, (key, family) in cells:
+        decoder = build()
+        train = make_samples(context, steps * batch, seed, horizon, patch=patch)
+        val = make_samples(context, batch, seed + 1, horizon, patch=patch)
+        with tempfile.TemporaryDirectory() as workdir:
+            args = TrainingArguments(
+                output_dir=workdir, per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+                num_train_epochs=3, learning_rate=TRAIN_LR if mode == "multimodal" else BASELINE_LR,
+                weight_decay=0.01, eval_strategy="epoch", save_strategy="no", logging_strategy="no",
+                seed=seed)
+            trainer = MultimodalTrainer(decoder, args, train, val, mode, device="cuda", **knobs)
+            rates = []
+            for epoch in range(epochs + 2):
+                loss = trainer.train_epoch()
+                if not np.isfinite(loss):
+                    raise AssertionError(f"training-times {name}: loss {loss}")
+                if epoch >= 2:
+                    rates.append(trainer.last_throughput)
+            wall, kernels = device_profile(trainer.train_epoch)
+        busy = sum(ms for _, ms in kernels)
+        share = sum(ms for k, ms in kernels if family in k)
+        print(f"[training-times] {name} {mode} bfloat16, batch {batch}, {steps} steps an epoch: median of "
+              f"{epochs} epochs {float(np.median(rates)):.1f} train series/s ({', '.join(f'{r:.1f}' for r in rates)}) "
+              f"| profiled epoch: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}, "
+              f"{key} ({family}*) {share:.3f} ms, {share / busy:.3f} of busy", flush=True)
+        del decoder, trainer
+        torch.cuda.empty_cache()
 
 
 def dispatch_times(calls: int = 2000, repeats: int = 7) -> None:
@@ -4628,7 +4861,7 @@ def main() -> int:
     parser.add_argument("--kernel-times", action="store_true",
                         help="only check and time every kernel at its main-path shapes")
     parser.add_argument("--root", default=None,
-                        help="with --kernel-times: also time this checkout's causal kernels (B2, B3) "
+                        help="with --kernel-times: also time this checkout's kernels (B1b, B2, B3, B4) "
                              "beside this one's; with --serving-times or --training-times: import the "
                              "port from this checkout instead")
     parser.add_argument("--chronos-only", action="store_true",
@@ -4636,7 +4869,8 @@ def main() -> int:
     parser.add_argument("--serving-times", action="store_true",
                         help="only time TimesFM serving at context 512 (fp32, bf16)")
     parser.add_argument("--training-times", action="store_true",
-                        help="only time the eager chronos_mm_h32 bf16 training epoch")
+                        help="only time three eager bf16 training cells (TimesFM c512, chronos_mm_h32, "
+                             "chronos_baseline_h32) and their attention backward's share")
     parser.add_argument("--dispatch-times", action="store_true",
                         help="only time one call of the B1 entry point: custom op against autograd.Function")
     parser.add_argument("--parallel-only", action="store_true",
@@ -4731,6 +4965,7 @@ def main() -> int:
         if not args.chronos_only:
             route_borders(args.seed)
         chronos_route_borders(args.seed)
+        persistent_route_borders(args.seed, args.chronos_only)
         kernel_times(args.seed, args.chronos_only, args.root)
         print(f"[gpu] {gpu}")
         return 0
@@ -4744,6 +4979,7 @@ def main() -> int:
 
     phase("route borders", route_borders, args.seed)
     phase("chronos route borders", chronos_route_borders, args.seed)
+    phase("persistent route borders", persistent_route_borders, args.seed)
     rows = phase("forward kernels", kernel_phase, args.seed)
     rows.update(phase("backward kernels", backward_kernel_phase, args.seed))
     phase("edge shapes", edge_checks, args.seed)
@@ -4761,7 +4997,7 @@ def main() -> int:
     def main_path(name: str, fn, *a):
         for counter in launch_counters().values():
             counter.launches = 0
-        for key in ("B4f", "B4b"):
+        for key in ROUTED_KEYS:
             launch_counters()[key].shapes.clear()
         GRAPH_LAUNCHES.clear()
         RANK_LAUNCHES.clear()
@@ -4770,7 +5006,7 @@ def main() -> int:
         for key, n in launch_counts().items():
             launches[key] += (n + GRAPH_LAUNCHES.get(key, 0) + RANK_LAUNCHES.get(key, 0)
                               + NATIVE_LAUNCHES.get(key, 0))
-        for route, n in b4_routes().items():
+        for route, n in route_launches().items():
             routes[route] = routes.get(route, 0) + n
         return out
 
@@ -4783,12 +5019,13 @@ def main() -> int:
     main_path("chronos training", chronos_training_phase, args.seed, c_tree, c_decoders, c_reference)
     del c_decoders, c_reference
     torch.cuda.empty_cache()
+    compiles = start_package_compiles()  # phase 12's, beside phases 8 and 9
     main_path("time-mmd data", time_mmd_phase, args.seed, tree)
     del tree
     torch.cuda.empty_cache()
     main_path("pretrained to served", pretrained_phase, args.seed)
     torch.cuda.empty_cache()
-    served = main_path("aoti package", aoti_phase, args.seed)
+    served = main_path("aoti package", aoti_phase, args.seed, compiles)
     torch.cuda.empty_cache()
     main_path("native serving", native_phase, served, native_future)
     del served
@@ -4797,11 +5034,12 @@ def main() -> int:
     main_path("parallel", parallel_phase, args.seed)
     idle = [key for key, n in launches.items() if n == 0]
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
+    idle += [f"{key} persistent" for key in ("B1b", "B4b") if not routes.get(f"{key} persistent")]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     print(f"[launches] main paths: {launches}")
-    print(f"[launches] B4 by route, this process's counted launches (replays, all one-pass, and the "
-          f"ranks' not split): {routes}")
+    print(f"[launches] B1b and B4 by route, this process's counted launches (replays and the ranks' "
+          f"not split): {routes}")
     print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({

@@ -895,6 +895,17 @@ cudaError_t dispatch_mma(const bf16* q, const bf16* k, const bf16* v, const uint
 
 }  // namespace
 
+// The bf16 one-pass persistent route for short S (attention_bwd_short_hopper.cu).
+extern "C" int short_bwd_takes(int S, int D);
+extern "C" int short_bwd_layout(const void* q, const void* k, const void* v, const void* g,
+                                const void* dq, const void* dk, const void* dv, long long ld_in,
+                                long long ld_g, long long ld_out);
+extern "C" void short_bwd_config(int S, int* cfg);
+extern "C" int short_attention_bwd(const void* q, const void* k, const void* v, const void* valid,
+                                   const void* g, void* dq, void* dk, void* dv, int B, int S, int H,
+                                   long long ld_in, long long ld_g, long long ld_out,
+                                   void* stream);
+
 // The bf16 wgmma/TMA route (attention_bwd_hopper.cu).
 extern "C" int hopper_bwd_takes(int S, int D);
 extern "C" int hopper_bwd_layout(const void* q, const void* k, const void* v, const void* g,
@@ -905,10 +916,23 @@ extern "C" int hopper_attention_bwd(const void* q, const void* k, const void* v,
                                     int B, int S, int H, long long ld_in, long long ld_g,
                                     long long ld_out, void* stream);
 
+// Whether attention_bwd takes the bf16 one-pass persistent route, which needs
+// no statistics scratch: short_bwd_takes(S, D) and its layout rule (q, k, v,
+// g, dq, dk and dv rows and bases 16-byte aligned).
+extern "C" int attention_bwd_short(const void* q, const void* k, const void* v, const void* g,
+                                   const void* dq, const void* dk, const void* dv, int dtype,
+                                   int S, int D, long long ld_in, long long ld_g,
+                                   long long ld_out) {
+  return dtype == 1 && short_bwd_takes(S, D) &&
+         short_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. valid: (B, S) bytes, nonzero = valid key.
-// stats: 3 * B * H * Sp floats of scratch, Sp = S rounded up to 64. Returns
-// the CUDA error of the launches (0 on success); launches on `stream` and
-// does not synchronize. bf16 takes the wgmma/TMA route where
+// stats: 3 * B * H * Sp floats of scratch, Sp = S rounded up to 64, or null
+// where attention_bwd_short holds (refused otherwise). Returns the CUDA error
+// of the launches (0 on success); launches on `stream` and does not
+// synchronize. bf16 takes the one-pass persistent route where
+// attention_bwd_short holds, then the wgmma/TMA route where
 // hopper_bwd_takes(S, D) and its layout rule (q, k, v and g rows and bases
 // 16-byte aligned) hold, and the mma.sync route otherwise.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* valid,
@@ -920,6 +944,9 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(stats);
   const uint8_t* vm = static_cast<const uint8_t*>(valid);
+  if (attention_bwd_short(q, k, v, g, dq, dk, dv, dtype, S, D, ld_in, ld_g, ld_out))
+    return short_attention_bwd(q, k, v, valid, g, dq, dk, dv, B, S, H, ld_in, ld_g, ld_out, stream);
+  if (sc == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)dispatch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                              static_cast<const float*>(v), vm, static_cast<const float*>(g),
@@ -937,7 +964,8 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
 
 // The route and tiles attention_bwd takes for (dtype, S, D) with a layout
 // every route reads, for reports: cfg = {route (0: fp32 CUDA cores, 1: bf16
-// mma.sync m16n8k16, 2: bf16 wgmma + TMA), threads, query rows per head and
+// mma.sync m16n8k16, 2: bf16 wgmma + TMA, 3: bf16 mma.sync one-pass fed by TMA,
+// persistent), threads, query rows per head and
 // block of the dq kernel, keys per head and block of the dkdv kernel, heads
 // per block, padded head_dim, output columns per block, dL as a hi + lo pair
 // (1) or one bf16 operand (0)}. Returns 0, or cudaErrorInvalidValue.
@@ -950,6 +978,10 @@ extern "C" int attention_bwd_config(int dtype, int S, int D, int* cfg) {
     return 0;
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (short_bwd_takes(S, D)) {
+    short_bwd_config(S, cfg);
+    return 0;
+  }
   if (hopper_bwd_takes(S, D)) {
     hopper_bwd_config(cfg);
     return 0;

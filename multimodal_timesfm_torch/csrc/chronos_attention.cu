@@ -22,7 +22,10 @@
 // Four routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
 // H, D), and chronos_attention_config reports it. Route 4 below (the wgmma
 // route, numbered 3 in the plan) comes first where chronos_hopper_takes says
-// so; routes 1 and 2 take the bf16 calls it leaves.
+// so; routes 1 and 2 take the bf16 calls it leaves. The backward has a fifth,
+// ahead of all of them in bf16 at head_dim 64 up to 80 tokens: the
+// persistent one-pass route (plan route 4, chronos_attention_bwd_short_hopper.cu,
+// its design and bias bytes in that file's header).
 //
 // 1. bf16 one-pass (S padded to 16 up to 128 in the forward, 96 in the
 //    backward; head_dim <= 64), on the tensor cores. A block takes one head
@@ -105,7 +108,9 @@
 //   S = 67, B = 128, H = 12 (fine-tune), bf16: G = 3, 43 groups x 12 heads
 //     x 67 x 67 x 4 = 9.3 MB forward and 9.3 MB backward (64-row tiles read
 //     it twice per batch row and query tile: 55 MB); dbias partials 9.3 MB
-//     written and read back (27.6 MB for one partial per batch row). fp32:
+//     written and read back (27.6 MB for one partial per batch row). The
+//     backward's persistent route: 132 blocks, 2.4 MB of bias read and 2.4 MB
+//     of partials written and read back. fp32:
 //     one tile, one pass, 27.6 MB from L2; dbias partials one per batch row
 //     (27.6 MB).
 //   S = 577, B = 16, H = 12 (serving at context 8192), bf16 tiled: each
@@ -613,8 +618,9 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
 // The plan chronos_attention_fwd (backward = 0) or chronos_attention_bwd
 // (backward = 1) takes for (dtype, B, S, H, D), for reports and for sizing the
 // dbias partials: cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync
-// m16n8k16 one-pass, 2: bf16 mma.sync tiled, 3: bf16 wgmma + TMA), threads,
-// query rows per block (per work item on route 3),
+// m16n8k16 one-pass, 2: bf16 mma.sync tiled, 3: bf16 wgmma + TMA, 4: the
+// backward's bf16 mma.sync one-pass fed by TMA, persistent), threads,
+// query rows per block (per work item on routes 3 and 4),
 // keys per tile, passes over the keys, batch rows per block, blocks along
 // the batch (the (H, S, S) dbias partials the backward sums), padded
 // head_dim, output columns per block, dL as a hi + lo bf16 pair (1) or not

@@ -917,13 +917,18 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
+// Route 4, chronos_attention_bwd_short_hopper.cu.
+extern "C" int chronos_short_bwd(const void* qkv, const void* seg, const void* bias,
+                                 const void* g, void* dqkv, void* dbias, int groups, int B, int S,
+                                 int H, void* stream);
 // Route 3, chronos_attention_bwd_hopper.cu.
 extern "C" int chronos_hopper_bwd(const void* qkv, const void* seg, const void* bias,
                                   const void* g, void* dqkv, void* dbias, void* stats, int groups,
                                   int B, int S, int H, void* stream);
 
 // g (B, S, H*D) and dqkv (B, S, 3*H*D) contiguous in qkv's dtype, dqkv
-// written whole; stats: 3*B*H*Sp floats of scratch, Sp = S rounded up to 64.
+// written whole; stats: 3*B*H*Sp floats of scratch, Sp = S rounded up to 64,
+// or null where the plan's route is 4 (refused on the other routes).
 // dbias (H, S, S) fp32 and partials are both null or both given: with them,
 // dbias is written whole,
 // and partials holds the (H, S, S) partial sums of dL when the plan has more
@@ -938,6 +943,7 @@ extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const voi
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(true, dtype, B, S, H, D);
+  if (stats == nullptr && p.route != 4) return (int)cudaErrorInvalidValue;
   float* db = static_cast<float*>(dbias);
   // With one plane the kernels write dbias itself.
   float* part = db == nullptr ? nullptr : p.groups == 1 ? db : static_cast<float*>(partials);
@@ -945,7 +951,10 @@ extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const voi
   const float* bs = static_cast<const float*>(bias);
   float* sc = static_cast<float*>(stats);
   cudaError_t err =
-      p.route == 3
+      p.route == 4
+          ? static_cast<cudaError_t>(
+                chronos_short_bwd(qkv, seg, bias, g, dqkv, part, p.groups, B, S, H, stream))
+      : p.route == 3
           ? static_cast<cudaError_t>(
                 chronos_hopper_bwd(qkv, seg, bias, g, dqkv, part, stats, p.groups, B, S, H, stream))
       : dtype == 0

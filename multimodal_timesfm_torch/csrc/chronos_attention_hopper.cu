@@ -244,12 +244,14 @@ int route_override = 0;
 
 // Route override for measuring the border (chronos_set_route; chip_smoke.py's
 // [gate] lines): 0 the rule below, 1 never this route, 2 this route at every S
-// (bf16, head_dim 64). Process-wide.
+// (bf16, head_dim 64). 1 and 2 also keep the backward off its one-pass
+// persistent route (chronos_attention_bwd_short_hopper.cu). Process-wide.
 extern "C" int chronos_set_route(int route) {
   if (route < 0 || route > 2) return (int)cudaErrorInvalidValue;
   route_override = route;
   return 0;
 }
+extern "C" int mtt_chronos_route_override() { return route_override; }
 
 // Whether make_plan (chronos_common.cuh) gives a bf16 call at (S, D) this route:
 // head_dim 64 and S from the measured border with the mma.sync routes

@@ -17,6 +17,11 @@
 // backward's dbias partials (chronos_attention_bwd_hopper.cu).
 extern "C" int chronos_hopper_takes(int backward, int S, int D);
 extern "C" int chronos_hopper_dbias_groups(int B, int S, int H);
+// Whether route 4 takes a bf16 backward (chronos_attention_bwd_short_hopper.cu),
+// its block's threads, and its dbias partials (blocks along the batch).
+extern "C" int chronos_short_takes(int S, int D);
+extern "C" int chronos_short_threads(int S);
+extern "C" int chronos_short_groups(int B, int S, int H);
 
 namespace {
 
@@ -45,7 +50,11 @@ constexpr int kMaxGroup = 8;          // batch rows per block of the one-pass ro
 // chronos_attention_bwd_hopper.cu: persistent warp-specialised blocks, 128
 // rows a work item, one pass forward, dbias summed over the batch in the
 // kernel, in groups only where its blocks are too few), taken where
-// chronos_hopper_takes says so (the measured border) before the other two.
+// chronos_hopper_takes says so (the measured border) before the other two,
+// 4 = the backward's bf16 mma.sync one-pass route fed by TMA at head_dim 64
+// (chronos_attention_bwd_short_hopper.cu: persistent blocks, each one head and
+// a range of batch rows, the head's bias read from L1, one dbias partial
+// a block), taken where chronos_short_takes says so, before the others.
 struct Plan {
   int route;
   int threads;  // per block
@@ -79,6 +88,12 @@ inline Plan make_plan(bool backward, int dtype, int B, int S, int H, int D) {
   if (dtype == 0) {
     const int tb = 16 * f32_tm(S, D, backward);
     p = {0, kThreadsF32, tb, tb, S <= tb ? 1 : 2, 1, B, D, D, 0};
+    return p;
+  }
+  if (backward && chronos_short_takes(S, D)) {
+    const int sp = (S + 15) / 16 * 16;
+    const int groups = chronos_short_groups(B, S, H);
+    p = {4, chronos_short_threads(S), sp, sp, 1, (B + groups - 1) / groups, groups, 64, 64, 1};
     return p;
   }
   if (chronos_hopper_takes(backward ? 1 : 0, S, D)) {

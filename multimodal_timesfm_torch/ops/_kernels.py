@@ -28,8 +28,9 @@ CSRC = _PKG / "csrc"
 SOURCES = tuple(
     CSRC / name
     for name in ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_hopper.cu",
-                 "attention_bwd_hopper.cu", "chronos_attention.cu", "chronos_attention_bwd.cu",
-                 "chronos_attention_hopper.cu", "chronos_attention_bwd_hopper.cu")
+                 "attention_bwd_hopper.cu", "attention_bwd_short_hopper.cu", "chronos_attention.cu",
+                 "chronos_attention_bwd.cu", "chronos_attention_hopper.cu",
+                 "chronos_attention_bwd_hopper.cu", "chronos_attention_bwd_short_hopper.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -118,6 +119,8 @@ def library() -> ctypes.CDLL:
     lib.attention_fwd.restype = i32
     lib.attention_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 3 + [ptr]
     lib.attention_bwd.restype = i32
+    lib.attention_bwd_short.argtypes = [ptr] * 7 + [i32] * 3 + [i64] * 3
+    lib.attention_bwd_short.restype = i32
     lib.chronos_attention_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.chronos_attention_fwd.restype = i32
     lib.chronos_attention_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
@@ -133,15 +136,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-specialised")
+_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-specialised",
+           "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass")
 ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2}
 
 
 def set_route(name: str) -> None:
     """Which bf16 route the causal attention kernels take: ``"rule"`` (the library's
-    dispatch rule, the default), ``"mma.sync"`` (never the wgmma route) or ``"wgmma"``
-    (the wgmma route at every S its layout rule allows). For measuring the border between
-    the two (``chip_smoke.py``'s ``[gate]`` lines); process-wide, in the library."""
+    dispatch rule, the default), ``"mma.sync"`` (never the wgmma or the backward's persistent
+    route) or ``"wgmma"`` (the wgmma route at every S its layout rule allows; never the
+    persistent route). For measuring the borders between them (``chip_smoke.py``'s
+    ``[gate]`` lines); process-wide, in the library."""
     err = library().attention_set_route(ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"attention_set_route({name!r}) failed with CUDA error {err}")
@@ -149,23 +154,35 @@ def set_route(name: str) -> None:
 
 def set_chronos_route(name: str) -> None:
     """Which bf16 route the Chronos attention kernels take at head_dim 64: ``"rule"`` (the
-    library's dispatch rule, the default), ``"mma.sync"`` (never the wgmma route: the
-    one-pass or tiled mma.sync route by their own limits) or ``"wgmma"`` (the wgmma route at
-    every S). For measuring the border (``chip_smoke.py``'s Chronos ``[gate]`` lines);
-    process-wide, in the library."""
+    library's dispatch rule, the default), ``"mma.sync"`` (never the wgmma or the backward's
+    persistent route: the one-pass or tiled mma.sync route by their own limits) or
+    ``"wgmma"`` (the wgmma route at every S; never the persistent route). For measuring the
+    borders (``chip_smoke.py``'s Chronos ``[gate]`` lines); process-wide, in the library."""
     err = library().chronos_set_route(ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"chronos_set_route({name!r}) failed with CUDA error {err}")
 
 
-def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> str:
-    """The route and tiles the causal attention kernels take for (dtype, S, head_dim), as the
-    library's own dispatch reports them (``attention_fwd_config`` / ``attention_bwd_config``)."""
+def _attention_config(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> list[int]:
+    """``attention_fwd_config`` / ``attention_bwd_config`` of the library for (dtype, S, D)."""
     cfg = (ctypes.c_int * 8)()
     fn = library().attention_bwd_config if backward else library().attention_fwd_config
     err = fn(_DTYPE_CODES[dtype], seq, dim, cfg)
     if err != 0:
         raise RuntimeError(f"no attention route for {dtype} S={seq} D={dim} (CUDA error {err})")
+    return list(cfg)
+
+
+def attention_route_number(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> int:
+    """The causal kernels' route for (dtype, S, head_dim) by number: 0 fp32, 1 mma.sync,
+    2 wgmma, 3 the backward's persistent one-pass route."""
+    return _attention_config(backward, dtype, seq, dim)[0]
+
+
+def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> str:
+    """The route and tiles the causal attention kernels take for (dtype, S, head_dim), as the
+    library's own dispatch reports them (``attention_fwd_config`` / ``attention_bwd_config``)."""
+    cfg = _attention_config(backward, dtype, seq, dim)
     route, threads, rows, keys, heads, padded, cols = cfg[:7]
     text = (f"{_ROUTES[route]}, {threads} threads, {rows} query rows x {keys} keys per tile, "
             f"{heads} head(s) per block, head_dim {dim} padded to {padded}, {cols} output "
@@ -175,11 +192,16 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
     if route == 2:
         text += (", one pass" if not backward else ", 3 kernels (row statistics, dQ, dK and dV)")
         text += ", 2 consumer warpgroups of 64 rows + 1 TMA producer warpgroup"
+    if route == 3:
+        text += (", 1 kernel (dQ, dK and dV of a work item, no statistics scratch), work items of "
+                 f"{heads} head(s) x every row, 2 consumer groups of {threads // 64} warp(s) + 1 TMA "
+                 "producer warp")
     return text
 
 
 _CHRONOS_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16 one-pass", "bf16 mma.sync m16n8k16 tiled",
-                   "bf16 wgmma + TMA, warp-specialised")
+                   "bf16 wgmma + TMA, warp-specialised",
+                   "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass")
 _CHRONOS_KEYS = ("route", "threads", "rows", "keys", "passes", "group", "groups", "padded", "cols", "split_dl")
 
 
@@ -200,6 +222,12 @@ def chronos_plan(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads
 def chronos_route(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads: int, dim: int) -> str:
     """:func:`chronos_plan` as one line of text."""
     p = chronos_plan(backward, dtype, batch, seq, heads, dim)
+    if p["route"] == 4:
+        return (f"{_CHRONOS_ROUTES[4]}, persistent blocks of {p['threads']} threads (2 consumer "
+                f"groups of {p['threads'] // 64} warp(s) + 1 TMA producer warp), each one head and a "
+                f"range of about {p['group']} batch rows ({p['groups']} blocks a head: the dbias "
+                f"partials), {p['rows']} query rows x {p['keys']} keys a tile, 1 kernel (dQ, dK and "
+                f"dV of a batch row, no statistics scratch), head_dim {dim}, dL as a hi + lo bf16 pair")
     if p["route"] == 3:
         text = (f"{_CHRONOS_ROUTES[3]}, persistent blocks of {p['threads']} threads (2 consumer "
                 f"warpgroups of 64 rows + 1 TMA producer warpgroup), work items of {p['rows']} rows, "
@@ -311,13 +339,14 @@ def attention_bwd(
     dk: torch.Tensor,
     dv: torch.Tensor,
 ) -> None:
-    """Launch the two attention backward kernels on the current stream.
+    """Launch the attention backward kernels on the current stream (one on the bf16
+    persistent route, two or three on the others).
 
     q, k, v as for :func:`attention_fwd`; g: the output's cotangent, a
     (B, S, H, D) view with its own row stride; dq, dk, dv: (B, S, H, D) views
-    sharing one row stride, written whole. A (3, B, H, S rounded up to 64) fp32
-    scratch for the row statistics is allocated here. Raises ``RuntimeError``
-    if a launch is refused.
+    sharing one row stride, written whole. Off the persistent route a (3, B, H, S
+    rounded up to 64) fp32 scratch for the row statistics is allocated here. Raises
+    ``RuntimeError`` if a launch is refused.
     """
     lib = library()
     outs = (("dq", dq), ("dk", dk), ("dv", dv))
@@ -327,13 +356,18 @@ def attention_bwd(
     _check_heads_view("g", g, shape, g.stride(1))
     for name, t in outs:
         _check_heads_view(name, t, shape, dq.stride(1))
-    padded = -(-seq // 64) * 64
-    stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    stats = None
+    if not lib.attention_bwd_short(*ptrs, _DTYPE_CODES[q.dtype], seq, dim, q.stride(1), g.stride(1),
+                                   dq.stride(1)):
+        padded = -(-seq // 64) * 64
+        stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if stats is None else stats.data_ptr(),
             _DTYPE_CODES[q.dtype], batch, seq, heads, dim,
             q.stride(1), g.stride(1), dq.stride(1), stream,
         )
@@ -404,9 +438,9 @@ def chronos_attention_bwd(
     qkv, seg, bias as for :func:`chronos_attention_fwd`; g: (B, S, H*D) and
     dqkv: (B, S, 3*H*D), contiguous in qkv's dtype, dqkv written whole;
     dbias: (H, S, S) fp32, written whole, or None to skip the bias gradient.
-    Allocates a (3, B, H, S rounded up to 64) fp32 scratch for the row statistics and, with
-    dbias, the (H, S, S) fp32 partial sums of dL the plan needs (one per
-    block along the batch; none when there is one). Raises ``RuntimeError``
+    Allocates, off the plan's persistent route (4), a (3, B, H, S rounded up to 64) fp32
+    scratch for the row statistics and, with dbias, the (H, S, S) fp32 partial sums of dL
+    the plan needs (one per block along the batch; none when there is one). Raises ``RuntimeError``
     if a launch is refused.
     """
     lib = library()
@@ -415,21 +449,23 @@ def chronos_attention_bwd(
     if tuple(g.shape) != (batch, seq, heads * dim) or dqkv.shape != qkv.shape:
         raise ValueError(f"g {tuple(g.shape)} or dqkv {tuple(dqkv.shape)} does not match qkv")
     qkv, g = _aligned16(qkv), _aligned16(g)
-    padded = -(-seq // 64) * 64
-    stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=qkv.device)
+    plan = chronos_plan(True, qkv.dtype, batch, seq, heads, dim)
+    stats = None
+    if plan["route"] != 4:
+        padded = -(-seq // 64) * 64
+        stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=qkv.device)
     partials = None
     if dbias is not None:
         if dbias.device != qkv.device:
             raise ValueError(f"dbias is on {dbias.device}; the kernel needs it on {qkv.device}")
         _check_aux("dbias", dbias, torch.float32, (heads, seq, seq))
-        groups = chronos_plan(True, qkv.dtype, batch, seq, heads, dim)["groups"]
-        planes = groups if groups > 1 else 0
+        planes = plan["groups"] if plan["groups"] > 1 else 0
         partials = torch.empty(max(1, planes * heads * seq * seq), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.chronos_attention_bwd(
             qkv.data_ptr(), seg.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), None if stats is None else stats.data_ptr(),
             None if partials is None else partials.data_ptr(),
             _DTYPE_CODES[qkv.dtype], batch, seq, heads, dim, stream,
         )

@@ -14,6 +14,8 @@ packing is a TPU layout device and is not carried over.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from multimodal_timesfm_torch.ops import _kernels
@@ -84,7 +86,7 @@ def fused_qkv_causal_attention_bwd(
 
     A CPU tensor runs :func:`plain_qkv_attention_bwd`; any other launches the
     backward kernel or raises. ``fused_qkv_causal_attention_bwd.launches``
-    counts kernel launches.
+    counts kernel launches, ``.shapes`` counts them by (dtype, B, S, H, D).
     """
     if qkv.device.type == "cpu":
         return plain_qkv_attention_bwd(qkv, key_valid, g, num_heads, head_dim)
@@ -94,10 +96,12 @@ def fused_qkv_causal_attention_bwd(
     g_heads = g.contiguous().unflatten(-1, (num_heads, head_dim))
     _kernels.attention_bwd(q, k, v, key_valid, g_heads, dq, dk, dv)
     fused_qkv_causal_attention_bwd.launches += 1
+    fused_qkv_causal_attention_bwd.shapes[(qkv.dtype, *qkv.shape[:2], num_heads, head_dim)] += 1
     return dqkv
 
 
 fused_qkv_causal_attention_bwd.launches = 0
+fused_qkv_causal_attention_bwd.shapes = collections.Counter()
 
 
 def _forward(qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
