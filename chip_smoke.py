@@ -7,15 +7,16 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the ten sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the eleven sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
    their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
    sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
    sharing ``chronos_common.cuh``, and their bf16 wgmma/TMA route at head_dim 64
    ``chronos_attention_hopper.cu``, ``chronos_attention_bwd_hopper.cu``, sharing
-   ``chronos_hopper.cuh``; the backwards' bf16 one-pass persistent route for short
-   sequences, ``attention_bwd_short_hopper.cu`` and ``chronos_attention_bwd_short_hopper.cu``,
-   sharing ``hopper_short.cuh``) with nvcc for sm_90a, one nvcc per source started
+   ``chronos_hopper.cuh``; the bf16 one-pass persistent route for short sequences, the
+   backwards' ``attention_bwd_short_hopper.cu`` and ``chronos_attention_bwd_short_hopper.cu``
+   and B4f's ``chronos_attention_short_hopper.cu``, sharing ``hopper_short.cuh``) with nvcc
+   for sm_90a, one nvcc per source started
    together; print the build seconds, the compiler's register, shared-memory and spill
    report, the SASS count per kernel family of HMMA (mma.sync), HGMMA (wgmma) and UTMALDG
    (TMA tile loads), failing if a wgmma-route family holds no HGMMA or UTMALDG, or a
@@ -32,9 +33,14 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    entry points; the Chronos kernels (B4f/B4b) with one segment, and three
    segments with padded tokens, dbias included, on every route and tile
    shape (S = 5, 16, 17, 48, 64, 67, 70, 80, 81, 96, 97, 113, 128, 129, 193,
-   200, 577; head dims 16 to 256), and on the wgmma route forced at 16 x 577,
-   64 x 193, 64 x 97 and its tails; every backward launched twice and held
-   bit-equal; all at the
+   200, 577; head dims 16 to 256), on the wgmma route forced at 16 x 577,
+   64 x 193, 64 x 97 and its tails, and B4f on its persistent route at
+   every case of S <= 128 at head_dim 64 and at odd batches (two launches
+   bit-equal); every backward launched twice and held bit-equal; the bf16
+   backwards where dV's terms cancel (a cotangent centred over 16-row blocks,
+   or over a row's 16 segments, times 8) at each older route's own lengths:
+   causal 96 (mma.sync) and 512 (wgmma), Chronos 96 (one-pass), 577 (wgmma)
+   and head_dim 128 at 80 (tiled); all at the
    shapes the serving and training paths give them, and at edge shapes. The
    route and tiles of each kernel at its main-path shapes are printed
    (``[route]``: in bf16 at head_dim 80 the causal kernels take the wgmma/TMA route
@@ -46,9 +52,10 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    against their mma.sync routes at S = 64 to 577 (D = 64, 12 heads, about 9,232
    tokens a call; device time held to a CUDA graph replay's event time); then the
    borders of the backwards' persistent route: B1b at S = 8 to 128 (D = 80, 16 heads,
-   B = 8,192 / S) against the mma.sync route and, from 64, the wgmma route, and B4b at
+   B = 8,192 / S) against the mma.sync route and, from 64, the wgmma route, B4b at
    S = 16 to 96 (D = 64, 12 heads, B = 9,232 / S), without and with dbias, against the
-   one-pass or tiled mma.sync route and the wgmma route (held times, in turns). The kernel,
+   one-pass or tiled mma.sync route and the wgmma route, and B4f at S = 16 to 128 against
+   the one-pass route up to 96 and the wgmma route from 97 (held times, in turns). The kernel,
    the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
@@ -234,8 +241,9 @@ The ``kernels`` line lists every kernel with its launches on the main-path
 phases (3 to 13; each starts its counters at 0; a kernel captured in a CUDA
 graph counts once per replay; phase 11 adds its ranks' counts, phase 13 the
 server's) and its
-numbers at its main-path shape in bf16; a ``[launches]`` line splits B1b's and B4's
-counted launches by the route the library's plan gives each shape.
+numbers at its main-path shape in bf16, and the Chronos wgmma route's and B4f's persistent
+route's entries with their own counted launches; a ``[launches]`` line splits B1b's and
+B4's counted launches by the route the library's plan gives each shape.
 
 ``python3 chip_smoke.py --parallel-only`` only builds the kernels, checks B4
 at phase 11's 6-head shapes and runs phase 11 (making phase 10's tree
@@ -352,6 +360,8 @@ CU_CHRONOS_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention.cu"
 # 80) at their main-path shapes.
 CU_SHORT_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_short_hopper.cu"
 CU_CHRONOS_SHORT_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_short_hopper.cu"
+# The bf16 one-pass persistent route the dispatch gives B4f up to 96 tokens at head_dim 64.
+CU_CHRONOS_SHORT_FWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_short_hopper.cu"
 # The bf16 wgmma/TMA route the dispatch gives B1f, B2 and B3 at their main-path shapes.
 CU_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_hopper.cu"
 CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
@@ -386,12 +396,18 @@ KERNELS = (
      "multimodal_timesfm_tpu/ops/attention.py:322", (2, 2100, 16, 80)),
     ("B3b", "flash_causal_attention_bwd", CU_HOPPER_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/attention.py:322", (2, 2100, 16, 80)),
-    ("B4f", "fused_chronos_attention", CU_CHRONOS_SOURCE,
+    ("B4f", "fused_chronos_attention", CU_CHRONOS_SHORT_FWD_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
     ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_SHORT_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (128, 67, 12, 64)),
 )
 KERNELS_BY_KEY = tuple((key, shape) for key, _, _, _, shape in KERNELS)
+# The persistent route's rows of the kernels line that KERNELS does not already give a route
+# of their own: B4f's (key, wrapper, source, TPU kernel, the route's main-path shape).
+PERSISTENT_KERNELS = (
+    ("B4f", "fused_chronos_attention", CU_CHRONOS_SHORT_FWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
+)
 CHRONOS_HORIZON = 32  # the JAX bench's Chronos fine-tune horizon
 
 
@@ -409,6 +425,22 @@ def kernel_entries(rows: dict[str, dict], launches: dict[str, int]) -> list[dict
         entries.append({
             "name": name, "route": "cuda", "source": cu, "replaces": replaces,
             "launches": launches[key], "shape": f"B={batch} S={seq} H={heads} D={dim} bfloat16",
+            **rows[row_key(key, shape, torch.bfloat16)],
+        })
+    return entries
+
+
+def persistent_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line's entries of PERSISTENT_KERNELS: this process's counted launches on
+    the persistent route (``routes``, from route_launches) and the measured row at the route's
+    main-path shape in bf16."""
+    entries = []
+    for key, name, cu, replaces, shape in PERSISTENT_KERNELS:
+        batch, seq, heads, dim = shape
+        entries.append({
+            "name": f"{name} (persistent route)", "route": "cuda", "source": cu, "replaces": replaces,
+            "launches": routes.get(f"{key} persistent", 0),
+            "shape": f"B={batch} S={seq} H={heads} D={dim} bfloat16",
             **rows[row_key(key, shape, torch.bfloat16)],
         })
     return entries
@@ -438,9 +470,9 @@ WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
                   "attention_bwd_dkdv_wgmma_kernel", "chronos_fwd_wgmma_kernel",
                   "chronos_bwd_rows_kernel", "chronos_bwd_dkdv_wgmma_kernel",
                   "chronos_bwd_dbias_wgmma_kernel")
-# The kernel families of the backwards' persistent one-pass route (mma.sync fed by TMA),
-# which must hold HMMA and UTMALDG.
-PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel")
+# The kernel families of the persistent one-pass route (mma.sync fed by TMA: the backwards'
+# and B4f's), which must hold HMMA and UTMALDG.
+PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel", "chronos_fwd_short_kernel")
 
 
 def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
@@ -812,6 +844,65 @@ def padded_cotangent(shape: tuple[int, ...], valid: torch.Tensor, dtype: torch.d
     return (g * valid.reshape(*valid.shape, *([1] * (g.dim() - 2)))).to(dtype)
 
 
+# Where dV's terms cancel: a cotangent centred over each block of DV_CANCEL_BLOCK query rows
+# (the causal kernels) or over each of a row's segments (Chronos), times DV_CANCEL_SCALE. dV =
+# W^T G then keeps only W's spread over those rows, while a rounding of W reaches it times
+# |G|: one bf16 rounding of W leaves dV outside BWD_TOL there (in a CPU model of each route,
+# tests/test_torch_port_dv_pair.py), W as a hi + lo pair keeps it inside. At each route's own
+# lengths: causal 96 (the mma.sync route, B1b's entry point) and 512 (wgmma, B2b's);
+# Chronos 96 (one-pass), 577 (wgmma), and head_dim 128 at 80 (tiled), 16 segments a row.
+DV_CANCEL_BLOCK, DV_CANCEL_SCALE = 16, 8.0
+CAUSAL_DV_CANCEL_SHAPES = ((256, 96, 16, 80), (16, 512, 16, 80))
+CHRONOS_DV_CANCEL_SHAPES = ((512, 96, 12, 64), (16, 577, 12, 64), (512, 80, 4, 128))
+
+
+def centred_cotangent(g: torch.Tensor, groups: torch.Tensor) -> torch.Tensor:
+    """DV_CANCEL_SCALE times ``g`` (B, S, ...) less its mean over the query rows of each group:
+    ``groups`` (B, S) ids, rows of one id one group. In ``g``'s dtype."""
+    same = (groups[:, :, None] == groups[:, None, :]).float()
+    flat = g.float().flatten(2)
+    mean = torch.bmm(same, flat) / same.sum(-1, keepdim=True)
+    return (DV_CANCEL_SCALE * (flat - mean)).unflatten(-1, g.shape[2:]).to(g.dtype)
+
+
+def causal_dv_cancel_checks(gen: torch.Generator) -> None:
+    """The causal backwards in bf16 where dV's terms cancel (CAUSAL_DV_CANCEL_SHAPES: every key
+    valid, the cotangent centred over blocks of DV_CANCEL_BLOCK rows) against their plain
+    versions on every element, two launches bit-equal."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.attention import fused_causal_attention_bwd, plain_attention_bwd
+    from multimodal_timesfm_torch.ops.qkv_attention import (
+        fused_qkv_causal_attention_bwd,
+        plain_qkv_attention_bwd,
+        split_heads,
+    )
+
+    dtype = torch.bfloat16
+    for batch, seq, heads, dim in CAUSAL_DV_CANCEL_SHAPES:
+        qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+        qkv[..., : heads * dim] /= math.sqrt(dim)
+        qkv = qkv.to(dtype)
+        valid = torch.ones(batch, seq, dtype=torch.bool, device="cuda")
+        blocks = (torch.arange(seq, device="cuda") // DV_CANCEL_BLOCK)[None].expand(batch, seq)
+        g = centred_cotangent(torch.randn(batch, seq, heads * dim, generator=gen, device="cuda").to(dtype),
+                              blocks)
+        if seq <= 128:  # B1b's entry point
+            bwd = lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim)  # noqa: E731
+            ref = plain_qkv_attention_bwd(qkv, valid, g, heads, dim)
+        else:  # B2b's
+            q, k, v = (t.contiguous() for t in split_heads(qkv, heads, dim))
+            g4 = g.unflatten(-1, (heads, dim))
+            bwd = lambda: fused_causal_attention_bwd(q, k, v, valid, g4)  # noqa: E731
+            ref = plain_attention_bwd(q, k, v, valid, g4)
+        what = f"causal dV cancelling (B,S,H,D) {(batch, seq, heads, dim)}"
+        err = compare_bwd(what, bwd(), ref)
+        same_twice(what, bwd)
+        route = _kernels.attention_route(True, dtype, seq, dim).split(",")[0]
+        print(f"[kernels] {what} bf16, cotangent centred over {DV_CANCEL_BLOCK}-row blocks x "
+              f"{DV_CANCEL_SCALE:g}: max |kernel - plain| {err:.3g} within BWD_TOL; two launches "
+              f"bit-equal; route {route}", flush=True)
+
+
 def backward_kernel_phase(seed: int) -> dict[str, dict]:
     from multimodal_timesfm_torch.ops.attention import fused_causal_attention_bwd, plain_attention_bwd
     from multimodal_timesfm_torch.ops.qkv_attention import (
@@ -852,6 +943,7 @@ def backward_kernel_phase(seed: int) -> dict[str, dict]:
                 lambda: plain_attention_bwd(q, k, v, valid, g),
                 sdpa_bwd_fn(q, k, v, valid, g), valid, dtype, (batch, seq, heads, dim), 5,
             )
+    causal_dv_cancel_checks(gen)
     return rows
 
 
@@ -1186,6 +1278,55 @@ def sharded_chronos_checks(seed: int) -> None:
             check_chronos(f"B4 {shape} {segments} segment(s){' padded' if padded else ''}", qkv, seg, bias, g)
 
 
+def chronos_dv_cancel_checks(gen: torch.Generator) -> None:
+    """B4b in bf16 where dV's terms cancel (CHRONOS_DV_CANCEL_SHAPES: 16 segments a row, the
+    cotangent centred over each segment's rows) against its plain version on every element, with
+    and without dbias, two launches bit-equal (check_chronos)."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    dtype = torch.bfloat16
+    for shape in CHRONOS_DV_CANCEL_SHAPES:
+        batch, seq, heads, dim = shape
+        qkv, seg, bias, g = chronos_inputs(shape, 16, False, dtype, gen)
+        route = _kernels.chronos_route(True, dtype, batch, seq, heads, dim).split(",")[0]
+        check_chronos(f"B4 dV cancelling {shape} 16 segments, cotangent centred in each x "
+                      f"{DV_CANCEL_SCALE:g} (backward: {route})", qkv, seg, bias, centred_cotangent(g, seg))
+
+
+# B4f's persistent route checked at every S it is built for (bf16, head_dim 64; the rule's
+# route there), at the Chronos kernel phase's cases of S <= 128 and at odd batches: fewer rows than blocks a
+# head (3, 1), a range of one row per block, and batches the blocks do not divide.
+PERSISTENT_FORWARD_ODD = [(3, 67, 12, 64, 3, True), (1, 5, 2, 64, 1, False), (9, 67, 12, 64, 3, True),
+                          (17, 80, 12, 64, 16, False), (130, 67, 12, 64, 1, False), (7, 97, 5, 64, 3, True),
+                          (11, 113, 12, 64, 1, False), (5, 128, 3, 64, 3, True)]
+
+
+def persistent_forward_checks(gen: torch.Generator, cases: list[tuple]) -> None:
+    """B4f on its persistent route at ``cases`` with head_dim 64 and S <= 128, and at
+    PERSISTENT_FORWARD_ODD, bf16: the plan's route 4, every element within KERNEL_TOL of the
+    plain version, two launches bit-equal."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import fused_chronos_attention, plain_chronos_attention
+
+    dtype = torch.bfloat16
+    worst, count = 0.0, 0
+    for batch, seq, heads, dim, segments, padded in cases + PERSISTENT_FORWARD_ODD:
+        if dim != 64 or seq > 128:
+            continue
+        shape = (batch, seq, heads, dim)
+        if _kernels.chronos_plan(False, dtype, batch, seq, heads, dim)["route"] != 4:
+            raise AssertionError(f"B4f {shape}: the plan's route is not the persistent one")
+        qkv, seg, bias, _ = chronos_inputs(shape, segments, padded, dtype, gen)
+        what = f"B4f persistent route {shape} {segments} segment(s){' padded' if padded else ''}"
+        fwd = lambda: fused_chronos_attention(qkv, seg, bias)  # noqa: E731
+        worst = max(worst, compare(what, fwd(), plain_chronos_attention(qkv, seg, bias)))
+        same_twice(what, fwd)
+        count += 1
+    print(f"[kernels] B4f persistent route at {count} shapes (S <= 128, head_dim 64, bf16; odd "
+          f"batches {[c[:4] for c in PERSISTENT_FORWARD_ODD]}): max |kernel - plain| {worst:.3g} within "
+          f"KERNEL_TOL on every element; two launches bit-equal", flush=True)
+
+
 def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     """B4f and B4b against their plain versions on every element, fp32 and bf16, at every
     route and tile shape; timed at the main-path shape."""
@@ -1227,6 +1368,8 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
             rows[row_key("B4f", shape, dtype)] = fwd
             rows[row_key("B4b", shape, dtype)] = bwd
     wgmma_route_checks(gen)
+    persistent_forward_checks(gen, cases)
+    chronos_dv_cancel_checks(gen)
     return rows
 
 
@@ -1548,6 +1691,56 @@ def persistent_route_borders(seed: int, chronos_only: bool = False) -> None:
     finally:
         _kernels.set_chronos_route("rule")
     persistent_border_line("B4b bf16 backward", CHRONOS_PERSISTENT_BORDER_LENGTHS, wins, rule)
+    persistent_forward_borders(seed)
+
+
+# The lengths the bf16 border of B4f's persistent route is measured at: head_dim 64, 12 heads,
+# B = CHRONOS_BORDER_TOKENS // S; against the one-pass route up to 96 tokens and against the
+# wgmma route from 97 (the routes the rule gave those lengths before the persistent route).
+FORWARD_BORDER_LENGTHS = (16, 32, 48, 64, 67, 80, 96, 97, 113, 128)
+
+
+def persistent_forward_borders(seed: int) -> None:
+    """The bf16 border of B4f's persistent route: at each of FORWARD_BORDER_LENGTHS the forward
+    on the persistent route (the rule's, up to 128) and on the route it took there before
+    (mma.sync one-pass up to 96, wgmma from 97; the library's route override), checked against the plain version (the persistent route's two launches
+    bit-equal) and timed in turns (persistent, other, other, persistent; held_ms). One ``[gate]``
+    line per length, then one for the border (persistent_border_line)."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import fused_chronos_attention, plain_chronos_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    heads, dim, dtype = 12, 64, torch.bfloat16
+    wins, rule = [], []
+    try:
+        for seq in FORWARD_BORDER_LENGTHS:
+            batch = max(1, CHRONOS_BORDER_TOKENS // seq)
+            qkv, seg, bias, _ = chronos_inputs((batch, seq, heads, dim), 1, False, dtype, gen)
+            fwd = lambda: fused_chronos_attention(qkv, seg, bias)  # noqa: E731
+            ref = plain_chronos_attention(qkv, seg, bias)
+            other = "mma.sync" if seq <= 96 else "wgmma"
+            times: dict[str, list[float]] = {"persistent": [], other: []}
+            for route in ("persistent", other, other, "persistent"):
+                _kernels.set_chronos_route("rule" if route == "persistent" else route)
+                if not times[route]:
+                    want = {"persistent": 4, "mma.sync": 1, "wgmma": 3}[route]
+                    if _kernels.chronos_plan(False, dtype, batch, seq, heads, dim)["route"] != want:
+                        raise AssertionError(f"B4f S={seq}: the {route} route is not the plan's")
+                    compare(f"B4f {route} route S={seq}", fwd(), ref)
+                    if route == "persistent":
+                        same_twice(f"B4f persistent route S={seq}", fwd)
+                times[route].append(held_ms(fwd, 20)[0])
+            _kernels.set_chronos_route("rule")
+            mean = {r: sum(ts) / len(ts) for r, ts in times.items()}
+            wins.append(mean["persistent"] < BORDER_MARGIN * mean[other])
+            rule.append(_kernels.chronos_plan(False, dtype, batch, seq, heads, dim)["route"] == 4)
+            print(f"[gate] B4f persistent bf16 D={dim} H={heads} S={seq} B={batch}, held device ms: persistent "
+                  f"{mean['persistent']:.4f}, {other} {mean[other]:.4f}; both within tolerance of the plain "
+                  f"version; the rule: {_kernels.chronos_route(False, dtype, batch, seq, heads, dim).split(',')[0]}",
+                  flush=True)
+    finally:
+        _kernels.set_chronos_route("rule")
+    persistent_border_line("B4f bf16 forward", FORWARD_BORDER_LENGTHS, wins, rule)
 
 
 def parent_kernels(root: str):
@@ -3804,9 +3997,10 @@ def training_times(seed: int, epochs: int = 7) -> None:
     stored in bf16) and ``chronos_baseline_h32`` (baseline: dbias on the path), batch 128, 67
     tokens, context and horizon 32, bf16 compute; 3 steps an epoch. Per cell the median train
     series/s of ``epochs`` epochs after two of warm-up, then one profiled epoch: the device's
-    busy time, idle share and the attention backward's kernels' share of busy (B1b: kernels
-    named ``attention_bwd``; B4b: ``chronos_bwd``). The per-epoch loop is host-bound, so
-    series/s moves with the host; the share is the device's reading."""
+    busy time, idle share and the attention forward's and backward's kernels' shares of busy
+    (B1f and B1b: kernels named ``attention_fwd`` and ``attention_bwd``; B4f and B4b:
+    ``chronos_fwd`` and ``chronos_bwd``). The per-epoch loop is host-bound, so series/s moves
+    with the host; the shares are the device's reading."""
     from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
     from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
@@ -3854,9 +4048,12 @@ def training_times(seed: int, epochs: int = 7) -> None:
             wall, kernels = device_profile(trainer.train_epoch)
         busy = sum(ms for _, ms in kernels)
         share = sum(ms for k, ms in kernels if family in k)
+        fwd_key, fwd_family = key[:2] + "f", family.replace("_bwd", "_fwd")
+        fwd = sum(ms for k, ms in kernels if fwd_family in k)
         print(f"[training-times] {name} {mode} bfloat16, batch {batch}, {steps} steps an epoch: median of "
               f"{epochs} epochs {float(np.median(rates)):.1f} train series/s ({', '.join(f'{r:.1f}' for r in rates)}) "
               f"| profiled epoch: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}, "
+              f"{fwd_key} ({fwd_family}*) {fwd:.3f} ms, {fwd / busy:.3f} of busy, "
               f"{key} ({family}*) {share:.3f} ms, {share / busy:.3f} of busy", flush=True)
         del decoder, trainer
         torch.cuda.empty_cache()
@@ -5034,13 +5231,14 @@ def main() -> int:
     main_path("parallel", parallel_phase, args.seed)
     idle = [key for key, n in launches.items() if n == 0]
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
-    idle += [f"{key} persistent" for key in ("B1b", "B4b") if not routes.get(f"{key} persistent")]
+    idle += [f"{key} persistent" for key in ("B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     print(f"[launches] main paths: {launches}")
     print(f"[launches] B1b and B4 by route, this process's counted launches (replays and the ranks' "
           f"not split): {routes}")
-    print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)}))
+    print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)
+                      + persistent_route_entries(rows, routes)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({
         "ok": True,

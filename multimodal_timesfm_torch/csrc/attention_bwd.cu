@@ -57,12 +57,14 @@
 // S^T = K Q^T and dW^T = V G^T, so that W^T and dL^T sit in the
 // accumulator registers in the A layout of dV += W^T G and dK += dL^T Q
 // (G and Q through ldmatrix.trans), as dL does for dQ += dL K in kernel 1.
-// W and dL are fp32. W goes in as one bf16 operand (it lies in [0, 1] and
-// its terms in dV do not cancel). dL goes in as a hi + lo pair of bf16
-// values, two mmas, about 2^-17 relative: each row of dL sums to exactly 0,
-// so dQ and dK are differences of terms, and a single bf16 rounding of dL
-// (2^-9) left them up to 0.25 from the plain version where they cancel
-// (B1b, 256 x 16 tokens; BWD_TOL allows 0.01 + 0.01 |plain|).
+// W and dL are fp32, and each goes in as a hi + lo pair of bf16 values,
+// two mmas, about 2^-17 relative. dL: each row sums to exactly 0, so dQ and
+// dK are differences of terms, and a single bf16 rounding of dL (2^-9) left
+// them up to 0.25 from the plain version where they cancel (B1b, 256 x 16
+// tokens; BWD_TOL allows 0.01 + 0.01 |plain|). W: where a cotangent is
+// centred over the keys, dV = W^T G keeps only W's spread, and one bf16
+// rounding of W left dV outside BWD_TOL (the Chronos kernels at 512 x 80
+// tokens in 16 segments of 5).
 // The exponentials run on the SFU (mtt::fast_exp, about 2^-22 relative), and
 // a tile that no mask touches skips the mask (mtt::tile_unmasked).
 //
@@ -74,8 +76,8 @@
 //
 // What bounds it on an H100: at the main-path shapes the bytes moved set
 // the least time in bf16 (chip_smoke.py prints the bound), but kernel 1
-// takes five products per tile pair and kernel 2 four (six with the dL
-// pair), on mma.sync at about half the card's bf16 rate, with three
+// takes five products per tile pair and kernel 2 four (eight with the W
+// and dL pairs), on mma.sync at about half the card's bf16 rate, with three
 // exponentials per logit on the SFU, and every block re-reads its tiles from
 // L2. The fp32 route is bound by the CUDA cores' 67 TFLOP/s.
 
@@ -799,7 +801,7 @@ __global__ void __launch_bounds__(kThreadsMma)
           w[n][e] = x;
           sc[n][e] = x * (dw[n][e] - st[2 * BQ + ci]);
         }
-      mma_pv<NO, LDS, false>(akv, w[0], w[1], Gt + kc * 16 * LDS, col0, lane);
+      mma_pv<NO, LDS, true>(akv, w[0], w[1], Gt + kc * 16 * LDS, col0, lane);
       mma_pv<NO, LDS, kSplitDl>(adk, sc[0], sc[1], Qt + kc * 16 * LDS, col0, lane);
     }
   }

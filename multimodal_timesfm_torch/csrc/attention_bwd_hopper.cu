@@ -26,8 +26,11 @@
 //      (three products, the last as a hi + lo pair of bf16 operands).
 //   3. dkdv: each work item of 128 keys walks the query tiles (the mirror walk of
 //      the skip rule): S^T = K Q^T, dW^T = V G^T, then dV += W^T G and
-//      dK += dL^T Q with W^T and dL^T from registers (four products, dL^T as
-//      hi + lo), Q, G and the tile's statistics through the TMA ring.
+//      dK += dL^T Q with W^T and dL^T from registers (four products, each of
+//      W^T and dL^T as a hi + lo pair of bf16 operands: six issued), Q, G and
+//      the tile's statistics through the TMA ring. W as one bf16 value left dV
+//      outside BWD_TOL where its terms cancel (a cotangent centred over the
+//      keys: dV keeps only W's spread).
 // Why r from its own pass (1) and not FlashAttention's r = rowsum(G o O)
 // from the forward's output: O comes back rounded to bf16 (and computed from
 // rounded weights), and that rounding of r moves dQ = sum W (dW - r) K by
@@ -429,12 +432,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             sc[c][e] = x;
             dw[c][e] = x * (dw[c][e] - sts[2 * kRows + q]);
           }
-        // dV's product is issued before dL^T is split, so W^T and dL^T are not
+        // dV's products are issued before dL^T is split, so W^T and dL^T are not
         // both held in fp32 beside their fragments (fewer live registers).
-        uint32_t wf[4][4], unused[4][4], hi[4][4], lo[4][4];
-        tile_frags<false>(sc, wf, unused);
+        uint32_t whi[4][4], wlo[4][4], hi[4][4], lo[4][4];
+        tile_frags<true>(sc, whi, wlo);
         wgmma_fence();
-        issue_pb(adv, wf, MNMajor(stage + kTile));
+        const MNMajor gb(stage + kTile);
+        issue_pb(adv, whi, gb);
+        issue_pb(adv, wlo, gb);
         tile_frags<true>(dw, hi, lo);
         wgmma_fence();
         const MNMajor qb(stage);
@@ -444,7 +449,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait();
         fence_regs(adv);
         fence_regs(adk);
-        fence_regs(wf);
+        fence_regs(whi);
+        fence_regs(wlo);
         fence_regs(hi);
         fence_regs(lo);
       }

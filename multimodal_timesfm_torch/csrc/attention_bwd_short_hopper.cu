@@ -66,7 +66,7 @@ namespace {
 
 using mtt::bf16;
 using namespace mtt::hopper;
-using namespace mtt::short_bwd;
+using namespace mtt::hopper_short;
 
 constexpr int kD = 80;     // head_dim of this route
 constexpr int kNK = 5;     // k-steps of 16 over head_dim
@@ -182,7 +182,7 @@ __global__ void __launch_bounds__(Cfg<NQ>::THREADS, 1)
     const int b = i / hg;
     const int h = (i - b * hg) * C::HPI + hs;
     const bool on = h < H;
-    mbar_wait(full + st, (j / C::STAGES) & 1);
+    wait_row<C::STAGES, kGroups>(full, empty, j);
     const uint8_t* vk = vms + st * C::SP;
     const uint32_t sb = ring + st * C::STAGE;
     const Tile<kD> Qt(sb + (0 * C::HPI + hs) * C::TILE, C::SP);

@@ -19,13 +19,16 @@
 // dqkv (B, S, 3*H*D) in the same layout. Any S, head_dim 1..256, no atomics:
 // two launches give bit-equal dqkv and dbias.
 //
-// Four routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
+// Five routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
 // H, D), and chronos_attention_config reports it. Route 4 below (the wgmma
 // route, numbered 3 in the plan) comes first where chronos_hopper_takes says
-// so; routes 1 and 2 take the bf16 calls it leaves. The backward has a fifth,
-// ahead of all of them in bf16 at head_dim 64 up to 80 tokens: the
-// persistent one-pass route (plan route 4, chronos_attention_bwd_short_hopper.cu,
-// its design and bias bytes in that file's header).
+// so; routes 1 and 2 take the bf16 calls it leaves. Ahead of all of them in
+// bf16 at head_dim 64 for short sequences comes the persistent one-pass
+// route (plan route 4): the forward's up to 128 tokens
+// (chronos_attention_short_hopper.cu), the backward's up to 80
+// (chronos_attention_bwd_short_hopper.cu), each with its design and bias
+// bytes in its file's header; the one-pass route 1 keeps the other head
+// dims and the calls the route override keeps off route 4.
 //
 // 1. bf16 one-pass (S padded to 16 up to 128 in the forward, 96 in the
 //    backward; head_dim <= 64), on the tensor cores. A block takes one head
@@ -45,8 +48,9 @@
 //    dW = G V^T, r = rowsum(dW o W) and dL = W (dW - r) in registers, dQ =
 //    dL K with dL as a hi + lo bf16 pair (each row of dL sums to 0, so dQ and
 //    dK are differences of terms; one bf16 rounding of dL failed BWD_TOL for
-//    the causal kernels), and writes W (one bf16 operand: in [0, 1], its
-//    terms in dV do not cancel) and dL hi/lo to shared memory; phase B (warp
+//    the causal kernels), and writes W and dL to shared memory, each as a hi
+//    + lo pair (one bf16 rounding of W failed BWD_TOL where a cotangent
+//    centred over a segment's rows leaves dV only W's spread); phase B (warp
 //    = 16 keys) reads their transposes by ldmatrix.trans as A operands:
 //    dV = W^T G, dK = dL^T Q. Q K^T and G V^T run once per batch row. dbias:
 //    each warp adds its rows of dL over the group's batch rows in registers,
@@ -271,9 +275,11 @@ cudaError_t launch_onepass_nq(int nq, const bf16* qkv, const int* seg, const flo
 
 }  // namespace
 
-// Route 3, chronos_attention_hopper.cu.
+// Route 3, chronos_attention_hopper.cu; route 4, chronos_attention_short_hopper.cu.
 extern "C" int chronos_hopper_fwd(const void* qkv, const void* seg, const void* bias, void* out,
                                   int B, int S, int H, void* stream);
+extern "C" int chronos_short_fwd(const void* qkv, const void* seg, const void* bias, void* out,
+                                 int B, int S, int H, void* stream);
 
 namespace {
 
@@ -405,6 +411,8 @@ cudaError_t dispatch_bf16(const bf16* qkv, const int* seg, const float* bias, bf
   const Plan p = make_plan(false, 1, B, S, H, D);
   if (p.route == 3)
     return static_cast<cudaError_t>(chronos_hopper_fwd(qkv, seg, bias, out, B, S, H, stream));
+  if (p.route == 4)
+    return static_cast<cudaError_t>(chronos_short_fwd(qkv, seg, bias, out, B, S, H, stream));
   const int nk = p.dp / 16;
   if (p.route == 1) {
 #define MTT_LAUNCH(NK) \
@@ -618,11 +626,13 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
 // The plan chronos_attention_fwd (backward = 0) or chronos_attention_bwd
 // (backward = 1) takes for (dtype, B, S, H, D), for reports and for sizing the
 // dbias partials: cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync
-// m16n8k16 one-pass, 2: bf16 mma.sync tiled, 3: bf16 wgmma + TMA, 4: the
-// backward's bf16 mma.sync one-pass fed by TMA, persistent), threads,
+// m16n8k16 one-pass, 2: bf16 mma.sync tiled, 3: bf16 wgmma + TMA, 4: bf16
+// mma.sync one-pass fed by TMA, persistent: the forward's and the
+// backward's routes for short sequences), threads,
 // query rows per block (per work item on routes 3 and 4),
 // keys per tile, passes over the keys, batch rows per block, blocks along
-// the batch (the (H, S, S) dbias partials the backward sums), padded
+// the batch (the (H, S, S) dbias partials the backward sums; route 4's
+// forward: its blocks a head), padded
 // head_dim, output columns per block, dL as a hi + lo bf16 pair (1) or not
 // (0)}. Returns 0, or cudaErrorInvalidValue.
 extern "C" int chronos_attention_config(int backward, int dtype, int B, int S, int H, int D,

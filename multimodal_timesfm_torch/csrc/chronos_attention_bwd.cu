@@ -20,15 +20,16 @@ __global__ void __launch_bounds__(32 * NQ)
   constexpr int SP = 16 * NQ;  // query rows = keys per block
   constexpr int NT = SP / 8;
   constexpr int LDB = SP + 8;  // bias strip row stride (floats)
-  constexpr int LDW = SP + 8;  // W, dL hi and dL lo row stride (bf16)
+  constexpr int LDW = SP + 8;  // W and dL (hi and lo each) row stride (bf16)
   constexpr int NO = 2 * NK;
   constexpr int NTHREADS = 32 * NQ;
   constexpr int TILE = SP * LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Bs = reinterpret_cast<float*>(smem_raw);       // SP x LDB: bias[h]
   bf16* ring = reinterpret_cast<bf16*>(Bs + SP * LDB);  // 2 slots x (q, k, v, g) x SP x LDS
-  bf16* Wt = ring + 8 * TILE;                           // SP x LDW: W (rows = queries)
-  bf16* Dh = Wt + SP * LDW;                             // SP x LDW: dL, high bf16 part
+  bf16* Wh = ring + 8 * TILE;                           // SP x LDW: W, high bf16 part (rows = queries)
+  bf16* Wl = Wh + SP * LDW;                             // SP x LDW: W, low bf16 part
+  bf16* Dh = Wl + SP * LDW;                             // SP x LDW: dL, high bf16 part
   bf16* Dl = Dh + SP * LDW;                             // SP x LDW: dL, low bf16 part
   int* Sg = reinterpret_cast<int*>(Dl + SP * LDW);      // 2 slots x SP segment ids
 
@@ -107,17 +108,20 @@ __global__ void __launch_bounds__(32 * NQ)
           rr = fmaf(sc[n][2 * r + e], dw[n][2 * r + e], rr);
         }
       rr = quad_sum(rr);
-      // W to shared memory (one bf16 operand), dL = W (dW - r) in place of W.
+      // W to shared memory (a hi + lo pair: one bf16 rounding of W left dV
+      // outside BWD_TOL where its terms cancel), dL = W (dW - r) in place of W.
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int at = rows[r] * LDW + n * 8 + 2 * t;
         const float w0 = sc[n][2 * r], w1 = sc[n][2 * r + 1];
-        *reinterpret_cast<uint32_t*>(Wt + at) = mtt::pack_bf16(w0, w1);
+        uint32_t hi, lo;
+        mtt::split_bf16(w0, w1, hi, lo);
+        *reinterpret_cast<uint32_t*>(Wh + at) = hi;
+        *reinterpret_cast<uint32_t*>(Wl + at) = lo;
         const float d0 = w0 * (dw[n][2 * r] - rr);
         const float d1 = w1 * (dw[n][2 * r + 1] - rr);
         sc[n][2 * r] = d0;
         sc[n][2 * r + 1] = d1;
-        uint32_t hi, lo;
         mtt::split_bf16(d0, d1, hi, lo);
         *reinterpret_cast<uint32_t*>(Dh + at) = hi;
         *reinterpret_cast<uint32_t*>(Dl + at) = lo;
@@ -147,9 +151,10 @@ __global__ void __launch_bounds__(32 * NQ)
       for (int e = 0; e < 4; ++e) dv[n][e] = dk[n][e] = 0.f;
 #pragma unroll
     for (int kq = 0; kq < NQ; ++kq) {
-      uint32_t a[4], hi[4], lo[4];
-      ldsm_at<LDW>(a, Wt, kq * 16, warp * 16, lane);
-      mma_a_tile<NO, LDS, false>(dv, a, a, Gs + kq * 16 * LDS, 0, lane);
+      uint32_t hi[4], lo[4];
+      ldsm_at<LDW>(hi, Wh, kq * 16, warp * 16, lane);
+      ldsm_at<LDW>(lo, Wl, kq * 16, warp * 16, lane);
+      mma_a_tile<NO, LDS, true>(dv, hi, lo, Gs + kq * 16 * LDS, 0, lane);
       ldsm_at<LDW>(hi, Dh, kq * 16, warp * 16, lane);
       ldsm_at<LDW>(lo, Dl, kq * 16, warp * 16, lane);
       mma_a_tile<NO, LDS, true>(dk, hi, lo, Qs + kq * 16 * LDS, 0, lane);
@@ -178,8 +183,10 @@ cudaError_t launch_onepass(const bf16* qkv, const int* seg, const float* bias, c
                            int vec_in, int vec_g, int pair_out, cudaStream_t stream) {
   constexpr int SP = 16 * NQ;
   constexpr int LDS = 16 * NK + 8;
+  // At S = 96 (NK = 4): 39,936 + 110,592 + 79,872 + 768 = 231,168 bytes, inside the
+  // 232,448 a block can have.
   const size_t smem = sizeof(float) * SP * (SP + 8) + sizeof(bf16) * 8 * SP * LDS +
-                      sizeof(bf16) * 3 * SP * (SP + 8) + sizeof(int) * 2 * SP;
+                      sizeof(bf16) * 4 * SP * (SP + 8) + sizeof(int) * 2 * SP;
   auto kernel = chronos_bwd_onepass_kernel<NK, NQ, DBIAS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -460,7 +467,7 @@ __global__ void __launch_bounds__(kThreadsMma)
           w[n][e] = x;
           sc[n][e] = x * (dw[n][e] - st[2 * BQ + ci]);
         }
-      mma_pv<NO, LDS, false>(akv, w[0], w[1], Gt + kc * 16 * LDS, col0, lane);
+      mma_pv<NO, LDS, true>(akv, w[0], w[1], Gt + kc * 16 * LDS, col0, lane);
       mma_pv<NO, LDS, true>(adk, sc[0], sc[1], Qt + kc * 16 * LDS, col0, lane);
     }
   }

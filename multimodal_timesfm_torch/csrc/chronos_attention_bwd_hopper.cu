@@ -22,9 +22,11 @@
 //      (three products, the last as a hi + lo pair of bf16 operands: each row
 //      of dL sums to 0, so dQ is a difference of terms).
 //   3. dkdv: each work item of 128 keys walks the query tiles: S^T = K Q^T,
-//      dW^T = V G^T, then dV += W^T G (W^T one bf16 operand: in [0, 1], its
-//      terms do not cancel) and dK += dL^T Q (hi + lo), from registers; Q, G
-//      and the tile's statistics through the TMA ring.
+//      dW^T = V G^T, then dV += W^T G and dK += dL^T Q, each of W^T and dL^T
+//      as a hi + lo pair of bf16 operands, from registers (W as one bf16
+//      value left dV outside BWD_TOL where its terms cancel: a cotangent
+//      centred over a segment's rows, dV keeping only W's spread); Q, G and
+//      the tile's statistics through the TMA ring.
 //   4. dbias, only when the bias trains: each work item is a (128 query rows,
 //      64 keys, head) block of dbias and a group of batch rows, and loops over
 //      them in batch order, recomputing S and dW (two products) and dL from
@@ -400,12 +402,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             sc[c][e] = x;
             dw[c][e] = x * (dw[c][e] - sts[2 * kRows + q]);
           }
-        // dV's product is issued before dL^T is split, so W^T and dL^T are not
+        // dV's products are issued before dL^T is split, so W^T and dL^T are not
         // both held in fp32 beside their fragments (fewer live registers).
-        uint32_t wf[4][4], unused[4][4], hi[4][4], lo[4][4];
-        tile_frags<false>(sc, wf, unused);
+        uint32_t whi[4][4], wlo[4][4], hi[4][4], lo[4][4];
+        tile_frags<true>(sc, whi, wlo);
         wgmma_fence();
-        issue_pb64(adv, wf, mnmajor64(stage + kTile64));
+        const uint64_t gb = mnmajor64(stage + kTile64);
+        issue_pb64(adv, whi, gb);
+        issue_pb64(adv, wlo, gb);
         tile_frags<true>(dw, hi, lo);
         wgmma_fence();
         const uint64_t qb = mnmajor64(stage);
@@ -415,7 +419,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait();
         fence_regs(adv);
         fence_regs(adk);
-        fence_regs(wf);
+        fence_regs(whi);
+        fence_regs(wlo);
         fence_regs(hi);
         fence_regs(lo);
       } else {

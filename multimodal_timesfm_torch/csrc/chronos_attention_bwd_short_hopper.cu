@@ -79,7 +79,7 @@ namespace {
 
 using mtt::bf16;
 using namespace mtt::hopper;
-using namespace mtt::short_bwd;
+using namespace mtt::hopper_short;
 
 constexpr int kD = 64;     // head_dim of this route
 constexpr int kNK = 4;     // k-steps of 16 over head_dim
@@ -217,24 +217,10 @@ __global__ void __launch_bounds__(Cfg<NQ>::THREADS, 1)
         for (int e = 0; e < 4; ++e)
           sc[n][e] = n * 8 + 2 * t + (e & 1) < S ? __ldg(bp[e >> 1] + n * 8 + (e & 1)) : 0.f;
       zero(dw);
-      mbar_wait(full + st, (j / C::STAGES) & 1);
+      wait_row<C::STAGES, kGroups>(full, empty, j);
       abt<kNK, NTK>(sc, Qt, r0, Kt, lane);
       abt<kNK, NTK>(dw, Gt, r0, Vt, lane);
-      // Segment mask: a key past S gets -inf (no term), a key of another
-      // segment finfo(float32).min, an allowed pair its bias + q k.
-      const int sq[2] = {sg[rows[0]], sg[rows[1]]};
-#pragma unroll
-      for (int n = 0; n < NTK; ++n) {
-        const int c = n * 8 + 2 * t;
-        const int2 sk = *reinterpret_cast<const int2*>(sg + c);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float& x0 = sc[n][2 * r];
-          float& x1 = sc[n][2 * r + 1];
-          x0 = c >= S ? -INFINITY : sq[r] != sk.x ? -FLT_MAX : x0;
-          x1 = c + 1 >= S ? -INFINITY : sq[r] != sk.y ? -FLT_MAX : x1;
-        }
-      }
+      segment_mask(sc, sg, rows, S, t);
       // The staging is free once every warp of the group read the previous row's.
       if (j >= kGroups) mbar_wait(freed + grp, ((j - grp) / kGroups - 1) & 1);
       softmax_dl<NTK, C::LDW>(sc, dw, rows, wh, wl, dh, dl, lane);

@@ -244,8 +244,9 @@ int route_override = 0;
 
 // Route override for measuring the border (chronos_set_route; chip_smoke.py's
 // [gate] lines): 0 the rule below, 1 never this route, 2 this route at every S
-// (bf16, head_dim 64). 1 and 2 also keep the backward off its one-pass
-// persistent route (chronos_attention_bwd_short_hopper.cu). Process-wide.
+// (bf16, head_dim 64). 1 and 2 also keep the one-pass persistent routes off
+// (chronos_attention_short_hopper.cu, chronos_attention_bwd_short_hopper.cu).
+// Process-wide.
 extern "C" int chronos_set_route(int route) {
   if (route < 0 || route > 2) return (int)cudaErrorInvalidValue;
   route_override = route;
@@ -254,14 +255,16 @@ extern "C" int chronos_set_route(int route) {
 extern "C" int mtt_chronos_route_override() { return route_override; }
 
 // Whether make_plan (chronos_common.cuh) gives a bf16 call at (S, D) this route:
-// head_dim 64 and S from the measured border with the mma.sync routes
-// (chip_smoke.py's Chronos [gate] lines: at B = 9,232 / S and 12 heads this
-// route is the faster by more than 5% from S = 97 in both directions, the
-// one-pass route at S = 64 and 80), kFwdFrom forward, kBwdFrom backward. The
+// head_dim 64 and S from the measured borders, kFwdFrom forward, kBwdFrom
+// backward. Backward: with the mma.sync routes (chip_smoke.py's Chronos [gate]
+// lines: at B = 9,232 / S and 12 heads this route is the faster by more than
+// 5% from S = 97, the one-pass route at S = 64 and 80). Forward: with the
+// persistent route (chronos_attention_short_hopper.cu), the faster up to its
+// last built length, 128 (its [gate] lines), so from 129. The
 // layout rule (qkv and g 16-byte aligned, which every tensor PyTorch's
 // allocator gives is; ops/_kernels.py copies one that is not) is the
 // caller's: an unaligned call is refused.
-constexpr int kFwdFrom = 97;
+constexpr int kFwdFrom = 129;
 constexpr int kBwdFrom = 97;
 
 extern "C" int chronos_hopper_takes(int backward, int S, int D) {

@@ -18,10 +18,15 @@
 extern "C" int chronos_hopper_takes(int backward, int S, int D);
 extern "C" int chronos_hopper_dbias_groups(int B, int S, int H);
 // Whether route 4 takes a bf16 backward (chronos_attention_bwd_short_hopper.cu),
-// its block's threads, and its dbias partials (blocks along the batch).
+// its block's threads, and its dbias partials (blocks along the batch); and
+// the same for the forward (chronos_attention_short_hopper.cu: its blocks a
+// head).
 extern "C" int chronos_short_takes(int S, int D);
 extern "C" int chronos_short_threads(int S);
 extern "C" int chronos_short_groups(int B, int S, int H);
+extern "C" int chronos_short_fwd_takes(int S, int D);
+extern "C" int chronos_short_fwd_threads(int S);
+extern "C" int chronos_short_fwd_groups(int B, int S, int H);
 
 namespace {
 
@@ -51,10 +56,12 @@ constexpr int kMaxGroup = 8;          // batch rows per block of the one-pass ro
 // rows a work item, one pass forward, dbias summed over the batch in the
 // kernel, in groups only where its blocks are too few), taken where
 // chronos_hopper_takes says so (the measured border) before the other two,
-// 4 = the backward's bf16 mma.sync one-pass route fed by TMA at head_dim 64
-// (chronos_attention_bwd_short_hopper.cu: persistent blocks, each one head and
-// a range of batch rows, the head's bias read from L1, one dbias partial
-// a block), taken where chronos_short_takes says so, before the others.
+// 4 = the bf16 mma.sync one-pass route fed by TMA at head_dim 64, for short
+// sequences (persistent blocks, each one head and a range of batch rows):
+// the backward's (chronos_attention_bwd_short_hopper.cu: the head's bias read
+// from L1, one dbias partial a block) where chronos_short_takes says so, the
+// forward's (chronos_attention_short_hopper.cu) where chronos_short_fwd_takes
+// says so, each before the others.
 struct Plan {
   int route;
   int threads;  // per block
@@ -94,6 +101,12 @@ inline Plan make_plan(bool backward, int dtype, int B, int S, int H, int D) {
     const int sp = (S + 15) / 16 * 16;
     const int groups = chronos_short_groups(B, S, H);
     p = {4, chronos_short_threads(S), sp, sp, 1, (B + groups - 1) / groups, groups, 64, 64, 1};
+    return p;
+  }
+  if (!backward && chronos_short_fwd_takes(S, D)) {
+    const int sp = (S + 15) / 16 * 16;
+    const int groups = chronos_short_fwd_groups(B, S, H);
+    p = {4, chronos_short_fwd_threads(S), sp, sp, 1, (B + groups - 1) / groups, groups, 64, 64, 0};
     return p;
   }
   if (chronos_hopper_takes(backward ? 1 : 0, S, D)) {

@@ -1,9 +1,11 @@
-// Pieces shared by the one-pass backward kernels for short sequences on
-// Hopper (sm_90a): the causal one (attention_bwd_short_hopper.cu, B1b, head_dim
-// 80) and the Chronos-2 one (chronos_attention_bwd_short_hopper.cu, B4b,
-// head_dim 64). Both keep a whole key row in one tile of SP = S rounded up to
-// 16 rows, so one kernel computes dQ, dK and dV of a work item in one pass,
-// on mma.sync m16n8k16 fed from tiles that TMA lands in shared memory.
+// Pieces shared by the persistent one-pass kernels for short sequences on
+// Hopper (sm_90a): the causal backward (attention_bwd_short_hopper.cu, B1b,
+// head_dim 80), the Chronos-2 backward (chronos_attention_bwd_short_hopper.cu,
+// B4b, head_dim 64) and the Chronos-2 forward (chronos_attention_short_hopper.cu,
+// B4f, head_dim 64). Each keeps a whole key row in one tile of SP = S rounded
+// up to 16 rows, so one kernel computes a work item's outputs in one pass
+// (the backwards dQ, dK and dV; the forward O), on mma.sync m16n8k16 fed from
+// tiles that TMA lands in shared memory.
 //
 // Tiles. An operand tile is SP rows of one head as TMA writes it: columns
 // 0-63 as SP x 128 bytes under the 128-byte swizzle (16-byte chunk c of row r
@@ -16,29 +18,35 @@
 // row's.
 //
 // Blocks. Persistent, sized to the card: kGroups consumer groups of warps,
-// each taking every other work item of the block, and one producer warp whose
-// lanes issue the TMA loads of the next items into a ring of 3-4 stages (full
+// each taking every other work item of the block (the forward: one group from
+// 81 tokens), and one producer warp whose lanes issue the TMA loads of the
+// next items into a ring of 3-4 stages (the forward: up to 6) (full
 // and empty mbarriers; each consumer warp arrives on `empty` itself once its
 // last read of the stage is done). The producer also copies the item's small
 // per-key side input (key-valid bytes or segment ids) into the stage with
 // plain loads, after its TMA loads are issued, and arrives on `full` a second
 // time once they are written (kFullArrivals), so the consumers never wait on
-// a load of their own. Each group has its own W and dL staging: a named
-// barrier of its own after phase A (W and dL written, K and V read), and an
-// mbarrier on which each warp arrives after its last read of the staging, so
-// that a warp starts its next item's products before the group is done.
+// a load of their own (the forward reads them a row ahead into registers, so
+// that no load lies between a stage's release and its `full`). In the
+// backwards each group has its own W and dL
+// staging: a named barrier of its own after phase A (W and dL written, K and
+// V read), and an mbarrier on which each warp arrives after its last read of
+// the staging, so that a warp starts its next item's products before the
+// group is done. The forward stages nothing: a warp's W stays in its
+// registers as the A operand of W V.
 //
 // Outputs. A warp's 16 x D accumulator tile is rounded to bf16 into the slot
-// of an operand tile its head no longer reads (dQ into V's after the group's
-// barrier; then dV into V's and dK into K's, one after the other), then
-// copied to device memory as whole rows, 16 bytes a lane.
+// of an operand tile its head no longer reads (backward: dQ into V's after
+// the group's barrier; then dV into V's and dK into K's, one after the other;
+// forward: O into the warp's own 16 rows of Q's), then copied to device
+// memory as whole rows, 16 bytes a lane.
 
 #pragma once
 
 #include "hopper_common.cuh"
 
 namespace mtt {
-namespace short_bwd {
+namespace hopper_short {
 
 using namespace mtt::hopper;
 
@@ -56,6 +64,26 @@ constexpr int ring_stages(int fixed, int stage) {
   return (kSmemLimit - fixed) / stage >= kMaxStages ? kMaxStages
          : (kSmemLimit - fixed) / stage >= kMinStages ? kMinStages
                                                        : 0;
+}
+
+// A consumer group's wait for its row j of the ring: row j takes stage j %
+// STAGES, and G groups take the rows in turn. `full`'s wait reads a parity,
+// so it cannot tell the phase of row j from that of row j - 2 STAGES: where a
+// stage serves more than one group (STAGES % G != 0: 3 stages, 2 groups),
+// row j - STAGES there is another group's, and if its load were still open
+// the wait for row j would pass at once. So the group first waits for that
+// row's release on `empty` (which also means its load is done): in order
+// anyway, since the producer needs the same release before it loads row j.
+// Rows j - 2 STAGES and j belong to one group (2 STAGES % G == 0), so
+// neither barrier is two phases away.
+template <int STAGES, int G>
+__device__ __forceinline__ void wait_row(uint64_t* full, uint64_t* empty, int j) {
+  static_assert((2 * STAGES) % G == 0, "rows j - 2 STAGES and j in one group");
+  const int st = j % STAGES;
+  if constexpr (STAGES % G != 0) {
+    if (j >= STAGES) mbar_wait(empty + st, (j / STAGES - 1) & 1);
+  }
+  mbar_wait(full + st, (j / STAGES) & 1);
 }
 
 // ldmatrix (x4, and transposed) from a shared-memory address.
@@ -173,11 +201,57 @@ __device__ __forceinline__ void copy_rows(const Tile<D>& T, int r0, bf16* out, l
   }
 }
 
+// The Chronos segment mask on a warp's tile of logits against every key (the
+// stage's segment ids `sg`; the thread's rows `rows`): a key past S gets
+// -inf (no term), a key of another segment finfo(float32).min, an allowed
+// pair keeps its logit.
+template <int NT>
+__device__ __forceinline__ void segment_mask(float (&sc)[NT][4], const int* sg,
+                                             const int (&rows)[2], int S, int t) {
+  const int sq[2] = {sg[rows[0]], sg[rows[1]]};
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = n * 8 + 2 * t;
+    const int2 sk = *reinterpret_cast<const int2*>(sg + c);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float& x0 = sc[n][2 * r];
+      float& x1 = sc[n][2 * r + 1];
+      x0 = c >= S ? -INFINITY : sq[r] != sk.x ? -FLT_MAX : x0;
+      x1 = c + 1 >= S ? -INFINITY : sq[r] != sk.y ? -FLT_MAX : x1;
+    }
+  }
+}
+
+// W = exp(l - m) / s in place on the thread's row r (elements 2 r, 2 r + 1)
+// of a warp's tile of masked logits against every key, with the exact row
+// max m and sum s: the whole row is here, so no online rescaling.
+template <int NT>
+__device__ __forceinline__ void softmax_row(float (&sc)[NT][4], int r) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+  mx = quad_max(mx);
+  float s = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float x = mtt::fast_exp(sc[n][2 * r + e] - mx);
+      sc[n][2 * r + e] = x;
+      s += x;
+    }
+  const float inv = 1.f / quad_sum(s);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) sc[n][2 * r + e] *= inv;
+}
+
 // Phase A's softmax on a warp's 16 rows of masked logits `sc` against every
-// key, with dW in `dw`: W = exp(l - m) / s with the exact row max m and sum s,
-// r = rowsum(dW o W), dL = W (dW - r), all fp32. W goes to `wh` and `wl`, dL to
-// `dh` and `dl`, each as a hi + lo pair of bf16 values (rows `rows`, row
-// stride LDW), and dL stays in `sc`.
+// key, with dW in `dw`: W (softmax_row), r = rowsum(dW o W), dL = W (dW - r),
+// all fp32. W goes to `wh` and `wl`, dL to `dh` and `dl`, each as a hi + lo
+// pair of bf16 values (rows `rows`, row stride LDW), and dL stays in `sc`.
 template <int NT, int LDW>
 __device__ __forceinline__ void softmax_dl(float (&sc)[NT][4], const float (&dw)[NT][4],
                                            const int (&rows)[2], bf16* wh, bf16* wl, bf16* dh,
@@ -185,28 +259,12 @@ __device__ __forceinline__ void softmax_dl(float (&sc)[NT][4], const float (&dw)
   const int t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
-    mx = quad_max(mx);
-    float s = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float x = mtt::fast_exp(sc[n][2 * r + e] - mx);
-        sc[n][2 * r + e] = x;
-        s += x;
-      }
-    const float inv = 1.f / quad_sum(s);
+    softmax_row(sc, r);
     float rr = 0.f;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sc[n][2 * r + e] *= inv;
-        rr = fmaf(sc[n][2 * r + e], dw[n][2 * r + e], rr);
-      }
+      for (int e = 0; e < 2; ++e) rr = fmaf(sc[n][2 * r + e], dw[n][2 * r + e], rr);
     rr = quad_sum(rr);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -302,5 +360,5 @@ inline cudaError_t grid_size(Kernel kernel, int threads, int smem, int items, in
   return cudaSuccess;
 }
 
-}  // namespace short_bwd
+}  // namespace hopper_short
 }  // namespace mtt

@@ -30,7 +30,8 @@ SOURCES = tuple(
     for name in ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_hopper.cu",
                  "attention_bwd_hopper.cu", "attention_bwd_short_hopper.cu", "chronos_attention.cu",
                  "chronos_attention_bwd.cu", "chronos_attention_hopper.cu",
-                 "chronos_attention_bwd_hopper.cu", "chronos_attention_bwd_short_hopper.cu")
+                 "chronos_attention_bwd_hopper.cu", "chronos_attention_short_hopper.cu",
+                 "chronos_attention_bwd_short_hopper.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -154,10 +155,10 @@ def set_route(name: str) -> None:
 
 def set_chronos_route(name: str) -> None:
     """Which bf16 route the Chronos attention kernels take at head_dim 64: ``"rule"`` (the
-    library's dispatch rule, the default), ``"mma.sync"`` (never the wgmma or the backward's
-    persistent route: the one-pass or tiled mma.sync route by their own limits) or
-    ``"wgmma"`` (the wgmma route at every S; never the persistent route). For measuring the
-    borders (``chip_smoke.py``'s Chronos ``[gate]`` lines); process-wide, in the library."""
+    library's dispatch rule, the default), ``"mma.sync"`` (never the wgmma or a persistent
+    route: the one-pass or tiled mma.sync route by their own limits) or ``"wgmma"`` (the
+    wgmma route at every S; never a persistent route). For measuring the borders
+    (``chip_smoke.py``'s Chronos ``[gate]`` lines); process-wide, in the library."""
     err = library().chronos_set_route(ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"chronos_set_route({name!r}) failed with CUDA error {err}")
@@ -223,11 +224,17 @@ def chronos_route(backward: bool, dtype: torch.dtype, batch: int, seq: int, head
     """:func:`chronos_plan` as one line of text."""
     p = chronos_plan(backward, dtype, batch, seq, heads, dim)
     if p["route"] == 4:
-        return (f"{_CHRONOS_ROUTES[4]}, persistent blocks of {p['threads']} threads (2 consumer "
-                f"groups of {p['threads'] // 64} warp(s) + 1 TMA producer warp), each one head and a "
-                f"range of about {p['group']} batch rows ({p['groups']} blocks a head: the dbias "
-                f"partials), {p['rows']} query rows x {p['keys']} keys a tile, 1 kernel (dQ, dK and "
-                f"dV of a batch row, no statistics scratch), head_dim {dim}, dL as a hi + lo bf16 pair")
+        warps = p["rows"] // 16  # a consumer group's
+        text = (f"{_CHRONOS_ROUTES[4]}, persistent blocks of {p['threads']} threads "
+                f"({(p['threads'] // 32 - 1) // warps} consumer group(s) of {warps} warp(s) + 1 TMA "
+                f"producer warp), each one head and a range of about {p['group']} batch rows "
+                f"({p['groups']} blocks a head")
+        if not backward:
+            return text + (f"), {p['rows']} query rows x {p['keys']} keys a tile, 1 kernel (whole-row "
+                           f"softmax, W rounded to bf16 once normalised), head_dim {dim}")
+        return text + (f": the dbias partials), {p['rows']} query rows x {p['keys']} keys a tile, 1 "
+                       f"kernel (dQ, dK and dV of a batch row, no statistics scratch), head_dim {dim}, dL "
+                       f"as a hi + lo bf16 pair")
     if p["route"] == 3:
         text = (f"{_CHRONOS_ROUTES[3]}, persistent blocks of {p['threads']} threads (2 consumer "
                 f"warpgroups of 64 rows + 1 TMA producer warpgroup), work items of {p['rows']} rows, "
@@ -410,9 +417,10 @@ def chronos_attention_fwd(
     """Launch the Chronos attention forward kernel (B4f) on the current stream.
 
     qkv: (B, S, 3*H*D) contiguous, q unscaled; seg: (B, S) int32; bias:
-    (H, S, S) fp32; out: (B, S, H*D) contiguous in qkv's dtype. Validates
-    device, dtype, shape and layout, and raises ``RuntimeError`` if the
-    launch is refused.
+    (H, S, S) fp32; out: (B, S, H*D) contiguous in qkv's dtype (16-byte aligned on
+    the bf16 persistent route, which writes it 16 bytes a lane; PyTorch's allocator
+    gives that). Validates device, dtype, shape and layout, and raises
+    ``RuntimeError`` if the launch is refused.
     """
     lib = library()
     batch, seq, heads, dim = _check_chronos(qkv, seg, bias, num_heads, head_dim, (("out", out),))

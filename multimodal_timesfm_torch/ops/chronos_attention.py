@@ -16,9 +16,12 @@ backward recomputes the weights in fp32 and keeps them unrounded.
 
 ``fused_chronos_attention`` is differentiable, a ``torch.library`` custom op
 (``torch.ops.mtt.fused_chronos_attention``). On a CUDA tensor its forward
-launches the hand-written kernel ``csrc/chronos_attention.cu`` (B4f) and its
-backward the same source's backward kernels (B4b); on a CPU tensor each runs
-its plain version. There is no other fallback. As in JAX's custom VJP, the
+launches the hand-written kernels through ``csrc/chronos_attention.cu``'s
+dispatch (B4f; in bf16 at head_dim 64 the persistent route of
+``csrc/chronos_attention_short_hopper.cu`` up to 128 tokens, the wgmma route
+from 129) and its backward the backward kernels (B4b) through
+``csrc/chronos_attention_bwd.cu``'s; on a CPU tensor each runs its plain
+version. There is no other fallback. As in JAX's custom VJP, the
 residuals are qkv, seg and the bias; the bias gradient is computed only when
 the bias needs one (the backbone trains in baseline mode only). The TPU
 kernel's block-diagonal pre-tiled bias (``make_rowtile_bias``) is a TPU layout
@@ -117,7 +120,7 @@ def fused_chronos_attention(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Te
         (B, S, H*D) in qkv's dtype. ``fused_chronos_attention.launches``
         counts forward kernel launches, and ``.shapes`` counts them by
         (dtype, B, S, H, D), from which ``ops._kernels.chronos_plan`` gives the
-        route each took.
+        route each took (route 4: "persistent").
     """
     return _chronos_op(qkv, seg, bias)
 

@@ -14,8 +14,9 @@ the three masks of the skip rule.
   weights instead), the accumulator rescaled as m moves, one divide by the row sum at
   the end, the output rounded once.
 - Backward: the row statistics from a pass of their own (m, s and r = rowsum(dW o W)
-  in fp32), dL = W (dW - r) as a hi + lo pair of bf16 values for dQ and dK, W as one
-  bf16 value for dV. A case where dQ's terms cancel (K with a large common part) shows
+  in fp32), dL = W (dW - r) as a hi + lo pair of bf16 values for dQ and dK, W as such a
+  pair for dV too (``tests/test_torch_port_dv_pair.py`` shows why). A case where dQ's terms
+  cancel (K with a large common part) shows
   why: FlashAttention's r = rowsum(G o O) from the bf16 output, or dL rounded once to
   bf16, leaves dQ outside the tolerance there.
 """
@@ -91,7 +92,8 @@ def hopper_backward(q, k, v, valid, g, r_from="statistics", split=True):
     dl = hi + (dl - hi).to(BF16).float() if split else hi
     dq = torch.einsum("bhqk,bkhd->bqhd", dl, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", dl, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", w.to(BF16).float(), g32)
+    w_hi = w.to(BF16).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", w_hi + (w - w_hi).to(BF16).float(), g32)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 

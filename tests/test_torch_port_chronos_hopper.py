@@ -17,7 +17,8 @@ own.
   output rounded once.
 - Backward: the row statistics from a pass of their own (m, s and r = rowsum(dW o W) in
   fp32, online over the key tiles), dL = W (dW - r) as a hi + lo pair of bf16 values for dQ
-  and dK, W as one bf16 value for dV, and dbias = dL in fp32, unrounded, summed over the
+  and dK, W as such a pair for dV too (``tests/test_torch_port_dv_pair.py`` shows why), and
+  dbias = dL in fp32, unrounded, summed over the
   batch rows in batch order. A case where dQ's terms cancel (K with a large common part)
   shows why: r = rowsum(G o O) from the bf16 output, or dL rounded once to bf16, leaves dQ
   outside the tolerance there.
@@ -105,7 +106,8 @@ def hopper_backward(qkv, seg, bias, g, need_dbias=True, r_from="statistics", spl
     dl_ab = hi + (dl - hi).to(BF16).float() if split else hi
     dq = torch.einsum("bhqk,bkhd->bqhd", dl_ab, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", dl_ab, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", w.to(BF16).float(), g32)
+    w_hi = w.to(BF16).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", w_hi + (w - w_hi).to(BF16).float(), g32)
     dqkv = torch.cat([d.flatten(-2) for d in (dq, dk, dv)], dim=-1).to(qkv.dtype)
     if not need_dbias:
         return dqkv, None

@@ -315,7 +315,7 @@ def test_chip_smoke_names_the_persistent_route_and_its_kernel_families():
     assert sources["B1b"] == "attention_bwd_short_hopper.cu"
     assert sources["B4b"] == "chronos_attention_bwd_short_hopper.cu"
     assert {Path(p).name for p in _kernels.SOURCES} >= set(sources.values())
-    assert chip_smoke.PERSISTENT_FAMILIES == ("attention_bwd_short_kernel", "chronos_bwd_short_kernel")
+    assert chip_smoke.PERSISTENT_FAMILIES[:2] == ("attention_bwd_short_kernel", "chronos_bwd_short_kernel")
     for family, cu in zip(chip_smoke.PERSISTENT_FAMILIES, (sources["B1b"], sources["B4b"])):
         assert f"    {family}(" in (_kernels.CSRC / cu).read_text()
     assert chip_smoke.B1_ROUTES[3] == chip_smoke.B4_ROUTES[4] == "persistent"
