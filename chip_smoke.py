@@ -7,7 +7,7 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the eleven sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the thirteen sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
    their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
    sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
@@ -15,12 +15,15 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    ``chronos_attention_hopper.cu``, ``chronos_attention_bwd_hopper.cu``, sharing
    ``chronos_hopper.cuh``; the bf16 one-pass persistent route for short sequences, the
    backwards' ``attention_bwd_short_hopper.cu`` and ``chronos_attention_bwd_short_hopper.cu``
-   and B4f's ``chronos_attention_short_hopper.cu``, sharing ``hopper_short.cuh``) with nvcc
+   and B4f's ``chronos_attention_short_hopper.cu``, sharing ``hopper_short.cuh``; the
+   Chronos kernels' fp32 3xTF32 route at head_dim 64, ``chronos_attention_tf32.cu`` and
+   ``chronos_attention_bwd_tf32.cu``, sharing ``chronos_tf32.cuh``) with nvcc
    for sm_90a, one nvcc per source started
    together; print the build seconds, the compiler's register, shared-memory and spill
-   report, the SASS count per kernel family of HMMA (mma.sync), HGMMA (wgmma) and UTMALDG
-   (TMA tile loads), failing if a wgmma-route family holds no HGMMA or UTMALDG, or a
-   persistent-route family no HMMA or UTMALDG, and the card's name and power limit;
+   report, the SASS count per kernel family of HMMA (mma.sync; HMMA.1688.F32.TF32 among
+   them), HGMMA (wgmma) and UTMALDG (TMA tile loads), failing if a wgmma-route family holds
+   no HGMMA or UTMALDG, a persistent-route family no HMMA or UTMALDG, or a 3xTF32-route
+   family no HMMA.1688.F32.TF32, and the card's name and power limit;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16, on every query row (rows with no valid key included):
    the causal kernels (B1f/B1b, B2f/B2b, and the same kernels behind the
@@ -40,7 +43,8 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    backwards where dV's terms cancel (a cotangent centred over 16-row blocks,
    or over a row's 16 segments, times 8) at each older route's own lengths:
    causal 96 (mma.sync) and 512 (wgmma), Chronos 96 (one-pass), 577 (wgmma)
-   and head_dim 128 at 80 (tiled); all at the
+   and head_dim 128 at 80 (tiled), and the Chronos ones in fp32 at the same
+   shapes (the 3xTF32 route at head_dim 64); all at the
    shapes the serving and training paths give them, and at edge shapes. The
    route and tiles of each kernel at its main-path shapes are printed
    (``[route]``: in bf16 at head_dim 80 the causal kernels take the wgmma/TMA route
@@ -55,7 +59,10 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    B = 8,192 / S) against the mma.sync route and, from 64, the wgmma route, B4b at
    S = 16 to 96 (D = 64, 12 heads, B = 9,232 / S), without and with dbias, against the
    one-pass or tiled mma.sync route and the wgmma route, and B4f at S = 16 to 128 against
-   the one-pass route up to 96 and the wgmma route from 97 (held times, in turns). The kernel,
+   the one-pass route up to 96 and the wgmma route from 97 (held times, in turns). The
+   fp32 border of the Chronos kernels' 3xTF32 route against their CUDA-core route at S = 16
+   to 577 (D = 64, 12 heads, B = 9,232 / S, held times, in turns) is measured only under
+   ``--kernel-times``: the rule takes the 3xTF32 route at every S at head_dim 64. The kernel,
    the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
@@ -250,13 +257,14 @@ at phase 11's 6-head shapes and runs phase 11 (making phase 10's tree
 itself); ``--aoti-only`` only builds the kernels and runs phase 12;
 ``--native-only`` builds the kernels and the native server, checks the C++ ops and
 runs phases 12 and 13. ``python3 chip_smoke.py --kernel-times [--root DIR] [--chronos-only]`` only
-prints the routes and the ``[gate]`` borders and checks and times every kernel at its
+prints the routes and the ``[gate]`` borders (the Chronos fp32 one too) and checks and times every kernel at its
 main-path shapes in fp32 and bf16 (the six causal kernels and the borders, unless
 ``--chronos-only``; B4f and B4b with and without dbias at 128 x 67, 128 x 67 at 6 heads,
 64 x 97, 64 x 193 and 16 x 577); with DIR (another checkout, such as the parent commit's)
-the library of that checkout is built too and its B1b, B2f, B2b, B3f and B3b, and its B4
-at every one of those shapes, are timed against this one's on the same bf16 inputs, in
-turns, in the same run (B1b and B4 held to a graph replay's event time). ``python3 chip_smoke.py --serving-times [--root DIR]`` only
+the library of that checkout is built too and its B1b, B2f, B2b, B3f and B3b on the same
+bf16 inputs, and its B4 at every one of those shapes on the same fp32 and bf16 inputs, are
+timed against this one's, in turns, in the same run (B1b and B4 held to a graph replay's
+event time). ``python3 chip_smoke.py --serving-times [--root DIR]`` only
 times TimesFM serving at context 512 (fp32 and bf16, seven calls each), with
 the port imported from DIR when given. ``python3 chip_smoke.py
 --training-times [--root DIR]`` only times three eager bf16 training cells (TimesFM
@@ -293,6 +301,9 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# The TF32 tensor rate, dense: an fp32 product taken as three TF32 products (3xTF32, the
+# Chronos kernels' route 5) runs at most at a third of it.
+PEAK_TF32 = 495e12
 # |kernel - plain| <= ATOL + RTOL * |plain| on valid query rows. fp32: only the
 # summation order differs. bf16: both round the same fp32 accumulators to bf16,
 # which may land one bf16 ulp (2^-8 relative) apart.
@@ -369,6 +380,17 @@ CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
 # borders (Chronos-2 serving at contexts 2048 and 8192, the c8192 fine-tune).
 CU_CHRONOS_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_hopper.cu"
 CU_CHRONOS_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_hopper.cu"
+# The fp32 3xTF32 route the dispatch gives B4f and B4b at head_dim 64 (plan route 5), and its
+# rows of the kernels line: (key, wrapper, source, TPU kernel, the main-path shape it is timed
+# at in fp32: Chronos-2's fine-tune, 67 tokens).
+CU_CHRONOS_TF32_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_tf32.cu"
+CU_CHRONOS_TF32_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_tf32.cu"
+TF32_KERNELS = (
+    ("B4f", "fused_chronos_attention", CU_CHRONOS_TF32_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
+    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_TF32_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (128, 67, 12, 64)),
+)
 # The Chronos wgmma route's rows of the kernels line: (key, wrapper, source, TPU kernel,
 # the route's main-path shape: serving and fine-tuning at context 8192, 577 tokens).
 CHRONOS_WGMMA_KERNELS = (
@@ -462,9 +484,27 @@ def wgmma_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[d
     return entries
 
 
-# The SASS instructions sass_mma_report counts per kernel family: mma.sync's (HMMA),
-# wgmma's (HGMMA) and TMA's tile loads (UTMALDG).
-SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+def tf32_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line's entries of the Chronos 3xTF32 route (TF32_KERNELS): this
+    process's counted launches on that route (``routes``, from route_launches) and the measured
+    row at the route's main-path shape in fp32."""
+    entries = []
+    for key, name, cu, replaces, shape in TF32_KERNELS:
+        batch, seq, heads, dim = shape
+        entries.append({
+            "name": f"{name} (3xTF32 route)", "route": "cuda", "source": cu, "replaces": replaces,
+            "launches": routes.get(f"{key} tf32", 0),
+            "shape": f"B={batch} S={seq} H={heads} D={dim} float32",
+            **rows[row_key(key, shape, torch.float32)],
+        })
+    return entries
+
+
+# The SASS instructions sass_mma_report counts per kernel family: mma.sync's (HMMA; among
+# them m16n8k8 on TF32 operands, HMMA.1688.F32.TF32), wgmma's (HGMMA) and TMA's tile loads
+# (UTMALDG).
+SASS_TF32 = "HMMA.1688.F32.TF32"
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", SASS_TF32)
 # The kernel families of the wgmma route, which must hold HGMMA and UTMALDG.
 WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
                   "attention_bwd_dkdv_wgmma_kernel", "chronos_fwd_wgmma_kernel",
@@ -473,6 +513,9 @@ WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
 # The kernel families of the persistent one-pass route (mma.sync fed by TMA: the backwards'
 # and B4f's), which must hold HMMA and UTMALDG.
 PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel", "chronos_fwd_short_kernel")
+# The kernel families of the Chronos 3xTF32 route that take products, which must hold
+# HMMA.1688.F32.TF32 (its dbias kernel only sums dL over the batch).
+TF32_FAMILIES = ("chronos_fwd_tf32_kernel", "chronos_bwd_dq_tf32_kernel", "chronos_bwd_dkdv_tf32_kernel")
 
 
 def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
@@ -499,6 +542,8 @@ def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
             op = re.search(r"\b(HMMA|HGMMA|UTMALDG)\b", line)
             if op:
                 counts[family][-1][op.group(1)] += 1
+            if SASS_TF32 in line:
+                counts[family][-1][SASS_TF32] += 1
     return counts
 
 
@@ -507,8 +552,9 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
     hold tensor-core instructions of mma.sync (HMMA) and of wgmma (HGMMA) and TMA tile
     loads (UTMALDG), and the fewest they hold. With ``require_wgmma`` (a library of this
     checkout), raises if a family of the wgmma route is missing or holds no HGMMA or no
-    UTMALDG, or a family of the persistent route no HMMA or no UTMALDG; a line naming no
-    tool when the toolkit has no cuobjdump."""
+    UTMALDG, a family of the persistent route no HMMA or no UTMALDG, or a family of the
+    3xTF32 route no HMMA.1688.F32.TF32; a line naming no tool when the toolkit has no
+    cuobjdump."""
     counts = sass_counts(lib_path)
     if counts is None:
         return ["no cuobjdump: SASS not read"]
@@ -525,6 +571,10 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
         found = counts.get(name, [])
         if not found or any(c["HMMA"] == 0 or c["UTMALDG"] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run HMMA and UTMALDG in every instantiation: {found}")
+    for name in TF32_FAMILIES if require_wgmma else ():
+        found = counts.get(name, [])
+        if not found or any(c[SASS_TF32] == 0 for c in found):
+            raise AssertionError(f"SASS: {name} does not run {SASS_TF32} in every instantiation: {found}")
     return lines
 
 
@@ -1102,8 +1152,11 @@ def print_routes() -> None:
 
 
 def chronos_bound(batch: int, seq: int, heads: int, dim: int, seg: torch.Tensor,
-                  dtype: torch.dtype, backward: bool, dbias: bool = False) -> tuple[float, str]:
-    """Least time for the Chronos attention: max(bytes / HBM rate, flops / peak).
+                  dtype: torch.dtype, backward: bool, dbias: bool = False,
+                  three_tf32: bool = False) -> tuple[float, str]:
+    """Least time for the Chronos attention: max(bytes / HBM rate, flops / peak); with
+    ``three_tf32`` (fp32 work taken as 3xTF32 on the tensor cores) three TF32 products for each
+    fp32 one at the TF32 rate (PEAK_TF32) in place of the CUDA cores' fp32 rate.
 
     Bytes, forward: q, k, v read and the output written once (4 B S H D
     elements), the (H, S, S) fp32 bias and the (B, S) int32 segment ids read
@@ -1119,7 +1172,8 @@ def chronos_bound(batch: int, seq: int, heads: int, dim: int, seg: torch.Tensor,
     if dbias:
         nbytes += heads * seq * seq * 4
     flops = (10 if backward else 4) * dim * heads * pairs
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 3 * flops / PEAK_TF32 if three_tf32 else flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1162,6 +1216,7 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
     beside their plain versions, SDPA (forward, or its backward under autograd) and their
     bounds; ``errs`` = the checked forward, dqkv and dbias errors. Returns the B4f and the
     no-dbias B4b rows."""
+    from multimodal_timesfm_torch.ops import _kernels
     from multimodal_timesfm_torch.ops.chronos_attention import (
         fused_chronos_attention,
         fused_chronos_attention_bwd,
@@ -1172,6 +1227,13 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
     batch, seq, heads, dim = shape
     dtype = qkv.dtype
     err_f, err_b, err_db = errs
+
+    def bound(backward: bool, dbias: bool = False) -> tuple[float, str]:
+        # The bound of the route the call takes: fp32 on the 3xTF32 route (plan route 5) at the
+        # TF32 rate, else at the dtype's.
+        tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] == 5
+        return chronos_bound(*shape, seg, dtype, backward, dbias, three_tf32=tf32)
+
     mask = chronos_sdpa_mask(seg, bias, dtype)
     qh, kh, vh = (t.unflatten(-1, (heads, dim)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -1180,7 +1242,7 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
         "fused_chronos_attention", shape, dtype, err_f, KERNEL_TOL[dtype],
         lambda: fused_chronos_attention(qkv, seg, bias),
         lambda: plain_chronos_attention(qkv, seg, bias), sdpa,
-        chronos_bound(*shape, seg, dtype, backward=False), 2 * iters, "sdpa", held=True,
+        bound(False), 2 * iters, "sdpa", held=True,
     )
     qd, kd, vd = (t.detach().requires_grad_() for t in (qh, kh, vh))
     out = torch.nn.functional.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=1.0)
@@ -1192,15 +1254,26 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
         "fused_chronos_attention_bwd (no dbias)", shape, dtype, err_b, BWD_TOL[dtype],
         lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
         lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, False), sdpa_bwd,
-        chronos_bound(*shape, seg, dtype, backward=True), iters, "sdpa backward", held=True,
+        bound(True), iters, "sdpa backward", held=True,
     )
-    time_kernel(
+    bwd_db = time_kernel(
         "fused_chronos_attention_bwd (with dbias)", shape, dtype, max(err_b, err_db), BWD_TOL[dtype],
         lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True),
         lambda: plain_chronos_attention_bwd(qkv, seg, bias, g, True), sdpa_db,
-        chronos_bound(*shape, seg, dtype, backward=True, dbias=True), iters, sdpa_db_name,
+        bound(True, dbias=True), iters, sdpa_db_name,
         held=True,
     )
+    if dtype == torch.float32 and _kernels.chronos_plan(True, dtype, batch, seq, heads, dim)["route"] == 5:
+        # Beside the 3xTF32 route's bound (bound_ms), the same work's bound on the CUDA cores
+        # (PEAK_FLOPS), the fp32 route the parent took.
+        rows = (("B4f", fwd, False, False), ("B4b (no dbias)", bwd, True, False), ("B4b (with dbias)", bwd_db, True, True))
+        parts = []
+        for what, row, backward, dbias in rows:
+            row["bound_cuda_cores_ms"], _ = chronos_bound(*shape, seg, dtype, backward, dbias)
+            parts.append(f"{what} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} (3xTF32, {row['bound_by']}) / "
+                         f"{row['bound_cuda_cores_ms']:.4f} (CUDA cores)")
+        print(f"[kernels] fp32 B={batch} S={seq} H={heads} D={dim} bounds: {'; '.join(parts)} | route: "
+              f"{_kernels.chronos_route(True, dtype, batch, seq, heads, dim).split(',')[0]}", flush=True)
     return fwd, bwd
 
 
@@ -1278,19 +1351,24 @@ def sharded_chronos_checks(seed: int) -> None:
             check_chronos(f"B4 {shape} {segments} segment(s){' padded' if padded else ''}", qkv, seg, bias, g)
 
 
+# The dtypes chronos_dv_cancel_checks runs: bf16 (the older routes' W as a hi + lo pair) and
+# fp32 (the 3xTF32 route at head_dim 64, each operand split into TF32 hi + lo).
+DV_CANCEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def chronos_dv_cancel_checks(gen: torch.Generator) -> None:
-    """B4b in bf16 where dV's terms cancel (CHRONOS_DV_CANCEL_SHAPES: 16 segments a row, the
-    cotangent centred over each segment's rows) against its plain version on every element, with
-    and without dbias, two launches bit-equal (check_chronos)."""
+    """B4b in bf16 and fp32 where dV's terms cancel (CHRONOS_DV_CANCEL_SHAPES: 16 segments a row,
+    the cotangent centred over each segment's rows) against its plain version on every element,
+    with and without dbias, two launches bit-equal (check_chronos)."""
     from multimodal_timesfm_torch.ops import _kernels
 
-    dtype = torch.bfloat16
-    for shape in CHRONOS_DV_CANCEL_SHAPES:
-        batch, seq, heads, dim = shape
-        qkv, seg, bias, g = chronos_inputs(shape, 16, False, dtype, gen)
-        route = _kernels.chronos_route(True, dtype, batch, seq, heads, dim).split(",")[0]
-        check_chronos(f"B4 dV cancelling {shape} 16 segments, cotangent centred in each x "
-                      f"{DV_CANCEL_SCALE:g} (backward: {route})", qkv, seg, bias, centred_cotangent(g, seg))
+    for dtype in DV_CANCEL_DTYPES:
+        for shape in CHRONOS_DV_CANCEL_SHAPES:
+            batch, seq, heads, dim = shape
+            qkv, seg, bias, g = chronos_inputs(shape, 16, False, dtype, gen)
+            route = _kernels.chronos_route(True, dtype, batch, seq, heads, dim).split(",")[0]
+            check_chronos(f"B4 dV cancelling {shape} 16 segments, cotangent centred in each x "
+                          f"{DV_CANCEL_SCALE:g} (backward: {route})", qkv, seg, bias, centred_cotangent(g, seg))
 
 
 # B4f's persistent route checked at every S it is built for (bf16, head_dim 64; the rule's
@@ -1342,12 +1420,13 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     # 48, 129; 5), every one-pass tile count (S = 64, 81, 96, 113, 128: the forward's 4, 6,
     # 6, 8, 8 warps, the backward's 4, 6, 6 and the tiled route past 96), head dims 16 (one
     # k-step), 20 (rows not 16-byte aligned, one-pass and tiled), 32, 128, 256, and odd
-    # batches (9, 17).
+    # batches (9, 17); 32 x 577: the fp32 backward in two chunks of batch rows (its W and dL
+    # scratch past 1 GiB), dbias carried from the first.
     cases = [(batch, seq, 12, 64, *variant)
              for batch, seq in ((128, 67), (512, 67), (64, 97), (64, 193), (16, 577))
              for variant in ((1, False), (3, True))]
     cases += SHARDED_CHRONOS_CASES
-    cases += [(32, 80, 12, 64, 16, False), (256, 80, 12, 64, 16, False), (512, 80, 12, 64, 16, False),
+    cases += [(32, 577, 12, 64, 3, True), (32, 80, 12, 64, 16, False), (256, 80, 12, 64, 16, False), (512, 80, 12, 64, 16, False),
               (4, 16, 12, 64, 1, False), (4, 17, 12, 64, 3, True), (4, 48, 12, 64, 3, True),
               (4, 64, 12, 64, 3, True), (4, 81, 12, 64, 1, False), (4, 96, 12, 64, 3, True),
               (4, 113, 12, 64, 1, False), (4, 128, 12, 64, 3, True),
@@ -1577,6 +1656,72 @@ def chronos_route_borders(seed: int) -> None:
               f"rule takes it from S={rule}", flush=True)
 
 
+# The lengths the fp32 border between the Chronos kernels' 3xTF32 route and their CUDA-core
+# route is measured at (head_dim 64, 12 heads, B = CHRONOS_BORDER_TOKENS // S): one tile of S
+# padded to 16 up to 80 tokens, 64-row tiles from 81; Chronos-2's 67, 97, 193 and 577.
+F32_BORDER_LENGTHS = (16, 32, 48, 64, 67, 80, 97, 128, 193, 577)
+
+
+def chronos_f32_borders(seed: int) -> None:
+    """The fp32 border between the Chronos attention's 3xTF32 route and its CUDA-core route: at
+    each of F32_BORDER_LENGTHS the forward, the backward without dbias and with dbias on both
+    (the dispatch rule, which takes the 3xTF32 route at head_dim 64, and the library's route
+    override ``"cuda cores"``), checked against the plain versions and timed in turns (CUDA
+    cores, rule, rule, CUDA cores; held_ms); one ``[gate]`` line per length, then one
+    per direction: the least S from which the 3xTF32 route is the faster (by BORDER_MARGIN, the
+    backward in both modes) at every measured length, beside the least S the dispatch rule
+    gives it."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        fused_chronos_attention_bwd,
+        plain_chronos_attention,
+        plain_chronos_attention_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    heads, dim, dtype = 12, 64, torch.float32
+    faster: dict[str, list[bool]] = {"forward": [], "backward": []}
+    try:
+        for seq in F32_BORDER_LENGTHS:
+            batch = max(1, CHRONOS_BORDER_TOKENS // seq)
+            qkv, seg, bias, g = chronos_inputs((batch, seq, heads, dim), 1, False, dtype, gen)
+            calls = (lambda: fused_chronos_attention(qkv, seg, bias),
+                     lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
+                     lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True))
+            ref = plain_chronos_attention(qkv, seg, bias)
+            ref_b, ref_db = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
+            times: dict[str, list[tuple[float, ...]]] = {"cuda cores": [], "rule": []}
+            for route in ("cuda cores", "rule", "rule", "cuda cores"):
+                _kernels.set_chronos_route(route)
+                if not times[route]:
+                    compare(f"chronos fp32 {route} route S={seq}", calls[0](), ref)
+                    compare_bwd(f"chronos fp32 {route} route S={seq} backward", calls[2](), (ref_b, ref_db))
+                times[route].append(tuple(held_ms(fn, 10)[0] for fn in calls))
+            mean = {r: [sum(t[i] for t in ts) / len(ts) for i in range(3)] for r, ts in times.items()}
+            wins = [mean["rule"][i] < BORDER_MARGIN * mean["cuda cores"][i] for i in range(3)]
+            faster["forward"].append(wins[0])
+            faster["backward"].append(wins[1] and wins[2])
+            _kernels.set_chronos_route("rule")
+            plans = {d: _kernels.chronos_route(d == "backward", dtype, batch, seq, heads, dim).split(",")[0]
+                     for d in ("forward", "backward")}
+            print(f"[gate] chronos fp32 D={dim} H={heads} S={seq} B={batch}, held device ms (CUDA cores / "
+                  f"3xTF32): forward {mean['cuda cores'][0]:.4f} / {mean['rule'][0]:.4f}, backward "
+                  f"{mean['cuda cores'][1]:.4f} / {mean['rule'][1]:.4f}, with dbias "
+                  f"{mean['cuda cores'][2]:.4f} / {mean['rule'][2]:.4f} (both routes within tolerance of "
+                  f"the plain versions; the rule: forward {plans['forward']}, backward {plans['backward']})",
+                  flush=True)
+    finally:
+        _kernels.set_chronos_route("rule")
+    for name, wins in faster.items():
+        measured = next((s for i, s in enumerate(F32_BORDER_LENGTHS) if all(wins[i:])), None)
+        rule = next((s for s in F32_BORDER_LENGTHS if _kernels.chronos_plan(
+            name == "backward", dtype, max(1, CHRONOS_BORDER_TOKENS // s), s, heads, dim)["route"] == 5), None)
+        print(f"[gate] chronos fp32 {name} border: the 3xTF32 route is the faster (by "
+              f"{1 - BORDER_MARGIN:.0%}) from S={measured} on (of {F32_BORDER_LENGTHS}); the dispatch "
+              f"rule takes it from S={rule}", flush=True)
+
+
 # The lengths the bf16 borders of the backwards' persistent one-pass route are measured at:
 # B1b at head_dim 80, 16 heads, B = 8,192 // S (the route takes S <= 64); B4b at head_dim 64,
 # 12 heads, B = CHRONOS_BORDER_TOKENS // S (the route takes S <= 80).
@@ -1801,9 +1946,9 @@ def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q,
 
 def chronos_parent_against_change(shape: tuple[int, int, int, int], parent, qkv, seg, bias, g) -> None:
     """One ``[kernels]`` line: B4f, B4b without dbias and B4b with dbias of the parent
-    checkout's library against this one's on the same bf16 inputs at ``shape``, timed in
-    turns (parent, change, change, parent; held_ms), with the largest differences between
-    the two outputs and each library's route."""
+    checkout's library against this one's on the same inputs (fp32 or bf16) at ``shape``,
+    timed in turns (parent, change, change, parent; held_ms), with the largest differences
+    between the two outputs and each library's route."""
     from multimodal_timesfm_torch.ops import _kernels
 
     batch, seq, heads, dim = shape
@@ -1827,7 +1972,7 @@ def chronos_parent_against_change(shape: tuple[int, int, int, int], parent, qkv,
         p, c = [t[i] for t in times["parent"]], [t[i] for t in times["change"]]
         parts.append(f"{what} parent {p[0]:.4f} / {p[1]:.4f}, change {c[0]:.4f} / {c[1]:.4f} "
                      f"({sum(p) / sum(c):.2f}x)")
-    print(f"[kernels] B4 parent against change B={batch} S={seq} H={heads} D={dim} bfloat16, held device "
+    print(f"[kernels] B4 parent against change B={batch} S={seq} H={heads} D={dim} {str(qkv.dtype)[6:]}, held device "
           f"ms: {'; '.join(parts)} | max |parent - change| out {diffs[0]:.3g}, dqkv {diffs[1]:.3g}, dbias "
           f"{diffs[2]:.3g} | parent: {parent.chronos_route(True, qkv.dtype, batch, seq, heads, dim)}; "
           f"change: {_kernels.chronos_route(True, qkv.dtype, batch, seq, heads, dim)}", flush=True)
@@ -1841,8 +1986,8 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
     and its serving at context 8192 (16 x 577), and at the fine-tune's shape with its 12 heads
     over a model axis of 2 (128 x 67 x 6), one segment. With ``root`` (``--root``: another
     checkout, such as the parent commit's) the bf16 B1b, B2f, B2b, B3f and B3b rows, and
-    every bf16 B4 shape, are followed by that checkout's kernels against this one's on the
-    same inputs, so that the two compare on one card in one run."""
+    every B4 shape in fp32 and bf16, are followed by that checkout's kernels against this
+    one's on the same inputs, so that the two compare on one card in one run."""
     from multimodal_timesfm_torch.ops.attention import (
         flash_causal_attention,
         flash_causal_attention_bwd,
@@ -1900,7 +2045,7 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
             qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
             errs = check_chronos(f"B4 {shape} 1 segment(s)", qkv, seg, bias, g)
             chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10 if shape[1] < 100 else 5)
-            if parent is not None and dtype == torch.bfloat16:
+            if parent is not None:
                 chronos_parent_against_change(shape, parent, qkv, seg, bias, g)
 
 
@@ -2516,7 +2661,7 @@ def launch_counts() -> dict[str, int]:
 
 # The Chronos plan's routes (chronos_attention_config), and the causal backward's
 # (attention_bwd_config), by number.
-B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent")
+B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent", "tf32")
 B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent")
 # The wrappers whose launches route_launches splits by route.
 ROUTED_KEYS = ("B1b", "B4f", "B4b")
@@ -5162,6 +5307,7 @@ def main() -> int:
         if not args.chronos_only:
             route_borders(args.seed)
         chronos_route_borders(args.seed)
+        chronos_f32_borders(args.seed)
         persistent_route_borders(args.seed, args.chronos_only)
         kernel_times(args.seed, args.chronos_only, args.root)
         print(f"[gpu] {gpu}")
@@ -5232,13 +5378,14 @@ def main() -> int:
     idle = [key for key, n in launches.items() if n == 0]
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
     idle += [f"{key} persistent" for key in ("B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
+    idle += [f"{key} tf32" for key, *_ in TF32_KERNELS if not routes.get(f"{key} tf32")]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     print(f"[launches] main paths: {launches}")
     print(f"[launches] B1b and B4 by route, this process's counted launches (replays and the ranks' "
           f"not split): {routes}")
     print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)
-                      + persistent_route_entries(rows, routes)}))
+                      + persistent_route_entries(rows, routes) + tf32_route_entries(rows, routes)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({
         "ok": True,

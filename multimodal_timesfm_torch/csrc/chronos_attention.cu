@@ -19,10 +19,14 @@
 // dqkv (B, S, 3*H*D) in the same layout. Any S, head_dim 1..256, no atomics:
 // two launches give bit-equal dqkv and dbias.
 //
-// Five routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
+// Six routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
 // H, D), and chronos_attention_config reports it. Route 4 below (the wgmma
 // route, numbered 3 in the plan) comes first where chronos_hopper_takes says
-// so; routes 1 and 2 take the bf16 calls it leaves. Ahead of all of them in
+// so; routes 1 and 2 take the bf16 calls it leaves. In fp32 at head_dim 64
+// the 3xTF32 tensor-core route (plan route 5, chronos_attention_tf32.cu and
+// chronos_attention_bwd_tf32.cu, with its design in the first one's header)
+// comes first (chronos_tf32_takes); route 3 below takes the fp32 calls it
+// leaves. Ahead of all of them in
 // bf16 at head_dim 64 for short sequences comes the persistent one-pass
 // route (plan route 4): the forward's up to 128 tokens
 // (chronos_attention_short_hopper.cu), the backward's up to 80
@@ -69,8 +73,9 @@
 //    transposed tiles (W^T, dL^T in registers as A operands) after the
 //    causal kernels' design (attention_bwd.cu). For head_dim > 80 a block
 //    writes 64 of the output columns.
-// 3. fp32, on the CUDA cores (plain TF32 rounds to 2^-11, beyond the fp32
-//    tolerance; 3xTF32 is untried): 256 threads, TB = 16 TM rows fitted to S
+// 3. fp32, on the CUDA cores (head dims other than 64; plain TF32 rounds to
+//    2^-11, beyond the fp32 tolerance, so the tensor-core route takes three
+//    TF32 products a pair): 256 threads, TB = 16 TM rows fitted to S
 //    (16, 32, 64, and 80 for 64 < S <= 80 at head_dim <= 64: one tile at
 //    Chronos-2's 67- and 80-token rows), each thread a TM x TM micro-tile,
 //    4-byte cp.async into a two-slot ring, shared rows padded to D + 1; the
@@ -130,13 +135,15 @@
 //
 // What bounds it on an H100: at Chronos-2's shapes (H = 12, D = 64, S = 67
 // to 577) the least time of the work is set by the bytes in bf16 (q, k, v,
-// out, the bias once) and by the fp32 rate in fp32; chip_smoke.py prints
-// both. The bf16 one-pass route moves each batch row's tiles once and does
+// out, the bias once) and by the fp32 rate in fp32 (67 TFLOP/s on the CUDA
+// cores; the same work as 3xTF32 at most 495 / 3 TFLOP/s on the tensor
+// cores); chip_smoke.py prints all three. The bf16 one-pass route moves each batch row's tiles once and does
 // the work once; it is bound by the latency of its ring at one or two
 // blocks per SM (its shared memory: the bias strip, two slots of tiles and,
 // backward, W and dL). The tiled route re-reads K and V from L2 once per
-// query tile and pass, and the bias once per pass. The fp32 route is bound
-// by the CUDA cores' 67 TFLOP/s.
+// query tile and pass, and the bias once per pass. The fp32 CUDA-core route
+// is bound by the CUDA cores' 67 TFLOP/s; the 3xTF32 route's bound and
+// design are in chronos_attention_tf32.cu.
 
 #include "chronos_common.cuh"
 
@@ -275,9 +282,12 @@ cudaError_t launch_onepass_nq(int nq, const bf16* qkv, const int* seg, const flo
 
 }  // namespace
 
-// Route 3, chronos_attention_hopper.cu; route 4, chronos_attention_short_hopper.cu.
+// Route 3, chronos_attention_hopper.cu; route 4, chronos_attention_short_hopper.cu;
+// route 5, chronos_attention_tf32.cu.
 extern "C" int chronos_hopper_fwd(const void* qkv, const void* seg, const void* bias, void* out,
                                   int B, int S, int H, void* stream);
+extern "C" int chronos_tf32_fwd(const void* qkv, const void* seg, const void* bias, void* out,
+                                int B, int S, int H, void* stream);
 extern "C" int chronos_short_fwd(const void* qkv, const void* seg, const void* bias, void* out,
                                  int B, int S, int H, void* stream);
 
@@ -614,6 +624,8 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
   const float* bs = static_cast<const float*>(bias);
+  if (dtype == 0 && make_plan(false, 0, B, S, H, D).route == 5)
+    return chronos_tf32_fwd(qkv, seg, bias, out, B, S, H, stream);
   if (dtype == 0)
     return (int)dispatch_f32(static_cast<const float*>(qkv), sg, bs, static_cast<float*>(out), B,
                              S, H, D, st);
@@ -628,7 +640,8 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
 // dbias partials: cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync
 // m16n8k16 one-pass, 2: bf16 mma.sync tiled, 3: bf16 wgmma + TMA, 4: bf16
 // mma.sync one-pass fed by TMA, persistent: the forward's and the
-// backward's routes for short sequences), threads,
+// backward's routes for short sequences, 5: fp32 3xTF32 on mma.sync
+// m16n8k8), threads,
 // query rows per block (per work item on routes 3 and 4),
 // keys per tile, passes over the keys, batch rows per block, blocks along
 // the batch (the (H, S, S) dbias partials the backward sums; route 4's

@@ -928,14 +928,18 @@ __global__ void __launch_bounds__(256)
 extern "C" int chronos_short_bwd(const void* qkv, const void* seg, const void* bias,
                                  const void* g, void* dqkv, void* dbias, int groups, int B, int S,
                                  int H, void* stream);
-// Route 3, chronos_attention_bwd_hopper.cu.
+// Route 3, chronos_attention_bwd_hopper.cu; route 5, chronos_attention_bwd_tf32.cu.
 extern "C" int chronos_hopper_bwd(const void* qkv, const void* seg, const void* bias,
                                   const void* g, void* dqkv, void* dbias, void* stats, int groups,
                                   int B, int S, int H, void* stream);
+extern "C" int chronos_tf32_bwd(const void* qkv, const void* seg, const void* bias, const void* g,
+                                void* dqkv, void* dbias, void* scratch, int B, int S, int H,
+                                void* stream);
 
 // g (B, S, H*D) and dqkv (B, S, 3*H*D) contiguous in qkv's dtype, dqkv
-// written whole; stats: 3*B*H*Sp floats of scratch, Sp = S rounded up to 64,
-// or null where the plan's route is 4 (refused on the other routes).
+// written whole; stats: 3*B*H*Sp floats of scratch, Sp = S rounded up to 64
+// (route 5: chronos_tf32_scratch(B, S, H) floats, 16-byte aligned), or null
+// where the plan's route is 4 (refused on the other routes).
 // dbias (H, S, S) fp32 and partials are both null or both given: with them,
 // dbias is written whole,
 // and partials holds the (H, S, S) partial sums of dL when the plan has more
@@ -964,6 +968,9 @@ extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const voi
       : p.route == 3
           ? static_cast<cudaError_t>(
                 chronos_hopper_bwd(qkv, seg, bias, g, dqkv, part, stats, p.groups, B, S, H, stream))
+      : p.route == 5
+          ? static_cast<cudaError_t>(
+                chronos_tf32_bwd(qkv, seg, bias, g, dqkv, part, stats, B, S, H, stream))
       : dtype == 0
           ? dispatch_f32(p, static_cast<const float*>(qkv), sg, bs, static_cast<const float*>(g),
                          static_cast<float*>(dqkv), sc, part, B, S, H, D, st)

@@ -246,9 +246,10 @@ int route_override = 0;
 // [gate] lines): 0 the rule below, 1 never this route, 2 this route at every S
 // (bf16, head_dim 64). 1 and 2 also keep the one-pass persistent routes off
 // (chronos_attention_short_hopper.cu, chronos_attention_bwd_short_hopper.cu).
-// Process-wide.
+// 3 keeps fp32 off the 3xTF32 route (chronos_attention_tf32.cu: the CUDA-core
+// route at every head_dim) and leaves bf16 to the rule. Process-wide.
 extern "C" int chronos_set_route(int route) {
-  if (route < 0 || route > 2) return (int)cudaErrorInvalidValue;
+  if (route < 0 || route > 3) return (int)cudaErrorInvalidValue;
   route_override = route;
   return 0;
 }

@@ -315,7 +315,8 @@ extern "C" int mtt_chronos_route_override();
 // S <= kShortFwdTo; never under the route override (chronos_set_route) 1
 // (mma.sync) or 2 (wgmma).
 extern "C" int chronos_short_fwd_takes(int S, int D) {
-  return D == kD && S >= 1 && S <= kShortFwdTo && mtt_chronos_route_override() == 0;
+  const int force = mtt_chronos_route_override();
+  return D == kD && S >= 1 && S <= kShortFwdTo && force != 1 && force != 2;
 }
 
 extern "C" int chronos_short_fwd_threads(int S) {

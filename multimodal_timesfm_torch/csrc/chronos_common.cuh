@@ -1,9 +1,10 @@
 // Pieces shared by the Chronos-2 attention kernels (chronos_attention.cu,
-// chronos_attention_bwd.cu): the launch plan of each route, the bias and
-// segment mask on a tile of logits, the bias-tile and segment loaders, and
-// the fp32 micro-tile helpers; the bf16 warp tile products come from
-// attention_common.cuh. The design is in the header note of
-// chronos_attention.cu.
+// chronos_attention_bwd.cu; the 3xTF32 route, through chronos_tf32.cuh,
+// takes the plan, the bias mask, the segment loader and the quad
+// reductions): the launch plan of each route, the bias and segment mask on a
+// tile of logits, the bias-tile and segment loaders, and the fp32 micro-tile
+// helpers; the bf16 warp tile products come from attention_common.cuh. The
+// design is in the header note of chronos_attention.cu.
 
 #pragma once
 
@@ -27,6 +28,8 @@ extern "C" int chronos_short_groups(int B, int S, int H);
 extern "C" int chronos_short_fwd_takes(int S, int D);
 extern "C" int chronos_short_fwd_threads(int S);
 extern "C" int chronos_short_fwd_groups(int B, int S, int H);
+// Whether route 5 takes an fp32 call (chronos_attention_tf32.cu).
+extern "C" int chronos_tf32_takes(int D);
 
 namespace {
 
@@ -61,7 +64,13 @@ constexpr int kMaxGroup = 8;          // batch rows per block of the one-pass ro
 // the backward's (chronos_attention_bwd_short_hopper.cu: the head's bias read
 // from L1, one dbias partial a block) where chronos_short_takes says so, the
 // forward's (chronos_attention_short_hopper.cu) where chronos_short_fwd_takes
-// says so, each before the others.
+// says so, each before the others, 5 = fp32 3xTF32 on mma.sync m16n8k8 at
+// head_dim 64 (chronos_attention_tf32.cu, chronos_attention_bwd_tf32.cu: one
+// tile of S padded to 16 up to 80 tokens, else 64-row tiles; forward one pass,
+// backward, for each chunk of batch rows, a dq kernel that writes W and dL to
+// a scratch, a dkdv kernel that reads them, and a dbias kernel that sums dL
+// over the batch), taken at head_dim 64 at every S (chronos_tf32_takes)
+// before route 0.
 struct Plan {
   int route;
   int threads;  // per block
@@ -92,6 +101,14 @@ inline int f32_tm(int S, int D, bool backward) {
 
 inline Plan make_plan(bool backward, int dtype, int B, int S, int H, int D) {
   Plan p{};
+  if (dtype == 0 && chronos_tf32_takes(D)) {
+    // rows: query (and key) rows a tile; passes: the dq kernel's walks over
+    // the keys; one block a batch row, no dbias partials.
+    const int tile = S <= 80 ? (S + 15) / 16 * 16 : 64;
+    const int passes = backward && S > tile ? 2 : 1;
+    p = {5, 2 * tile, tile, tile, passes, 1, 1, 64, 64, 0};
+    return p;
+  }
   if (dtype == 0) {
     const int tb = 16 * f32_tm(S, D, backward);
     p = {0, kThreadsF32, tb, tb, S <= tb ? 1 : 2, 1, B, D, D, 0};

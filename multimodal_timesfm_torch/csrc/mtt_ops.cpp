@@ -208,7 +208,8 @@ at::Tensor qkv_cuda(const at::Tensor& qkv, const at::Tensor& key_valid, int64_t 
 }
 
 at::Tensor chronos_cuda(const at::Tensor& qkv_in, const at::Tensor& seg, const at::Tensor& bias) {
-  // The wgmma route reads qkv by TMA from a 16-byte aligned base (ops/_kernels.py _aligned16).
+  // The wgmma route (TMA) and the fp32 3xTF32 route (16-byte cp.async) read qkv from a 16-byte
+  // aligned base (ops/_kernels.py _aligned16).
   const at::Tensor qkv = reinterpret_cast<uintptr_t>(qkv_in.data_ptr()) % 16 == 0 ? qkv_in : qkv_in.clone();
   TORCH_CHECK(qkv.dim() == 3, "qkv must be (B, S, 3*H*D), got ", qkv.sizes());
   auto [heads, dim] = chronos_geometry(qkv, bias);

@@ -31,7 +31,8 @@ SOURCES = tuple(
                  "attention_bwd_hopper.cu", "attention_bwd_short_hopper.cu", "chronos_attention.cu",
                  "chronos_attention_bwd.cu", "chronos_attention_hopper.cu",
                  "chronos_attention_bwd_hopper.cu", "chronos_attention_short_hopper.cu",
-                 "chronos_attention_bwd_short_hopper.cu")
+                 "chronos_attention_bwd_short_hopper.cu", "chronos_attention_tf32.cu",
+                 "chronos_attention_bwd_tf32.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -131,6 +132,8 @@ def library() -> ctypes.CDLL:
         fn.restype = i32
     lib.chronos_attention_config.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.chronos_attention_config.restype = i32
+    lib.chronos_tf32_scratch.argtypes = [i32] * 3
+    lib.chronos_tf32_scratch.restype = i64
     for fn in (lib.attention_set_route, lib.chronos_set_route):
         fn.argtypes = [i32]
         fn.restype = i32
@@ -140,6 +143,7 @@ def library() -> ctypes.CDLL:
 _ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-specialised",
            "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass")
 ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2}
+CHRONOS_ROUTE_NAMES = {**ROUTE_NAMES, "cuda cores": 3}
 
 
 def set_route(name: str) -> None:
@@ -154,12 +158,13 @@ def set_route(name: str) -> None:
 
 
 def set_chronos_route(name: str) -> None:
-    """Which bf16 route the Chronos attention kernels take at head_dim 64: ``"rule"`` (the
-    library's dispatch rule, the default), ``"mma.sync"`` (never the wgmma or a persistent
-    route: the one-pass or tiled mma.sync route by their own limits) or ``"wgmma"`` (the
-    wgmma route at every S; never a persistent route). For measuring the borders
+    """Which route the Chronos attention kernels take at head_dim 64: ``"rule"`` (the
+    library's dispatch rule, the default), ``"mma.sync"`` (bf16 never on the wgmma or a
+    persistent route: the one-pass or tiled mma.sync route by their own limits), ``"wgmma"``
+    (bf16 on the wgmma route at every S; never a persistent route) or ``"cuda cores"`` (fp32
+    never on the 3xTF32 route; bf16 by the rule). For measuring the borders
     (``chip_smoke.py``'s Chronos ``[gate]`` lines); process-wide, in the library."""
-    err = library().chronos_set_route(ROUTE_NAMES[name])
+    err = library().chronos_set_route(CHRONOS_ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"chronos_set_route({name!r}) failed with CUDA error {err}")
 
@@ -202,7 +207,8 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
 
 _CHRONOS_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16 one-pass", "bf16 mma.sync m16n8k16 tiled",
                    "bf16 wgmma + TMA, warp-specialised",
-                   "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass")
+                   "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass",
+                   "fp32 3xTF32 mma.sync m16n8k8")
 _CHRONOS_KEYS = ("route", "threads", "rows", "keys", "passes", "group", "groups", "padded", "cols", "split_dl")
 
 
@@ -244,6 +250,14 @@ def chronos_route(backward: bool, dtype: torch.dtype, batch: int, seq: int, head
                            f"summed over the batch in order, in {p['groups']} group(s) of {p['group']} batch "
                            f"rows), dL as a hi + lo bf16 pair")
         return text + ", one pass (online softmax)"
+    if p["route"] == 5:
+        text = (f"{_CHRONOS_ROUTES[5]}, {p['threads']} threads, {p['rows']} query rows x {p['keys']} keys "
+                f"per tile, head_dim {dim}, each product lo hi + hi lo + hi hi")
+        if not backward:
+            return text + ", one pass (online softmax)"
+        return text + (f", 2 kernels (dq: {'two walks' if p['passes'] == 2 else 'one walk'} over the keys, "
+                       f"the row statistics first, W and dL written to a scratch; dK and dV from them) and a "
+                       f"3rd for dbias (dL summed over the batch in order)")
     text = (f"{_CHRONOS_ROUTES[p['route']]}, {p['threads']} threads, {p['rows']} query rows x "
             f"{p['keys']} keys per tile, {'one pass' if p['passes'] == 1 else 'two passes'}, "
             f"{p['group']} batch row(s) per block ({p['groups']} blocks along the batch), head_dim "
@@ -384,7 +398,8 @@ def attention_bwd(
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a contiguous copy of it when its data does not start 16-byte aligned (the
-    wgmma route reads qkv and g by TMA, which needs that; PyTorch's allocator gives it)."""
+    wgmma route reads qkv and g by TMA and the fp32 3xTF32 route by 16-byte cp.async, which
+    need that; PyTorch's allocator gives it)."""
     return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -447,9 +462,10 @@ def chronos_attention_bwd(
     dqkv: (B, S, 3*H*D), contiguous in qkv's dtype, dqkv written whole;
     dbias: (H, S, S) fp32, written whole, or None to skip the bias gradient.
     Allocates, off the plan's persistent route (4), a (3, B, H, S rounded up to 64) fp32
-    scratch for the row statistics and, with dbias, the (H, S, S) fp32 partial sums of dL
-    the plan needs (one per block along the batch; none when there is one). Raises ``RuntimeError``
-    if a launch is refused.
+    scratch for the row statistics (on the 3xTF32 route (5), the scratch for the W and dL
+    tiles of one chunk of batch rows, ``chronos_tf32_scratch``) and, with dbias, the (H, S, S) fp32 partial sums of
+    dL the plan needs (one per block along the batch; none when there is one). Raises
+    ``RuntimeError`` if a launch is refused.
     """
     lib = library()
     outs = (("g", g), ("dqkv", dqkv))
@@ -459,7 +475,9 @@ def chronos_attention_bwd(
     qkv, g = _aligned16(qkv), _aligned16(g)
     plan = chronos_plan(True, qkv.dtype, batch, seq, heads, dim)
     stats = None
-    if plan["route"] != 4:
+    if plan["route"] == 5:
+        stats = torch.empty(lib.chronos_tf32_scratch(batch, seq, heads), dtype=torch.float32, device=qkv.device)
+    elif plan["route"] != 4:
         padded = -(-seq // 64) * 64
         stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=qkv.device)
     partials = None
