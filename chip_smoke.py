@@ -7,7 +7,7 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the thirteen sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the fifteen sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
    their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
    sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
@@ -17,7 +17,9 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    backwards' ``attention_bwd_short_hopper.cu`` and ``chronos_attention_bwd_short_hopper.cu``
    and B4f's ``chronos_attention_short_hopper.cu``, sharing ``hopper_short.cuh``; the
    Chronos kernels' fp32 3xTF32 route at head_dim 64, ``chronos_attention_tf32.cu`` and
-   ``chronos_attention_bwd_tf32.cu``, sharing ``chronos_tf32.cuh``) with nvcc
+   ``chronos_attention_bwd_tf32.cu``, sharing ``chronos_tf32.cuh``, and the causal kernels'
+   at head_dim 80, ``attention_fwd_tf32.cu`` and ``attention_bwd_tf32.cu``, sharing
+   ``attention_tf32.cuh``; both routes' pieces in ``tf32_common.cuh``) with nvcc
    for sm_90a, one nvcc per source started
    together; print the build seconds, the compiler's register, shared-memory and spill
    report, the SASS count per kernel family of HMMA (mma.sync; HMMA.1688.F32.TF32 among
@@ -61,8 +63,13 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    one-pass or tiled mma.sync route and the wgmma route, and B4f at S = 16 to 128 against
    the one-pass route up to 96 and the wgmma route from 97 (held times, in turns). The
    fp32 border of the Chronos kernels' 3xTF32 route against their CUDA-core route at S = 16
-   to 577 (D = 64, 12 heads, B = 9,232 / S, held times, in turns) is measured only under
-   ``--kernel-times``: the rule takes the 3xTF32 route at every S at head_dim 64. The kernel,
+   to 577 (D = 64, 12 heads, B = 9,232 / S, held times, in turns), and the causal kernels'
+   (``[gate] causal fp32``: forward and backward at S = 16 to 2,100, D = 80, 16 heads, B =
+   8,192 / S, each checked against the plain version) are measured only under
+   ``--kernel-times``: the rule takes the 3xTF32 route at every S at head_dim 64 (causal: at
+   head_dim 80, the backward up to 16,320 tokens). In fp32 the causal
+   kernels' rows are the 3xTF32 route's, each with the CUDA-core route checked and timed beside
+   it, and B3b runs once past one chunk of the route's scratch (8 x 2,100 x 16). The kernel,
    the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
@@ -391,6 +398,30 @@ TF32_KERNELS = (
     ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_TF32_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (128, 67, 12, 64)),
 )
+# The fp32 3xTF32 route the dispatch gives the causal kernels at head_dim 80 (route 4), and its
+# rows of the kernels line: (key, wrapper, source, TPU kernel, a shape it is timed at in fp32:
+# B1f at serving contexts 2048 and 6144 (64 and 192 tokens), B1b at training contexts 512 and
+# 2048, B2 at 16384, B3 at 67,200).
+CU_TF32_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_tf32.cu"
+CU_TF32_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_tf32.cu"
+CAUSAL_TF32_KERNELS = (
+    ("B1f", "fused_qkv_causal_attention", CU_TF32_SOURCE, "multimodal_timesfm_tpu/ops/qkv_attention.py:111",
+     (64, 64, 16, 80)),
+    ("B1f", "fused_qkv_causal_attention", CU_TF32_SOURCE, "multimodal_timesfm_tpu/ops/qkv_attention.py:111",
+     (64, 192, 16, 80)),
+    ("B1b", "fused_qkv_causal_attention_bwd", CU_TF32_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/qkv_attention.py:141", (256, 16, 16, 80)),
+    ("B1b", "fused_qkv_causal_attention_bwd", CU_TF32_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/qkv_attention.py:141", (64, 64, 16, 80)),
+    ("B2f", "fused_causal_attention", CU_TF32_SOURCE, "multimodal_timesfm_tpu/ops/attention.py:174",
+     (8, 512, 16, 80)),
+    ("B2b", "fused_causal_attention_bwd", CU_TF32_BWD_SOURCE, "multimodal_timesfm_tpu/ops/attention.py:189",
+     (16, 512, 16, 80)),
+    ("B3f", "flash_causal_attention", CU_TF32_SOURCE, "multimodal_timesfm_tpu/ops/attention.py:322",
+     (2, 2100, 16, 80)),
+    ("B3b", "flash_causal_attention_bwd", CU_TF32_BWD_SOURCE, "multimodal_timesfm_tpu/ops/attention.py:322",
+     (2, 2100, 16, 80)),
+)
 # The Chronos wgmma route's rows of the kernels line: (key, wrapper, source, TPU kernel,
 # the route's main-path shape: serving and fine-tuning at context 8192, 577 tokens).
 CHRONOS_WGMMA_KERNELS = (
@@ -500,6 +531,23 @@ def tf32_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[di
     return entries
 
 
+def causal_tf32_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line's entries of the causal 3xTF32 route (CAUSAL_TF32_KERNELS): this
+    process's counted launches on that route (``routes``, from route_launches; one count a
+    kernel, beside each of its shapes) and the measured row at each shape in fp32, the
+    CUDA-core route's time in the same run included."""
+    entries = []
+    for key, name, cu, replaces, shape in CAUSAL_TF32_KERNELS:
+        batch, seq, heads, dim = shape
+        entries.append({
+            "name": f"{name} (3xTF32 route)", "route": "cuda", "source": cu, "replaces": replaces,
+            "launches": routes.get(f"{key} tf32", 0),
+            "shape": f"B={batch} S={seq} H={heads} D={dim} float32",
+            **rows[row_key(key, shape, torch.float32)],
+        })
+    return entries
+
+
 # The SASS instructions sass_mma_report counts per kernel family: mma.sync's (HMMA; among
 # them m16n8k8 on TF32 operands, HMMA.1688.F32.TF32), wgmma's (HGMMA) and TMA's tile loads
 # (UTMALDG).
@@ -514,8 +562,9 @@ WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
 # and B4f's), which must hold HMMA and UTMALDG.
 PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel", "chronos_fwd_short_kernel")
 # The kernel families of the Chronos 3xTF32 route that take products, which must hold
-# HMMA.1688.F32.TF32 (its dbias kernel only sums dL over the batch).
+# HMMA.1688.F32.TF32 (its dbias kernel only sums dL over the batch), and the causal route's.
 TF32_FAMILIES = ("chronos_fwd_tf32_kernel", "chronos_bwd_dq_tf32_kernel", "chronos_bwd_dkdv_tf32_kernel")
+CAUSAL_TF32_FAMILIES = ("attention_fwd_tf32_kernel", "attention_bwd_dq_tf32_kernel", "attention_bwd_dkdv_tf32_kernel")
 
 
 def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
@@ -571,7 +620,7 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
         found = counts.get(name, [])
         if not found or any(c["HMMA"] == 0 or c["UTMALDG"] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run HMMA and UTMALDG in every instantiation: {found}")
-    for name in TF32_FAMILIES if require_wgmma else ():
+    for name in TF32_FAMILIES + CAUSAL_TF32_FAMILIES if require_wgmma else ():
         found = counts.get(name, [])
         if not found or any(c[SASS_TF32] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run {SASS_TF32} in every instantiation: {found}")
@@ -694,9 +743,17 @@ def left_padded_valid(batch: int, seq: int, gen: torch.Generator) -> torch.Tenso
     return torch.arange(seq, device="cuda")[None, :] >= pads[:, None]
 
 
+def ops_time(flops: int, dtype: torch.dtype, three_tf32: bool) -> float:
+    """Seconds for ``flops`` at the card's peak for ``dtype``; with ``three_tf32`` (fp32 work
+    taken as 3xTF32 on the tensor cores) three TF32 products for each fp32 one at the TF32 rate
+    (PEAK_TF32) in place of the CUDA cores' fp32 rate."""
+    return 3 * flops / PEAK_TF32 if three_tf32 else flops / PEAK_FLOPS[dtype]
+
+
 def attention_bound(batch: int, seq: int, heads: int, dim: int, valid: torch.Tensor,
-                    dtype: torch.dtype) -> tuple[float, str]:
-    """Least time for causal key-padded attention: max(bytes / HBM rate, flops / peak).
+                    dtype: torch.dtype, three_tf32: bool = False) -> tuple[float, str]:
+    """Least time for causal key-padded attention: max(bytes / HBM rate, flops / peak), the peak
+    as :func:`ops_time` takes it.
 
     Bytes: q, k, v and the mask read once, the output written once. Flops:
     QK^T and PV over the (row, key) pairs this mask needs (key valid, key <= row).
@@ -706,7 +763,7 @@ def attention_bound(batch: int, seq: int, heads: int, dim: int, valid: torch.Ten
     rows_per_key = torch.arange(seq, 0, -1, device=valid.device)
     pairs = int((valid * rows_per_key).sum())
     flops = 4 * dim * heads * pairs
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops_time(flops, dtype, three_tf32)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -756,12 +813,46 @@ def time_kernel(name: str, shape: tuple[int, int, int, int], dtype: torch.dtype,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def causal_tf32(backward: bool, dtype: torch.dtype, shape: tuple[int, int, int, int]) -> bool:
+    """Whether the causal kernels' dispatch gives this call the 3xTF32 route (route 4)."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    return dtype == torch.float32 and _kernels.attention_route_number(backward, dtype, shape[1], shape[3]) == 4
+
+
+def cuda_core_row(row: dict, what: str, kernel, plain_out, compare_fn, valid: torch.Tensor,
+                  shape: tuple[int, int, int, int], bound_fn, iters: int) -> dict:
+    """A 3xTF32 row with the CUDA-core route beside it: that route checked against the plain
+    version and timed in the same run (held_ms, the route override "cuda cores"), and its bound
+    (the CUDA cores' fp32 rate)."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    try:
+        _kernels.set_route("cuda cores")
+        compare_fn(f"{what} CUDA-core route", kernel(), plain_out)
+        row["cuda_cores_ms"] = held_ms(kernel, iters)[0]
+    finally:
+        _kernels.set_route("rule")
+    row["bound_cuda_cores_ms"], _ = bound_fn(*shape, valid, torch.float32)
+    print(f"[kernels] {what} float32 3xTF32 route {row['ms']:.4f} ms against the CUDA-core route "
+          f"{row['cuda_cores_ms']:.4f} ms (held) and {row['library_ms']:.4f} ms of the library call; bounds "
+          f"{row['bound_ms']:.4f} (3xTF32) / {row['bound_cuda_cores_ms']:.4f} ms (CUDA cores)", flush=True)
+    return row
+
+
 def check_kernel(name: str, kernel, plain, sdpa, valid: torch.Tensor, dtype: torch.dtype,
                  shape: tuple[int, int, int, int], iters: int) -> dict:
-    """Kernel vs plain version on the card; returns the measured row."""
-    diff = compare(f"{name} {shape}", kernel(), plain())
-    return time_kernel(name, shape, dtype, diff, KERNEL_TOL[dtype], kernel, plain, sdpa,
-                       attention_bound(*shape, valid, dtype), iters, "sdpa")
+    """Kernel vs plain version on the card; returns the measured row. On the 3xTF32 route the
+    kernel's time is held (held_ms), the bound is the 3xTF32 one, and the CUDA-core route is
+    checked and timed beside it (cuda_core_row)."""
+    want = plain()
+    diff = compare(f"{name} {shape}", kernel(), want)
+    tf32 = causal_tf32(False, dtype, shape)
+    row = time_kernel(name, shape, dtype, diff, KERNEL_TOL[dtype], kernel, plain, sdpa,
+                      attention_bound(*shape, valid, dtype, three_tf32=tf32), iters, "sdpa", held=tf32)
+    if tf32:
+        row = cuda_core_row(row, f"{name} {shape}", kernel, want, compare, valid, shape, attention_bound, iters)
+    return row
 
 
 def sdpa_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor):
@@ -818,8 +909,9 @@ def kernel_phase(seed: int) -> dict[str, dict]:
 
 
 def backward_bound(batch: int, seq: int, heads: int, dim: int, valid: torch.Tensor,
-                   dtype: torch.dtype) -> tuple[float, str]:
-    """Least time for the attention backward: max(bytes / HBM rate, flops / peak).
+                   dtype: torch.dtype, three_tf32: bool = False) -> tuple[float, str]:
+    """Least time for the attention backward: max(bytes / HBM rate, flops / peak), the peak as
+    :func:`ops_time` takes it.
 
     Bytes: q, k, v and g read once, dq, dk and dv written once, the mask read
     once. Flops: QK^T, G V^T, dV = W^T G, dQ = dL K and dK = dL^T Q over the
@@ -830,7 +922,7 @@ def backward_bound(batch: int, seq: int, heads: int, dim: int, valid: torch.Tens
     rows_per_key = torch.arange(seq, 0, -1, device=valid.device)
     pairs = int((valid * rows_per_key).sum())
     flops = 10 * dim * heads * pairs
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops_time(flops, dtype, three_tf32)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -880,11 +972,17 @@ def sdpa_bwd_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.
 def check_bwd_kernel(name: str, kernel, plain, sdpa_bwd, valid: torch.Tensor, dtype: torch.dtype,
                      shape: tuple[int, int, int, int], iters: int) -> dict:
     """Backward kernel vs its plain version on the card, and two launches bit-equal;
-    returns the measured row."""
-    diff = compare_bwd(f"{name} {shape}", kernel(), plain())
+    returns the measured row (on the 3xTF32 route as :func:`check_kernel` gives it)."""
+    want = plain()
+    diff = compare_bwd(f"{name} {shape}", kernel(), want)
     same_twice(f"{name} {shape} {dtype}", kernel)
-    return time_kernel(name, shape, dtype, diff, BWD_TOL[dtype], kernel, plain, sdpa_bwd,
-                       backward_bound(*shape, valid, dtype), iters, "sdpa backward")
+    tf32 = causal_tf32(True, dtype, shape)
+    row = time_kernel(name, shape, dtype, diff, BWD_TOL[dtype], kernel, plain, sdpa_bwd,
+                      backward_bound(*shape, valid, dtype, three_tf32=tf32), iters, "sdpa backward", held=tf32)
+    if tf32:
+        row = cuda_core_row(row, f"{name} {shape}", kernel, want, compare_bwd, valid, shape, backward_bound,
+                            iters)
+    return row
 
 
 def padded_cotangent(shape: tuple[int, ...], valid: torch.Tensor, dtype: torch.dtype,
@@ -1154,9 +1252,8 @@ def print_routes() -> None:
 def chronos_bound(batch: int, seq: int, heads: int, dim: int, seg: torch.Tensor,
                   dtype: torch.dtype, backward: bool, dbias: bool = False,
                   three_tf32: bool = False) -> tuple[float, str]:
-    """Least time for the Chronos attention: max(bytes / HBM rate, flops / peak); with
-    ``three_tf32`` (fp32 work taken as 3xTF32 on the tensor cores) three TF32 products for each
-    fp32 one at the TF32 rate (PEAK_TF32) in place of the CUDA cores' fp32 rate.
+    """Least time for the Chronos attention: max(bytes / HBM rate, flops / peak), the peak as
+    :func:`ops_time` takes it.
 
     Bytes, forward: q, k, v read and the output written once (4 B S H D
     elements), the (H, S, S) fp32 bias and the (B, S) int32 segment ids read
@@ -1172,8 +1269,7 @@ def chronos_bound(batch: int, seq: int, heads: int, dim: int, seg: torch.Tensor,
     if dbias:
         nbytes += heads * seq * seq * 4
     flops = (10 if backward else 4) * dim * heads * pairs
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 3 * flops / PEAK_TF32 if three_tf32 else flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops_time(flops, dtype, three_tf32)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1526,7 +1622,36 @@ def flash_kernel_phase(seed: int) -> dict[str, dict]:
                   f"{str(dtype)[6:]}: max |kernel - plain| forward {err_f:.3g} (every row), "
                   f"backward {err_b:.3g}; two backward launches bit-equal", flush=True)
         check_causal_masks("flash", (2, 2100, heads, dim), dtype, gen, flash=True)
+    chunked_backward_check(gen)
     return rows
+
+
+# A backward past one chunk of the 3xTF32 route's scratch: 8 x 2,100 x 16 is 128 work items of
+# 18.4 MB each, three chunks of 43 (the budget holds 58).
+CHUNKED_SHAPE = (8, 2100, 16, 80)
+
+
+def chunked_backward_check(gen: torch.Generator) -> None:
+    """B3b in fp32 at CHUNKED_SHAPE, left-padded, a random cotangent on every row: the 3xTF32
+    route in three chunks of work items against the plain version on every element, two launches
+    bit-equal."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.attention import flash_causal_attention_bwd, plain_attention_bwd
+
+    batch, seq, heads, dim = CHUNKED_SHAPE
+    q, k, v, g = (torch.randn(batch, seq, heads, dim, generator=gen, device="cuda") for _ in range(4))
+    q = q / math.sqrt(dim)
+    valid = left_padded_valid(batch, seq, gen)
+    floats = _kernels.library().attention_bwd_scratch(
+        *(t.data_ptr() for t in (q, k, v, g, q, k, v)), 0, batch, seq, heads, dim, q.stride(1), g.stride(1),
+        q.stride(1))
+    bwd = lambda: flash_causal_attention_bwd(q, k, v, valid, g)  # noqa: E731
+    err = compare_bwd(f"B3b chunked {CHUNKED_SHAPE}", bwd(), plain_attention_bwd(q, k, v, valid, g))
+    same_twice(f"B3b chunked {CHUNKED_SHAPE}", bwd)
+    print(f"[kernels] flash_causal_attention_bwd (B,S,H,D) {CHUNKED_SHAPE} float32: "
+          f"{_kernels.attention_route(True, torch.float32, seq, dim).split(',')[0]}, scratch of one chunk "
+          f"{floats * 4 / 1e6:.1f} MB ({batch * heads} work items in chunks): max |kernel - plain| {err:.3g} "
+          f"within BWD_TOL; two launches bit-equal", flush=True)
 
 
 # The lengths the bf16 border between the wgmma and mma.sync routes is measured at (D = 80,
@@ -1722,6 +1847,71 @@ def chronos_f32_borders(seed: int) -> None:
               f"rule takes it from S={rule}", flush=True)
 
 
+# The lengths the fp32 border between the causal kernels' 3xTF32 route and their CUDA-core route
+# is measured at (head_dim 80, 16 heads, B = 8,192 // S): B1's main-path 16, 64 and 192, B2's 512
+# and B3's 2,100, and the lengths between.
+CAUSAL_F32_BORDER_LENGTHS = (16, 32, 64, 128, 192, 256, 512, 1024, 2100)
+
+
+def causal_f32_borders(seed: int) -> None:
+    """The fp32 border between the causal kernels' 3xTF32 route and their CUDA-core route: at
+    each of CAUSAL_F32_BORDER_LENGTHS the forward and the backward on both (the dispatch rule and
+    the library's route override ``"cuda cores"``), left-padded, checked against the plain
+    versions and timed in turns (CUDA cores, rule, rule, CUDA cores; held_ms); one ``[gate]``
+    line per length, then one per direction: the least S from which the 3xTF32 route is the
+    faster (by BORDER_MARGIN) at every measured length, beside the least S the dispatch rule
+    gives it."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.attention import (
+        fused_causal_attention,
+        fused_causal_attention_bwd,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    heads, dim, dtype = 16, 80, torch.float32
+    faster: dict[str, list[bool]] = {"forward": [], "backward": []}
+    try:
+        for seq in CAUSAL_F32_BORDER_LENGTHS:
+            batch = max(1, 8192 // seq)
+            q, k, v, g = (torch.randn(batch, seq, heads, dim, generator=gen, device="cuda") for _ in range(4))
+            q = q / math.sqrt(dim)
+            valid = left_padded_valid(batch, seq, gen)
+            calls = (lambda: fused_causal_attention(q, k, v, valid),
+                     lambda: fused_causal_attention_bwd(q, k, v, valid, g))
+            ref, ref_b = plain_causal_attention(q, k, v, valid), plain_attention_bwd(q, k, v, valid, g)
+            times: dict[str, list[tuple[float, ...]]] = {"cuda cores": [], "rule": []}
+            iters = 5 if seq > 1000 else 10
+            for route in ("cuda cores", "rule", "rule", "cuda cores"):
+                _kernels.set_route(route)
+                if not times[route]:
+                    compare(f"causal fp32 {route} route S={seq}", calls[0](), ref)
+                    compare_bwd(f"causal fp32 {route} route S={seq} backward", calls[1](), ref_b)
+                times[route].append(tuple(held_ms(fn, iters)[0] for fn in calls))
+            del ref, ref_b
+            mean = {r: [sum(t[i] for t in ts) / len(ts) for i in range(2)] for r, ts in times.items()}
+            for i, name in enumerate(("forward", "backward")):
+                faster[name].append(mean["rule"][i] < BORDER_MARGIN * mean["cuda cores"][i])
+            _kernels.set_route("rule")
+            rules = {d: _kernels.attention_route(d == "backward", dtype, seq, dim).split(",")[0]
+                     for d in ("forward", "backward")}
+            print(f"[gate] causal fp32 D={dim} H={heads} S={seq} B={batch}, held device ms (CUDA cores / "
+                  f"3xTF32): forward {mean['cuda cores'][0]:.4f} / {mean['rule'][0]:.4f}, backward "
+                  f"{mean['cuda cores'][1]:.4f} / {mean['rule'][1]:.4f} (both routes within tolerance of the "
+                  f"plain versions; the rule: forward {rules['forward']}, backward {rules['backward']})",
+                  flush=True)
+    finally:
+        _kernels.set_route("rule")
+    for name, wins in faster.items():
+        measured = next((s for i, s in enumerate(CAUSAL_F32_BORDER_LENGTHS) if all(wins[i:])), None)
+        rule = next((s for s in CAUSAL_F32_BORDER_LENGTHS
+                     if _kernels.attention_route_number(name == "backward", dtype, s, dim) == 4), None)
+        print(f"[gate] causal fp32 {name} border: the 3xTF32 route is the faster (by {1 - BORDER_MARGIN:.0%}) "
+              f"from S={measured} on (of {CAUSAL_F32_BORDER_LENGTHS}); the dispatch rule takes it from S={rule}",
+              flush=True)
+
+
 # The lengths the bf16 borders of the backwards' persistent one-pass route are measured at:
 # B1b at head_dim 80, 16 heads, B = 8,192 // S (the route takes S <= 64); B4b at head_dim 64,
 # 12 heads, B = CHRONOS_BORDER_TOKENS // S (the route takes S <= 80).
@@ -1904,11 +2094,12 @@ def parent_kernels(root: str):
 
 def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q, k, v, valid,
                           g) -> None:
-    """One ``[kernels]`` line: the causal kernel ``key`` (B1b, B2f, B2b, B3f, B3b) of the
-    parent checkout's library against this one's on the same bf16 inputs at ``shape``, timed
-    in turns (parent, change, change, parent; device time from torch.profiler, B1b's held to
-    a graph replay's event time), with the largest difference between the two outputs. B1b
-    writes dq|dk|dv into one fused (B, S, 3*H*D) gradient, as its entry point does."""
+    """One ``[kernels]`` line: the causal kernel ``key`` of the parent checkout's library against
+    this one's on the same inputs (bf16: B1b, B2f, B2b, B3f, B3b; fp32: all six) at ``shape``,
+    timed in turns (parent, change, change, parent; device time from torch.profiler, B1b's and
+    fp32's held to a graph replay's event time), with the largest difference between the two
+    outputs. B1b writes dq|dk|dv into one fused (B, S, 3*H*D) gradient, as its entry point
+    does."""
     from multimodal_timesfm_torch.ops import _kernels
     from multimodal_timesfm_torch.ops.qkv_attention import split_heads
 
@@ -1931,16 +2122,16 @@ def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q,
 
     times: dict[str, list[float]] = {"parent": [], "change": []}
     iters = 5 if shape[1] > 1000 else 20
-    held = key == "B1b"
+    held = key == "B1b" or q.dtype == torch.float32
     for name in ("parent", "change", "change", "parent"):
         times[name].append(held_ms(call(name), iters)[0] if held else device_ms(call(name), iters)[0])
     torch.cuda.synchronize()
     diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
     ratio = sum(times["parent"]) / sum(times["change"])
-    print(f"[kernels] {key} parent against change B={batch} S={seq} H={heads} D={dim} bfloat16: "
+    print(f"[kernels] {key} parent against change B={batch} S={seq} H={heads} D={dim} {str(q.dtype)[6:]}: "
           f"{'held ' if held else ''}device ms parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f}, "
           f"change {times['change'][0]:.4f} / {times['change'][1]:.4f} ({ratio:.2f}x; change: "
-          f"{_kernels.attention_route(backward, torch.bfloat16, seq, dim)}); "
+          f"{_kernels.attention_route(backward, q.dtype, seq, dim)}); "
           f"max |parent - change| {diff:.3g}", flush=True)
 
 
@@ -1981,13 +2172,15 @@ def chronos_parent_against_change(shape: tuple[int, int, int, int], parent, qkv,
 def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None) -> None:
     """Every kernel at its main-path shapes, fp32 and bf16, checked against its plain version
     and timed beside the plain version, SDPA and the bound (``[kernels]`` lines): the six
-    causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) left-padded (skipped with ``chronos_only``),
-    then B4f, B4b without dbias and B4b with dbias at Chronos-2's fine-tune (128 x 67 tokens)
-    and its serving at context 8192 (16 x 577), and at the fine-tune's shape with its 12 heads
-    over a model axis of 2 (128 x 67 x 6), one segment. With ``root`` (``--root``: another
-    checkout, such as the parent commit's) the bf16 B1b, B2f, B2b, B3f and B3b rows, and
-    every B4 shape in fp32 and bf16, are followed by that checkout's kernels against this
-    one's on the same inputs, so that the two compare on one card in one run."""
+    causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) left-padded (skipped with ``chronos_only``), in
+    fp32 at the shapes of CAUSAL_TF32_KERNELS (the CUDA-core route beside the 3xTF32 route) and
+    in bf16 at those of KERNELS, then B4f, B4b without dbias and B4b with dbias at Chronos-2's
+    fine-tune (128 x 67 tokens) and its serving at context 8192 (16 x 577), and at the
+    fine-tune's shape with its 12 heads over a model axis of 2 (128 x 67 x 6), one segment.
+    With ``root`` (``--root``: another checkout, such as the parent commit's) the bf16 B1b,
+    B2f, B2b, B3f and B3b rows, every fp32 causal row, and every B4 shape in fp32 and bf16, are
+    followed by that checkout's kernels against this one's on the same inputs, so that the two
+    compare on one card in one run."""
     from multimodal_timesfm_torch.ops.attention import (
         flash_causal_attention,
         flash_causal_attention_bwd,
@@ -2008,37 +2201,36 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
     backward = {"B2b": fused_causal_attention_bwd, "B3b": flash_causal_attention_bwd}
     parent = parent_kernels(root) if root is not None else None
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
-    for key, name, _, _, shape in KERNELS:
-        if key.startswith("B4") or chronos_only:
-            continue
+    causal = [(key, name, shape, torch.float32) for key, name, _, _, shape in CAUSAL_TF32_KERNELS]
+    causal += [(key, name, shape, torch.bfloat16) for key, name, _, _, shape in KERNELS if not key.startswith("B4")]
+    for key, name, shape, dtype in [] if chronos_only else causal:
         batch, seq, heads, dim = shape
         iters = 5 if seq > 1000 else 20
-        for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
-            qkv[..., : heads * dim] /= math.sqrt(dim)
-            qkv = qkv.to(dtype)
-            valid = left_padded_valid(batch, seq, gen)
-            q, k, v = split_heads(qkv, heads, dim)
-            g = padded_cotangent((batch, seq, heads * dim), valid, dtype, gen)
-            g4 = g.unflatten(-1, (heads, dim))
-            if key == "B1f":
-                check_kernel(name, lambda: fused_qkv_causal_attention(qkv, valid, heads, dim),
-                             lambda: plain_qkv_causal_attention(qkv, valid, heads, dim),
-                             sdpa_fn(q, k, v, valid), valid, dtype, shape, iters)
-            elif key == "B1b":
-                check_bwd_kernel(name, lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim),
-                                 lambda: plain_qkv_attention_bwd(qkv, valid, g, heads, dim),
-                                 sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
-            elif key in forward:
-                check_kernel(name, lambda: forward[key](q, k, v, valid),
-                             lambda: plain_causal_attention(q, k, v, valid), sdpa_fn(q, k, v, valid),
-                             valid, dtype, shape, iters)
-            else:
-                check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
-                                 lambda: plain_attention_bwd(q, k, v, valid, g4),
-                                 sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
-            if parent is not None and dtype == torch.bfloat16 and (key[:2] in ("B2", "B3") or key == "B1b"):
-                parent_against_change(key, shape, parent, q, k, v, valid, g4)
+        qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+        qkv[..., : heads * dim] /= math.sqrt(dim)
+        qkv = qkv.to(dtype)
+        valid = left_padded_valid(batch, seq, gen)
+        q, k, v = split_heads(qkv, heads, dim)
+        g = padded_cotangent((batch, seq, heads * dim), valid, dtype, gen)
+        g4 = g.unflatten(-1, (heads, dim))
+        if key == "B1f":
+            check_kernel(name, lambda: fused_qkv_causal_attention(qkv, valid, heads, dim),
+                         lambda: plain_qkv_causal_attention(qkv, valid, heads, dim),
+                         sdpa_fn(q, k, v, valid), valid, dtype, shape, iters)
+        elif key == "B1b":
+            check_bwd_kernel(name, lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim),
+                             lambda: plain_qkv_attention_bwd(qkv, valid, g, heads, dim),
+                             sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
+        elif key in forward:
+            check_kernel(name, lambda: forward[key](q, k, v, valid),
+                         lambda: plain_causal_attention(q, k, v, valid), sdpa_fn(q, k, v, valid),
+                         valid, dtype, shape, iters)
+        else:
+            check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
+                             lambda: plain_attention_bwd(q, k, v, valid, g4),
+                             sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
+        if parent is not None and (dtype == torch.float32 or key[:2] in ("B2", "B3") or key == "B1b"):
+            parent_against_change(key, shape, parent, q, k, v, valid, g4)
     for shape in (dict(KERNELS_BY_KEY)["B4f"], (128, 67, 6, 64), (64, 97, 12, 64), (64, 193, 12, 64),
                   (16, 577, 12, 64)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -2659,24 +2851,24 @@ def launch_counts() -> dict[str, int]:
     return {key: fn.launches for key, fn in launch_counters().items()}
 
 
-# The Chronos plan's routes (chronos_attention_config), and the causal backward's
-# (attention_bwd_config), by number.
+# The Chronos plan's routes (chronos_attention_config), and the causal kernels'
+# (attention_fwd_config / attention_bwd_config), by number ("fp32": the CUDA cores).
 B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent", "tf32")
-B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent")
-# The wrappers whose launches route_launches splits by route.
-ROUTED_KEYS = ("B1b", "B4f", "B4b")
+B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent", "tf32")
+# The wrappers whose launches route_launches splits by route: every one.
+ROUTED_KEYS = ("B1f", "B1b", "B2f", "B2b", "B3f", "B3b", "B4f", "B4b")
 
 
 def route_launches() -> dict[str, int]:
-    """B1b's, B4f's and B4b's launches since their ``.shapes`` tallies were cleared, by the
-    route the library gives each shape ("B1b persistent", "B4f one-pass", "B4b fp32", ...)."""
+    """Each kernel's launches since its ``.shapes`` tally was cleared, by the route the library
+    gives each shape ("B1b persistent", "B2f tf32", "B4f one-pass", "B4b fp32", ...)."""
     from multimodal_timesfm_torch.ops import _kernels
 
     out: dict[str, int] = {}
     for key in ROUTED_KEYS:
         for (dtype, batch, seq, heads, dim), n in launch_counters()[key].shapes.items():
-            if key == "B1b":
-                label = f"{key} {B1_ROUTES[_kernels.attention_route_number(True, dtype, seq, dim)]}"
+            if not key.startswith("B4"):
+                label = f"{key} {B1_ROUTES[_kernels.attention_route_number(key.endswith('b'), dtype, seq, dim)]}"
             else:
                 route = _kernels.chronos_plan(key == "B4b", dtype, batch, seq, heads, dim)["route"]
                 label = f"{key} {B4_ROUTES[route]}"
@@ -4204,6 +4396,71 @@ def training_times(seed: int, epochs: int = 7) -> None:
         torch.cuda.empty_cache()
 
 
+def fp32_times(seed: int, repeats: int = 5, epochs: int = 5) -> None:
+    """TimesFM-2.5 200M in fp32, its default compute dtype, where the causal kernels' fp32
+    route carries it, with the port imported from ``--root`` when given: served through
+    Forecaster (multimodal, horizon 128) at contexts 2048, 16384 and 67,200 (64, 512 and 2,100
+    tokens: B1f, B2f, B3f; 200 series in batches of 64, 16 in batches of 8, 4 in batches of 2),
+    the median series/s of ``repeats`` calls after a warm-up, then one profiled call; and the
+    multimodal fine-tune at context 16384 (batch 16, 3 steps an epoch: B2f and B2b), the median
+    train series/s of ``epochs`` epochs after one, a profiled epoch, and the most memory the
+    card's allocator held over the fine-tune (``torch.cuda.max_memory_allocated``, from a reset
+    before the trainer is built). Each profiled reading gives the device's busy time, its idle
+    share and the attention kernels' share of busy (``attention_fwd*``, ``attention_bwd*``)."""
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    def shares(kernels) -> str:
+        busy = sum(ms for _, ms in kernels)
+        fwd = sum(ms for k, ms in kernels if "attention_fwd" in k)
+        bwd = sum(ms for k, ms in kernels if "attention_bwd" in k)
+        return (f"device busy {busy:.3f} ms, attention forward {fwd / busy:.3f} and backward {bwd / busy:.3f} "
+                f"of busy"), busy
+
+    decoder = _timesfm_decoder(seed, torch.float32)
+    for ctx, (n, batch) in {2048: (200, 64), 16384: (16, 8), 67200: (4, 2)}.items():
+        data = make_samples(ctx, n, seed)
+        fc = Forecaster(decoder, batch_size=batch, device="cuda")
+        fc.forecast_dataset(HORIZON, data, denormalize=True)
+        rates = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fc.forecast_dataset(HORIZON, data, denormalize=True)
+            rates.append(n / (time.perf_counter() - start))
+        wall, kernels = device_profile(lambda: fc.forecast_dataset(HORIZON, data, denormalize=True))
+        text, busy = shares(kernels)
+        print(f"[fp32-times] serve context {ctx} float32, {n} series in batches of {batch}: median of {repeats} "
+              f"calls {float(np.median(rates)):.1f} series/s ({', '.join(f'{r:.1f}' for r in rates)}) | profiled "
+              f"call: wall {wall:.3f} ms, {text}, idle {1 - busy / wall:.3f}", flush=True)
+    ctx, batch, steps = 16384, 16, 3
+    train = make_samples(ctx, steps * batch, seed, TRAIN_HORIZON)
+    val = make_samples(ctx, batch, seed + 1, TRAIN_HORIZON)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as workdir:
+        args = TrainingArguments(
+            output_dir=workdir, per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+            num_train_epochs=3, learning_rate=TRAIN_LR, weight_decay=0.01, eval_strategy="epoch",
+            save_strategy="no", logging_strategy="no", seed=seed)
+        trainer = MultimodalTrainer(decoder, args, train, val, "multimodal", device="cuda")
+        rates = []
+        for epoch in range(epochs + 1):
+            loss = trainer.train_epoch()
+            if not np.isfinite(loss):
+                raise AssertionError(f"fp32-times context {ctx}: loss {loss}")
+            if epoch >= 1:
+                rates.append(trainer.last_throughput)
+        wall, kernels = device_profile(trainer.train_epoch)
+        peak = torch.cuda.max_memory_allocated()
+    text, busy = shares(kernels)
+    print(f"[fp32-times] train context {ctx} multimodal float32, batch {batch}, {steps} steps an epoch: median "
+          f"of {epochs} epochs {float(np.median(rates)):.1f} train series/s ({', '.join(f'{r:.1f}' for r in rates)}) "
+          f"| profiled epoch: wall {wall:.3f} ms, {text}, idle {1 - busy / wall:.3f} | peak memory allocated "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+
+
 def dispatch_times(calls: int = 2000, repeats: int = 7) -> None:
     """The host's time for one call of the fused-qkv attention entry point (B1f, and B1b
     with the backward) at a shape whose kernels take a few microseconds ((B,S,H,D)
@@ -5203,7 +5460,8 @@ def main() -> int:
     parser.add_argument("--kernel-times", action="store_true",
                         help="only check and time every kernel at its main-path shapes")
     parser.add_argument("--root", default=None,
-                        help="with --kernel-times: also time this checkout's kernels (B1b, B2, B3, B4) "
+                        help="with --kernel-times: also time this checkout's kernels (bf16 B1b, B2, B3; "
+                             "fp32 B1-B3; B4) "
                              "beside this one's; with --serving-times or --training-times: import the "
                              "port from this checkout instead")
     parser.add_argument("--chronos-only", action="store_true",
@@ -5213,6 +5471,9 @@ def main() -> int:
     parser.add_argument("--training-times", action="store_true",
                         help="only time three eager bf16 training cells (TimesFM c512, chronos_mm_h32, "
                              "chronos_baseline_h32) and their attention backward's share")
+    parser.add_argument("--fp32-times", action="store_true",
+                        help="only time TimesFM fp32 serving at contexts 2048, 16384 and 67,200 and the "
+                             "c16384 fp32 fine-tune: series/s, attention shares, peak memory")
     parser.add_argument("--dispatch-times", action="store_true",
                         help="only time one call of the B1 entry point: custom op against autograd.Function")
     parser.add_argument("--parallel-only", action="store_true",
@@ -5226,8 +5487,9 @@ def main() -> int:
     args = parser.parse_args()
     if args.chronos_only and not args.kernel_times:
         parser.error("--chronos-only needs --kernel-times")
-    if args.root is not None and not (args.kernel_times or args.serving_times or args.training_times):
-        parser.error("--root needs --kernel-times, --serving-times or --training-times")
+    if args.root is not None and not (args.kernel_times or args.serving_times or args.training_times
+                                      or args.fp32_times):
+        parser.error("--root needs --kernel-times, --serving-times, --training-times or --fp32-times")
     if args.root is not None and not args.kernel_times:
         sys.path.insert(0, args.root)
     if not torch.cuda.is_available():
@@ -5258,11 +5520,13 @@ def main() -> int:
     print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda} | port from "
           f"{_kernels.CSRC.parent if hasattr(_kernels, 'CSRC') else _kernels.SOURCES[0].parent.parent}",
           flush=True)
-    if args.serving_times or args.training_times or args.dispatch_times:
+    if args.serving_times or args.training_times or args.fp32_times or args.dispatch_times:
         if args.serving_times:
             serving_times(args.seed)
         if args.training_times:
             training_times(args.seed)
+        if args.fp32_times:
+            fp32_times(args.seed)
         if args.dispatch_times:
             dispatch_times()
         print(f"[gpu] {gpu}")
@@ -5308,6 +5572,8 @@ def main() -> int:
             route_borders(args.seed)
         chronos_route_borders(args.seed)
         chronos_f32_borders(args.seed)
+        if not args.chronos_only:
+            causal_f32_borders(args.seed)
         persistent_route_borders(args.seed, args.chronos_only)
         kernel_times(args.seed, args.chronos_only, args.root)
         print(f"[gpu] {gpu}")
@@ -5378,14 +5644,15 @@ def main() -> int:
     idle = [key for key, n in launches.items() if n == 0]
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
     idle += [f"{key} persistent" for key in ("B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
-    idle += [f"{key} tf32" for key, *_ in TF32_KERNELS if not routes.get(f"{key} tf32")]
+    idle += [f"{key} tf32" for key, *_ in TF32_KERNELS + CAUSAL_TF32_KERNELS if not routes.get(f"{key} tf32")]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     print(f"[launches] main paths: {launches}")
-    print(f"[launches] B1b and B4 by route, this process's counted launches (replays and the ranks' "
+    print(f"[launches] every kernel by route, this process's counted launches (replays and the ranks' "
           f"not split): {routes}")
     print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)
-                      + persistent_route_entries(rows, routes) + tf32_route_entries(rows, routes)}))
+                      + persistent_route_entries(rows, routes) + tf32_route_entries(rows, routes)
+                      + causal_tf32_entries(rows, routes)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({
         "ok": True,

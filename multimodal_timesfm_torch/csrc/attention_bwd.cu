@@ -32,8 +32,9 @@
 // bf16 at head_dim 80 from S = 128 (the border chip_smoke.py's [gate] lines
 // measure), with q, k, v and g readable by TMA, takes the wgmma/TMA route of
 // attention_bwd_hopper.cu (three kernels, the statistics in a pass of their
-// own). The routes here, for every other shape (bf16 mma.sync) and for fp32,
-// take the shape of FlashAttention-2's backward without its dQ atomics: two
+// own); fp32 at head_dim 80 takes the 3xTF32 route of attention_bwd_tf32.cu
+// (below). The routes here, for every other shape (bf16 mma.sync) and for
+// fp32, take the shape of FlashAttention-2's backward without its dQ atomics: two
 // kernels on the caller's stream, no atomics, the same result from launch
 // to launch.
 //   1. dq: one block per query tile. Pass 1 walks the key tiles once,
@@ -72,14 +73,21 @@
 // TB = 16 TM rows (64; 32 for head_dim > 96 or S <= 32; 16 for S <= 16), a
 // TM x TM micro-tile per thread,
 // shared rows padded to D + 1 floats, 4-byte cp.async into the ring; W and
-// dL go through shared memory for the products with V, K and Q.
+// dL go through shared memory for the products with V, K and Q. At head_dim
+// 80 fp32 takes the 3xTF32 tensor-core route of attention_bwd_tf32.cu
+// instead (tf32_bwd_takes: at every S its [gate] lines measured, up to S =
+// 16,320, past which one (batch row, head)'s W and dL scratch would pass its
+// 1 GiB budget) wherever q, k, v and g are read 16 bytes at a time and dq,
+// dk, dv written 8: what stays here is every other head_dim, longer rows,
+// the layouts that route cannot read, and the override "cuda cores".
 //
 // What bounds it on an H100: at the main-path shapes the bytes moved set
 // the least time in bf16 (chip_smoke.py prints the bound), but kernel 1
 // takes five products per tile pair and kernel 2 four (eight with the W
 // and dL pairs), on mma.sync at about half the card's bf16 rate, with three
 // exponentials per logit on the SFU, and every block re-reads its tiles from
-// L2. The fp32 route is bound by the CUDA cores' 67 TFLOP/s.
+// L2. The fp32 route here is bound by the CUDA cores' 67 TFLOP/s, 2.5x
+// below the 3xTF32 route's 165.
 
 #include "attention_common.cuh"
 
@@ -897,6 +905,18 @@ cudaError_t dispatch_mma(const bf16* q, const bf16* k, const bf16* v, const uint
 
 }  // namespace
 
+// The fp32 3xTF32 route (attention_bwd_tf32.cu).
+extern "C" int tf32_bwd_takes(int S, int D);
+extern "C" int tf32_bwd_layout(const void* q, const void* k, const void* v, const void* g,
+                               const void* dq, const void* dk, const void* dv, long long ld_in,
+                               long long ld_g, long long ld_out);
+extern "C" long long tf32_bwd_scratch(int B, int S, int H);
+extern "C" void tf32_bwd_config(int S, int* cfg);
+extern "C" int tf32_attention_bwd(const void* q, const void* k, const void* v, const void* valid,
+                                  const void* g, void* dq, void* dk, void* dv, void* scratch,
+                                  int B, int S, int H, long long ld_in, long long ld_g,
+                                  long long ld_out, void* stream);
+
 // The bf16 one-pass persistent route for short S (attention_bwd_short_hopper.cu).
 extern "C" int short_bwd_takes(int S, int D);
 extern "C" int short_bwd_layout(const void* q, const void* k, const void* v, const void* g,
@@ -918,25 +938,36 @@ extern "C" int hopper_attention_bwd(const void* q, const void* k, const void* v,
                                     int B, int S, int H, long long ld_in, long long ld_g,
                                     long long ld_out, void* stream);
 
-// Whether attention_bwd takes the bf16 one-pass persistent route, which needs
-// no statistics scratch: short_bwd_takes(S, D) and its layout rule (q, k, v,
-// g, dq, dk and dv rows and bases 16-byte aligned).
-extern "C" int attention_bwd_short(const void* q, const void* k, const void* v, const void* g,
-                                   const void* dq, const void* dk, const void* dv, int dtype,
-                                   int S, int D, long long ld_in, long long ld_g,
-                                   long long ld_out) {
-  return dtype == 1 && short_bwd_takes(S, D) &&
-         short_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out);
+// Floats of scratch attention_bwd needs for these operands: 0 on the bf16
+// one-pass persistent route (short_bwd_takes(S, D) and its layout rule: q, k,
+// v, g, dq, dk and dv rows and bases 16-byte aligned); on the fp32 3xTF32
+// route (tf32_bwd_takes(S, D) and its layout rule) one chunk's W and dL tiles
+// and row statistics (tf32_bwd_scratch); otherwise the row statistics, 3 B H
+// Sp floats, Sp = S rounded up to 64. -1 for a dtype it does not take.
+extern "C" long long attention_bwd_scratch(const void* q, const void* k, const void* v,
+                                           const void* g, const void* dq, const void* dk,
+                                           const void* dv, int dtype, int B, int S, int H, int D,
+                                           long long ld_in, long long ld_g, long long ld_out) {
+  if (dtype == 1 && short_bwd_takes(S, D) &&
+      short_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
+    return 0;
+  if (dtype == 0 && tf32_bwd_takes(S, D) &&
+      tf32_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
+    return tf32_bwd_scratch(B, S, H);
+  if (dtype != 0 && dtype != 1) return -1;
+  return 3LL * B * H * ((S + 63) / 64 * 64);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. valid: (B, S) bytes, nonzero = valid key.
-// stats: 3 * B * H * Sp floats of scratch, Sp = S rounded up to 64, or null
-// where attention_bwd_short holds (refused otherwise). Returns the CUDA error
-// of the launches (0 on success); launches on `stream` and does not
-// synchronize. bf16 takes the one-pass persistent route where
-// attention_bwd_short holds, then the wgmma/TMA route where
-// hopper_bwd_takes(S, D) and its layout rule (q, k, v and g rows and bases
-// 16-byte aligned) hold, and the mma.sync route otherwise.
+// stats: attention_bwd_scratch(...) floats of scratch, 16-byte aligned, or
+// null where that is 0 (refused otherwise). Returns the CUDA error of the
+// launches (0 on success); launches on `stream` and does not synchronize.
+// bf16 takes the one-pass persistent route where short_bwd_takes(S, D) and
+// its layout rule hold, then the wgmma/TMA route where hopper_bwd_takes(S, D)
+// and its layout rule (q, k, v and g rows and bases 16-byte aligned) hold,
+// and the mma.sync route otherwise; fp32 the 3xTF32 route where
+// tf32_bwd_takes(S, D) and its layout rule hold, and the CUDA-core route
+// otherwise.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* valid,
                              const void* g, void* dq, void* dk, void* dv, void* stats, int dtype,
                              int B, int S, int H, int D, long long ld_in, long long ld_g,
@@ -946,9 +977,14 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(stats);
   const uint8_t* vm = static_cast<const uint8_t*>(valid);
-  if (attention_bwd_short(q, k, v, g, dq, dk, dv, dtype, S, D, ld_in, ld_g, ld_out))
+  if (dtype == 1 && short_bwd_takes(S, D) &&
+      short_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
     return short_attention_bwd(q, k, v, valid, g, dq, dk, dv, B, S, H, ld_in, ld_g, ld_out, stream);
   if (sc == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && tf32_bwd_takes(S, D) &&
+      tf32_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
+    return tf32_attention_bwd(q, k, v, valid, g, dq, dk, dv, stats, B, S, H, ld_in, ld_g, ld_out,
+                              stream);
   if (dtype == 0)
     return (int)dispatch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                              static_cast<const float*>(v), vm, static_cast<const float*>(g),
@@ -967,12 +1003,16 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
 // The route and tiles attention_bwd takes for (dtype, S, D) with a layout
 // every route reads, for reports: cfg = {route (0: fp32 CUDA cores, 1: bf16
 // mma.sync m16n8k16, 2: bf16 wgmma + TMA, 3: bf16 mma.sync one-pass fed by TMA,
-// persistent), threads, query rows per head and
+// persistent, 4: fp32 3xTF32 mma.sync m16n8k8), threads, query rows per head and
 // block of the dq kernel, keys per head and block of the dkdv kernel, heads
 // per block, padded head_dim, output columns per block, dL as a hi + lo pair
 // (1) or one bf16 operand (0)}. Returns 0, or cudaErrorInvalidValue.
 extern "C" int attention_bwd_config(int dtype, int S, int D, int* cfg) {
   if (S <= 0 || D <= 0 || D > kMaxDim) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && tf32_bwd_takes(S, D)) {
+    tf32_bwd_config(S, cfg);
+    return 0;
+  }
   if (dtype == 0) {
     const int tb = 16 * f32_tm(S, D);
     const int c[8] = {0, kThreadsF32, tb, tb, 1, D, D, 0};

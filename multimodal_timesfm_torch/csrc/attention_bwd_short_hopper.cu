@@ -259,11 +259,13 @@ cudaError_t launch(const OperandMaps (&maps)[kOperands], const uint8_t* valid, b
 
 // Whether attention_bwd takes this route for (S, D): bf16 (the caller's
 // check), head_dim 80, S <= kShortTo; never under the route override
-// (attention_set_route) 1 (mma.sync) or 2 (wgmma).
+// (attention_set_route) 1 (mma.sync) or 2 (wgmma); by the rule under 3 (an
+// fp32 override).
 extern "C" int mtt_attention_route_override();
 
 extern "C" int short_bwd_takes(int S, int D) {
-  return D == kD && S >= 1 && S <= kShortTo && mtt_attention_route_override() == 0;
+  const int force = mtt_attention_route_override();
+  return D == kD && S >= 1 && S <= kShortTo && force != 1 && force != 2;
 }
 
 // The layout this route reads and writes: q, k, v and g by TMA (rows and

@@ -2,7 +2,7 @@
 // tensor-core route for Hopper (sm_90a), taken by chronos_attention_bwd
 // (chronos_attention_bwd.cu) when make_plan gives route 5
 // (chronos_tf32_takes in chronos_attention_tf32.cu, whose header gives the
-// arithmetic and the forward's design; shared pieces in chronos_tf32.cuh).
+// arithmetic and the forward's design; shared pieces in chronos_tf32.cuh and tf32_common.cuh).
 //
 // Replaces, where the rule sends them here, the Pallas TPU kernel
 //   multimodal_timesfm_tpu/ops/chronos_attention.py  _bwd_kernel (B4b)
@@ -92,13 +92,13 @@ __global__ void __launch_bounds__(2 * KT, 2)
   auto prefetch = [&](int it) {
     const int slot = it & (stages - 1);
     const int k0 = tile_of(it);
-    load_tile<KT, NTHREADS>(ring + 2 * slot * TILE, qb + hd, ld, k0, S);
-    load_tile<KT, NTHREADS>(ring + (2 * slot + 1) * TILE, qb + 2 * hd, ld, k0, S);
+    load_tile<kD, kLd, KT, NTHREADS>(ring + 2 * slot * TILE, qb + hd, ld, k0, S);
+    load_tile<kD, kLd, KT, NTHREADS>(ring + (2 * slot + 1) * TILE, qb + 2 * hd, ld, k0, S);
     load_seg(Sk + slot * KT, seg_b, k0, S, KT);
     mtt::cp_async_commit();
   };
-  load_tile<KT, NTHREADS>(Qs, qb, ld, q0, S);
-  load_tile<KT, NTHREADS>(Gs, g + (long long)b * S * hd + (long long)h * kD, hd, q0, S);
+  load_tile<kD, kLd, KT, NTHREADS>(Qs, qb, ld, q0, S);
+  load_tile<kD, kLd, KT, NTHREADS>(Gs, g + (long long)b * S * hd + (long long)h * kD, hd, q0, S);
   load_seg(Sq, seg_b, q0, S, KT);
   prefetch(0);
 
@@ -127,8 +127,8 @@ __global__ void __launch_bounds__(2 * KT, 2)
     const float* Vs = Ks + TILE;
     const int k0 = tile_of(it);
     float sc[NT][4], dw[NT][4];
-    xyt<NT>(sc, Qs, wr, Ks, lane);
-    xyt<NT>(dw, Gs, wr, Vs, lane);
+    xyt<kD, kLd, NT>(sc, Qs, wr, Ks, lane);
+    xyt<kD, kLd, NT>(dw, Gs, wr, Vs, lane);
     const float* const brow[2] = {brow0[0] + k0, brow0[1] + k0};
     bias_mask<NT, false>(sc, brow, sq, Sk + slot * KT, k0, S, lane);
     if (one || it < nkt) {
@@ -184,10 +184,10 @@ __global__ void __launch_bounds__(2 * KT, 2)
         *reinterpret_cast<float2*>(p + dl_plane) = dl;
       }
     }
-    py<NT>(dq, sc, Ks, lane);
+    py<kD, kLd, NT>(dq, sc, Ks, lane);
   }
   const float one_[2] = {1.f, 1.f};
-  store_tile(dqkv + (long long)b * S * ld + (long long)h * kD, ld, dq, q0 + wr, one_, S, lane);
+  store_tile<kD>(dqkv + (long long)b * S * ld + (long long)h * kD, ld, dq, q0 + wr, one_, S, lane);
 }
 
 // Kernel 2: dK and dV for one key tile, from kernel 1's W and dL tiles.
@@ -217,8 +217,8 @@ __global__ void __launch_bounds__(2 * KT, 2)
   const float* gb = g + (long long)b * S * hd + (long long)h * kD;
   const long long dl_plane = (long long)gridDim.z * H * nqt * nqt * KT * KT;
   auto load = [&](int it) {
-    load_tile<KT, NTHREADS>(Qt, qb, ld, it * KT, S);
-    load_tile<KT, NTHREADS>(Gt, gb, hd, it * KT, S);
+    load_tile<kD, kLd, KT, NTHREADS>(Qt, qb, ld, it * KT, S);
+    load_tile<kD, kLd, KT, NTHREADS>(Gt, gb, hd, it * KT, S);
     const float* src = wd + ((bh * nqt + it) * nqt + kt) * KT * KT;
     for (int i = threadIdx.x; i < KT * KT / 4; i += NTHREADS) {
       const int r = i / (KT / 4);
@@ -241,8 +241,8 @@ __global__ void __launch_bounds__(2 * KT, 2)
   for (int it = 0; it < nqt; ++it) {
     mtt::cp_async_wait_all();
     __syncthreads();
-    pty<KT, LDW>(dv, Wt, wk, Gt, lane);
-    pty<KT, LDW>(dk, Dt, wk, Qt, lane);
+    pty<kD, kLd, KT, LDW>(dv, Wt, wk, Gt, lane);
+    pty<kD, kLd, KT, LDW>(dk, Dt, wk, Qt, lane);
     if (it + 1 < nqt) {  // one slot: refill it once every warp is done with it
       __syncthreads();
       load(it + 1);
@@ -250,8 +250,8 @@ __global__ void __launch_bounds__(2 * KT, 2)
   }
   const float one_[2] = {1.f, 1.f};
   float* ob = dqkv + (long long)b * S * ld + (long long)h * kD;
-  store_tile(ob + hd, ld, dk, kt * KT + wk, one_, S, lane);
-  store_tile(ob + 2 * hd, ld, dv, kt * KT + wk, one_, S, lane);
+  store_tile<kD>(ob + hd, ld, dk, kt * KT + wk, one_, S, lane);
+  store_tile<kD>(ob + 2 * hd, ld, dv, kt * KT + wk, one_, S, lane);
 }
 
 // Kernel 3: dbias[h][i][j] = sum over the batch, in order, of kernel 1's dL:

@@ -2,7 +2,7 @@
 // tensor-core route for Hopper (sm_90a), taken by chronos_attention_fwd
 // (chronos_attention.cu) when make_plan gives route 5 (chronos_tf32_takes
 // below); the backward's half is chronos_attention_bwd_tf32.cu, the shared
-// pieces chronos_tf32.cuh.
+// pieces chronos_tf32.cuh and tf32_common.cuh.
 //
 // Replaces, where the rule sends them here, the Pallas TPU kernels
 //   multimodal_timesfm_tpu/ops/chronos_attention.py  _fwd_kernel (B4f)
@@ -16,7 +16,7 @@
 // TF32 operands and fp32 accumulators. Each fp32 operand x is split in the
 // kernel's body into hi = tf32(x) and lo = tf32(x - hi), both rounded to
 // nearest with ties away from zero (cvt.rna.tf32.f32's rounding, done in two
-// integer instructions: chronos_tf32.cuh) and x - hi exact, and each product
+// integer instructions: tf32_common.cuh) and x - hi exact, and each product
 // is taken as lo hi + hi lo + hi hi, the small terms first, into one
 // accumulator: about 2^-21 of each term's magnitude, against 2^-11 for one
 // TF32 product, which misses the fp32 tolerances
@@ -86,12 +86,12 @@ __global__ void __launch_bounds__(2 * KT, 2)
   const float* bias_h = bias + (long long)h * S * S;
   auto prefetch = [&](int it) {
     const int slot = it & (stages - 1);
-    load_tile<KT, NTHREADS>(ring + 2 * slot * TILE, qb + hd, ld, it * KT, S);
-    load_tile<KT, NTHREADS>(ring + (2 * slot + 1) * TILE, qb + 2 * hd, ld, it * KT, S);
+    load_tile<kD, kLd, KT, NTHREADS>(ring + 2 * slot * TILE, qb + hd, ld, it * KT, S);
+    load_tile<kD, kLd, KT, NTHREADS>(ring + (2 * slot + 1) * TILE, qb + 2 * hd, ld, it * KT, S);
     load_seg(Sk + slot * KT, seg_b, it * KT, S, KT);
     mtt::cp_async_commit();
   };
-  load_tile<KT, NTHREADS>(Qs, qb, ld, q0, S);
+  load_tile<kD, kLd, KT, NTHREADS>(Qs, qb, ld, q0, S);
   load_seg(Sq, seg_b, q0, S, KT);
   prefetch(0);
 
@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(2 * KT, 2)
     const float* Vs = Ks + TILE;
     const int k0 = it * KT;
     float sc[NT][4];
-    xyt<NT>(sc, Qs, wr, Ks, lane);
+    xyt<kD, kLd, NT>(sc, Qs, wr, Ks, lane);
     const float* const brow[2] = {bias_h + (long long)min(rows[0], S - 1) * S + k0,
                                   bias_h + (long long)min(rows[1], S - 1) * S + k0};
     bias_mask<NT, false>(sc, brow, sq, Sk + slot * KT, k0, S, lane);
@@ -147,10 +147,10 @@ __global__ void __launch_bounds__(2 * KT, 2)
         }
       m[r] = nm;
     }
-    py<NT>(o, sc, Vs, lane);
+    py<kD, kLd, NT>(o, sc, Vs, lane);
   }
   const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
-  store_tile(out + (long long)b * S * hd + (long long)h * kD, hd, o, q0 + wr, inv, S, lane);
+  store_tile<kD>(out + (long long)b * S * hd + (long long)h * kD, hd, o, q0 + wr, inv, S, lane);
 }
 
 template <int KT>

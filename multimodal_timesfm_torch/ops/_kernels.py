@@ -32,7 +32,7 @@ SOURCES = tuple(
                  "chronos_attention_bwd.cu", "chronos_attention_hopper.cu",
                  "chronos_attention_bwd_hopper.cu", "chronos_attention_short_hopper.cu",
                  "chronos_attention_bwd_short_hopper.cu", "chronos_attention_tf32.cu",
-                 "chronos_attention_bwd_tf32.cu")
+                 "chronos_attention_bwd_tf32.cu", "attention_fwd_tf32.cu", "attention_bwd_tf32.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -121,8 +121,8 @@ def library() -> ctypes.CDLL:
     lib.attention_fwd.restype = i32
     lib.attention_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 3 + [ptr]
     lib.attention_bwd.restype = i32
-    lib.attention_bwd_short.argtypes = [ptr] * 7 + [i32] * 3 + [i64] * 3
-    lib.attention_bwd_short.restype = i32
+    lib.attention_bwd_scratch.argtypes = [ptr] * 7 + [i32] * 5 + [i64] * 3
+    lib.attention_bwd_scratch.restype = i64
     lib.chronos_attention_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.chronos_attention_fwd.restype = i32
     lib.chronos_attention_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
@@ -141,17 +141,18 @@ def library() -> ctypes.CDLL:
 
 
 _ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-specialised",
-           "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass")
-ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2}
-CHRONOS_ROUTE_NAMES = {**ROUTE_NAMES, "cuda cores": 3}
+           "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass", "fp32 3xTF32 mma.sync m16n8k8")
+ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3}
+CHRONOS_ROUTE_NAMES = ROUTE_NAMES  # the same names and numbers
 
 
 def set_route(name: str) -> None:
-    """Which bf16 route the causal attention kernels take: ``"rule"`` (the library's
-    dispatch rule, the default), ``"mma.sync"`` (never the wgmma or the backward's persistent
-    route) or ``"wgmma"`` (the wgmma route at every S its layout rule allows; never the
-    persistent route). For measuring the borders between them (``chip_smoke.py``'s
-    ``[gate]`` lines); process-wide, in the library."""
+    """Which route the causal attention kernels take: ``"rule"`` (the library's dispatch
+    rule, the default), ``"mma.sync"`` (bf16 never on the wgmma or the backward's persistent
+    route), ``"wgmma"`` (bf16 on the wgmma route at every S its layout rule allows; never the
+    persistent route) or ``"cuda cores"`` (fp32 never on the 3xTF32 route; bf16 by the rule).
+    For measuring the borders between them (``chip_smoke.py``'s ``[gate]`` lines);
+    process-wide, in the library."""
     err = library().attention_set_route(ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"attention_set_route({name!r}) failed with CUDA error {err}")
@@ -180,8 +181,8 @@ def _attention_config(backward: bool, dtype: torch.dtype, seq: int, dim: int) ->
 
 
 def attention_route_number(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> int:
-    """The causal kernels' route for (dtype, S, head_dim) by number: 0 fp32, 1 mma.sync,
-    2 wgmma, 3 the backward's persistent one-pass route."""
+    """The causal kernels' route for (dtype, S, head_dim) by number: 0 fp32 on the CUDA cores,
+    1 mma.sync, 2 wgmma, 3 the backward's persistent one-pass route, 4 fp32 3xTF32."""
     return _attention_config(backward, dtype, seq, dim)[0]
 
 
@@ -193,6 +194,13 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
     text = (f"{_ROUTES[route]}, {threads} threads, {rows} query rows x {keys} keys per tile, "
             f"{heads} head(s) per block, head_dim {dim} padded to {padded}, {cols} output "
             f"columns per block")
+    if route == 4:
+        text += ", each product lo hi + hi lo + hi hi"
+        if not backward:
+            return text + ", one pass (online softmax)"
+        return text + (", 2 kernels (dq: two walks over the keys, the row statistics first, W and dL of the "
+                       "tile pairs on and below the diagonal written to a scratch; dK and dV from them, "
+                       "recomputed above the diagonal), in chunks of (batch row, head) work items")
     if backward and route != 0:
         text += ", dL as " + ("a hi + lo bf16 pair" if cfg[7] else "one bf16 operand")
     if route == 2:
@@ -361,13 +369,14 @@ def attention_bwd(
     dv: torch.Tensor,
 ) -> None:
     """Launch the attention backward kernels on the current stream (one on the bf16
-    persistent route, two or three on the others).
+    persistent route, two or three on the others, two a chunk on the fp32 3xTF32 route).
 
     q, k, v as for :func:`attention_fwd`; g: the output's cotangent, a
     (B, S, H, D) view with its own row stride; dq, dk, dv: (B, S, H, D) views
-    sharing one row stride, written whole. Off the persistent route a (3, B, H, S
-    rounded up to 64) fp32 scratch for the row statistics is allocated here. Raises
-    ``RuntimeError`` if a launch is refused.
+    sharing one row stride, written whole. The fp32 scratch the library's route needs
+    (``attention_bwd_scratch``) is allocated here: none on the persistent route, one chunk's
+    W and dL tiles and row statistics on the 3xTF32 route, a (3, B, H, S rounded up to 64)
+    one for the row statistics on the others. Raises ``RuntimeError`` if a launch is refused.
     """
     lib = library()
     outs = (("dq", dq), ("dk", dk), ("dv", dv))
@@ -379,11 +388,9 @@ def attention_bwd(
         _check_heads_view(name, t, shape, dq.stride(1))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr())
-    stats = None
-    if not lib.attention_bwd_short(*ptrs, _DTYPE_CODES[q.dtype], seq, dim, q.stride(1), g.stride(1),
-                                   dq.stride(1)):
-        padded = -(-seq // 64) * 64
-        stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=q.device)
+    floats = lib.attention_bwd_scratch(*ptrs, _DTYPE_CODES[q.dtype], batch, seq, heads, dim, q.stride(1),
+                                       g.stride(1), dq.stride(1))
+    stats = torch.empty(floats, dtype=torch.float32, device=q.device) if floats > 0 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attention_bwd(

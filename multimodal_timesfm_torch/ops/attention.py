@@ -19,6 +19,7 @@ q, k, v and the mask: the backward recomputes the weights.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 
@@ -129,6 +130,7 @@ def _kernel_fwd(
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _kernels.attention_fwd(q, k, v, key_valid, out)
     counter.launches += 1
+    counter.shapes[(q.dtype, *q.shape)] += 1
     return out
 
 
@@ -142,6 +144,7 @@ def _kernel_bwd(
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     _kernels.attention_bwd(q, k, v, key_valid, g.contiguous(), dq, dk, dv)
     counter.launches += 1
+    counter.shapes[(q.dtype, *q.shape)] += 1
     return dq, dk, dv
 
 
@@ -153,13 +156,15 @@ def fused_causal_attention(
     q, k, v: (B, S, H, D) sharing one row stride, each head's D values
     contiguous (so q/k/v column views of a fused projection go in without a
     copy); key_valid: (B, S) bool. Returns a new contiguous (B, S, H, D).
-    ``fused_causal_attention.launches`` counts forward kernel launches. It is
-    the custom op ``torch.ops.mtt.fused_causal_attention``.
+    ``fused_causal_attention.launches`` counts forward kernel launches, ``.shapes`` counts
+    them by (dtype, B, S, H, D), from which ``ops._kernels.attention_route_number`` gives the
+    route each took. It is the custom op ``torch.ops.mtt.fused_causal_attention``.
     """
     return _fused_op(q, k, v, key_valid)
 
 
 fused_causal_attention.launches = 0
+fused_causal_attention.shapes = collections.Counter()
 
 
 def fused_causal_attention_bwd(
@@ -169,12 +174,13 @@ def fused_causal_attention_bwd(
 
     A CPU tensor runs :func:`plain_attention_bwd`; any other launches the
     backward kernel or raises. ``fused_causal_attention_bwd.launches`` counts
-    kernel launches.
+    kernel launches, ``.shapes`` counts them by (dtype, B, S, H, D).
     """
     return _kernel_bwd(q, k, v, key_valid, g, fused_causal_attention_bwd)
 
 
 fused_causal_attention_bwd.launches = 0
+fused_causal_attention_bwd.shapes = collections.Counter()
 
 
 def flash_causal_attention(
@@ -188,12 +194,14 @@ def flash_causal_attention(
     is padded here. As in JAX, the valid query rows are the contract (a row
     with no valid key gets uniform weights here). Returns a new contiguous
     (B, S, H, D); ``flash_causal_attention.launches`` counts forward kernel
-    launches. It is the custom op ``torch.ops.mtt.flash_causal_attention``.
+    launches, ``.shapes`` counts them by (dtype, B, S, H, D). It is the custom op
+    ``torch.ops.mtt.flash_causal_attention``.
     """
     return _flash_op(q, k, v, key_valid)
 
 
 flash_causal_attention.launches = 0
+flash_causal_attention.shapes = collections.Counter()
 
 
 def flash_causal_attention_bwd(
@@ -203,12 +211,13 @@ def flash_causal_attention_bwd(
 
     A CPU tensor runs :func:`plain_attention_bwd`; any other launches the
     backward kernels or raises. ``flash_causal_attention_bwd.launches``
-    counts kernel launches.
+    counts kernel launches, ``.shapes`` counts them by (dtype, B, S, H, D).
     """
     return _kernel_bwd(q, k, v, key_valid, g, flash_causal_attention_bwd)
 
 
 flash_causal_attention_bwd.launches = 0
+flash_causal_attention_bwd.shapes = collections.Counter()
 
 
 def trials_first(x: torch.Tensor, dim: int | None, trials: int) -> torch.Tensor:

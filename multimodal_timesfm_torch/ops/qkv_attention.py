@@ -68,7 +68,7 @@ def fused_qkv_causal_attention(
 
     Returns:
         (B, S, H*D) in qkv's dtype. ``fused_qkv_causal_attention.launches``
-        counts forward kernel launches.
+        counts forward kernel launches, ``.shapes`` counts them by (dtype, B, S, H, D).
     """
     cols = qkv.shape[-1]
     if cols != 3 * num_heads * head_dim:
@@ -77,6 +77,7 @@ def fused_qkv_causal_attention(
 
 
 fused_qkv_causal_attention.launches = 0
+fused_qkv_causal_attention.shapes = collections.Counter()
 
 
 def fused_qkv_causal_attention_bwd(
@@ -113,6 +114,7 @@ def _forward(qkv: torch.Tensor, key_valid: torch.Tensor, num_heads: int, head_di
     q, k, v = split_heads(qkv, num_heads, head_dim)
     _kernels.attention_fwd(q, k, v, key_valid, out.unflatten(-1, (num_heads, head_dim)))
     fused_qkv_causal_attention.launches += 1
+    fused_qkv_causal_attention.shapes[(qkv.dtype, *qkv.shape[:2], num_heads, head_dim)] += 1
     return out
 
 

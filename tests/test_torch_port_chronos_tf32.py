@@ -42,15 +42,14 @@ from multimodal_timesfm_torch.ops import chronos_attention as tca
 from multimodal_timesfm_torch.ops.attention import NEG_INF
 from multimodal_timesfm_torch.ops.qkv_attention import split_heads
 from tests.test_torch_port_short_backward import _segments
+from tests.test_torch_tf32_model import COMMON
+from tests.test_torch_tf32_model import const as _const
+from tests.test_torch_tf32_model import mma3, split, tf32  # noqa: F401 (the model's pieces, shared)
 
 HEADS, DIM, BATCH = 2, 64, 2
 CSRC = Path(tca.__file__).resolve().parent.parent / "csrc"
 KERNEL_TOL = chip_smoke.KERNEL_TOL[torch.float32]
 BWD_TOL = chip_smoke.BWD_TOL[torch.float32]
-
-
-def _const(name: str, text: str) -> int:
-    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
 _HEADER = (CSRC / "chronos_tf32.cuh").read_text()
@@ -84,30 +83,8 @@ def chunk_rows(batch: int, seq: int, heads: int) -> int:
 # ------------------------------------------------------------------ the model
 
 
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 ``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away from zero)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    hi = tf32(x)
-    return hi, tf32(x - hi)
-
-
-def mma3(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
-    """acc (..., M, N) fp32 plus a (..., M, K) b (..., K, N) as the route takes it: per k-step
-    of 8, the mma of lo hi, of hi lo and of hi hi in that order (``terms=1``: hi hi only, one
-    TF32 product), each adding its 8 products, exact, to the accumulator with one fp32
-    rounding."""
-    ah, al = split(a.float())
-    bh, bl = split(b.float())
-    pairs = ((al, bh), (ah, bl), (ah, bh)) if terms == 3 else ((ah, bh),)
-    acc = acc.float()
-    for k0 in range(0, a.shape[-1], 8):
-        for x, y in pairs:
-            acc = (acc.double() + x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()).float()
-    return acc
+# The rounding, the split and the three products per k-step (tests/test_torch_tf32_model.py, shared with
+# the causal route's tests): tf32, split, mma3.
 
 
 def _heads(qkv, g=None):
@@ -378,22 +355,22 @@ def test_bit_rounding_is_round_to_nearest_ties_away():
     q = np.exp2(np.floor(np.log2(np.abs(x.astype(np.float64)))) - 10)
     want = np.sign(x) * np.floor(np.abs(x.astype(np.float64)) / q + 0.5) * q
     assert np.array_equal(tf32(torch.from_numpy(x)).numpy().astype(np.float64), want)
-    assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in _HEADER
+    assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in COMMON
 
 
 def test_products_are_mma_sync_tf32_with_the_split_in_the_kernel():
     """The route's products are mma.sync m16n8k8 TF32 instructions in the kernels' own bodies, the
     hi/lo split there (lo as the rounding's carry, which the tensor cores truncate to the same
     TF32 value), three products a pair, small terms first; no library call."""
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in _HEADER
-    split = re.search(r"void split\(.*?\n}\n", _HEADER, re.S).group(0)
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in COMMON
+    split = re.search(r"void split\(.*?\n}\n", COMMON, re.S).group(0)
     assert "hi = round_tf32(x);" in split and "lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;" in split
-    body = re.search(r"void mma3\(.*?\n}\n", _HEADER, re.S).group(0)
+    body = re.search(r"void mma3\(.*?\n}\n", COMMON, re.S).group(0)
     assert body.index("a.lo, b.hi") < body.index("a.hi, b.lo") < body.index("a.hi, b.hi")
     for name in ("chronos_attention_tf32.cu", "chronos_attention_bwd_tf32.cu"):
         src = (CSRC / name).read_text()
         assert CSRC / name in _kernels.SOURCES
-        assert '#include "chronos_tf32.cuh"' in src
+        assert '#include "chronos_tf32.cuh"' in src and '#include "tf32_common.cuh"' in _HEADER
         assert not re.search(r"cublas|cudnn|#include <torch|#include <ATen", src, re.I)
 
 
