@@ -7,15 +7,16 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the fifteen sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the sixteen sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
    their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
    sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
    sharing ``chronos_common.cuh``, and their bf16 wgmma/TMA route at head_dim 64
    ``chronos_attention_hopper.cu``, ``chronos_attention_bwd_hopper.cu``, sharing
    ``chronos_hopper.cuh``; the bf16 one-pass persistent route for short sequences, the
-   backwards' ``attention_bwd_short_hopper.cu`` and ``chronos_attention_bwd_short_hopper.cu``
-   and B4f's ``chronos_attention_short_hopper.cu``, sharing ``hopper_short.cuh``; the
+   backwards' ``attention_bwd_short_hopper.cu`` and ``chronos_attention_bwd_short_hopper.cu``,
+   B4f's ``chronos_attention_short_hopper.cu`` and B1f's ``attention_fwd_short_hopper.cu``,
+   sharing ``hopper_short.cuh``; the
    Chronos kernels' fp32 3xTF32 route at head_dim 64, ``chronos_attention_tf32.cu`` and
    ``chronos_attention_bwd_tf32.cu``, sharing ``chronos_tf32.cuh``, and the causal kernels'
    at head_dim 80, ``attention_fwd_tf32.cu`` and ``attention_bwd_tf32.cu``, sharing
@@ -41,7 +42,10 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    200, 577; head dims 16 to 256), on the wgmma route forced at 16 x 577,
    64 x 193, 64 x 97 and its tails, and B4f on its persistent route at
    every case of S <= 128 at head_dim 64 and at odd batches (two launches
-   bit-equal); every backward launched twice and held bit-equal; the bf16
+   bit-equal); B1f on its persistent route at S = 8 to 64 in steps of 8 at
+   odd batches and 5 heads, and on split q, k, v through the whole-sequence
+   entry point at S = 1 to 64, left-padded with rows that have no valid key
+   (two launches bit-equal); every backward launched twice and held bit-equal; the bf16
    backwards where dV's terms cancel (a cotangent centred over 16-row blocks,
    or over a row's 16 segments, times 8) at each older route's own lengths:
    causal 96 (mma.sync) and 512 (wgmma), Chronos 96 (one-pass), 577 (wgmma)
@@ -50,8 +54,8 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    shapes the serving and training paths give them, and at edge shapes. The
    route and tiles of each kernel at its main-path shapes are printed
    (``[route]``: in bf16 at head_dim 80 the causal kernels take the wgmma/TMA route
-   from the border the dispatch rule sets, mma.sync below it, and the backward the
-   persistent one-pass route up to 64 tokens). First the bf16 borders
+   from the border the dispatch rule sets, mma.sync below it, and the persistent
+   one-pass route up to 64 tokens, forward and backward). First the bf16 borders
    between those two routes: both routes' forward and backward at S = 16 to 2,048
    (D = 80, about 8,192 tokens a call), checked and timed in turns, one ``[gate]`` line
    per length and one per border; then the same for the Chronos kernels' wgmma route
@@ -60,7 +64,9 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    borders of the backwards' persistent route: B1b at S = 8 to 128 (D = 80, 16 heads,
    B = 8,192 / S) against the mma.sync route and, from 64, the wgmma route, B4b at
    S = 16 to 96 (D = 64, 12 heads, B = 9,232 / S), without and with dbias, against the
-   one-pass or tiled mma.sync route and the wgmma route, and B4f at S = 16 to 128 against
+   one-pass or tiled mma.sync route and the wgmma route, B1f at S = 8 to 64 in steps of 8
+   (D = 80, 16 heads, B = 8,192 / S) against the mma.sync route and, at 64, the wgmma route,
+   and B4f at S = 16 to 128 against
    the one-pass route up to 96 and the wgmma route from 97 (held times, in turns). The
    fp32 border of the Chronos kernels' 3xTF32 route against their CUDA-core route at S = 16
    to 577 (D = 64, 12 heads, B = 9,232 / S, held times, in turns), and the causal kernels'
@@ -378,9 +384,12 @@ CU_CHRONOS_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention.cu"
 # 80) at their main-path shapes.
 CU_SHORT_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_short_hopper.cu"
 CU_CHRONOS_SHORT_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_short_hopper.cu"
-# The bf16 one-pass persistent route the dispatch gives B4f up to 96 tokens at head_dim 64.
+# The bf16 one-pass persistent route the dispatch gives B4f up to 128 tokens at head_dim 64.
 CU_CHRONOS_SHORT_FWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_short_hopper.cu"
-# The bf16 wgmma/TMA route the dispatch gives B1f, B2 and B3 at their main-path shapes.
+# The bf16 one-pass persistent route the dispatch gives B1f (and B2f) up to 64 tokens at
+# head_dim 80.
+CU_SHORT_FWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_short_hopper.cu"
+# The bf16 wgmma/TMA route the dispatch gives B2 and B3 at their main-path shapes.
 CU_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_hopper.cu"
 CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
 # The bf16 wgmma/TMA route the dispatch gives B4f and B4b at head_dim 64 past the Chronos
@@ -437,7 +446,7 @@ CHRONOS_WGMMA_KERNELS = (
 # and B2b at context 16384 (512 tokens, batch 16); B3 at context 67,200
 # (2,100 tokens, batch 2); B4 at Chronos-2's fine-tune (67 tokens, batch 128).
 KERNELS = (
-    ("B1f", "fused_qkv_causal_attention", CU_HOPPER_SOURCE,
+    ("B1f", "fused_qkv_causal_attention", CU_SHORT_FWD_SOURCE,
      "multimodal_timesfm_tpu/ops/qkv_attention.py:111", (64, 64, 16, 80)),
     ("B1b", "fused_qkv_causal_attention_bwd", CU_SHORT_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/qkv_attention.py:141", (256, 16, 16, 80)),
@@ -456,10 +465,13 @@ KERNELS = (
 )
 KERNELS_BY_KEY = tuple((key, shape) for key, _, _, _, shape in KERNELS)
 # The persistent route's rows of the kernels line that KERNELS does not already give a route
-# of their own: B4f's (key, wrapper, source, TPU kernel, the route's main-path shape).
+# of their own: B4f's and B1f's (key, wrapper, source, TPU kernel, the route's main-path shape:
+# B1f at serving context 512, 16 tokens in batches of 64).
 PERSISTENT_KERNELS = (
     ("B4f", "fused_chronos_attention", CU_CHRONOS_SHORT_FWD_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
+    ("B1f", "fused_qkv_causal_attention", CU_SHORT_FWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/qkv_attention.py:111", (64, 16, 16, 80)),
 )
 CHRONOS_HORIZON = 32  # the JAX bench's Chronos fine-tune horizon
 
@@ -558,9 +570,10 @@ WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
                   "attention_bwd_dkdv_wgmma_kernel", "chronos_fwd_wgmma_kernel",
                   "chronos_bwd_rows_kernel", "chronos_bwd_dkdv_wgmma_kernel",
                   "chronos_bwd_dbias_wgmma_kernel")
-# The kernel families of the persistent one-pass route (mma.sync fed by TMA: the backwards'
-# and B4f's), which must hold HMMA and UTMALDG.
-PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel", "chronos_fwd_short_kernel")
+# The kernel families of the persistent one-pass route (mma.sync fed by TMA: the backwards',
+# B4f's and B1f's), which must hold HMMA and UTMALDG.
+PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel", "chronos_fwd_short_kernel",
+                       "attention_fwd_short_kernel")
 # The kernel families of the Chronos 3xTF32 route that take products, which must hold
 # HMMA.1688.F32.TF32 (its dbias kernel only sums dL over the batch), and the causal route's.
 TF32_FAMILIES = ("chronos_fwd_tf32_kernel", "chronos_bwd_dq_tf32_kernel", "chronos_bwd_dkdv_tf32_kernel")
@@ -844,12 +857,18 @@ def check_kernel(name: str, kernel, plain, sdpa, valid: torch.Tensor, dtype: tor
                  shape: tuple[int, int, int, int], iters: int) -> dict:
     """Kernel vs plain version on the card; returns the measured row. On the 3xTF32 route the
     kernel's time is held (held_ms), the bound is the 3xTF32 one, and the CUDA-core route is
-    checked and timed beside it (cuda_core_row)."""
+    checked and timed beside it (cuda_core_row). On the bf16 persistent route the time is held
+    too: a trace can leave its few-microsecond launches out (one read 0.0025 ms at 64 x 16,
+    under its bound, where the same call's held readings were 0.0054 and 0.0061 ms; H100 80GB
+    HBM3 at 700 W)."""
+    from multimodal_timesfm_torch.ops import _kernels
+
     want = plain()
     diff = compare(f"{name} {shape}", kernel(), want)
     tf32 = causal_tf32(False, dtype, shape)
+    held = tf32 or _kernels.attention_route_number(False, dtype, shape[1], shape[3]) == 3
     row = time_kernel(name, shape, dtype, diff, KERNEL_TOL[dtype], kernel, plain, sdpa,
-                      attention_bound(*shape, valid, dtype, three_tf32=tf32), iters, "sdpa", held=tf32)
+                      attention_bound(*shape, valid, dtype, three_tf32=tf32), iters, "sdpa", held=held)
     if tf32:
         row = cuda_core_row(row, f"{name} {shape}", kernel, want, compare, valid, shape, attention_bound, iters)
     return row
@@ -905,7 +924,57 @@ def kernel_phase(seed: int) -> dict[str, dict]:
                 lambda: plain_causal_attention(q, k, v, valid),
                 sdpa_fn(q, k, v, valid), valid, dtype, (batch, seq, heads, dim), 20,
             )
+    short_forward_checks(gen)
     return rows
+
+
+# B1f's persistent route (bf16, head_dim 80, up to 64 tokens) checked at every S from 8 to 64
+# in steps of 8 through the fused-qkv entry point, (B, H): odd batches, TimesFM's 16 heads and
+# an odd count, 5; then through the whole-sequence entry point on split (B, S, H, D) tensors, at those lengths and at lengths
+# the dispatch sends there (1, 2, 5, 7, 17, 33, 63).
+SHORT_FORWARD_FUSED = [(batch, seq, heads) for seq in range(8, 65, 8) for batch, heads in ((3, 16), (7, 5))]
+SHORT_FORWARD_SPLIT = [(5, seq, 3) for seq in (1, 2, 5, 7, 8, 16, 17, 24, 32, 33, 40, 48, 56, 63, 64)]
+
+
+def short_forward_checks(gen: torch.Generator) -> None:
+    """B1f's persistent route at SHORT_FORWARD_FUSED (fused qkv) and SHORT_FORWARD_SPLIT (split q,
+    k, v through ``fused_causal_attention``), bf16, head_dim 80, left-padded keys with a row past
+    its first half padded (its first query rows see no valid key) and a row with no valid key at
+    all: the dispatch's route 3, every element of every row within KERNEL_TOL of the plain
+    version, two launches bit-equal."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.attention import fused_causal_attention, plain_causal_attention
+    from multimodal_timesfm_torch.ops.qkv_attention import fused_qkv_causal_attention, plain_qkv_causal_attention
+
+    dtype, dim = torch.bfloat16, 80
+    worst, count = 0.0, 0
+    for split, cases in ((False, SHORT_FORWARD_FUSED), (True, SHORT_FORWARD_SPLIT)):
+        for batch, seq, heads in cases:
+            if _kernels.attention_route_number(False, dtype, seq, dim) != 3:
+                raise AssertionError(f"B1f S={seq}: the dispatch's route is not the persistent one")
+            pads = torch.randint(0, seq // 2 + 1, (batch,), generator=gen, device="cuda")
+            pads[0], pads[1] = 0, seq // 2 + 1  # row 1's first query rows see no valid key
+            valid = torch.arange(seq, device="cuda")[None, :] >= pads[:, None]
+            valid[-1] = False
+            if split:
+                q, k, v = (torch.randn(batch, seq, heads, dim, generator=gen, device="cuda") for _ in range(3))
+                q, k, v = (q / math.sqrt(dim)).to(dtype), k.to(dtype), v.to(dtype)
+                fwd = lambda: fused_causal_attention(q, k, v, valid)  # noqa: E731
+                ref = plain_causal_attention(q, k, v, valid)
+            else:
+                qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+                qkv[..., : heads * dim] /= math.sqrt(dim)
+                qkv = qkv.to(dtype)
+                fwd = lambda: fused_qkv_causal_attention(qkv, valid, heads, dim)  # noqa: E731
+                ref = plain_qkv_causal_attention(qkv, valid, heads, dim)
+            what = f"B1f persistent route B={batch} S={seq} H={heads} {'split' if split else 'fused qkv'}"
+            worst = max(worst, compare(what, fwd(), ref))
+            same_twice(what, fwd)
+            count += 1
+    print(f"[kernels] B1f persistent route at {count} shapes (fused qkv: S = 8-64 in steps of 8 at "
+          f"(B, H) = (3, 16) and (7, 5); split q, k, v: S = {[c[1] for c in SHORT_FORWARD_SPLIT]} at B = 5, H "
+          f"= 3; left-padded, rows with no valid key): max |kernel - plain| {worst:.3g} within KERNEL_TOL on "
+          f"every element of every row; two launches bit-equal", flush=True)
 
 
 def backward_bound(batch: int, seq: int, heads: int, dim: int, valid: torch.Tensor,
@@ -1235,7 +1304,8 @@ def print_routes() -> None:
     library's dispatch reports them."""
     from multimodal_timesfm_torch.ops import _kernels
 
-    for key, name, _, _, (_, seq, heads, dim) in KERNELS:
+    causal_short = tuple(row for row in PERSISTENT_KERNELS if not row[0].startswith("B4"))
+    for key, name, _, _, (_, seq, heads, dim) in KERNELS + causal_short:
         for dtype in (torch.float32, torch.bfloat16):
             if not key.startswith("B4"):
                 route = _kernels.attention_route(key.endswith("b"), dtype, seq, dim)
@@ -1938,7 +2008,8 @@ def persistent_route_borders(seed: int, chronos_only: bool = False) -> None:
     two launches bit-equal) and timed in turns (each route, then the same in reverse; held_ms);
     B4b: the same at CHRONOS_PERSISTENT_BORDER_LENGTHS, without and with dbias, against the
     one-pass or tiled mma.sync route and the wgmma route. One ``[gate]`` line per length, then
-    one per border (persistent_border_line)."""
+    one per border (persistent_border_line). Then the forwards' borders: B1f's (unless
+    ``chronos_only``, causal_forward_borders) and B4f's (persistent_forward_borders)."""
     from multimodal_timesfm_torch.ops import _kernels
     from multimodal_timesfm_torch.ops.chronos_attention import (
         fused_chronos_attention_bwd,
@@ -1999,6 +2070,7 @@ def persistent_route_borders(seed: int, chronos_only: bool = False) -> None:
         finally:
             _kernels.set_route("rule")
         persistent_border_line("B1b bf16 backward", PERSISTENT_BORDER_LENGTHS, wins, rule)
+        causal_forward_borders(seed)
 
     heads, dim = 12, 64
     wins, rule = [], []
@@ -2027,6 +2099,66 @@ def persistent_route_borders(seed: int, chronos_only: bool = False) -> None:
         _kernels.set_chronos_route("rule")
     persistent_border_line("B4b bf16 backward", CHRONOS_PERSISTENT_BORDER_LENGTHS, wins, rule)
     persistent_forward_borders(seed)
+
+
+# The lengths the bf16 border of B1f's persistent route is measured at: head_dim 80, 16 heads,
+# B = 8,192 / S; against the mma.sync route at every length and the wgmma route at 64 (the
+# routes the rule gave those lengths before the persistent route).
+SHORT_FORWARD_BORDER_LENGTHS = tuple(range(8, 65, 8))
+
+
+def causal_forward_borders(seed: int) -> None:
+    """The bf16 border of B1f's persistent route: at each of SHORT_FORWARD_BORDER_LENGTHS the
+    forward on the persistent route (the rule's at every length it is timed at), the mma.sync
+    route and, at 64, the wgmma route (the library's route override), each checked against the
+    plain version (the persistent route's two launches bit-equal) and timed in turns (each
+    route, then the same in reverse; held_ms). One ``[gate]`` line per length, then one for the
+    border (persistent_border_line)."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.qkv_attention import plain_qkv_causal_attention, split_heads
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    heads, dim, dtype = 16, 80, torch.bfloat16
+    wins, rule = [], []
+    try:
+        for seq in SHORT_FORWARD_BORDER_LENGTHS:
+            batch = 8192 // seq
+            qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+            qkv[..., : heads * dim] /= math.sqrt(dim)
+            qkv = qkv.to(dtype)
+            valid = left_padded_valid(batch, seq, gen)
+            q, k, v = split_heads(qkv, heads, dim)
+            ref = plain_qkv_causal_attention(qkv, valid, heads, dim).unflatten(-1, (heads, dim))
+            routes = ["persistent", "mma.sync"] + (["wgmma"] if seq >= 64 else [])
+            outs = {r: torch.empty(batch, seq, heads, dim, dtype=dtype, device="cuda") for r in routes}
+
+            def call(route):
+                return lambda: _kernels.attention_fwd(q, k, v, valid, outs[route])
+
+            times: dict[str, list[float]] = {r: [] for r in routes}
+            for route in routes + routes[::-1]:
+                _kernels.set_route("rule" if route == "persistent" else route)
+                if not times[route]:
+                    want = {"persistent": 3, "mma.sync": 1, "wgmma": 2}[route]
+                    if _kernels.attention_route_number(False, dtype, seq, dim) != want:
+                        raise AssertionError(f"B1f S={seq}: the {route} route is not the dispatch's")
+                    call(route)()
+                    compare(f"B1f {route} route S={seq}", outs[route], ref)
+                    if route == "persistent":
+                        same_twice(f"B1f persistent route S={seq}",
+                                   lambda: (call(route)(), outs[route].clone())[1])
+                times[route].append(held_ms(call(route), 10)[0])
+            _kernels.set_route("rule")
+            mean = {r: sum(ts) / len(ts) for r, ts in times.items()}
+            wins.append(all(mean["persistent"] < BORDER_MARGIN * ms for r, ms in mean.items() if r != "persistent"))
+            rule.append(_kernels.attention_route_number(False, dtype, seq, dim) == 3)
+            print(f"[gate] B1f persistent bf16 D={dim} H={heads} S={seq} B={batch}, held device ms: "
+                  + ", ".join(f"{r} {m:.4f}" for r, m in mean.items())
+                  + f"; every route within tolerance of the plain version; the rule: "
+                    f"{B1_ROUTES[_kernels.attention_route_number(False, dtype, seq, dim)]}", flush=True)
+    finally:
+        _kernels.set_route("rule")
+    persistent_border_line("B1f bf16 forward", SHORT_FORWARD_BORDER_LENGTHS, wins, rule)
 
 
 # The lengths the bf16 border of B4f's persistent route is measured at: head_dim 64, 12 heads,
@@ -2078,6 +2210,11 @@ def persistent_forward_borders(seed: int) -> None:
     persistent_border_line("B4f bf16 forward", FORWARD_BORDER_LENGTHS, wins, rule)
 
 
+# B1f's bf16 shapes timed by --kernel-times beside KERNELS' 64 x 64 (against the parent with
+# --root): serving at context 512 (64 x 16) and the c512 fine-tune's forward (256 x 16).
+B1F_SHORT_SHAPES = ((64, 16, 16, 80), (256, 16, 16, 80))
+
+
 def parent_kernels(root: str):
     """The ``ops/_kernels.py`` of the checkout at ``root`` (the parent commit's, say) as a
     module of its own: its library builds from that checkout's ``csrc/`` into that
@@ -2095,10 +2232,10 @@ def parent_kernels(root: str):
 def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q, k, v, valid,
                           g) -> None:
     """One ``[kernels]`` line: the causal kernel ``key`` of the parent checkout's library against
-    this one's on the same inputs (bf16: B1b, B2f, B2b, B3f, B3b; fp32: all six) at ``shape``,
-    timed in turns (parent, change, change, parent; device time from torch.profiler, B1b's and
-    fp32's held to a graph replay's event time), with the largest difference between the two
-    outputs. B1b writes dq|dk|dv into one fused (B, S, 3*H*D) gradient, as its entry point
+    this one's on the same inputs (bf16: B1f, B1b, B2f, B2b, B3f, B3b; fp32: all six) at
+    ``shape``, timed in turns (parent, change, change, parent; held to a graph replay's event
+    time: a trace's device time swung 0.58-1.11x on unchanged bf16 B3 kernels within one call),
+    with the largest difference between the two outputs. B1b writes dq|dk|dv into one fused (B, S, 3*H*D) gradient, as its entry point
     does."""
     from multimodal_timesfm_torch.ops import _kernels
     from multimodal_timesfm_torch.ops.qkv_attention import split_heads
@@ -2122,14 +2259,13 @@ def parent_against_change(key: str, shape: tuple[int, int, int, int], parent, q,
 
     times: dict[str, list[float]] = {"parent": [], "change": []}
     iters = 5 if shape[1] > 1000 else 20
-    held = key == "B1b" or q.dtype == torch.float32
     for name in ("parent", "change", "change", "parent"):
-        times[name].append(held_ms(call(name), iters)[0] if held else device_ms(call(name), iters)[0])
+        times[name].append(held_ms(call(name), iters)[0])
     torch.cuda.synchronize()
     diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs["parent"], outs["change"]))
     ratio = sum(times["parent"]) / sum(times["change"])
     print(f"[kernels] {key} parent against change B={batch} S={seq} H={heads} D={dim} {str(q.dtype)[6:]}: "
-          f"{'held ' if held else ''}device ms parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f}, "
+          f"held device ms parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f}, "
           f"change {times['change'][0]:.4f} / {times['change'][1]:.4f} ({ratio:.2f}x; change: "
           f"{_kernels.attention_route(backward, q.dtype, seq, dim)}); "
           f"max |parent - change| {diff:.3g}", flush=True)
@@ -2203,6 +2339,7 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     causal = [(key, name, shape, torch.float32) for key, name, _, _, shape in CAUSAL_TF32_KERNELS]
     causal += [(key, name, shape, torch.bfloat16) for key, name, _, _, shape in KERNELS if not key.startswith("B4")]
+    causal += [("B1f", "fused_qkv_causal_attention", shape, torch.bfloat16) for shape in B1F_SHORT_SHAPES]
     for key, name, shape, dtype in [] if chronos_only else causal:
         batch, seq, heads, dim = shape
         iters = 5 if seq > 1000 else 20
@@ -2229,7 +2366,7 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
             check_bwd_kernel(name, lambda: backward[key](q, k, v, valid, g4),
                              lambda: plain_attention_bwd(q, k, v, valid, g4),
                              sdpa_bwd_fn(q, k, v, valid, g4), valid, dtype, shape, iters)
-        if parent is not None and (dtype == torch.float32 or key[:2] in ("B2", "B3") or key == "B1b"):
+        if parent is not None and (dtype == torch.float32 or key[:2] in ("B1", "B2", "B3")):
             parent_against_change(key, shape, parent, q, k, v, valid, g4)
     for shape in (dict(KERNELS_BY_KEY)["B4f"], (128, 67, 6, 64), (64, 97, 12, 64), (64, 193, 12, 64),
                   (16, 577, 12, 64)):
@@ -4152,10 +4289,11 @@ def remove_packages() -> None:
 NATIVE_OPS = {"B1f": "fused_qkv_causal_attention", "B2f": "fused_causal_attention",
               "B3f": "flash_causal_attention", "B4f": "fused_chronos_attention"}
 # Each forward op of the C++ registration at its main-path shapes (B, S, H, D): TimesFM's
-# 16 x 80 heads at 16 tokens in batches of 64 (B1f), 512 tokens (B2f) and 2,100 (B3f);
-# Chronos-2's 12 x 64 heads at 67 tokens (B4f one-pass) and 577 (B4f tiled).
-NATIVE_CHECK_SHAPES = (("B1f", (64, 64, 16, 80)), ("B2f", (8, 512, 16, 80)), ("B3f", (2, 2100, 16, 80)),
-                       ("B4f", (128, 67, 12, 64)), ("B4f", (16, 577, 12, 64)))
+# 16 x 80 heads in batches of 64 at 16 tokens and at 64 (B1f, serving at contexts 512 and
+# 2048: the persistent route), 512 tokens (B2f) and 2,100 (B3f); Chronos-2's 12 x 64 heads at
+# 67 tokens (B4f persistent) and 577 (B4f wgmma).
+NATIVE_CHECK_SHAPES = (("B1f", (64, 16, 16, 80)), ("B1f", (64, 64, 16, 80)), ("B2f", (8, 512, 16, 80)),
+                       ("B3f", (2, 2100, 16, 80)), ("B4f", (128, 67, 12, 64)), ("B4f", (16, 577, 12, 64)))
 # The server's launches, added to the main paths' counts as phase 11's ranks' are.
 NATIVE_LAUNCHES: dict[str, int] = {}
 
@@ -4301,8 +4439,11 @@ def native_phase(served: dict, future) -> None:
 def serving_times(seed: int, repeats: int = 7) -> None:
     """TimesFM-2.5 200M served through Forecaster at context 512 (200 series in batches of
     64, multimodal, horizon 128), fp32 and bf16: the median series/s of ``repeats`` calls
-    after a warm-up, with the port imported from ``--root`` when given. The serving path is
-    host-bound, so this reads the cost of the attention entry points' dispatch."""
+    after a warm-up, with the port imported from ``--root`` when given, then one profiled call:
+    the device's busy time, idle share and B1f's kernels' share of busy (kernels named
+    ``attention_fwd``). The serving path is host-bound, so series/s reads the cost of the
+    attention entry points' dispatch; the shares are a trace's reading, which undercounts the
+    persistent routes' few-microsecond launches (held times read them higher)."""
     from multimodal_timesfm_torch.inference import Forecaster
     from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
     from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
@@ -4323,8 +4464,13 @@ def serving_times(seed: int, repeats: int = 7) -> None:
             start = time.perf_counter()
             fc.forecast_dataset(HORIZON, data, denormalize=True)
             rates.append(len(data) / (time.perf_counter() - start))
+        wall, kernels = device_profile(lambda: fc.forecast_dataset(HORIZON, data, denormalize=True))
+        busy = sum(ms for _, ms in kernels)
+        attn = sum(ms for k, ms in kernels if "attention_fwd" in k)
         print(f"[serving-times] context 512 {str(dtype)[6:]}: median of {repeats} calls "
-              f"{float(np.median(rates)):.1f} series/s ({', '.join(f'{r:.1f}' for r in rates)})", flush=True)
+              f"{float(np.median(rates)):.1f} series/s ({', '.join(f'{r:.1f}' for r in rates)}) | profiled "
+              f"call: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}, B1f "
+              f"(attention_fwd*) {attn:.3f} ms, {attn / busy:.3f} of busy", flush=True)
 
 
 def training_times(seed: int, epochs: int = 7) -> None:
@@ -5643,7 +5789,7 @@ def main() -> int:
     main_path("parallel", parallel_phase, args.seed)
     idle = [key for key, n in launches.items() if n == 0]
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
-    idle += [f"{key} persistent" for key in ("B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
+    idle += [f"{key} persistent" for key in ("B1f", "B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
     idle += [f"{key} tf32" for key, *_ in TF32_KERNELS + CAUSAL_TF32_KERNELS if not routes.get(f"{key} tf32")]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")

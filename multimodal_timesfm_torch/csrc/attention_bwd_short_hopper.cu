@@ -130,31 +130,11 @@ __global__ void __launch_bounds__(Cfg<NQ>::THREADS, 1)
   const int items = B * hg;
 
   if (warp == kGroups * C::GW) {
-    // Producer: item i (b, heads h0..h0+nh-1) into stage j % STAGES, lane l
-    // loading box l & 1 of head (l >> 1) % nh of operand (l >> 1) / nh, then
-    // the batch row's key-valid bytes (0 past S).
-    int j = 0;
-    for (int i = blockIdx.x; i < items; i += gridDim.x, ++j) {
-      const int st = j % C::STAGES;
-      mbar_wait(empty + st, ((j / C::STAGES) & 1) ^ 1);
-      const int b = i / hg;
-      const int h0 = (i - b * hg) * C::HPI;
-      const int nh = min(C::HPI, H - h0);
-      if (lane == 0) mbar_expect_tx(full + st, kOperands * nh * C::SP * 2 * kD);
-      __syncwarp();
-      if (lane < 2 * kOperands * nh) {
-        const int box = lane & 1;
-        const int hh = (lane >> 1) % nh;
-        const int op = (lane >> 1) / nh;
-        const OperandMaps& m = op == 0 ? qm : op == 1 ? km : op == 2 ? vm : gm;
-        uint8_t* dst = smem + st * C::STAGE + (op * C::HPI + hh) * C::TILE + box * C::SP * 128;
-        tma_load(dst, box ? &m.c16 : &m.c64, full + st, (h0 + hh) * kD + box * 64, 0, b);
-      }
-      const uint8_t* vb = valid + (long long)b * S;
-      for (int c = lane; c < C::SP; c += 32) vms[st * C::SP + c] = c < S ? __ldg(vb + c) : 0;
-      __syncwarp();
-      if (lane == 0) mbar_arrive(full + st);
-    }
+    const auto maps = [&](int op) -> const OperandMaps& {
+      return op == 0 ? qm : op == 1 ? km : op == 2 ? vm : gm;
+    };
+    produce_heads<kOperands, C::HPI, C::SP, C::TILE, C::STAGE, C::STAGES, false>(
+        maps, smem, vms, full, empty, valid, S, H, items, lane);
     return;
   }
 
@@ -304,12 +284,7 @@ extern "C" int short_attention_bwd(const void* q, const void* k, const void* v, 
   OperandMaps maps[kOperands];
   const void* bases[kOperands] = {q, k, v, g};
   for (int o = 0; o < kOperands; ++o) {
-    const long long ld = o == 3 ? ld_g : ld_in;
-    cudaError_t err = encode_rows(&maps[o].c64, bases[o], B, S, H * kD, ld, 64, rows,
-                                  CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == cudaSuccess)
-      err = encode_rows(&maps[o].c16, bases[o], B, S, H * kD, ld, 16, rows,
-                        CU_TENSOR_MAP_SWIZZLE_32B);
+    const cudaError_t err = encode_head_maps(&maps[o], bases[o], B, S, H, o == 3 ? ld_g : ld_in, rows);
     if (err != cudaSuccess) return (int)err;
   }
   const uint8_t* vm = static_cast<const uint8_t*>(valid);

@@ -22,9 +22,14 @@
 // columns and ld_in = 3*H*D; for (B, S, H, D) tensors ld_in = H*D. Offsets
 // are 64-bit; any S the card's memory holds is addressed, head_dim 1..256.
 //
-// Routes. bf16 at head_dim 80 from S = 64 (the border chip_smoke.py's
-// [gate] lines measure), with q, k, v readable by TMA, takes the wgmma/TMA
-// route of attention_fwd_hopper.cu: one pass with an online softmax, which
+// Routes. bf16 at head_dim 80 up to S = kShortFwdTo (64, the border
+// chip_smoke.py's [gate] B1f persistent lines measure), with q, k, v and out
+// rows and bases 16-byte aligned, takes the one-pass persistent route of
+// attention_fwd_short_hopper.cu: the whole key row in one tile, so the row
+// max and sum are exact before any exponential and the normalised weights
+// are rounded as here. From S = kFwdFrom (65), with q, k, v readable by TMA,
+// bf16 takes the wgmma/TMA route of attention_fwd_hopper.cu: one pass with
+// an online softmax, which
 // rounds the unnormalised weights exp(l - m_running) to bf16 where JAX
 // rounds the normalised ones (2^-9 relative per weight either way; its
 // header and tests/test_torch_port_attention_hopper.py); fp32 at head_dim 80
@@ -32,8 +37,8 @@
 // here, for every other shape (bf16 mma.sync) and for fp32, take two passes
 // over the key tiles: pass 1 keeps a running row max m and sum s of
 // exp(l - m), pass 2 recomputes the logits, forms W = exp(l - m) / s,
-// rounds it to the compute dtype as JAX does and accumulates W V. All visit
-// only the key tiles the skip rule of
+// rounds it to the compute dtype as JAX does and accumulates W V. They and
+// the wgmma route visit only the key tiles the skip rule of
 // attention_common.cuh keeps (tiles above the causal diagonal and fully
 // padded left tiles are not loaded; a query tile holding a row with no valid
 // key walks them all); the two here load the next key (and value) tile with
@@ -559,6 +564,15 @@ extern "C" int tf32_attention_fwd(const void* q, const void* k, const void* v, c
                                   void* out, int B, int S, int H, long long ld_in,
                                   long long ld_out, void* stream);
 
+// The bf16 one-pass persistent route for short S (attention_fwd_short_hopper.cu).
+extern "C" int short_fwd_takes(int S, int D);
+extern "C" int short_fwd_layout(const void* q, const void* k, const void* v, const void* out,
+                                long long ld_in, long long ld_out);
+extern "C" void short_fwd_config(int S, int* cfg);
+extern "C" int short_attention_fwd(const void* q, const void* k, const void* v, const void* valid,
+                                   void* out, int B, int S, int H, long long ld_in,
+                                   long long ld_out, void* stream);
+
 // The bf16 wgmma/TMA route (attention_fwd_hopper.cu).
 extern "C" int hopper_fwd_takes(int S, int D);
 extern "C" int hopper_fwd_layout(const void* q, const void* k, const void* v, long long ld_in);
@@ -584,7 +598,9 @@ extern "C" int mtt_attention_route_override() { return route_override; }
 
 // dtype: 0 = float32, 1 = bfloat16. valid: (B, S) bytes, nonzero = valid key.
 // Returns the CUDA error of the launch (0 on success); launches on `stream`
-// and does not synchronize. bf16 takes the wgmma/TMA route where
+// and does not synchronize. bf16 takes the one-pass persistent route where
+// short_fwd_takes(S, D) and its layout rule (q, k, v and out rows and bases
+// 16-byte aligned) hold, then the wgmma/TMA route where
 // hopper_fwd_takes(S, D) and its layout rule (q, k, v rows and bases 16-byte
 // aligned) hold, and the mma.sync route otherwise; fp32 the 3xTF32 route
 // where tf32_fwd_takes(D) and its layout rule (q, k, v rows and bases
@@ -601,6 +617,8 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, const 
     return (int)dispatch_f32(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (short_fwd_takes(S, D) && short_fwd_layout(q, k, v, out, ld_in, ld_out))
+    return short_attention_fwd(q, k, v, valid, out, B, S, H, ld_in, ld_out, stream);
   if (hopper_fwd_takes(S, D) && hopper_fwd_layout(q, k, v, ld_in))
     return hopper_attention_fwd(q, k, v, valid, out, B, S, H, ld_in, ld_out, stream);
   return (int)dispatch_mma(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
@@ -608,7 +626,8 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, const 
 
 // The route and tiles attention_fwd takes for (dtype, S, D) with a layout
 // every route reads, for reports: cfg = {route (0: fp32 CUDA cores, 1: bf16
-// mma.sync m16n8k16, 2: bf16 wgmma + TMA, 4: fp32 3xTF32 mma.sync m16n8k8),
+// mma.sync m16n8k16, 2: bf16 wgmma + TMA, 3: bf16 mma.sync one-pass fed by
+// TMA, persistent, 4: fp32 3xTF32 mma.sync m16n8k8),
 // threads, query rows per head and
 // block, keys per tile, heads per block, padded head_dim, output columns per
 // block}. Returns 0, or cudaErrorInvalidValue.
@@ -625,6 +644,10 @@ extern "C" int attention_fwd_config(int dtype, int S, int D, int* cfg) {
     return 0;
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (short_fwd_takes(S, D)) {
+    short_fwd_config(S, cfg);
+    return 0;
+  }
   if (hopper_fwd_takes(S, D)) {
     hopper_fwd_config(cfg);
     return 0;

@@ -2,7 +2,7 @@
 // route for Hopper (sm_90a), taken by attention_fwd (attention_fwd.cu) by the
 // rule of hopper_fwd_takes below.
 //
-// Replaces, where the rule sends them here (from 64 tokens), the Pallas TPU
+// Replaces, where the rule sends them here (from 65 tokens), the Pallas TPU
 // kernels
 //   multimodal_timesfm_tpu/ops/qkv_attention.py  _fwd_kernel
 //       (fused_qkv_causal_attention, B1f, read in place from the fused qkv)
@@ -243,10 +243,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 // Whether attention_fwd takes this route for (S, D) and this layout: bf16,
-// head_dim 80, S >= kFwdFrom (the measured border with the mma.sync route,
-// chip_smoke.py's [gate] lines), and q, k, v readable by TMA (rows and bases
-// 16-byte aligned). Route override (attention_set_route): 1 never, 2 from any S.
-constexpr int kFwdFrom = 64;
+// head_dim 80, S >= kFwdFrom, and q, k, v readable by TMA (rows and bases
+// 16-byte aligned). kFwdFrom is the length after the persistent route's
+// kShortFwdTo (attention_fwd_short_hopper.cu, which attention_fwd checks
+// first), the border chip_smoke.py's [gate] B1f persistent lines measure.
+// Route override (attention_set_route): 1 never, 2 from any S.
+constexpr int kFwdFrom = 65;
 extern "C" int mtt_attention_route_override();
 
 extern "C" int hopper_fwd_takes(int S, int D) {

@@ -126,8 +126,7 @@ struct Cfg {
   // Beside the ring: the alignment slack, the bias strip, each stage's
   // segment ids, the barriers.
   static constexpr int FIXED = kAlign + STRIP + kStagesMax * SP * 4 + 16 * kStagesMax;
-  static constexpr int FIT = (kSmemLimit - FIXED) / STAGE;
-  static constexpr int STAGES = FIT < kStagesMax ? FIT : kStagesMax;
+  static constexpr int STAGES = ring_stages(FIXED, STAGE, kStagesMax);
   static constexpr int SMEM = FIXED + STAGES * STAGE;
   static_assert(STAGES >= kMinStages, "the ring does not fit");
 };

@@ -1,8 +1,9 @@
 // Pieces shared by the persistent one-pass kernels for short sequences on
-// Hopper (sm_90a): the causal backward (attention_bwd_short_hopper.cu, B1b,
-// head_dim 80), the Chronos-2 backward (chronos_attention_bwd_short_hopper.cu,
-// B4b, head_dim 64) and the Chronos-2 forward (chronos_attention_short_hopper.cu,
-// B4f, head_dim 64). Each keeps a whole key row in one tile of SP = S rounded
+// Hopper (sm_90a): the causal forward and backward (attention_fwd_short_hopper.cu,
+// B1f, and attention_bwd_short_hopper.cu, B1b, head_dim 80, which share
+// produce_heads and encode_head_maps), the Chronos-2 backward
+// (chronos_attention_bwd_short_hopper.cu, B4b, head_dim 64) and the Chronos-2
+// forward (chronos_attention_short_hopper.cu, B4f, head_dim 64). Each keeps a whole key row in one tile of SP = S rounded
 // up to 16 rows, so one kernel computes a work item's outputs in one pass
 // (the backwards dQ, dK and dV; the forward O), on mma.sync m16n8k16 fed from
 // tiles that TMA lands in shared memory.
@@ -20,25 +21,25 @@
 // Blocks. Persistent, sized to the card: kGroups consumer groups of warps,
 // each taking every other work item of the block (the forward: one group from
 // 81 tokens), and one producer warp whose lanes issue the TMA loads of the
-// next items into a ring of 3-4 stages (the forward: up to 6) (full
+// next items into a ring of 3-4 stages (the forwards: up to 6) (full
 // and empty mbarriers; each consumer warp arrives on `empty` itself once its
 // last read of the stage is done). The producer also copies the item's small
 // per-key side input (key-valid bytes or segment ids) into the stage with
 // plain loads, after its TMA loads are issued, and arrives on `full` a second
 // time once they are written (kFullArrivals), so the consumers never wait on
-// a load of their own (the forward reads them a row ahead into registers, so
+// a load of their own (the forwards read them a row ahead into registers, so
 // that no load lies between a stage's release and its `full`). In the
 // backwards each group has its own W and dL
 // staging: a named barrier of its own after phase A (W and dL written, K and
 // V read), and an mbarrier on which each warp arrives after its last read of
 // the staging, so that a warp starts its next item's products before the
-// group is done. The forward stages nothing: a warp's W stays in its
+// group is done. The forwards stage nothing: a warp's W stays in its
 // registers as the A operand of W V.
 //
 // Outputs. A warp's 16 x D accumulator tile is rounded to bf16 into the slot
 // of an operand tile its head no longer reads (backward: dQ into V's after
 // the group's barrier; then dV into V's and dK into K's, one after the other;
-// forward: O into the warp's own 16 rows of Q's), then copied to device
+// forwards: O into the warp's own 16 rows of Q's), then copied to device
 // memory as whole rows, 16 bytes a lane.
 
 #pragma once
@@ -58,11 +59,11 @@ constexpr int kSmemLimit = 232448;  // dynamic shared memory a block can have on
 // the TMA bytes) and its arrival once the side input is written.
 constexpr int kFullArrivals = 2;
 
-// Stages that fit beside `fixed` bytes, at most kMaxStages (0 when fewer than
+// Stages that fit beside `fixed` bytes, at most `most` (0 when fewer than
 // kMinStages fit: the configuration is not built).
-constexpr int ring_stages(int fixed, int stage) {
-  return (kSmemLimit - fixed) / stage >= kMaxStages ? kMaxStages
-         : (kSmemLimit - fixed) / stage >= kMinStages ? kMinStages
+constexpr int ring_stages(int fixed, int stage, int most = kMaxStages) {
+  return (kSmemLimit - fixed) / stage >= most        ? most
+         : (kSmemLimit - fixed) / stage >= kMinStages ? (kSmemLimit - fixed) / stage
                                                        : 0;
 }
 
@@ -84,6 +85,64 @@ __device__ __forceinline__ void wait_row(uint64_t* full, uint64_t* empty, int j)
     if (j >= STAGES) mbar_wait(empty + st, (j / STAGES - 1) & 1);
   }
   mbar_wait(full + st, (j / STAGES) & 1);
+}
+
+// The producer warp of a route at head_dim 80 whose work item is HPI heads of
+// one batch row (ceil(H / HPI) items a batch row, `items` in all): the
+// block's items blockIdx.x, blockIdx.x + gridDim.x, ... into stage j % STAGES
+// of the ring at `smem` (STAGE bytes a stage), operand op of head slot hh at
+// (op * HPI + hh) * TILE, lane l loading box l & 1 (64 columns, then 16, at
+// SP * 128 bytes) of head (l >> 1) % nh of operand (l >> 1) / nh (`map(op)`
+// its maps); then the batch row's SP key-valid bytes (0 past S) into vms +
+// stage * SP, and the second arrival on `full`. AHEAD reads those bytes an
+// item ahead into registers, so that no load's latency lies between a
+// stage's release and its `full`.
+template <int OPS, int HPI, int SP, int TILE, int STAGE, int STAGES, bool AHEAD, typename Maps>
+__device__ __forceinline__ void produce_heads(const Maps& map, uint8_t* smem, uint8_t* vms,
+                                              uint64_t* full, uint64_t* empty,
+                                              const uint8_t* __restrict__ valid, int S, int H,
+                                              int items, int lane) {
+  const int hg = (H + HPI - 1) / HPI;
+  constexpr int VB = (SP + 31) / 32;
+  uint8_t vk[VB];
+  auto read_valid = [&](int i) {
+    const uint8_t* src = valid + (long long)(i / hg) * S;
+#pragma unroll
+    for (int r = 0; r < VB; ++r) {
+      const int c = lane + 32 * r;
+      vk[r] = c < S ? __ldg(src + c) : 0;
+    }
+  };
+  if (AHEAD && (int)blockIdx.x < items) read_valid(blockIdx.x);
+  int j = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x, ++j) {
+    const int st = j % STAGES;
+    mbar_wait(empty + st, ((j / STAGES) & 1) ^ 1);
+    const int b = i / hg;
+    const int h0 = (i - b * hg) * HPI;
+    const int nh = min(HPI, H - h0);
+    if (lane == 0) mbar_expect_tx(full + st, OPS * nh * SP * 2 * kDim);
+    __syncwarp();
+    if (lane < 2 * OPS * nh) {
+      const int box = lane & 1;
+      const int hh = (lane >> 1) % nh;
+      const int op = (lane >> 1) / nh;
+      const OperandMaps& m = map(op);
+      uint8_t* dst = smem + st * STAGE + (op * HPI + hh) * TILE + box * SP * 128;
+      tma_load(dst, box ? &m.c16 : &m.c64, full + st, (h0 + hh) * kDim + box * 64, 0, b);
+    }
+    if constexpr (AHEAD) {
+#pragma unroll
+      for (int r = 0; r < VB; ++r)
+        if (lane + 32 * r < SP) vms[st * SP + lane + 32 * r] = vk[r];
+    } else {
+      const uint8_t* vb = valid + (long long)b * S;
+      for (int c = lane; c < SP; c += 32) vms[st * SP + c] = c < S ? __ldg(vb + c) : 0;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(full + st);
+    if (AHEAD && i + (int)gridDim.x < items) read_valid(i + gridDim.x);
+  }
 }
 
 // ldmatrix (x4, and transposed) from a shared-memory address.
@@ -342,6 +401,18 @@ inline cudaError_t encode_rows(CUtensorMap* m, const void* base, int B, int S, i
                             strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The two maps of one (B, S, H, 80) bf16 operand at `base` with row stride
+// `ld`, as the routes at head_dim 80 read a head: boxes of `rows` rows of one
+// batch row by 64 columns (128-byte swizzle) and by 16 (32-byte).
+inline cudaError_t encode_head_maps(OperandMaps* m, const void* base, int B, int S, int H,
+                                    long long ld, int rows) {
+  const cudaError_t err =
+      encode_rows(&m->c64, base, B, S, H * kDim, ld, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  return err != cudaSuccess
+             ? err
+             : encode_rows(&m->c16, base, B, S, H * kDim, ld, 16, rows, CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // Blocks of a persistent launch of `kernel` (its dynamic shared memory set):

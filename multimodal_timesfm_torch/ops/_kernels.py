@@ -28,7 +28,8 @@ CSRC = _PKG / "csrc"
 SOURCES = tuple(
     CSRC / name
     for name in ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_hopper.cu",
-                 "attention_bwd_hopper.cu", "attention_bwd_short_hopper.cu", "chronos_attention.cu",
+                 "attention_bwd_hopper.cu", "attention_fwd_short_hopper.cu",
+                 "attention_bwd_short_hopper.cu", "chronos_attention.cu",
                  "chronos_attention_bwd.cu", "chronos_attention_hopper.cu",
                  "chronos_attention_bwd_hopper.cu", "chronos_attention_short_hopper.cu",
                  "chronos_attention_bwd_short_hopper.cu", "chronos_attention_tf32.cu",
@@ -148,9 +149,9 @@ CHRONOS_ROUTE_NAMES = ROUTE_NAMES  # the same names and numbers
 
 def set_route(name: str) -> None:
     """Which route the causal attention kernels take: ``"rule"`` (the library's dispatch
-    rule, the default), ``"mma.sync"`` (bf16 never on the wgmma or the backward's persistent
-    route), ``"wgmma"`` (bf16 on the wgmma route at every S its layout rule allows; never the
-    persistent route) or ``"cuda cores"`` (fp32 never on the 3xTF32 route; bf16 by the rule).
+    rule, the default), ``"mma.sync"`` (bf16 never on the wgmma or a persistent route),
+    ``"wgmma"`` (bf16 on the wgmma route at every S its layout rule allows; never a persistent
+    route) or ``"cuda cores"`` (fp32 never on the 3xTF32 route; bf16 by the rule).
     For measuring the borders between them (``chip_smoke.py``'s ``[gate]`` lines);
     process-wide, in the library."""
     err = library().attention_set_route(ROUTE_NAMES[name])
@@ -182,7 +183,7 @@ def _attention_config(backward: bool, dtype: torch.dtype, seq: int, dim: int) ->
 
 def attention_route_number(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> int:
     """The causal kernels' route for (dtype, S, head_dim) by number: 0 fp32 on the CUDA cores,
-    1 mma.sync, 2 wgmma, 3 the backward's persistent one-pass route, 4 fp32 3xTF32."""
+    1 mma.sync, 2 wgmma, 3 the bf16 persistent one-pass route (short S), 4 fp32 3xTF32."""
     return _attention_config(backward, dtype, seq, dim)[0]
 
 
@@ -207,9 +208,10 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
         text += (", one pass" if not backward else ", 3 kernels (row statistics, dQ, dK and dV)")
         text += ", 2 consumer warpgroups of 64 rows + 1 TMA producer warpgroup"
     if route == 3:
-        text += (", 1 kernel (dQ, dK and dV of a work item, no statistics scratch), work items of "
-                 f"{heads} head(s) x every row, 2 consumer groups of {threads // 64} warp(s) + 1 TMA "
-                 "producer warp")
+        text += (", 1 kernel (" + ("dQ, dK and dV of a work item, no statistics scratch" if backward
+                                   else "whole-row softmax, W rounded to bf16 once normalised")
+                 + f"), work items of {heads} head(s) x every row, 2 consumer groups of {threads // 64} "
+                 "warp(s) + 1 TMA producer warp")
     return text
 
 

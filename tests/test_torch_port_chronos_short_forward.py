@@ -165,10 +165,12 @@ def test_chip_smoke_names_the_persistent_forward_route_and_its_gate_lines():
     assert "chronos_fwd_short_kernel" in chip_smoke.PERSISTENT_FAMILIES
     assert "    chronos_fwd_short_kernel(" in (CSRC / sources["B4f"]).read_text()
     shape = (128, 67, 12, 64)
-    rows = {chip_smoke.row_key("B4f", shape, torch.bfloat16): {"ms": 1.0}}
+    rows = {chip_smoke.row_key("B4f", shape, torch.bfloat16): {"ms": 1.0},
+            chip_smoke.row_key("B1f", (64, 16, 16, 80), torch.bfloat16): {"ms": 2.0}}
     entries = chip_smoke.persistent_route_entries(rows, {"B4f persistent": 7, "B4f wgmma": 3})
     assert [(e["name"], e["launches"], e["ms"]) for e in entries] == [
-        ("fused_chronos_attention (persistent route)", 7, 1.0)]
+        ("fused_chronos_attention (persistent route)", 7, 1.0),
+        ("fused_qkv_causal_attention (persistent route)", 0, 2.0)]
     assert Path(entries[0]["source"]).name == "chronos_attention_short_hopper.cu"
     assert entries[0]["replaces"].endswith("ops/chronos_attention.py:120")
     assert chip_smoke.FORWARD_BORDER_LENGTHS == (16, 32, 48, 64, 67, 80, 96, 97, 113, 128)
