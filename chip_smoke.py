@@ -7,7 +7,7 @@ Run from the repository root, on a host with one CUDA card:
 
 Phases (each prints its lines and its seconds; any failure exits non-zero):
 
-1. build: compile the sixteen sources under ``multimodal_timesfm_torch/csrc/``
+1. build: compile the eighteen sources under ``multimodal_timesfm_torch/csrc/``
    (``attention_fwd.cu``, ``attention_bwd.cu``, sharing ``attention_common.cuh``;
    their bf16 wgmma/TMA route ``attention_fwd_hopper.cu``, ``attention_bwd_hopper.cu``,
    sharing ``hopper_common.cuh``; ``chronos_attention.cu``, ``chronos_attention_bwd.cu``,
@@ -20,13 +20,17 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    Chronos kernels' fp32 3xTF32 route at head_dim 64, ``chronos_attention_tf32.cu`` and
    ``chronos_attention_bwd_tf32.cu``, sharing ``chronos_tf32.cuh``, and the causal kernels'
    at head_dim 80, ``attention_fwd_tf32.cu`` and ``attention_bwd_tf32.cu``, sharing
-   ``attention_tf32.cuh``; both routes' pieces in ``tf32_common.cuh``) with nvcc
+   ``attention_tf32.cuh``; both routes' pieces in ``tf32_common.cuh``; and the causal
+   kernels' fp32 3xTF32 route on wgmma fed by TMA, route 5, ``attention_fwd_tf32_hopper.cu``
+   and ``attention_bwd_tf32_hopper.cu``, sharing ``attention_tf32_hopper.cuh``) with nvcc
    for sm_90a, one nvcc per source started
    together; print the build seconds, the compiler's register, shared-memory and spill
    report, the SASS count per kernel family of HMMA (mma.sync; HMMA.1688.F32.TF32 among
-   them), HGMMA (wgmma) and UTMALDG (TMA tile loads), failing if a wgmma-route family holds
-   no HGMMA or UTMALDG, a persistent-route family no HMMA or UTMALDG, or a 3xTF32-route
-   family no HMMA.1688.F32.TF32, and the card's name and power limit;
+   them), HGMMA (wgmma; HGMMA on TF32 operands among them) and UTMALDG (TMA tile loads),
+   failing if a wgmma-route family holds no HGMMA or UTMALDG, a persistent-route family no
+   HMMA or UTMALDG, a 3xTF32 mma.sync family no HMMA.1688.F32.TF32, a route-5 family no HGMMA
+   on TF32 operands or no UTMALDG, or a route-5 kernel spills, and the card's name and power
+   limit;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16, on every query row (rows with no valid key included):
    the causal kernels (B1f/B1b, B2f/B2b, and the same kernels behind the
@@ -70,12 +74,15 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    the one-pass route up to 96 and the wgmma route from 97 (held times, in turns). The
    fp32 border of the Chronos kernels' 3xTF32 route against their CUDA-core route at S = 16
    to 577 (D = 64, 12 heads, B = 9,232 / S, held times, in turns), and the causal kernels'
-   (``[gate] causal fp32``: forward and backward at S = 16 to 2,100, D = 80, 16 heads, B =
-   8,192 / S, each checked against the plain version) are measured only under
-   ``--kernel-times``: the rule takes the 3xTF32 route at every S at head_dim 64 (causal: at
-   head_dim 80, the backward up to 16,320 tokens). In fp32 the causal
-   kernels' rows are the 3xTF32 route's, each with the CUDA-core route checked and timed beside
-   it, and B3b runs once past one chunk of the route's scratch (8 x 2,100 x 16). The kernel,
+   border between their two fp32 routes (``[gate] causal fp32``: route 4, 3xTF32 on
+   mma.sync, against route 5, 3xTF32 on wgmma fed by TMA, forward and backward at S = 16 to
+   2,100, D = 80, 16 heads, B = 8,192 / S, each checked against the plain version, held
+   times in turns) are measured only under ``--kernel-times``: the rule takes the 3xTF32
+   route at every S at head_dim 64, and at head_dim 80 route 5 from the border the causal
+   gate set, route 4 below it. In fp32 the causal kernels' rows are those of the route the
+   rule gives their shape, route 5's with route 4 checked and timed beside it, and B3b runs
+   once past one chunk of route 4's scratch (8 x 2,100 x 16; route 5 where the rule sends
+   that length). The kernel,
    the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, or its
    backward under autograd; a yardstick only, the port never calls it) are
@@ -413,6 +420,15 @@ TF32_KERNELS = (
 # 2048, B2 at 16384, B3 at 67,200).
 CU_TF32_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_tf32.cu"
 CU_TF32_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_tf32.cu"
+# Route 5, the causal kernels' fp32 3xTF32 route on wgmma fed by TMA, which the dispatch gives
+# head_dim 80 from the border its [gate] causal fp32 lines set: a CAUSAL_TF32_KERNELS row whose
+# shape the rule sends there is reported with these sources.
+CU_TF32W_SOURCE = "multimodal_timesfm_torch/csrc/attention_fwd_tf32_hopper.cu"
+CU_TF32W_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_tf32_hopper.cu"
+# CAUSAL_TF32_KERNELS rows timed but given no entry of their own in the kernels line: no main path
+# serves TimesFM in fp32 at 192 tokens (context 6144), so B1f's wrapper never launches route 5
+# there; that kernel's main-path launches stand under B2f and B3f.
+CAUSAL_TF32_TIMED_ONLY = (("B1f", (64, 192, 16, 80)),)
 CAUSAL_TF32_KERNELS = (
     ("B1f", "fused_qkv_causal_attention", CU_TF32_SOURCE, "multimodal_timesfm_tpu/ops/qkv_attention.py:111",
      (64, 64, 16, 80)),
@@ -543,17 +559,32 @@ def tf32_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[di
     return entries
 
 
+def causal_f32_label(key: str, seq: int) -> str:
+    """The route label (of B1_ROUTES) the library's rule gives causal kernel ``key`` in fp32
+    at S = ``seq``, head_dim 80: "tf32 wgmma" (route 5) or "tf32" (route 4)."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    return B1_ROUTES[_kernels.attention_route_number(key.endswith("b"), torch.float32, seq, 80)]
+
+
 def causal_tf32_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
-    """The ``kernels`` line's entries of the causal 3xTF32 route (CAUSAL_TF32_KERNELS): this
-    process's counted launches on that route (``routes``, from route_launches; one count a
-    kernel, beside each of its shapes) and the measured row at each shape in fp32, the
-    CUDA-core route's time in the same run included."""
+    """The ``kernels`` line's entries of the causal fp32 routes (CAUSAL_TF32_KERNELS), each row
+    on the route the rule gives its shape (route 5, 3xTF32 wgmma, from the border; route 4,
+    3xTF32 mma.sync, below it): this process's counted launches on that route (``routes``, from
+    route_launches; one count a kernel and route, beside each of its shapes) and the measured
+    row at the shape in fp32 (a route-5 row with route 4's time in the same run)."""
     entries = []
     for key, name, cu, replaces, shape in CAUSAL_TF32_KERNELS:
+        if (key, shape) in CAUSAL_TF32_TIMED_ONLY:
+            continue
         batch, seq, heads, dim = shape
+        label = causal_f32_label(key, seq)
+        if label == "tf32 wgmma":
+            cu = CU_TF32W_BWD_SOURCE if key.endswith("b") else CU_TF32W_SOURCE
         entries.append({
-            "name": f"{name} (3xTF32 route)", "route": "cuda", "source": cu, "replaces": replaces,
-            "launches": routes.get(f"{key} tf32", 0),
+            "name": f"{name} ({'3xTF32 wgmma route' if label == 'tf32 wgmma' else '3xTF32 route'})",
+            "route": "cuda", "source": cu, "replaces": replaces,
+            "launches": routes.get(f"{key} {label}", 0),
             "shape": f"B={batch} S={seq} H={heads} D={dim} float32",
             **rows[row_key(key, shape, torch.float32)],
         })
@@ -561,10 +592,11 @@ def causal_tf32_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[d
 
 
 # The SASS instructions sass_mma_report counts per kernel family: mma.sync's (HMMA; among
-# them m16n8k8 on TF32 operands, HMMA.1688.F32.TF32), wgmma's (HGMMA) and TMA's tile loads
-# (UTMALDG).
+# them m16n8k8 on TF32 operands, HMMA.1688.F32.TF32), wgmma's (HGMMA; among them those on TF32
+# operands, an HGMMA line naming TF32) and TMA's tile loads (UTMALDG).
 SASS_TF32 = "HMMA.1688.F32.TF32"
-SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", SASS_TF32)
+SASS_GMMA_TF32 = "HGMMA.TF32"
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", SASS_TF32, SASS_GMMA_TF32)
 # The kernel families of the wgmma route, which must hold HGMMA and UTMALDG.
 WGMMA_FAMILIES = ("attention_fwd_wgmma_kernel", "attention_bwd_rows_kernel",
                   "attention_bwd_dkdv_wgmma_kernel", "chronos_fwd_wgmma_kernel",
@@ -578,6 +610,9 @@ PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel",
 # HMMA.1688.F32.TF32 (its dbias kernel only sums dL over the batch), and the causal route's.
 TF32_FAMILIES = ("chronos_fwd_tf32_kernel", "chronos_bwd_dq_tf32_kernel", "chronos_bwd_dkdv_tf32_kernel")
 CAUSAL_TF32_FAMILIES = ("attention_fwd_tf32_kernel", "attention_bwd_dq_tf32_kernel", "attention_bwd_dkdv_tf32_kernel")
+# The kernel families of route 5, which must hold HGMMA on TF32 operands and UTMALDG, and spill
+# nothing.
+TF32W_FAMILIES = ("attention_fwd_tf32w_kernel", "attention_bwd_rows_tf32w_kernel", "attention_bwd_dkdv_tf32w_kernel")
 
 
 def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
@@ -606,6 +641,8 @@ def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
                 counts[family][-1][op.group(1)] += 1
             if SASS_TF32 in line:
                 counts[family][-1][SASS_TF32] += 1
+            if "HGMMA" in line and "TF32" in line:
+                counts[family][-1][SASS_GMMA_TF32] += 1
     return counts
 
 
@@ -637,6 +674,36 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
         found = counts.get(name, [])
         if not found or any(c[SASS_TF32] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run {SASS_TF32} in every instantiation: {found}")
+    for name in TF32W_FAMILIES if require_wgmma else ():
+        found = counts.get(name, [])
+        if not found or any(c[SASS_GMMA_TF32] == 0 or c["UTMALDG"] == 0 for c in found):
+            raise AssertionError(f"SASS: {name} does not run HGMMA on TF32 operands and UTMALDG in every "
+                                 f"instantiation: {found}")
+    return lines
+
+
+def ptxas_report(log_text: str, require: bool = True) -> list[str]:
+    """From nvcc's ``-Xptxas=-v`` log of the library: for each route-5 kernel (TF32W_FAMILIES)
+    its spill stores and loads and its registers, one line each; raises when ``require`` and
+    one spills. (The dynamic shared memory a block takes is the library's to report.)"""
+    import re
+
+    lines, entry = [], None
+    for line in log_text.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            entry = found.group(1)
+            continue
+        if entry is None or not any(f in entry for f in TF32W_FAMILIES):
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            if require and (int(spill.group(1)) or int(spill.group(2))):
+                raise AssertionError(f"ptxas: {entry} spills: {line.strip()}")
+            lines.append(f"{entry}: {line.strip()}")
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            lines.append(f"{entry}: {line.strip()}")
     return lines
 
 
@@ -827,37 +894,39 @@ def time_kernel(name: str, shape: tuple[int, int, int, int], dtype: torch.dtype,
 
 
 def causal_tf32(backward: bool, dtype: torch.dtype, shape: tuple[int, int, int, int]) -> bool:
-    """Whether the causal kernels' dispatch gives this call the 3xTF32 route (route 4)."""
+    """Whether the causal kernels' dispatch gives this call a 3xTF32 route (route 4 on
+    mma.sync, route 5 on wgmma)."""
     from multimodal_timesfm_torch.ops import _kernels
 
-    return dtype == torch.float32 and _kernels.attention_route_number(backward, dtype, shape[1], shape[3]) == 4
+    return dtype == torch.float32 and _kernels.attention_route_number(backward, dtype, shape[1], shape[3]) in (4, 5)
 
 
-def cuda_core_row(row: dict, what: str, kernel, plain_out, compare_fn, valid: torch.Tensor,
-                  shape: tuple[int, int, int, int], bound_fn, iters: int) -> dict:
-    """A 3xTF32 row with the CUDA-core route beside it: that route checked against the plain
-    version and timed in the same run (held_ms, the route override "cuda cores"), and its bound
-    (the CUDA cores' fp32 rate)."""
+def mma_sync_row(row: dict, what: str, backward: bool, kernel, plain_out, compare_fn,
+                 shape: tuple[int, int, int, int], iters: int) -> dict:
+    """A row of route 5 (3xTF32 wgmma) with route 4 (3xTF32 mma.sync) beside it: that route
+    checked against the plain version and timed in the same run (held_ms, the route override
+    "tf32 mma.sync"). A row the rule leaves on route 4 is returned as it is."""
     from multimodal_timesfm_torch.ops import _kernels
 
+    if _kernels.attention_route_number(backward, torch.float32, shape[1], shape[3]) != 5:
+        return row
     try:
-        _kernels.set_route("cuda cores")
-        compare_fn(f"{what} CUDA-core route", kernel(), plain_out)
-        row["cuda_cores_ms"] = held_ms(kernel, iters)[0]
+        _kernels.set_route("tf32 mma.sync")
+        compare_fn(f"{what} route 4", kernel(), plain_out)
+        row["mma_sync_ms"] = held_ms(kernel, iters)[0]
     finally:
         _kernels.set_route("rule")
-    row["bound_cuda_cores_ms"], _ = bound_fn(*shape, valid, torch.float32)
-    print(f"[kernels] {what} float32 3xTF32 route {row['ms']:.4f} ms against the CUDA-core route "
-          f"{row['cuda_cores_ms']:.4f} ms (held) and {row['library_ms']:.4f} ms of the library call; bounds "
-          f"{row['bound_ms']:.4f} (3xTF32) / {row['bound_cuda_cores_ms']:.4f} ms (CUDA cores)", flush=True)
+    print(f"[kernels] {what} float32 3xTF32 wgmma route {row['ms']:.4f} ms against the 3xTF32 mma.sync route "
+          f"{row['mma_sync_ms']:.4f} ms (held; {row['mma_sync_ms'] / row['ms']:.2f}x) and {row['library_ms']:.4f} ms "
+          f"of the library call; bound {row['bound_ms']:.4f} ms (3xTF32)", flush=True)
     return row
 
 
 def check_kernel(name: str, kernel, plain, sdpa, valid: torch.Tensor, dtype: torch.dtype,
                  shape: tuple[int, int, int, int], iters: int) -> dict:
-    """Kernel vs plain version on the card; returns the measured row. On the 3xTF32 route the
-    kernel's time is held (held_ms), the bound is the 3xTF32 one, and the CUDA-core route is
-    checked and timed beside it (cuda_core_row). On the bf16 persistent route the time is held
+    """Kernel vs plain version on the card; returns the measured row. On a 3xTF32 route the
+    kernel's time is held (held_ms) and the bound is the 3xTF32 one; on route 5 route 4 is
+    checked and timed beside it (mma_sync_row). On the bf16 persistent route the time is held
     too: a trace can leave its few-microsecond launches out (one read 0.0025 ms at 64 x 16,
     under its bound, where the same call's held readings were 0.0054 and 0.0061 ms; H100 80GB
     HBM3 at 700 W)."""
@@ -870,7 +939,7 @@ def check_kernel(name: str, kernel, plain, sdpa, valid: torch.Tensor, dtype: tor
     row = time_kernel(name, shape, dtype, diff, KERNEL_TOL[dtype], kernel, plain, sdpa,
                       attention_bound(*shape, valid, dtype, three_tf32=tf32), iters, "sdpa", held=held)
     if tf32:
-        row = cuda_core_row(row, f"{name} {shape}", kernel, want, compare, valid, shape, attention_bound, iters)
+        row = mma_sync_row(row, f"{name} {shape}", False, kernel, want, compare, shape, iters)
     return row
 
 
@@ -1041,7 +1110,7 @@ def sdpa_bwd_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.
 def check_bwd_kernel(name: str, kernel, plain, sdpa_bwd, valid: torch.Tensor, dtype: torch.dtype,
                      shape: tuple[int, int, int, int], iters: int) -> dict:
     """Backward kernel vs its plain version on the card, and two launches bit-equal;
-    returns the measured row (on the 3xTF32 route as :func:`check_kernel` gives it)."""
+    returns the measured row (on a 3xTF32 route as :func:`check_kernel` gives it)."""
     want = plain()
     diff = compare_bwd(f"{name} {shape}", kernel(), want)
     same_twice(f"{name} {shape} {dtype}", kernel)
@@ -1049,8 +1118,7 @@ def check_bwd_kernel(name: str, kernel, plain, sdpa_bwd, valid: torch.Tensor, dt
     row = time_kernel(name, shape, dtype, diff, BWD_TOL[dtype], kernel, plain, sdpa_bwd,
                       backward_bound(*shape, valid, dtype, three_tf32=tf32), iters, "sdpa backward", held=tf32)
     if tf32:
-        row = cuda_core_row(row, f"{name} {shape}", kernel, want, compare_bwd, valid, shape, backward_bound,
-                            iters)
+        row = mma_sync_row(row, f"{name} {shape}", True, kernel, want, compare_bwd, shape, iters)
     return row
 
 
@@ -1696,15 +1764,16 @@ def flash_kernel_phase(seed: int) -> dict[str, dict]:
     return rows
 
 
-# A backward past one chunk of the 3xTF32 route's scratch: 8 x 2,100 x 16 is 128 work items of
+# A backward past one chunk of route 4's scratch: 8 x 2,100 x 16 is 128 work items of
 # 18.4 MB each, three chunks of 43 (the budget holds 58).
 CHUNKED_SHAPE = (8, 2100, 16, 80)
 
 
 def chunked_backward_check(gen: torch.Generator) -> None:
-    """B3b in fp32 at CHUNKED_SHAPE, left-padded, a random cotangent on every row: the 3xTF32
-    route in three chunks of work items against the plain version on every element, two launches
-    bit-equal."""
+    """B3b in fp32 at CHUNKED_SHAPE, left-padded, a random cotangent on every row: route 4
+    (forced: the rule gives that length route 5, whose scratch is the row statistics) in three
+    chunks of work items, then the rule's route, each against the plain version on every
+    element, two launches bit-equal."""
     from multimodal_timesfm_torch.ops import _kernels
     from multimodal_timesfm_torch.ops.attention import flash_causal_attention_bwd, plain_attention_bwd
 
@@ -1712,16 +1781,22 @@ def chunked_backward_check(gen: torch.Generator) -> None:
     q, k, v, g = (torch.randn(batch, seq, heads, dim, generator=gen, device="cuda") for _ in range(4))
     q = q / math.sqrt(dim)
     valid = left_padded_valid(batch, seq, gen)
-    floats = _kernels.library().attention_bwd_scratch(
-        *(t.data_ptr() for t in (q, k, v, g, q, k, v)), 0, batch, seq, heads, dim, q.stride(1), g.stride(1),
-        q.stride(1))
     bwd = lambda: flash_causal_attention_bwd(q, k, v, valid, g)  # noqa: E731
-    err = compare_bwd(f"B3b chunked {CHUNKED_SHAPE}", bwd(), plain_attention_bwd(q, k, v, valid, g))
-    same_twice(f"B3b chunked {CHUNKED_SHAPE}", bwd)
-    print(f"[kernels] flash_causal_attention_bwd (B,S,H,D) {CHUNKED_SHAPE} float32: "
-          f"{_kernels.attention_route(True, torch.float32, seq, dim).split(',')[0]}, scratch of one chunk "
-          f"{floats * 4 / 1e6:.1f} MB ({batch * heads} work items in chunks): max |kernel - plain| {err:.3g} "
-          f"within BWD_TOL; two launches bit-equal", flush=True)
+    want = plain_attention_bwd(q, k, v, valid, g)
+    for route in ("tf32 mma.sync", "rule"):
+        try:
+            _kernels.set_route(route)
+            floats = _kernels.library().attention_bwd_scratch(
+                *(t.data_ptr() for t in (q, k, v, g, q, k, v)), 0, batch, seq, heads, dim, q.stride(1),
+                g.stride(1), q.stride(1))
+            err = compare_bwd(f"B3b chunked {CHUNKED_SHAPE} {route}", bwd(), want)
+            same_twice(f"B3b chunked {CHUNKED_SHAPE} {route}", bwd)
+            text = _kernels.attention_route(True, torch.float32, seq, dim).split(",")[0]
+        finally:
+            _kernels.set_route("rule")
+        print(f"[kernels] flash_causal_attention_bwd (B,S,H,D) {CHUNKED_SHAPE} float32, {route}: {text}, scratch "
+              f"{floats * 4 / 1e6:.1f} MB ({batch * heads} work items): max |kernel - plain| {err:.3g} within "
+              f"BWD_TOL; two launches bit-equal", flush=True)
 
 
 # The lengths the bf16 border between the wgmma and mma.sync routes is measured at (D = 80,
@@ -1917,20 +1992,21 @@ def chronos_f32_borders(seed: int) -> None:
               f"rule takes it from S={rule}", flush=True)
 
 
-# The lengths the fp32 border between the causal kernels' 3xTF32 route and their CUDA-core route
-# is measured at (head_dim 80, 16 heads, B = 8,192 // S): B1's main-path 16, 64 and 192, B2's 512
-# and B3's 2,100, and the lengths between.
+# The lengths the fp32 border between the causal kernels' two 3xTF32 routes (route 4 on mma.sync,
+# route 5 on wgmma fed by TMA) is measured at (head_dim 80, 16 heads, B = 8,192 // S): B1's
+# main-path 16, 64 and 192, B2's 512 and B3's 2,100, and the lengths between.
 CAUSAL_F32_BORDER_LENGTHS = (16, 32, 64, 128, 192, 256, 512, 1024, 2100)
 
 
 def causal_f32_borders(seed: int) -> None:
-    """The fp32 border between the causal kernels' 3xTF32 route and their CUDA-core route: at
-    each of CAUSAL_F32_BORDER_LENGTHS the forward and the backward on both (the dispatch rule and
-    the library's route override ``"cuda cores"``), left-padded, checked against the plain
-    versions and timed in turns (CUDA cores, rule, rule, CUDA cores; held_ms); one ``[gate]``
-    line per length, then one per direction: the least S from which the 3xTF32 route is the
-    faster (by BORDER_MARGIN) at every measured length, beside the least S the dispatch rule
-    gives it."""
+    """The fp32 border between the causal kernels' route 4 (3xTF32 mma.sync) and route 5
+    (3xTF32 wgmma fed by TMA): at each of CAUSAL_F32_BORDER_LENGTHS the forward and the backward
+    on both (the library's route overrides "tf32 mma.sync" and "tf32 wgmma"), left-padded, checked
+    against the plain versions and timed in turns (route 4, route 5, route 5, route 4; held_ms);
+    one ``[gate]`` line per length, then one per direction: the least S from which route 5 is the
+    faster (by BORDER_MARGIN) at every measured length, beside the least S the dispatch rule gives
+    it. At each length the rule's route is also held to ``_kernels.causal_f32_route``, which
+    follows the rule without the library."""
     from multimodal_timesfm_torch.ops import _kernels
     from multimodal_timesfm_torch.ops.attention import (
         fused_causal_attention,
@@ -1941,6 +2017,7 @@ def causal_f32_borders(seed: int) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 18)
     heads, dim, dtype = 16, 80, torch.float32
+    routes = ("tf32 mma.sync", "tf32 wgmma")
     faster: dict[str, list[bool]] = {"forward": [], "backward": []}
     try:
         for seq in CAUSAL_F32_BORDER_LENGTHS:
@@ -1951,33 +2028,40 @@ def causal_f32_borders(seed: int) -> None:
             calls = (lambda: fused_causal_attention(q, k, v, valid),
                      lambda: fused_causal_attention_bwd(q, k, v, valid, g))
             ref, ref_b = plain_causal_attention(q, k, v, valid), plain_attention_bwd(q, k, v, valid, g)
-            times: dict[str, list[tuple[float, ...]]] = {"cuda cores": [], "rule": []}
+            times: dict[str, list[tuple[float, ...]]] = {route: [] for route in routes}
             iters = 5 if seq > 1000 else 10
-            for route in ("cuda cores", "rule", "rule", "cuda cores"):
+            for route in (routes[0], routes[1], routes[1], routes[0]):
                 _kernels.set_route(route)
                 if not times[route]:
                     compare(f"causal fp32 {route} route S={seq}", calls[0](), ref)
                     compare_bwd(f"causal fp32 {route} route S={seq} backward", calls[1](), ref_b)
+                    same_twice(f"causal fp32 {route} route S={seq} backward", calls[1])
                 times[route].append(tuple(held_ms(fn, iters)[0] for fn in calls))
             del ref, ref_b
             mean = {r: [sum(t[i] for t in ts) / len(ts) for i in range(2)] for r, ts in times.items()}
             for i, name in enumerate(("forward", "backward")):
-                faster[name].append(mean["rule"][i] < BORDER_MARGIN * mean["cuda cores"][i])
+                faster[name].append(mean[routes[1]][i] < BORDER_MARGIN * mean[routes[0]][i])
             _kernels.set_route("rule")
-            rules = {d: _kernels.attention_route(d == "backward", dtype, seq, dim).split(",")[0]
-                     for d in ("forward", "backward")}
-            print(f"[gate] causal fp32 D={dim} H={heads} S={seq} B={batch}, held device ms (CUDA cores / "
-                  f"3xTF32): forward {mean['cuda cores'][0]:.4f} / {mean['rule'][0]:.4f}, backward "
-                  f"{mean['cuda cores'][1]:.4f} / {mean['rule'][1]:.4f} (both routes within tolerance of the "
-                  f"plain versions; the rule: forward {rules['forward']}, backward {rules['backward']})",
-                  flush=True)
+            rules = {}
+            for d, outs in (("forward", (q,)), ("backward", (q, k, v))):
+                number = _kernels.attention_route_number(d == "backward", dtype, seq, dim)
+                ins = (q, k, v) if d == "forward" else (q, k, v, g)
+                if _kernels.causal_f32_route(d == "backward", ins, outs) != number:
+                    raise AssertionError(f"causal fp32 S={seq} {d}: the library's rule gives route {number}, "
+                                         f"_kernels.causal_f32_route another")
+                rules[d] = _kernels.attention_route(d == "backward", dtype, seq, dim).split(",")[0]
+            print(f"[gate] causal fp32 D={dim} H={heads} S={seq} B={batch}, held device ms (3xTF32 mma.sync / "
+                  f"3xTF32 wgmma): forward {mean[routes[0]][0]:.4f} / {mean[routes[1]][0]:.4f}, backward "
+                  f"{mean[routes[0]][1]:.4f} / {mean[routes[1]][1]:.4f} (both routes within tolerance of the "
+                  f"plain versions, backward launches bit-equal; the rule: forward {rules['forward']}, backward "
+                  f"{rules['backward']})", flush=True)
     finally:
         _kernels.set_route("rule")
     for name, wins in faster.items():
         measured = next((s for i, s in enumerate(CAUSAL_F32_BORDER_LENGTHS) if all(wins[i:])), None)
         rule = next((s for s in CAUSAL_F32_BORDER_LENGTHS
-                     if _kernels.attention_route_number(name == "backward", dtype, s, dim) == 4), None)
-        print(f"[gate] causal fp32 {name} border: the 3xTF32 route is the faster (by {1 - BORDER_MARGIN:.0%}) "
+                     if _kernels.attention_route_number(name == "backward", dtype, s, dim) == 5), None)
+        print(f"[gate] causal fp32 {name} border: the 3xTF32 wgmma route is the faster (by {1 - BORDER_MARGIN:.0%}) "
               f"from S={measured} on (of {CAUSAL_F32_BORDER_LENGTHS}); the dispatch rule takes it from S={rule}",
               flush=True)
 
@@ -2309,7 +2393,7 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
     """Every kernel at its main-path shapes, fp32 and bf16, checked against its plain version
     and timed beside the plain version, SDPA and the bound (``[kernels]`` lines): the six
     causal kernels (B1f/B1b, B2f/B2b, B3f/B3b) left-padded (skipped with ``chronos_only``), in
-    fp32 at the shapes of CAUSAL_TF32_KERNELS (the CUDA-core route beside the 3xTF32 route) and
+    fp32 at the shapes of CAUSAL_TF32_KERNELS (route 4 beside route 5 where the rule gives route 5) and
     in bf16 at those of KERNELS, then B4f, B4b without dbias and B4b with dbias at Chronos-2's
     fine-tune (128 x 67 tokens) and its serving at context 8192 (16 x 577), and at the
     fine-tune's shape with its 12 heads over a model axis of 2 (128 x 67 x 6), one segment.
@@ -2991,7 +3075,7 @@ def launch_counts() -> dict[str, int]:
 # The Chronos plan's routes (chronos_attention_config), and the causal kernels'
 # (attention_fwd_config / attention_bwd_config), by number ("fp32": the CUDA cores).
 B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent", "tf32")
-B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent", "tf32")
+B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent", "tf32", "tf32 wgmma")
 # The wrappers whose launches route_launches splits by route: every one.
 ROUTED_KEYS = ("B1f", "B1b", "B2f", "B2b", "B3f", "B3b", "B4f", "B4b")
 
@@ -4357,8 +4441,16 @@ def native_op_checks(seed: int, future) -> None:
                     err = float((out.float() - ref.float()).abs().max()) if out.shape == ref.shape else math.inf
                     raise AssertionError(f"mtt_native::{name} {str(dtype)[6:]} {batch}x{seq}: differs from "
                                          f"the Python op by {err:.4g}")
+                route = ""
+                if key != "B4f":
+                    from multimodal_timesfm_torch.ops import _kernels
+
+                    number = _kernels.attention_route_number(False, dtype, seq, dim)
+                    if dtype == torch.float32 and seq >= _kernels.TF32_WGMMA_FROM["forward"] and number != 5:
+                        raise AssertionError(f"mtt_native::{name} float32 S={seq}: route {number}, not route 5")
+                    route = f" on {_kernels.attention_route(False, dtype, seq, dim).split(',')[0]}"
                 print(f"[native] mtt_native::{name} ({key}) {str(dtype)[6:]} B,S,H,D {batch},{seq},{heads},"
-                      f"{dim}: bit-equal to torch.ops.mtt.{name}, one launch", flush=True)
+                      f"{dim}: bit-equal to torch.ops.mtt.{name}, one launch{route}", flush=True)
     finally:
         for key, fn in counters.items():
             fn.launches = saved[key][0]
@@ -5658,10 +5750,18 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "Potential Performance Loss" in line):
                 print(f"[build] {line.strip()}")
     for line in sass_mma_report(lib_path, require_wgmma=args.root is None or args.kernel_times):
         print(f"[build] SASS {line}")
+    if log.exists() and hasattr(_kernels.library(), "tf32w_fwd_smem"):
+        for line in ptxas_report(log.read_text(), require=args.root is None or args.kernel_times):
+            print(f"[build] ptxas route 5 {line}")
+        lib = _kernels.library()
+        print(f"[build] ptxas route 5 dynamic shared memory a block: forward {lib.tf32w_fwd_smem()} bytes (two "
+              f"blocks an SM), backward statistics {lib.tf32w_bwd_smem(1)}, dq {lib.tf32w_bwd_smem(2)}, dkdv "
+              f"{lib.tf32w_bwd_smem(3)} bytes (one block an SM)", flush=True)
     gpu = gpu_line()
     print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda} | port from "
           f"{_kernels.CSRC.parent if hasattr(_kernels, 'CSRC') else _kernels.SOURCES[0].parent.parent}",
@@ -5790,7 +5890,9 @@ def main() -> int:
     idle = [key for key, n in launches.items() if n == 0]
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
     idle += [f"{key} persistent" for key in ("B1f", "B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
-    idle += [f"{key} tf32" for key, *_ in TF32_KERNELS + CAUSAL_TF32_KERNELS if not routes.get(f"{key} tf32")]
+    idle += [f"{key} tf32" for key, *_ in TF32_KERNELS if not routes.get(f"{key} tf32")]
+    idle += [f"{key} {causal_f32_label(key, shape[1])}" for key, *_, shape in CAUSAL_TF32_KERNELS
+             if (key, shape) not in CAUSAL_TF32_TIMED_ONLY and not routes.get(f"{key} {causal_f32_label(key, shape[1])}")]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     print(f"[launches] main paths: {launches}")

@@ -74,12 +74,12 @@
 // TM x TM micro-tile per thread,
 // shared rows padded to D + 1 floats, 4-byte cp.async into the ring; W and
 // dL go through shared memory for the products with V, K and Q. At head_dim
-// 80 fp32 takes the 3xTF32 tensor-core route of attention_bwd_tf32.cu
-// instead (tf32_bwd_takes: at every S its [gate] lines measured, up to S =
-// 16,320, past which one (batch row, head)'s W and dL scratch would pass its
-// 1 GiB budget) wherever q, k, v and g are read 16 bytes at a time and dq,
-// dk, dv written 8: what stays here is every other head_dim, longer rows,
-// the layouts that route cannot read, and the override "cuda cores".
+// 80 fp32 takes a 3xTF32 tensor-core route instead wherever q, k, v and g
+// are read 16 bytes at a time and dq, dk, dv written 8: route 5
+// (attention_bwd_tf32_hopper.cu, wgmma fed by TMA) from its border at every
+// length, route 4 (attention_bwd_tf32.cu, mma.sync) below it. What stays
+// here is every other head_dim, the layouts those routes cannot read, and
+// the override "cuda cores".
 //
 // What bounds it on an H100: at the main-path shapes the bytes moved set
 // the least time in bf16 (chip_smoke.py prints the bound), but kernel 1
@@ -917,6 +917,17 @@ extern "C" int tf32_attention_bwd(const void* q, const void* k, const void* v, c
                                   int B, int S, int H, long long ld_in, long long ld_g,
                                   long long ld_out, void* stream);
 
+// The fp32 3xTF32 wgmma/TMA route (attention_bwd_tf32_hopper.cu).
+extern "C" int tf32w_bwd_takes(int S, int D);
+extern "C" int tf32w_bwd_layout(const void* q, const void* k, const void* v, const void* g,
+                                const void* dq, const void* dk, const void* dv, long long ld_in,
+                                long long ld_g, long long ld_out);
+extern "C" void tf32w_bwd_config(int* cfg);
+extern "C" int tf32w_attention_bwd(const void* q, const void* k, const void* v, const void* valid,
+                                   const void* g, void* dq, void* dk, void* dv, void* stats, int B,
+                                   int S, int H, long long ld_in, long long ld_g, long long ld_out,
+                                   void* stream);
+
 // The bf16 one-pass persistent route for short S (attention_bwd_short_hopper.cu).
 extern "C" int short_bwd_takes(int S, int D);
 extern "C" int short_bwd_layout(const void* q, const void* k, const void* v, const void* g,
@@ -941,9 +952,11 @@ extern "C" int hopper_attention_bwd(const void* q, const void* k, const void* v,
 // Floats of scratch attention_bwd needs for these operands: 0 on the bf16
 // one-pass persistent route (short_bwd_takes(S, D) and its layout rule: q, k,
 // v, g, dq, dk and dv rows and bases 16-byte aligned); on the fp32 3xTF32
-// route (tf32_bwd_takes(S, D) and its layout rule) one chunk's W and dL tiles
-// and row statistics (tf32_bwd_scratch); otherwise the row statistics, 3 B H
-// Sp floats, Sp = S rounded up to 64. -1 for a dtype it does not take.
+// mma.sync route (tf32_bwd_takes(S, D) and its layout rule, where the wgmma
+// route's rule does not hold) one chunk's W and dL tiles and row statistics
+// (tf32_bwd_scratch); otherwise (the fp32 3xTF32 wgmma route among them) the
+// row statistics, 3 B H Sp floats, Sp = S rounded up to 64. -1 for a dtype it
+// does not take.
 extern "C" long long attention_bwd_scratch(const void* q, const void* k, const void* v,
                                            const void* g, const void* dq, const void* dk,
                                            const void* dv, int dtype, int B, int S, int H, int D,
@@ -951,7 +964,9 @@ extern "C" long long attention_bwd_scratch(const void* q, const void* k, const v
   if (dtype == 1 && short_bwd_takes(S, D) &&
       short_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
     return 0;
-  if (dtype == 0 && tf32_bwd_takes(S, D) &&
+  const bool tf32w = dtype == 0 && tf32w_bwd_takes(S, D) &&
+                     tf32w_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out);
+  if (dtype == 0 && !tf32w && tf32_bwd_takes(S, D) &&
       tf32_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
     return tf32_bwd_scratch(B, S, H);
   if (dtype != 0 && dtype != 1) return -1;
@@ -965,9 +980,10 @@ extern "C" long long attention_bwd_scratch(const void* q, const void* k, const v
 // bf16 takes the one-pass persistent route where short_bwd_takes(S, D) and
 // its layout rule hold, then the wgmma/TMA route where hopper_bwd_takes(S, D)
 // and its layout rule (q, k, v and g rows and bases 16-byte aligned) hold,
-// and the mma.sync route otherwise; fp32 the 3xTF32 route where
-// tf32_bwd_takes(S, D) and its layout rule hold, and the CUDA-core route
-// otherwise.
+// and the mma.sync route otherwise; fp32 the 3xTF32 wgmma/TMA route where
+// tf32w_bwd_takes(S, D) and its layout rule hold, then the 3xTF32 mma.sync
+// route where tf32_bwd_takes(S, D) and its layout rule hold, and the
+// CUDA-core route otherwise.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* valid,
                              const void* g, void* dq, void* dk, void* dv, void* stats, int dtype,
                              int B, int S, int H, int D, long long ld_in, long long ld_g,
@@ -981,6 +997,10 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
       short_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
     return short_attention_bwd(q, k, v, valid, g, dq, dk, dv, B, S, H, ld_in, ld_g, ld_out, stream);
   if (sc == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && tf32w_bwd_takes(S, D) &&
+      tf32w_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
+    return tf32w_attention_bwd(q, k, v, valid, g, dq, dk, dv, stats, B, S, H, ld_in, ld_g, ld_out,
+                               stream);
   if (dtype == 0 && tf32_bwd_takes(S, D) &&
       tf32_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
     return tf32_attention_bwd(q, k, v, valid, g, dq, dk, dv, stats, B, S, H, ld_in, ld_g, ld_out,
@@ -1003,12 +1023,17 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
 // The route and tiles attention_bwd takes for (dtype, S, D) with a layout
 // every route reads, for reports: cfg = {route (0: fp32 CUDA cores, 1: bf16
 // mma.sync m16n8k16, 2: bf16 wgmma + TMA, 3: bf16 mma.sync one-pass fed by TMA,
-// persistent, 4: fp32 3xTF32 mma.sync m16n8k8), threads, query rows per head and
+// persistent, 4: fp32 3xTF32 mma.sync m16n8k8, 5: fp32 3xTF32 wgmma m64nNk8
+// fed by TMA), threads, query rows per head and
 // block of the dq kernel, keys per head and block of the dkdv kernel, heads
 // per block, padded head_dim, output columns per block, dL as a hi + lo pair
 // (1) or one bf16 operand (0)}. Returns 0, or cudaErrorInvalidValue.
 extern "C" int attention_bwd_config(int dtype, int S, int D, int* cfg) {
   if (S <= 0 || D <= 0 || D > kMaxDim) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && tf32w_bwd_takes(S, D)) {
+    tf32w_bwd_config(cfg);
+    return 0;
+  }
   if (dtype == 0 && tf32_bwd_takes(S, D)) {
     tf32_bwd_config(S, cfg);
     return 0;

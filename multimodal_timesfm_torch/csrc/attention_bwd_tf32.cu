@@ -55,8 +55,9 @@
 // GiB), the chunks as even as their count allows, so the transient memory of
 // a call stays bounded at any batch. One work item's triangle passes the
 // budget past S = 16,320 (kScratchFloats / item_floats); there the rule
-// (tf32_bwd_takes) leaves fp32 on the CUDA-core route (attention_bwd.cu),
-// whose scratch is 3 floats a row.
+// (tf32_bwd_takes) leaves fp32 to the other routes (route 5,
+// attention_bwd_tf32_hopper.cu, which takes every S from its border, or the
+// CUDA cores), whose scratch is 3 floats a row.
 //
 // What bounds it on an H100: five products a tile pair at the least (Q K^T,
 // G V^T, dV, dQ, dK), at the 3xTF32 rate (495 / 3 TFLOP/s); the route runs
@@ -417,11 +418,11 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const uin
 
 extern "C" int mtt_attention_route_override();
 
-// Whether attention_bwd gives an fp32 call at (S, D) this route: head_dim 80
-// while one work item's scratch fits the budget (S <= 16,320: the header
-// note), unless the route override (attention_set_route) 3 keeps fp32 on the
-// CUDA cores. No lower border: the [gate] causal fp32 lines found this route
-// the faster at every measured length, S = 16-2,100 (attention_fwd_tf32.cu).
+// Whether attention_bwd gives an fp32 call at (S, D) this route, where route 5
+// (3xTF32 wgmma, attention_bwd_tf32_hopper.cu, checked first) does not take
+// it: head_dim 80 below route 5's border while one work item's scratch fits
+// the budget (S <= 16,320: the header note), unless the route override
+// (attention_set_route) 3 keeps fp32 on the CUDA cores.
 extern "C" int tf32_bwd_takes(int S, int D) {
   return D == kD && item_floats(S) <= kScratchFloats && mtt_attention_route_override() != 3;
 }

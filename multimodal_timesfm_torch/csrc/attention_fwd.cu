@@ -33,7 +33,7 @@
 // rounds the unnormalised weights exp(l - m_running) to bf16 where JAX
 // rounds the normalised ones (2^-9 relative per weight either way; its
 // header and tests/test_torch_port_attention_hopper.py); fp32 at head_dim 80
-// takes the 3xTF32 route of attention_fwd_tf32.cu (below). The two routes
+// takes a 3xTF32 route (below). The two routes
 // here, for every other shape (bf16 mma.sync) and for fp32, take two passes
 // over the key tiles: pass 1 keeps a running row max m and sum s of
 // exp(l - m), pass 2 recomputes the logits, forms W = exp(l - m) / s,
@@ -66,13 +66,13 @@
 // TF32 rounds to 2^-11): 256 threads, TB = 16 TM query rows per block (64;
 // 32 for head_dim > 96 or S <= 32; 16 for S <= 16), each thread a TM x TM
 // micro-tile of the logit tile, shared rows padded to D + 1 floats, 4-byte
-// cp.async into the ring. At head_dim 80, TimesFM's, fp32 takes the 3xTF32
-// tensor-core route of attention_fwd_tf32.cu instead (its rule,
-// tf32_fwd_takes: at every S, as its [gate] lines found) wherever q, k and v
-// are read 16 bytes at a time (rows and bases 16-byte aligned, out's 8-byte):
-// what stays here is every other head_dim (that route is built for 80 only),
-// the layouts it cannot read, and the route override "cuda cores" that
-// measures the border.
+// cp.async into the ring. At head_dim 80, TimesFM's, fp32 takes a 3xTF32
+// tensor-core route instead wherever q, k and v are read 16 bytes at a time
+// (rows and bases 16-byte aligned, out's 8-byte): route 5
+// (attention_fwd_tf32_hopper.cu, wgmma fed by TMA) from the border its [gate]
+// lines set, route 4 (attention_fwd_tf32.cu, mma.sync) below it. What stays
+// here is every other head_dim (those routes are built for 80 only), the
+// layouts they cannot read, and the route override "cuda cores".
 //
 // What bounds it on an H100: at the main-path shapes the work is small
 // against the bytes (chip_smoke.py prints both bounds), but each block
@@ -564,6 +564,15 @@ extern "C" int tf32_attention_fwd(const void* q, const void* k, const void* v, c
                                   void* out, int B, int S, int H, long long ld_in,
                                   long long ld_out, void* stream);
 
+// The fp32 3xTF32 wgmma/TMA route (attention_fwd_tf32_hopper.cu).
+extern "C" int tf32w_fwd_takes(int S, int D);
+extern "C" int tf32w_fwd_layout(const void* q, const void* k, const void* v, const void* out,
+                                long long ld_in, long long ld_out);
+extern "C" void tf32w_fwd_config(int* cfg);
+extern "C" int tf32w_attention_fwd(const void* q, const void* k, const void* v, const void* valid,
+                                   void* out, int B, int S, int H, long long ld_in, long long ld_out,
+                                   void* stream);
+
 // The bf16 one-pass persistent route for short S (attention_fwd_short_hopper.cu).
 extern "C" int short_fwd_takes(int S, int D);
 extern "C" int short_fwd_layout(const void* q, const void* k, const void* v, const void* out,
@@ -587,10 +596,12 @@ int route_override = 0;
 
 // For measuring the borders between the routes (chip_smoke.py's [gate]
 // lines): 0 = the dispatch rule, 1 = bf16 on mma.sync only, 2 = bf16 on wgmma
-// at every S its layout rule allows, 3 = fp32 on the CUDA cores only (bf16 by
-// the rule). Applies to attention_fwd and attention_bwd alike.
+// at every S its layout rule allows, 3 = fp32 on the CUDA cores only, 4 =
+// fp32 never on the 3xTF32 wgmma route (3xTF32 mma.sync by its rule), 5 =
+// fp32 on the 3xTF32 wgmma route at every S its layout rule allows (3-5: bf16
+// by the rule). Applies to attention_fwd and attention_bwd alike.
 extern "C" int attention_set_route(int route) {
-  if (route < 0 || route > 3) return (int)cudaErrorInvalidValue;
+  if (route < 0 || route > 5) return (int)cudaErrorInvalidValue;
   route_override = route;
   return 0;
 }
@@ -602,9 +613,11 @@ extern "C" int mtt_attention_route_override() { return route_override; }
 // short_fwd_takes(S, D) and its layout rule (q, k, v and out rows and bases
 // 16-byte aligned) hold, then the wgmma/TMA route where
 // hopper_fwd_takes(S, D) and its layout rule (q, k, v rows and bases 16-byte
-// aligned) hold, and the mma.sync route otherwise; fp32 the 3xTF32 route
-// where tf32_fwd_takes(D) and its layout rule (q, k, v rows and bases
-// 16-byte aligned, out's 8-byte) hold, and the CUDA-core route otherwise.
+// aligned) hold, and the mma.sync route otherwise; fp32 the 3xTF32 wgmma/TMA
+// route where tf32w_fwd_takes(S, D) and its layout rule (q, k, v rows and
+// bases 16-byte aligned, out's 8-byte) hold, then the 3xTF32 mma.sync route
+// where tf32_fwd_takes(D) and the same layout rule hold, and the CUDA-core
+// route otherwise.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, const void* valid,
                              void* out, int dtype, int B, int S, int H, int D, long long ld_in,
                              long long ld_out, void* stream) {
@@ -612,6 +625,8 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, const 
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (tf32w_fwd_takes(S, D) && tf32w_fwd_layout(q, k, v, out, ld_in, ld_out))
+      return tf32w_attention_fwd(q, k, v, valid, out, B, S, H, ld_in, ld_out, stream);
     if (tf32_fwd_takes(D) && tf32_fwd_layout(q, k, v, out, ld_in, ld_out))
       return tf32_attention_fwd(q, k, v, valid, out, B, S, H, ld_in, ld_out, stream);
     return (int)dispatch_f32(q, k, v, valid, out, B, S, H, D, ld_in, ld_out, st);
@@ -627,12 +642,17 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, const 
 // The route and tiles attention_fwd takes for (dtype, S, D) with a layout
 // every route reads, for reports: cfg = {route (0: fp32 CUDA cores, 1: bf16
 // mma.sync m16n8k16, 2: bf16 wgmma + TMA, 3: bf16 mma.sync one-pass fed by
-// TMA, persistent, 4: fp32 3xTF32 mma.sync m16n8k8),
+// TMA, persistent, 4: fp32 3xTF32 mma.sync m16n8k8, 5: fp32 3xTF32 wgmma
+// m64nNk8 fed by TMA),
 // threads, query rows per head and
 // block, keys per tile, heads per block, padded head_dim, output columns per
 // block}. Returns 0, or cudaErrorInvalidValue.
 extern "C" int attention_fwd_config(int dtype, int S, int D, int* cfg) {
   if (S <= 0 || D <= 0 || D > kMaxDim) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && tf32w_fwd_takes(S, D)) {
+    tf32w_fwd_config(cfg);
+    return 0;
+  }
   if (dtype == 0 && tf32_fwd_takes(D)) {
     tf32_fwd_config(S, cfg);
     return 0;

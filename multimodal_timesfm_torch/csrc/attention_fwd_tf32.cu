@@ -47,10 +47,11 @@
 //
 // What bounds it on an H100: the 3xTF32 products at a third of the TF32
 // tensor rate, 495 / 3 = 165 TFLOP/s (chip_smoke.py's bound_ms for the
-// route's rows); mma.sync reaches part of it (wgmma takes TF32 only K-major
-// from shared memory, so W V would need V^T staged), and each product pays
-// its operands' split and shared loads; two blocks an SM at 64-row tiles
-// (107.5 KB of shared memory each).
+// route's rows); mma.sync reaches part of it, and each product pays its
+// operands' split and shared loads; two blocks an SM at 64-row tiles (107.5
+// KB of shared memory each). Route 5 (attention_fwd_tf32_hopper.cu) stages
+// V^T for wgmma, which takes TF32 only K-major, and takes the lengths from
+// its border on.
 
 #include "attention_tf32.cuh"
 
@@ -169,13 +170,13 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, const uin
 
 extern "C" int mtt_attention_route_override();
 
-// Whether attention_fwd gives an fp32 call at head_dim D this route: head_dim 80
-// at every S, unless the route override (attention_set_route) 3 keeps fp32
-// on the CUDA cores. No border in S: chip_smoke.py's [gate] causal fp32
-// lines (this route against the CUDA-core route, 16 heads, B = 8,192 / S)
-// found this route the faster by 3.0-4.0x forward and 2.1-3.5x backward at
-// every measured length, S = 16-2,100 (PERF.md); below 16 tokens it runs the
-// same 16-row tile as at 16.
+// Whether attention_fwd gives an fp32 call at head_dim D this route, where
+// route 5 (3xTF32 wgmma, attention_fwd_tf32_hopper.cu, checked first) does
+// not take it: head_dim 80 below route 5's border, unless the route override
+// (attention_set_route) 3 keeps fp32 on the CUDA cores. Against the CUDA
+// cores this route was the faster by 3.0-4.0x forward and 2.1-3.5x backward
+// at every measured length, S = 16-2,100 (PERF.md); below 16 tokens it
+// runs the same 16-row tile as at 16.
 extern "C" int tf32_fwd_takes(int D) { return D == kD && mtt_attention_route_override() != 3; }
 
 // The layout this route reads and writes: q, k and v rows and bases 16-byte

@@ -1,7 +1,9 @@
 // Hopper-only pieces of the wgmma routes of the causal attention kernels
 // (attention_fwd_hopper.cu, attention_bwd_hopper.cu, head_dim 80) and of the
 // Chronos-2 ones (chronos_attention_hopper.cu, chronos_attention_bwd_hopper.cu,
-// head_dim 64, the kDim64 pieces below): mbarriers, TMA tile
+// head_dim 64, the kDim64 pieces below), and of the fp32 route 5 of the
+// causal kernels (the TF32 instruction forms and fp32 tensor maps below;
+// attention_tf32_hopper.cuh holds the rest): mbarriers, TMA tile
 // loads through tensor maps, shared-memory matrix descriptors and the
 // warpgroup products (wgmma.mma_async) the kernels are built from, all as
 // inline PTX for sm_90a, plus the host side: the tensor maps, encoded with
@@ -135,6 +137,17 @@ __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 }
 
+// The same moves with the counts of another split (the fp32 route's forward,
+// whose producer warpgroup converts and keeps more registers).
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Every consumer warp arrives on a barrier that releases a buffer (the ring's
 // empty[] and the resident buffers'), after its own last read of it: a
 // warpgroup that skips a tile issues no wgmma, so nothing else keeps its four
@@ -250,6 +263,39 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[8][4], const uint32_t (&a)
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : MTT_D4(d, 0), MTT_D4(d, 1), MTT_D4(d, 2), MTT_D4(d, 3), MTT_D4(d, 4), MTT_D4(d, 5),
         MTT_D4(d, 6), MTT_D4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- TF32 operands (the fp32 route of the causal kernels at head_dim 80,
+// attention_fwd_tf32_hopper.cu, attention_bwd_tf32_hopper.cu): wgmma takes
+// TF32 only K-major (no transpose flags), a k-step is 8 values (32 bytes),
+// and the tensor cores read the 19 high bits of each 32-bit operand.
+constexpr uint32_t kSwizzle64 = 2;  // the descriptor's 64-byte swizzle
+
+// d (64 x 32) = (accumulate ? d : 0) + A B^T over one k-step of 8: A and B
+// from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[4][4], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : MTT_D4(d, 0), MTT_D4(d, 1), MTT_D4(d, 2), MTT_D4(d, 3)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d (64 x 80) += A B over one k-step of 8: A in registers (per warp the A
+// fragment of mma.sync m16n8k8), B K-major from shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs80(float (&d)[10][4], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : MTT_D4(d, 0), MTT_D4(d, 1), MTT_D4(d, 2), MTT_D4(d, 3), MTT_D4(d, 4), MTT_D4(d, 5),
+        MTT_D4(d, 6), MTT_D4(d, 7), MTT_D4(d, 8), MTT_D4(d, 9)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -469,6 +515,37 @@ inline cudaError_t encode_operand64(CUtensorMap* m, const void* base, int B, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The two maps of one (B, S, H, 80) fp32 operand at `base` (element (b, s,
+// h, d) at base[(b * S + s) * ld + h * 80 + d]) for tiles of `rows` rows:
+// boxes of 32 columns (128 bytes, 128-byte swizzle; taken twice, at columns 0
+// and 32 of a head) and of 16 columns (64 bytes, 64-byte swizzle); rows past
+// S read as zeros.
+struct F32Maps {
+  CUtensorMap c32;
+  CUtensorMap c16;
+};
+inline cudaError_t encode_f32(F32Maps* m, const void* base, int B, int S, int H, long long ld,
+                              int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * kDim, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 4,
+                                 static_cast<cuuint64_t>(ld) * 4 * static_cast<cuuint64_t>(S)};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint32_t box32[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box16[3] = {16, static_cast<cuuint32_t>(rows), 1};
+  CUresult r = encode(&m->c32, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+                      strides, box32, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  r = encode(&m->c16, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+             box16, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Whether a (B, S, H, D) operand with row stride `ld` at `p` can be read by
 // TMA as this route reads it: head_dim 80, rows and base 16-byte aligned.
 inline bool tma_layout(const void* p, long long ld, int D) {
@@ -484,6 +561,20 @@ inline cudaError_t check_regs(Kernel kernel, int threads) {
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   if (attr.numRegs * threads < kProducerRegs * 128 + (threads / 128 - 1) * kConsumerRegs * 128)
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+// The same check for a split of `consumers` warpgroups at `consumer_regs`
+// and `producers` at `producer_regs` registers a thread.
+template <typename Kernel>
+inline cudaError_t check_split(Kernel kernel, int consumers, int consumer_regs, int producers,
+                               int producer_regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * 128 * (consumers + producers) <
+      128 * (consumers * consumer_regs + producers * producer_regs))
     return cudaErrorInvalidConfiguration;
   return cudaSuccess;
 }

@@ -33,7 +33,8 @@ SOURCES = tuple(
                  "chronos_attention_bwd.cu", "chronos_attention_hopper.cu",
                  "chronos_attention_bwd_hopper.cu", "chronos_attention_short_hopper.cu",
                  "chronos_attention_bwd_short_hopper.cu", "chronos_attention_tf32.cu",
-                 "chronos_attention_bwd_tf32.cu", "attention_fwd_tf32.cu", "attention_bwd_tf32.cu")
+                 "chronos_attention_bwd_tf32.cu", "attention_fwd_tf32.cu", "attention_bwd_tf32.cu",
+                 "attention_fwd_tf32_hopper.cu", "attention_bwd_tf32_hopper.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -142,18 +143,27 @@ def library() -> ctypes.CDLL:
 
 
 _ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-specialised",
-           "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass", "fp32 3xTF32 mma.sync m16n8k8")
-ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3}
-CHRONOS_ROUTE_NAMES = ROUTE_NAMES  # the same names and numbers
+           "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass", "fp32 3xTF32 mma.sync m16n8k8",
+           "fp32 3xTF32 wgmma m64nNk8 fed by TMA, warp-specialised")
+ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3, "tf32 mma.sync": 4, "tf32 wgmma": 5}
+CHRONOS_ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3}
+# The lengths from which the library's dispatch gives an fp32 call at head_dim 80 route 5 (3xTF32
+# wgmma fed by TMA) in place of route 4 (3xTF32 mma.sync): ``kFwdFrom`` of
+# csrc/attention_fwd_tf32_hopper.cu and ``kBwdFrom`` of csrc/attention_bwd_tf32_hopper.cu, the
+# borders chip_smoke.py's ``[gate] causal fp32`` lines measure. :func:`causal_f32_route` follows
+# that rule without the library; chip_smoke.py holds the two to each other on the card.
+TF32_WGMMA_FROM = {"forward": 128, "backward": 128}
 
 
 def set_route(name: str) -> None:
     """Which route the causal attention kernels take: ``"rule"`` (the library's dispatch
     rule, the default), ``"mma.sync"`` (bf16 never on the wgmma or a persistent route),
     ``"wgmma"`` (bf16 on the wgmma route at every S its layout rule allows; never a persistent
-    route) or ``"cuda cores"`` (fp32 never on the 3xTF32 route; bf16 by the rule).
-    For measuring the borders between them (``chip_smoke.py``'s ``[gate]`` lines);
-    process-wide, in the library."""
+    route), ``"cuda cores"`` (fp32 never on a 3xTF32 route), ``"tf32 mma.sync"`` (fp32 never on
+    the 3xTF32 wgmma route: the 3xTF32 mma.sync route by its own rule) or ``"tf32 wgmma"``
+    (fp32 on the 3xTF32 wgmma route at every S its layout rule allows); the last three leave
+    bf16 to the rule. For measuring the borders between them (``chip_smoke.py``'s ``[gate]``
+    lines); process-wide, in the library."""
     err = library().attention_set_route(ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"attention_set_route({name!r}) failed with CUDA error {err}")
@@ -183,8 +193,26 @@ def _attention_config(backward: bool, dtype: torch.dtype, seq: int, dim: int) ->
 
 def attention_route_number(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> int:
     """The causal kernels' route for (dtype, S, head_dim) by number: 0 fp32 on the CUDA cores,
-    1 mma.sync, 2 wgmma, 3 the bf16 persistent one-pass route (short S), 4 fp32 3xTF32."""
+    1 mma.sync, 2 wgmma, 3 the bf16 persistent one-pass route (short S), 4 fp32 3xTF32 on
+    mma.sync, 5 fp32 3xTF32 on wgmma fed by TMA."""
     return _attention_config(backward, dtype, seq, dim)[0]
+
+
+def causal_f32_route(backward: bool, inputs: tuple[torch.Tensor, ...], outputs: tuple[torch.Tensor, ...]) -> int:
+    """The route the library's rule (no override) gives an fp32 call of the causal kernels, by
+    number (5, 4 or 0), from its tensors alone: ``inputs`` the (B, S, H, D) views the kernels
+    read (q, k, v, and g for the backward), ``outputs`` those they write. Route 5 from
+    :data:`TF32_WGMMA_FROM` at head_dim 80 where TMA reads every input (base and row stride
+    ``stride(1)`` 16-byte aligned) and every output is written 8 bytes a lane (base 8-byte
+    aligned, row stride even); route 4 under the same layout rule at head_dim 80 below that
+    length; the CUDA cores otherwise. Works on meta tensors (their ``data_ptr`` is the storage
+    offset in bytes)."""
+    seq, dim = inputs[0].shape[1], inputs[0].shape[3]
+    reads = all(t.data_ptr() % 16 == 0 and t.stride(1) % 4 == 0 for t in inputs)
+    writes = all(t.data_ptr() % 8 == 0 and t.stride(1) % 2 == 0 for t in outputs)
+    if dim != 80 or not (reads and writes):
+        return 0
+    return 5 if seq >= TF32_WGMMA_FROM["backward" if backward else "forward"] else 4
 
 
 def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> str:
@@ -195,6 +223,14 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
     text = (f"{_ROUTES[route]}, {threads} threads, {rows} query rows x {keys} keys per tile, "
             f"{heads} head(s) per block, head_dim {dim} padded to {padded}, {cols} output "
             f"columns per block")
+    if route == 5:
+        text += (", each product lo hi + hi lo + hi hi, operands split into hi and lo by the producers' converting "
+                 "warps (transposed for P X)")
+        if not backward:
+            return text + (", one pass (online softmax), 2 consumer warpgroups of 64 rows + 1 producer warpgroup "
+                           "(a TMA warp, 3 converting)")
+        return text + (", 3 kernels (row statistics, dQ, dK and dV), each 1 consumer warpgroup of 64 rows + 1 "
+                       "producer warpgroup (a TMA warp, 3 converting)")
     if route == 4:
         text += ", each product lo hi + hi lo + hi hi"
         if not backward:
@@ -371,14 +407,15 @@ def attention_bwd(
     dv: torch.Tensor,
 ) -> None:
     """Launch the attention backward kernels on the current stream (one on the bf16
-    persistent route, two or three on the others, two a chunk on the fp32 3xTF32 route).
+    persistent route, two or three on the others, two a chunk on the fp32 3xTF32 mma.sync
+    route).
 
     q, k, v as for :func:`attention_fwd`; g: the output's cotangent, a
     (B, S, H, D) view with its own row stride; dq, dk, dv: (B, S, H, D) views
     sharing one row stride, written whole. The fp32 scratch the library's route needs
     (``attention_bwd_scratch``) is allocated here: none on the persistent route, one chunk's
-    W and dL tiles and row statistics on the 3xTF32 route, a (3, B, H, S rounded up to 64)
-    one for the row statistics on the others. Raises ``RuntimeError`` if a launch is refused.
+    W and dL tiles and row statistics on the 3xTF32 mma.sync route, a (3, B, H, S rounded up
+    to 64) one for the row statistics on the others. Raises ``RuntimeError`` if a launch is refused.
     """
     lib = library()
     outs = (("dq", dq), ("dk", dk), ("dv", dv))
@@ -407,7 +444,7 @@ def attention_bwd(
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a contiguous copy of it when its data does not start 16-byte aligned (the
-    wgmma route reads qkv and g by TMA and the fp32 3xTF32 route by 16-byte cp.async, which
+    wgmma routes read qkv and g by TMA and the fp32 3xTF32 mma.sync route by 16-byte cp.async, which
     need that; PyTorch's allocator gives it)."""
     return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 

@@ -417,11 +417,10 @@ def test_scratch_is_the_triangle_in_chunks(batch, seq, heads):
 
 def test_tiles_strides_and_borders_read_from_the_sources():
     """The tile rule (one tile of S padded to 16 up to 80 tokens, else 64 rows), the row stride
-    of a shared tile (84 floats at head_dim 80), the route's rule (fp32 at head_dim 80 at every
-    S, the [gate] causal fp32 lines having found it the faster at every measured length; the
+    of a shared tile (84 floats at head_dim 80), the route's rule (fp32 at head_dim 80 with no
+    border of its own: the dispatch asks route 5's rule first, which takes S from 128; the
     backward up to the budget's border; never under the route override 3, "cuda cores") and
-    the dispatch: the new route first for fp32, the CUDA-core route where its rule or layout
-    does not hold."""
+    the dispatch: the CUDA-core route where its rule or layout does not hold."""
     assert (const("kD", _HEADER), ONE_TILE_TO, TILE, LD) == (80, 80, 64, 84)
     assert [tile_rows(s) for s in (8, 16, 17, 64, 65, 80, 81, 300, 2100)] == [16, 16, 32, 64, 80, 80, 64, 64, 64]
     assert "kFwdFrom" not in _FWD and "kBwdFrom" not in _BWD
@@ -430,7 +429,7 @@ def test_tiles_strides_and_borders_read_from_the_sources():
     fwd_c = (CSRC / "attention_fwd.cu").read_text()
     bwd_c = (CSRC / "attention_bwd.cu").read_text()
     assert "if (tf32_fwd_takes(D) && tf32_fwd_layout(q, k, v, out, ld_in, ld_out))" in fwd_c
-    assert "if (route < 0 || route > 3) return (int)cudaErrorInvalidValue;" in fwd_c
+    assert "if (route < 0 || route > 5) return (int)cudaErrorInvalidValue;" in fwd_c
     assert "tf32_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))\n    return tf32_attention_bwd(" in bwd_c
     assert _kernels.ROUTE_NAMES["cuda cores"] == 3 and "3xTF32" in _kernels._ROUTES[4]
     short = (CSRC / "attention_bwd_short_hopper.cu").read_text()
@@ -458,9 +457,9 @@ def test_products_are_mma_sync_tf32_in_the_kernels():
 
 
 def test_chip_smoke_names_the_route_its_gate_and_its_launches():
-    """chip_smoke.py gives the route's rows the 3xTF32 bound, times it against the CUDA-core
-    route at S = 16-2,100 ([gate] causal fp32 lines, under --kernel-times), requires
-    HMMA.1688.F32.TF32 in its kernels, and splits every causal kernel's launches by route."""
+    """chip_smoke.py gives the route's rows the 3xTF32 bound, times it against route 5 at S =
+    16-2,100 ([gate] causal fp32 lines, under --kernel-times), requires HMMA.1688.F32.TF32 in
+    its kernels, and splits every causal kernel's launches by route."""
     assert set(chip_smoke.CAUSAL_TF32_FAMILIES) == {"attention_fwd_tf32_kernel", "attention_bwd_dq_tf32_kernel",
                                                     "attention_bwd_dkdv_tf32_kernel"}
     for family in chip_smoke.CAUSAL_TF32_FAMILIES:

@@ -174,5 +174,5 @@ def test_chip_smoke_names_the_persistent_forward_route_and_its_gate_lines():
     assert Path(entries[0]["source"]).name == "chronos_attention_short_hopper.cu"
     assert entries[0]["replaces"].endswith("ops/chronos_attention.py:120")
     assert chip_smoke.FORWARD_BORDER_LENGTHS == (16, 32, 48, 64, 67, 80, 96, 97, 113, 128)
-    assert set(_kernels.ROUTE_NAMES) == {"rule", "mma.sync", "wgmma", "cuda cores"}
+    assert set(_kernels.ROUTE_NAMES) == {"rule", "mma.sync", "wgmma", "cuda cores", "tf32 mma.sync", "tf32 wgmma"}
     assert chip_smoke.B4_ROUTES[4] == "persistent" and "B4f" in chip_smoke.ROUTED_KEYS

@@ -83,3 +83,74 @@ def test_the_kernel_route_on_the_cpu_gives_the_plain_numbers(seq):
             routed = attn(x, pad)
     valid = ~pad
     torch.testing.assert_close(routed[valid], plain[valid], rtol=0, atol=0)
+
+
+def _f32_views(seq, heads=2, dim=80, offset=0, extra=0, dtype=torch.float32):
+    """q, k, v as B1 reads them (views of one (B, S, 3 H D + extra) projection, the storage
+    ``offset`` elements in) and an output, on meta tensors."""
+    qkv = torch.empty(2 * seq * (3 * heads * dim + extra) + offset, dtype=dtype, device="meta")
+    qkv = qkv[offset:].view(2, seq, 3 * heads * dim + extra)
+    q, k, v = (t.unflatten(-1, (heads, dim)) for t in qkv[..., : 3 * heads * dim].chunk(3, dim=-1))
+    return (q, k, v), torch.empty(2, seq, heads, dim, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_fp32_head_dim_80_takes_route_5_from_its_border_and_route_4_below(backward):
+    """fp32 at head_dim 80 on meta tensors: route 5 (3xTF32 wgmma fed by TMA) from the border the
+    library's rule keeps (``TF32_WGMMA_FROM``, the constants of csrc/attention_*_tf32_hopper.cu),
+    route 4 (3xTF32 mma.sync) below it, for B1's strided views of one projection and B2's
+    contiguous tensors alike."""
+    border = _kernels.TF32_WGMMA_FROM["backward" if backward else "forward"]
+    for seq in (1, 16, 32, border - 1, border, border + 1, 512, 2100, 20000):
+        (q, k, v), out = _f32_views(seq)
+        ins = (q, k, v, out) if backward else (q, k, v)
+        outs = (out, out, out) if backward else (out,)
+        want = 5 if seq >= border else 4
+        assert _kernels.causal_f32_route(backward, ins, outs) == want, seq
+        split = tuple(torch.empty(2, seq, 2, 80, device="meta") for _ in range(3))
+        assert _kernels.causal_f32_route(backward, split + ((out,) if backward else ()), outs) == want
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_a_layout_tma_refuses_leaves_route_5(backward):
+    """TMA reads an operand whose base and row stride are 16-byte aligned; route 4's 16-byte
+    cp.async asks the same, so a layout TMA refuses leaves both 3xTF32 routes for the CUDA
+    cores: a base 4 bytes in, a row stride of 3 H D + 2 floats. An output written 8 bytes a
+    lane needs an 8-byte aligned base and an even row stride; another head_dim takes neither
+    3xTF32 route."""
+    seq = 512
+    for offset, extra in ((1, 0), (0, 2), (2, 0)):
+        (q, k, v), out = _f32_views(seq, offset=offset, extra=extra)
+        ins = (q, k, v, out) if backward else (q, k, v)
+        assert _kernels.causal_f32_route(backward, ins, (out,)) == 0, (offset, extra)
+    (q, k, v), out = _f32_views(seq)
+    odd = torch.empty(2 * seq * 2 * 80 + 1, device="meta")[1:].view(2, seq, 2, 80)
+    assert _kernels.causal_f32_route(backward, (q, k, v), (odd,)) == 0
+    (q, k, v), out = _f32_views(seq, dim=64)
+    assert _kernels.causal_f32_route(backward, (q, k, v), (out,)) == 0
+
+
+def test_bf16_borders_are_unchanged_and_the_fp32_overrides_leave_bf16_to_the_rule():
+    """The bf16 routes keep their borders (persistent up to 64 tokens, wgmma from 65 forward and
+    128 backward); the overrides "tf32 mma.sync" (4) and "tf32 wgmma" (5) act on fp32 only: the
+    bf16 rules read the override as 1 or 2 alone, and the fp32 routes' rules read 3-5."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(_kernels.CSRC)
+
+    def const(name, text):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    fwd_h = (csrc / "attention_fwd_hopper.cu").read_text()
+    bwd_h = (csrc / "attention_bwd_hopper.cu").read_text()
+    assert (const("kFwdFrom", fwd_h), const("kBwdFrom", bwd_h)) == (65, 128)
+    assert const("kShortFwdTo", (csrc / "attention_fwd_short_hopper.cu").read_text()) == 64
+    assert "if (force == 1 || D != kDim) return 0;\n  return force == 2 || S >= kFwdFrom;" in fwd_h
+    assert "if (force == 1 || D != kDim) return 0;\n  return force == 2 || S >= kBwdFrom;" in bwd_h
+    for name in ("attention_fwd_tf32_hopper.cu", "attention_bwd_tf32_hopper.cu"):
+        assert "if (D != kD || force == 3 || force == 4) return 0;" in (csrc / name).read_text()
+    assert _kernels.ROUTE_NAMES == {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3, "tf32 mma.sync": 4,
+                                    "tf32 wgmma": 5}
+    (q, k, v), out = _f32_views(512, dtype=torch.bfloat16)
+    assert q.dtype == torch.bfloat16 and tqkv.supports_qkv_fused(q, 64, 80)

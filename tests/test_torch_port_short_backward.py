@@ -320,6 +320,6 @@ def test_chip_smoke_names_the_persistent_route_and_its_kernel_families():
         assert f"    {family}(" in (_kernels.CSRC / cu).read_text()
     assert chip_smoke.B1_ROUTES[3] == chip_smoke.B4_ROUTES[4] == "persistent"
     # the rule takes it; "cuda cores" is the fp32 override
-    assert set(_kernels.ROUTE_NAMES) == {"rule", "mma.sync", "wgmma", "cuda cores"}
+    assert set(_kernels.ROUTE_NAMES) == {"rule", "mma.sync", "wgmma", "cuda cores", "tf32 mma.sync", "tf32 wgmma"}
     assert "persistent" in _kernels._ROUTES[3] and "persistent" in _kernels._CHRONOS_ROUTES[4]
     assert {"B1b", "B4f", "B4b"} <= set(chip_smoke.ROUTED_KEYS)
