@@ -403,15 +403,26 @@ CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
 # borders (Chronos-2 serving at contexts 2048 and 8192, the c8192 fine-tune).
 CU_CHRONOS_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_hopper.cu"
 CU_CHRONOS_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_hopper.cu"
-# The fp32 3xTF32 route the dispatch gives B4f and B4b at head_dim 64 (plan route 5), and its
-# rows of the kernels line: (key, wrapper, source, TPU kernel, the main-path shape it is timed
-# at in fp32: Chronos-2's fine-tune, 67 tokens).
+# The fp32 3xTF32 route the dispatch gives B4f and B4b at head_dim 64 past route 6's borders
+# (plan route 5), and its rows of the kernels line: (key, wrapper, source, TPU kernel, the
+# main-path shape it is timed at in fp32: Chronos-2 serving at context 8192, 577 tokens). Its
+# backward has no main-path launch since route 6 takes every fp32 B4b up to 80 tokens (no main
+# path runs fp32 B4b past that), so it has no row of its own; kernel_times still times it.
 CU_CHRONOS_TF32_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_tf32.cu"
 CU_CHRONOS_TF32_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_tf32.cu"
 TF32_KERNELS = (
     ("B4f", "fused_chronos_attention", CU_CHRONOS_TF32_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (16, 577, 12, 64)),
+)
+# Route 6, the persistent 3xTF32 route fed by TMA the dispatch gives fp32 B4f and B4b at head_dim
+# 64 up to their borders (_kernels.CHRONOS_TF32_SHORT_TO), and its rows of the kernels line, at
+# Chronos-2's fine-tune (67 tokens) in fp32.
+CU_CHRONOS_TF32_SHORT_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_short_tf32.cu"
+CU_CHRONOS_TF32_SHORT_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_short_tf32.cu"
+TF32_PERSISTENT_KERNELS = (
+    ("B4f", "fused_chronos_attention", CU_CHRONOS_TF32_SHORT_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (128, 67, 12, 64)),
-    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_TF32_BWD_SOURCE,
+    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_TF32_SHORT_BWD_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (128, 67, 12, 64)),
 )
 # The fp32 3xTF32 route the dispatch gives the causal kernels at head_dim 80 (route 4), and its
@@ -559,6 +570,22 @@ def tf32_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[di
     return entries
 
 
+def tf32_persistent_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line's entries of route 6 (TF32_PERSISTENT_KERNELS): this process's
+    counted launches on that route (``routes``, from route_launches) and the measured row at the
+    route's main-path shape in fp32."""
+    entries = []
+    for key, name, cu, replaces, shape in TF32_PERSISTENT_KERNELS:
+        batch, seq, heads, dim = shape
+        entries.append({
+            "name": f"{name} (3xTF32 persistent route)", "route": "cuda", "source": cu,
+            "replaces": replaces, "launches": routes.get(f"{key} tf32 persistent", 0),
+            "shape": f"B={batch} S={seq} H={heads} D={dim} float32",
+            **rows[row_key(key, shape, torch.float32)],
+        })
+    return entries
+
+
 def causal_f32_label(key: str, seq: int) -> str:
     """The route label (of B1_ROUTES) the library's rule gives causal kernel ``key`` in fp32
     at S = ``seq``, head_dim 80: "tf32 wgmma" (route 5) or "tf32" (route 4)."""
@@ -609,6 +636,9 @@ PERSISTENT_FAMILIES = ("attention_bwd_short_kernel", "chronos_bwd_short_kernel",
 # The kernel families of the Chronos 3xTF32 route that take products, which must hold
 # HMMA.1688.F32.TF32 (its dbias kernel only sums dL over the batch), and the causal route's.
 TF32_FAMILIES = ("chronos_fwd_tf32_kernel", "chronos_bwd_dq_tf32_kernel", "chronos_bwd_dkdv_tf32_kernel")
+# The kernel families of route 6 (the Chronos fp32 kernels' persistent route, mma.sync fed by
+# TMA), which must hold HMMA.1688.F32.TF32 and UTMALDG.
+TF32_PERSISTENT_FAMILIES = ("chronos_fwd_short_tf32_kernel", "chronos_bwd_short_tf32_kernel")
 CAUSAL_TF32_FAMILIES = ("attention_fwd_tf32_kernel", "attention_bwd_dq_tf32_kernel", "attention_bwd_dkdv_tf32_kernel")
 # The kernel families of route 5, which must hold HGMMA on TF32 operands and UTMALDG, and spill
 # nothing.
@@ -651,9 +681,9 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
     hold tensor-core instructions of mma.sync (HMMA) and of wgmma (HGMMA) and TMA tile
     loads (UTMALDG), and the fewest they hold. With ``require_wgmma`` (a library of this
     checkout), raises if a family of the wgmma route is missing or holds no HGMMA or no
-    UTMALDG, a family of the persistent route no HMMA or no UTMALDG, or a family of the
-    3xTF32 route no HMMA.1688.F32.TF32; a line naming no tool when the toolkit has no
-    cuobjdump."""
+    UTMALDG, a family of the persistent route no HMMA or no UTMALDG, a family of the
+    3xTF32 route no HMMA.1688.F32.TF32, or one of route 6 no HMMA.1688.F32.TF32 or no
+    UTMALDG; a line naming no tool when the toolkit has no cuobjdump."""
     counts = sass_counts(lib_path)
     if counts is None:
         return ["no cuobjdump: SASS not read"]
@@ -674,6 +704,11 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
         found = counts.get(name, [])
         if not found or any(c[SASS_TF32] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run {SASS_TF32} in every instantiation: {found}")
+    for name in TF32_PERSISTENT_FAMILIES if require_wgmma else ():
+        found = counts.get(name, [])
+        if not found or any(c[SASS_TF32] == 0 or c["UTMALDG"] == 0 for c in found):
+            raise AssertionError(f"SASS: {name} does not run {SASS_TF32} and UTMALDG in every "
+                                 f"instantiation: {found}")
     for name in TF32W_FAMILIES if require_wgmma else ():
         found = counts.get(name, [])
         if not found or any(c[SASS_GMMA_TF32] == 0 or c["UTMALDG"] == 0 for c in found):
@@ -1364,7 +1399,10 @@ def gate_length_checks(seed: int) -> None:
 # Chronos-2's main-path (B, S) in the kernels: serving at contexts 512, 2048 and 8192, and
 # the fine-tunes (67 tokens at batch 128, and at 4 trials x 128 rows in a sweep group; 16
 # rows of 5 packed at batch 512).
-CHRONOS_PATH_SHAPES = ((64, 97), (64, 193), (16, 577), (128, 67), (512, 67), (512, 80))
+# (B, S, H): serving at contexts 512, 2048, 8192; the fine-tune, a sweep group, packed rows; the
+# fine-tune's 12 heads over a model axis of 2.
+CHRONOS_PATH_SHAPES = ((64, 97, 12), (64, 193, 12), (16, 577, 12), (128, 67, 12), (512, 67, 12), (512, 80, 12),
+                       (128, 67, 6))
 
 
 def print_routes() -> None:
@@ -1381,9 +1419,9 @@ def print_routes() -> None:
                 continue
             if not hasattr(_kernels, "chronos_route"):
                 continue
-            for batch, path_seq in CHRONOS_PATH_SHAPES:
-                route = _kernels.chronos_route(key.endswith("b"), dtype, batch, path_seq, heads, dim)
-                print(f"[route] {key} {name} B={batch} S={path_seq} H={heads} D={dim} "
+            for batch, path_seq, path_heads in CHRONOS_PATH_SHAPES:
+                route = _kernels.chronos_route(key.endswith("b"), dtype, batch, path_seq, path_heads, dim)
+                print(f"[route] {key} {name} B={batch} S={path_seq} H={path_heads} D={dim} "
                       f"{str(dtype)[6:]}: {route}")
 
 
@@ -1463,9 +1501,9 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
     err_f, err_b, err_db = errs
 
     def bound(backward: bool, dbias: bool = False) -> tuple[float, str]:
-        # The bound of the route the call takes: fp32 on the 3xTF32 route (plan route 5) at the
-        # TF32 rate, else at the dtype's.
-        tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] == 5
+        # The bound of the route the call takes: fp32 on a 3xTF32 route (plan route 5 or 6) at
+        # the TF32 rate, else at the dtype's.
+        tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] in (5, 6)
         return chronos_bound(*shape, seg, dtype, backward, dbias, three_tf32=tf32)
 
     mask = chronos_sdpa_mask(seg, bias, dtype)
@@ -1497,7 +1535,7 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
         bound(True, dbias=True), iters, sdpa_db_name,
         held=True,
     )
-    if dtype == torch.float32 and _kernels.chronos_plan(True, dtype, batch, seq, heads, dim)["route"] == 5:
+    if dtype == torch.float32 and _kernels.chronos_plan(True, dtype, batch, seq, heads, dim)["route"] in (5, 6):
         # Beside the 3xTF32 route's bound (bound_ms), the same work's bound on the CUDA cores
         # (PEAK_FLOPS), the fp32 route the parent took.
         rows = (("B4f", fwd, False, False), ("B4b (no dbias)", bwd, True, False), ("B4b (with dbias)", bwd_db, True, True))
@@ -1639,6 +1677,130 @@ def persistent_forward_checks(gen: torch.Generator, cases: list[tuple]) -> None:
           f"KERNEL_TOL on every element; two launches bit-equal", flush=True)
 
 
+# Route 6 (fp32, head_dim 64) checked at every S it is built for, forced by the library's override
+# "tf32 persistent": B4f at S = 1-128 and B4b (with and without dbias) at S = 1-80, the batch,
+# heads and segments taken in turn from these (odd batches, one of a head's blocks per row and
+# fewer rows than blocks, 6 heads as on a model axis of 2, one segment, three with padded tokens,
+# sixteen).
+TF32_PERSISTENT_VARIANTS = ((3, 12, 1, False), (5, 6, 3, True), (17, 2, 16, False), (9, 12, 3, True),
+                            (1, 6, 1, False), (130, 12, 3, True))
+TF32_PERSISTENT_BUILT_TO = {"forward": 128, "backward": 80}
+
+
+def tf32_persistent_checks(gen: torch.Generator) -> None:
+    """Route 6 at every S it is built for (TF32_PERSISTENT_BUILT_TO), fp32, head_dim 64, forced
+    by the override "tf32 persistent", the variants of TF32_PERSISTENT_VARIANTS in turn: the
+    plan's route 6, every element within KERNEL_TOL of the plain forward and BWD_TOL of the plain
+    backward with and without dbias, two launches bit-equal (check_chronos). Then the rule's
+    route at every S against _kernels.chronos_f32_route (the Python mirror of the borders)."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import fused_chronos_attention, plain_chronos_attention
+
+    dtype, dim = torch.float32, 64
+    worst, count = [0.0, 0.0, 0.0], 0
+    try:
+        _kernels.set_chronos_route("tf32 persistent")
+        for seq in range(1, TF32_PERSISTENT_BUILT_TO["forward"] + 1):
+            batch, heads, segments, padded = TF32_PERSISTENT_VARIANTS[seq % len(TF32_PERSISTENT_VARIANTS)]
+            # One token: one batch row (the wrappers' layout check cannot read a row stride there).
+            batch, segments = (1, 1) if seq == 1 else (batch, min(segments, seq))
+            backward = seq <= TF32_PERSISTENT_BUILT_TO["backward"]
+            for d in (False, True) if backward else (False,):
+                if _kernels.chronos_plan(d, dtype, batch, seq, heads, dim)["route"] != 6:
+                    raise AssertionError(f"B4{'b' if d else 'f'} fp32 S={seq}: the forced route 6 is not the plan's")
+            shape = (batch, seq, heads, dim)
+            qkv, seg, bias, g = chronos_inputs(shape, segments, padded, dtype, gen)
+            what = f"B4 route 6 {shape} {segments} segment(s){' padded' if padded else ''}"
+            if backward:
+                errs = check_chronos(what, qkv, seg, bias, g)
+                worst = [max(w, e) for w, e in zip(worst, errs)]
+            else:
+                fwd = lambda: fused_chronos_attention(qkv, seg, bias)  # noqa: E731
+                worst[0] = max(worst[0], compare(what, fwd(), plain_chronos_attention(qkv, seg, bias)))
+                same_twice(what, fwd)
+            count += 1
+    finally:
+        _kernels.set_chronos_route("rule")
+    for seq in range(1, 600):
+        for d in (False, True):
+            route = _kernels.chronos_plan(d, dtype, 64, seq, 12, dim)["route"]
+            if route != _kernels.chronos_f32_route(d, seq, dim):
+                raise AssertionError(f"B4{'b' if d else 'f'} fp32 S={seq}: the rule gives route {route}, "
+                                     f"chronos_f32_route {_kernels.chronos_f32_route(d, seq, dim)}")
+    print(f"[kernels] route 6 (fp32 3xTF32 persistent, forced) at S = 1-{TF32_PERSISTENT_BUILT_TO['forward']} "
+          f"(backward 1-{TF32_PERSISTENT_BUILT_TO['backward']}), {count} shapes, variants "
+          f"{list(TF32_PERSISTENT_VARIANTS)}: max |kernel - plain| forward {worst[0]:.3g}, dqkv {worst[1]:.3g}, "
+          f"dbias {worst[2]:.3g}, within tolerance on every element; two launches bit-equal; the rule's route "
+          f"at S = 1-599 as chronos_f32_route gives it (route 6 forward at "
+          f"{_kernels.CHRONOS_TF32_SHORT_FROM['forward']}-{_kernels.CHRONOS_TF32_SHORT_TO['forward']}, backward "
+          f"up to {_kernels.CHRONOS_TF32_SHORT_TO['backward']})", flush=True)
+
+
+# C3: more than kGridRows = 65,535 batch rows, which the entry points run in chunks. Each kernel
+# family at its shortest main-path length: (key, (B, S, H, D)).
+CHUNKED_BATCH = 65537
+BATCH_CHUNK_SHAPES = (("B1", (CHUNKED_BATCH, 16, 1, 80)), ("B2", (CHUNKED_BATCH, 16, 1, 80)),
+                      ("B3", (CHUNKED_BATCH, 16, 1, 80)), ("B4", (CHUNKED_BATCH, 16, 1, 64)))
+
+
+def batch_chunk_checks(seed: int) -> None:
+    """C3: B1 (fused qkv), B2 and B3 (split q, k, v; the same entry points) and B4 (with and
+    without dbias), forward and backward, bf16 and fp32, at 65,537 batch rows (two chunks),
+    against their plain versions on every element; two backward launches bit-equal."""
+    from multimodal_timesfm_torch.ops.attention import (
+        flash_causal_attention,
+        flash_causal_attention_bwd,
+        fused_causal_attention,
+        fused_causal_attention_bwd,
+        plain_attention_bwd,
+        plain_causal_attention,
+    )
+    from multimodal_timesfm_torch.ops.qkv_attention import (
+        fused_qkv_causal_attention,
+        fused_qkv_causal_attention_bwd,
+        plain_qkv_attention_bwd,
+        plain_qkv_causal_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    split = {"B2": (fused_causal_attention, fused_causal_attention_bwd),
+             "B3": (flash_causal_attention, flash_causal_attention_bwd)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for key, shape in BATCH_CHUNK_SHAPES:
+            batch, seq, heads, dim = shape
+            what = f"C3 {key} {shape} {str(dtype)[6:]}"
+            if key == "B4":
+                qkv, seg, bias, g = chronos_inputs(shape, 3, True, dtype, gen)
+                errs = check_chronos(what, qkv, seg, bias, g)
+                print(f"[kernels] {what}: forward {errs[0]:.3g}, dqkv {errs[1]:.3g}, dbias {errs[2]:.3g}", flush=True)
+                del qkv, seg, bias, g
+                continue
+            qkv = torch.randn(batch, seq, 3 * heads * dim, generator=gen, device="cuda")
+            qkv[..., : heads * dim] /= math.sqrt(dim)
+            qkv = qkv.to(dtype)
+            valid = left_padded_valid(batch, seq, gen)
+            g = padded_cotangent((batch, seq, heads * dim), valid, dtype, gen)
+            if key == "B1":
+                fwd = lambda: fused_qkv_causal_attention(qkv, valid, heads, dim)  # noqa: E731
+                ref = plain_qkv_causal_attention(qkv, valid, heads, dim)
+                bwd = lambda: fused_qkv_causal_attention_bwd(qkv, valid, g, heads, dim)  # noqa: E731
+                ref_b = plain_qkv_attention_bwd(qkv, valid, g, heads, dim)
+            else:
+                q, k, v = (t.unflatten(-1, (heads, dim)) for t in qkv.chunk(3, dim=-1))
+                g4 = g.unflatten(-1, (heads, dim))
+                fwd = lambda: split[key][0](q, k, v, valid)  # noqa: E731
+                ref = plain_causal_attention(q, k, v, valid)
+                bwd = lambda: split[key][1](q, k, v, valid, g4)  # noqa: E731
+                ref_b = plain_attention_bwd(q, k, v, valid, g4)
+            err_f = compare(f"{what} forward", fwd(), ref)
+            err_b = compare_bwd(f"{what} backward", bwd(), ref_b)
+            same_twice(f"{what} backward", bwd)
+            print(f"[kernels] {what}: max |kernel - plain| forward {err_f:.3g}, backward {err_b:.3g}; two "
+                  "backward launches bit-equal", flush=True)
+            del qkv, valid, g, ref, ref_b
+        torch.cuda.empty_cache()
+
+
 def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     """B4f and B4b against their plain versions on every element, fp32 and bf16, at every
     route and tile shape; timed at the main-path shape."""
@@ -1682,6 +1844,7 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
             rows[row_key("B4b", shape, dtype)] = bwd
     wgmma_route_checks(gen)
     persistent_forward_checks(gen, cases)
+    tf32_persistent_checks(gen)
     chronos_dv_cancel_checks(gen)
     return rows
 
@@ -1986,10 +2149,123 @@ def chronos_f32_borders(seed: int) -> None:
     for name, wins in faster.items():
         measured = next((s for i, s in enumerate(F32_BORDER_LENGTHS) if all(wins[i:])), None)
         rule = next((s for s in F32_BORDER_LENGTHS if _kernels.chronos_plan(
-            name == "backward", dtype, max(1, CHRONOS_BORDER_TOKENS // s), s, heads, dim)["route"] == 5), None)
+            name == "backward", dtype, max(1, CHRONOS_BORDER_TOKENS // s), s, heads, dim)["route"] in (5, 6)),
+                    None)
         print(f"[gate] chronos fp32 {name} border: the 3xTF32 route is the faster (by "
               f"{1 - BORDER_MARGIN:.0%}) from S={measured} on (of {F32_BORDER_LENGTHS}); the dispatch "
               f"rule takes it from S={rule}", flush=True)
+
+
+# The lengths route 6's borders are measured at (fp32, head_dim 64, 12 heads, B = 9,232 // S):
+# Chronos-2's 67 (the fine-tune), 80 (packed rows) and 97 (serving at context 512), and the
+# lengths between and around them, each up to the longest S it is built for.
+F32_PERSISTENT_BORDER_LENGTHS = (16, 32, 48, 64, 67, 80, 97, 113, 128)
+
+
+def chronos_f32_persistent_borders(seed: int) -> None:
+    """The fp32 borders of route 6 against route 5 (the library's overrides ``"tf32 persistent"``
+    and ``"tf32 mma.sync"``): at each of F32_PERSISTENT_BORDER_LENGTHS the forward, and up to 80
+    the backward without and with dbias, on both routes, checked against the plain versions and
+    timed in turns (route 5, route 6, route 6, route 5; held_ms); one ``[gate] chronos fp32
+    persistent`` line per length, then one per direction (persistent_border_line)."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        fused_chronos_attention_bwd,
+        plain_chronos_attention,
+        plain_chronos_attention_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    heads, dim, dtype = 12, 64, torch.float32
+    wins: dict[str, list[bool]] = {"forward": [], "backward": []}
+    rule: dict[str, list[bool]] = {"forward": [], "backward": []}
+    names = {"route 5": "tf32 mma.sync", "route 6": "tf32 persistent"}
+    try:
+        for seq in F32_PERSISTENT_BORDER_LENGTHS:
+            batch = max(1, CHRONOS_BORDER_TOKENS // seq)
+            backward = seq <= 80
+            qkv, seg, bias, g = chronos_inputs((batch, seq, heads, dim), 1, False, dtype, gen)
+            calls = [lambda: fused_chronos_attention(qkv, seg, bias)]
+            if backward:
+                calls += [lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
+                          lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True)]
+            ref = plain_chronos_attention(qkv, seg, bias)
+            ref_b = plain_chronos_attention_bwd(qkv, seg, bias, g, True) if backward else None
+            times: dict[str, list[tuple[float, ...]]] = {"route 5": [], "route 6": []}
+            for route in ("route 5", "route 6", "route 6", "route 5"):
+                _kernels.set_chronos_route(names[route])
+                want = 6 if route == "route 6" else 5
+                if _kernels.chronos_plan(False, dtype, batch, seq, heads, dim)["route"] != want:
+                    raise AssertionError(f"chronos fp32 S={seq}: the override {names[route]!r} is not the plan's")
+                if not times[route]:
+                    compare(f"chronos fp32 {route} S={seq}", calls[0](), ref)
+                    if backward:
+                        compare_bwd(f"chronos fp32 {route} S={seq} backward", calls[2](), ref_b)
+                times[route].append(tuple(held_ms(fn, 10)[0] for fn in calls))
+            _kernels.set_chronos_route("rule")
+            mean = {r: [sum(t[i] for t in ts) / len(ts) for i in range(len(calls))] for r, ts in times.items()}
+            won = [mean["route 6"][i] < BORDER_MARGIN * mean["route 5"][i] for i in range(len(calls))]
+            wins["forward"].append(won[0])
+            rule["forward"].append(_kernels.chronos_plan(False, dtype, batch, seq, heads, dim)["route"] == 6)
+            if backward:
+                wins["backward"].append(won[1] and won[2])
+                rule["backward"].append(_kernels.chronos_plan(True, dtype, batch, seq, heads, dim)["route"] == 6)
+            parts = [f"forward {mean['route 5'][0]:.4f} / {mean['route 6'][0]:.4f}"]
+            if backward:
+                parts += [f"backward {mean['route 5'][1]:.4f} / {mean['route 6'][1]:.4f}",
+                          f"with dbias {mean['route 5'][2]:.4f} / {mean['route 6'][2]:.4f}"]
+            print(f"[gate] chronos fp32 persistent D={dim} H={heads} S={seq} B={batch}, held device ms (route 5 / "
+                  f"route 6): {', '.join(parts)} (both routes within tolerance of the plain versions; the rule: "
+                  f"forward route {_kernels.chronos_plan(False, dtype, batch, seq, heads, dim)['route']}"
+                  + (f", backward route {_kernels.chronos_plan(True, dtype, batch, seq, heads, dim)['route']}"
+                     if backward else "") + ")", flush=True)
+    finally:
+        _kernels.set_chronos_route("rule")
+    lengths = F32_PERSISTENT_BORDER_LENGTHS
+    persistent_border_line("chronos fp32 persistent forward", lengths, wins["forward"], rule["forward"])
+    short = tuple(s for s in lengths if s <= 80)
+    persistent_border_line("chronos fp32 persistent backward", short, wins["backward"], rule["backward"])
+
+
+def sdpa_graph_ms(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+                  heads: int, dim: int, iters: int = 10) -> tuple[float, float]:
+    """SDPA's forward alone and its forward with ``torch.autograd.grad`` (q, k, v), each captured
+    in a CUDA graph after a side-stream warm-up, as the trainer's step is captured, and held to
+    the replay's event time: ms per call of each (the backward is their difference)."""
+    mask = chronos_sdpa_mask(seg, bias, qkv.dtype)
+    qh, kh, vh = (t.unflatten(-1, (heads, dim)).transpose(1, 2).detach().requires_grad_()
+                  for t in qkv.chunk(3, dim=-1))
+    gh = g.unflatten(-1, (heads, dim)).transpose(1, 2)
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
+
+    def both():
+        return torch.autograd.grad(forward(), (qh, kh, vh), gh)
+
+    out = []
+    for fn in (forward, both):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+        del graph
+    return out[0], out[1]
 
 
 # The lengths the fp32 border between the causal kernels' two 3xTF32 routes (route 4 on mma.sync,
@@ -2294,8 +2570,9 @@ def persistent_forward_borders(seed: int) -> None:
     persistent_border_line("B4f bf16 forward", FORWARD_BORDER_LENGTHS, wins, rule)
 
 
-# B1f's bf16 shapes timed by --kernel-times beside KERNELS' 64 x 64 (against the parent with
-# --root): serving at context 512 (64 x 16) and the c512 fine-tune's forward (256 x 16).
+# B1f's shapes timed by --kernel-times in bf16 and fp32 beside KERNELS' 64 x 64 (against the
+# parent with --root): serving at context 512 (64 x 16) and the c512 fine-tune's forward (256 x
+# 16); in fp32 these are route 4's most launched shapes.
 B1F_SHORT_SHAPES = ((64, 16, 16, 80), (256, 16, 16, 80))
 
 
@@ -2417,13 +2694,16 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
         split_heads,
     )
 
+    from multimodal_timesfm_torch.ops import _kernels
+
     forward = {"B2f": fused_causal_attention, "B3f": flash_causal_attention}
     backward = {"B2b": fused_causal_attention_bwd, "B3b": flash_causal_attention_bwd}
     parent = parent_kernels(root) if root is not None else None
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     causal = [(key, name, shape, torch.float32) for key, name, _, _, shape in CAUSAL_TF32_KERNELS]
     causal += [(key, name, shape, torch.bfloat16) for key, name, _, _, shape in KERNELS if not key.startswith("B4")]
-    causal += [("B1f", "fused_qkv_causal_attention", shape, torch.bfloat16) for shape in B1F_SHORT_SHAPES]
+    causal += [("B1f", "fused_qkv_causal_attention", shape, dtype) for shape in B1F_SHORT_SHAPES
+               for dtype in (torch.float32, torch.bfloat16)]
     for key, name, shape, dtype in [] if chronos_only else causal:
         batch, seq, heads, dim = shape
         iters = 5 if seq > 1000 else 20
@@ -2457,7 +2737,13 @@ def kernel_times(seed: int, chronos_only: bool = False, root: str | None = None)
         for dtype in (torch.float32, torch.bfloat16):
             qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
             errs = check_chronos(f"B4 {shape} 1 segment(s)", qkv, seg, bias, g)
-            chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10 if shape[1] < 100 else 5)
+            _, bwd = chronos_timed_rows(qkv, seg, bias, g, shape, errs, 10 if shape[1] < 100 else 5)
+            if dtype == torch.float32 and shape == (16, 577, 12, 64):
+                fwd_ms, both_ms = sdpa_graph_ms(qkv, seg, bias, g, shape[2], shape[3])
+                print(f"[kernels] B4b fp32 {shape} against SDPA held in a CUDA graph: SDPA forward {fwd_ms:.4f} ms, "
+                      f"forward + backward {both_ms:.4f}, backward {both_ms - fwd_ms:.4f}; B4b (no dbias) "
+                      f"{bwd['ms']:.4f} held ({_kernels.chronos_route(True, dtype, *shape).split(',')[0]})",
+                      flush=True)
             if parent is not None:
                 chronos_parent_against_change(shape, parent, qkv, seg, bias, g)
 
@@ -3074,15 +3360,16 @@ def launch_counts() -> dict[str, int]:
 
 # The Chronos plan's routes (chronos_attention_config), and the causal kernels'
 # (attention_fwd_config / attention_bwd_config), by number ("fp32": the CUDA cores).
-B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent", "tf32")
+B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent", "tf32", "tf32 persistent")
 B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent", "tf32", "tf32 wgmma")
 # The wrappers whose launches route_launches splits by route: every one.
 ROUTED_KEYS = ("B1f", "B1b", "B2f", "B2b", "B3f", "B3b", "B4f", "B4b")
 
 
-def route_launches() -> dict[str, int]:
+def route_launches(by_length: bool = False) -> dict[str, int]:
     """Each kernel's launches since its ``.shapes`` tally was cleared, by the route the library
-    gives each shape ("B1b persistent", "B2f tf32", "B4f one-pass", "B4b fp32", ...)."""
+    gives each shape ("B1b persistent", "B2f tf32", "B4f one-pass", "B4b fp32", ...); with
+    ``by_length``, by route and sequence length ("B1f tf32 S=16", ...)."""
     from multimodal_timesfm_torch.ops import _kernels
 
     out: dict[str, int] = {}
@@ -3093,6 +3380,8 @@ def route_launches() -> dict[str, int]:
             else:
                 route = _kernels.chronos_plan(key == "B4b", dtype, batch, seq, heads, dim)["route"]
                 label = f"{key} {B4_ROUTES[route]}"
+            if by_length:
+                label += f" S={seq}"
             out[label] = out.get(label, 0) + n
     return out
 
@@ -5818,6 +6107,7 @@ def main() -> int:
             route_borders(args.seed)
         chronos_route_borders(args.seed)
         chronos_f32_borders(args.seed)
+        chronos_f32_persistent_borders(args.seed)
         if not args.chronos_only:
             causal_f32_borders(args.seed)
         persistent_route_borders(args.seed, args.chronos_only)
@@ -5840,6 +6130,7 @@ def main() -> int:
     phase("edge shapes", edge_checks, args.seed)
     phase("gate lengths", gate_length_checks, args.seed)
     rows.update(phase("chronos kernels", chronos_kernel_phase, args.seed))
+    phase("batch chunks", batch_chunk_checks, args.seed)
     rows.update(phase("flash kernels", flash_kernel_phase, args.seed))
     phase("vmap rules", vmap_rule_checks, args.seed)
     phase("native ops", native_op_checks, args.seed, native_future)
@@ -5848,6 +6139,7 @@ def main() -> int:
     # just after; the kernels line reports their sum.
     launches = {key: 0 for key, *_ in KERNELS}
     routes: dict[str, int] = {}
+    lengths: dict[str, int] = {}
 
     def main_path(name: str, fn, *a):
         for counter in launch_counters().values():
@@ -5863,6 +6155,8 @@ def main() -> int:
                               + NATIVE_LAUNCHES.get(key, 0))
         for route, n in route_launches().items():
             routes[route] = routes.get(route, 0) + n
+        for route, n in route_launches(by_length=True).items():
+            lengths[route] = lengths.get(route, 0) + n
         return out
 
     tree, decoders, reference = main_path("serving", slice_phase, args.seed)
@@ -5891,6 +6185,8 @@ def main() -> int:
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
     idle += [f"{key} persistent" for key in ("B1f", "B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
     idle += [f"{key} tf32" for key, *_ in TF32_KERNELS if not routes.get(f"{key} tf32")]
+    idle += [f"{key} tf32 persistent" for key, *_ in TF32_PERSISTENT_KERNELS
+             if not routes.get(f"{key} tf32 persistent")]
     idle += [f"{key} {causal_f32_label(key, shape[1])}" for key, *_, shape in CAUSAL_TF32_KERNELS
              if (key, shape) not in CAUSAL_TF32_TIMED_ONLY and not routes.get(f"{key} {causal_f32_label(key, shape[1])}")]
     if idle:
@@ -5898,9 +6194,10 @@ def main() -> int:
     print(f"[launches] main paths: {launches}")
     print(f"[launches] every kernel by route, this process's counted launches (replays and the ranks' "
           f"not split): {routes}")
+    print(f"[launches] every kernel by route and length, the same counts: {dict(sorted(lengths.items()))}")
     print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)
                       + persistent_route_entries(rows, routes) + tf32_route_entries(rows, routes)
-                      + causal_tf32_entries(rows, routes)}))
+                      + tf32_persistent_entries(rows, routes) + causal_tf32_entries(rows, routes)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({
         "ok": True,

@@ -93,6 +93,8 @@
 
 #include <math.h>
 
+#include <algorithm>
+
 namespace {
 
 using mtt::bf16;
@@ -957,6 +959,7 @@ extern "C" int hopper_attention_bwd(const void* q, const void* k, const void* v,
 // (tf32_bwd_scratch); otherwise (the fp32 3xTF32 wgmma route among them) the
 // row statistics, 3 B H Sp floats, Sp = S rounded up to 64. -1 for a dtype it
 // does not take.
+// Past kGridRows batch rows, the most any chunk of attention_bwd's needs.
 extern "C" long long attention_bwd_scratch(const void* q, const void* k, const void* v,
                                            const void* g, const void* dq, const void* dk,
                                            const void* dv, int dtype, int B, int S, int H, int D,
@@ -964,12 +967,14 @@ extern "C" long long attention_bwd_scratch(const void* q, const void* k, const v
   if (dtype == 1 && short_bwd_takes(S, D) &&
       short_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
     return 0;
+  if (dtype != 0 && dtype != 1) return -1;
+  const int rows = mtt::grid_chunk_rows(B);
+  const int last = B - (B - 1) / rows * rows;
   const bool tf32w = dtype == 0 && tf32w_bwd_takes(S, D) &&
                      tf32w_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out);
   if (dtype == 0 && !tf32w && tf32_bwd_takes(S, D) &&
       tf32_bwd_layout(q, k, v, g, dq, dk, dv, ld_in, ld_g, ld_out))
-    return tf32_bwd_scratch(B, S, H);
-  if (dtype != 0 && dtype != 1) return -1;
+    return std::max(tf32_bwd_scratch(rows, S, H), tf32_bwd_scratch(last, S, H));
   return 3LL * B * H * ((S + 63) / 64 * 64);
 }
 
@@ -983,13 +988,30 @@ extern "C" long long attention_bwd_scratch(const void* q, const void* k, const v
 // and the mma.sync route otherwise; fp32 the 3xTF32 wgmma/TMA route where
 // tf32w_bwd_takes(S, D) and its layout rule hold, then the 3xTF32 mma.sync
 // route where tf32_bwd_takes(S, D) and its layout rule hold, and the
-// CUDA-core route otherwise.
+// CUDA-core route otherwise. A batch of more than kGridRows rows runs as
+// chunks of rows (mtt::grid_chunk_rows), each a call of its own on `stream`,
+// in order, reusing `stats` (attention_bwd_scratch sizes the largest chunk's).
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* valid,
                              const void* g, void* dq, void* dk, void* dv, void* stats, int dtype,
                              int B, int S, int H, int D, long long ld_in, long long ld_g,
                              long long ld_out, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || B > 65535 || H > 65535)
+  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || H > 65535)
     return (int)cudaErrorInvalidValue;
+  if (B > mtt::kGridRows) {
+    const int rows = mtt::grid_chunk_rows(B);
+    const long long elt = dtype == 0 ? 4 : 2;
+    for (int b0 = 0; b0 < B; b0 += rows) {
+      const long long row = (long long)b0 * S * elt;
+      const long long in = row * ld_in, gi = row * ld_g, to = row * ld_out;
+      const int err = attention_bwd(
+          mtt::byte_at(q, in), mtt::byte_at(k, in), mtt::byte_at(v, in),
+          mtt::byte_at(valid, (long long)b0 * S), mtt::byte_at(g, gi), mtt::byte_at(dq, to),
+          mtt::byte_at(dk, to), mtt::byte_at(dv, to), stats, dtype, std::min(rows, B - b0), S, H, D,
+          ld_in, ld_g, ld_out, stream);
+      if (err != 0) return err;
+    }
+    return 0;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(stats);
   const uint8_t* vm = static_cast<const uint8_t*>(valid);

@@ -24,6 +24,30 @@ namespace mtt {
 
 using bf16 = __nv_bfloat16;
 
+// The most batch rows one launch takes: several routes lay the batch on the
+// CUDA grid's y or z dimension, which stops at 65,535. The entry points
+// (attention_fwd, attention_bwd, chronos_attention_fwd, chronos_attention_bwd)
+// run a larger batch as chunks of batch rows, in order on the caller's
+// stream, each a call of its own (rows are independent; the Chronos dbias
+// adds the chunks' sums in order). JAX's grids are one-dimensional over the
+// batch and have no such limit.
+constexpr int kGridRows = 65535;
+
+// Rows a chunk of a B-row batch: as few chunks as keep each within
+// kGridRows, as even as their count allows (the last may hold fewer).
+inline int grid_chunk_rows(int B) {
+  const int chunks = (B + kGridRows - 1) / kGridRows;
+  return (B + chunks - 1) / chunks;
+}
+
+// `p` moved on by `bytes` (a chunk's first batch row).
+inline const void* byte_at(const void* p, long long bytes) {
+  return p == nullptr ? p : static_cast<const char*>(p) + bytes;
+}
+inline void* byte_at(void* p, long long bytes) {
+  return p == nullptr ? p : static_cast<char*>(p) + bytes;
+}
+
 // 16-byte (cg) or 4-byte (ca) asynchronous copy global -> shared; with
 // pred false nothing is read and the destination is zero-filled (`src` must
 // still be a valid address).

@@ -617,12 +617,25 @@ extern "C" int mtt_attention_route_override() { return route_override; }
 // route where tf32w_fwd_takes(S, D) and its layout rule (q, k, v rows and
 // bases 16-byte aligned, out's 8-byte) hold, then the 3xTF32 mma.sync route
 // where tf32_fwd_takes(D) and the same layout rule hold, and the CUDA-core
-// route otherwise.
+// route otherwise. A batch of more than kGridRows rows runs as chunks of rows
+// (mtt::grid_chunk_rows), each a call of its own on `stream`, in order.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, const void* valid,
                              void* out, int dtype, int B, int S, int H, int D, long long ld_in,
                              long long ld_out, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || B > 65535 || H > 65535)
+  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || H > 65535)
     return (int)cudaErrorInvalidValue;
+  if (B > mtt::kGridRows) {
+    const int rows = mtt::grid_chunk_rows(B);
+    const long long elt = dtype == 0 ? 4 : 2;
+    for (int b0 = 0; b0 < B; b0 += rows) {
+      const long long in = (long long)b0 * S * ld_in * elt, to = (long long)b0 * S * ld_out * elt;
+      const int err = attention_fwd(mtt::byte_at(q, in), mtt::byte_at(k, in), mtt::byte_at(v, in),
+                                    mtt::byte_at(valid, (long long)b0 * S), mtt::byte_at(out, to),
+                                    dtype, std::min(rows, B - b0), S, H, D, ld_in, ld_out, stream);
+      if (err != 0) return err;
+    }
+    return 0;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (tf32w_fwd_takes(S, D) && tf32w_fwd_layout(q, k, v, out, ld_in, ld_out))

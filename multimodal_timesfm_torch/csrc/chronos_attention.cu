@@ -19,14 +19,18 @@
 // dqkv (B, S, 3*H*D) in the same layout. Any S, head_dim 1..256, no atomics:
 // two launches give bit-equal dqkv and dbias.
 //
-// Six routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
+// Seven routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
 // H, D), and chronos_attention_config reports it. Route 4 below (the wgmma
 // route, numbered 3 in the plan) comes first where chronos_hopper_takes says
 // so; routes 1 and 2 take the bf16 calls it leaves. In fp32 at head_dim 64
 // the 3xTF32 tensor-core route (plan route 5, chronos_attention_tf32.cu and
 // chronos_attention_bwd_tf32.cu, with its design in the first one's header)
 // comes first (chronos_tf32_takes); route 3 below takes the fp32 calls it
-// leaves. Ahead of all of them in
+// leaves. Ahead of it in fp32 at head_dim 64 for short sequences comes the
+// persistent 3xTF32 route fed by TMA (plan route 6: the forward's
+// chronos_attention_short_tf32.cu, the backward's
+// chronos_attention_bwd_short_tf32.cu, their borders and design in their
+// headers). Ahead of all of them in
 // bf16 at head_dim 64 for short sequences comes the persistent one-pass
 // route (plan route 4): the forward's up to 128 tokens
 // (chronos_attention_short_hopper.cu), the backward's up to 80
@@ -290,6 +294,9 @@ extern "C" int chronos_tf32_fwd(const void* qkv, const void* seg, const void* bi
                                 int B, int S, int H, void* stream);
 extern "C" int chronos_short_fwd(const void* qkv, const void* seg, const void* bias, void* out,
                                  int B, int S, int H, void* stream);
+// Route 6, chronos_attention_short_tf32.cu.
+extern "C" int chronos_short_tf32_fwd(const void* qkv, const void* seg, const void* bias, void* out,
+                                      int B, int S, int H, void* stream);
 
 namespace {
 
@@ -618,14 +625,17 @@ cudaError_t dispatch_f32(const float* qkv, const int* seg, const float* bias, fl
 // contiguous in that dtype; seg (B, S) int32; bias (H, S, S) fp32. Returns
 // the CUDA error of the launch (0 on success); launches on `stream` and does
 // not synchronize.
-extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const void* bias, void* out,
-                                     int dtype, int B, int S, int H, int D, void* stream) {
-  if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
+namespace {
+
+// chronos_attention_fwd on B <= kGridRows batch rows.
+int fwd_rows(const void* qkv, const void* seg, const void* bias, void* out, int dtype, int B, int S,
+             int H, int D, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
   const float* bs = static_cast<const float*>(bias);
-  if (dtype == 0 && make_plan(false, 0, B, S, H, D).route == 5)
-    return chronos_tf32_fwd(qkv, seg, bias, out, B, S, H, stream);
+  const int route = dtype == 0 ? make_plan(false, 0, B, S, H, D).route : -1;
+  if (route == 6) return chronos_short_tf32_fwd(qkv, seg, bias, out, B, S, H, stream);
+  if (route == 5) return chronos_tf32_fwd(qkv, seg, bias, out, B, S, H, stream);
   if (dtype == 0)
     return (int)dispatch_f32(static_cast<const float*>(qkv), sg, bs, static_cast<float*>(out), B,
                              S, H, D, st);
@@ -635,23 +645,43 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
   return (int)cudaErrorInvalidValue;
 }
 
+}  // namespace
+
+// A batch of more than kGridRows rows runs as chunks of rows
+// (mtt::grid_chunk_rows), each a call of its own on `stream`, in order.
+extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const void* bias, void* out,
+                                     int dtype, int B, int S, int H, int D, void* stream) {
+  if (bad_shape(B, S, H, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const int rows = mtt::grid_chunk_rows(B);
+  const long long row = (long long)S * H * D * (dtype == 0 ? 4 : 2);
+  for (int b0 = 0; b0 < B; b0 += rows) {
+    const int err = fwd_rows(mtt::byte_at(qkv, 3 * row * b0), mtt::byte_at(seg, 4LL * S * b0), bias,
+                             mtt::byte_at(out, row * b0), dtype, std::min(rows, B - b0), S, H, D,
+                             stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 // The plan chronos_attention_fwd (backward = 0) or chronos_attention_bwd
 // (backward = 1) takes for (dtype, B, S, H, D), for reports and for sizing the
 // dbias partials: cfg = {route (0: fp32 CUDA cores, 1: bf16 mma.sync
 // m16n8k16 one-pass, 2: bf16 mma.sync tiled, 3: bf16 wgmma + TMA, 4: bf16
 // mma.sync one-pass fed by TMA, persistent: the forward's and the
 // backward's routes for short sequences, 5: fp32 3xTF32 on mma.sync
-// m16n8k8), threads,
-// query rows per block (per work item on routes 3 and 4),
+// m16n8k8, 6: fp32 3xTF32 mma.sync m16n8k8 fed by TMA, persistent: the
+// short forward's and backward's routes), threads,
+// query rows per block (per work item on routes 3 and 4; a tile on 6),
 // keys per tile, passes over the keys, batch rows per block, blocks along
 // the batch (the (H, S, S) dbias partials the backward sums; route 4's
 // forward: its blocks a head), padded
 // head_dim, output columns per block, dL as a hi + lo bf16 pair (1) or not
-// (0)}. Returns 0, or cudaErrorInvalidValue.
+// (0)}; past kGridRows batch rows, the plan of the first (largest) chunk.
+// Returns 0, or cudaErrorInvalidValue.
 extern "C" int chronos_attention_config(int backward, int dtype, int B, int S, int H, int D,
                                         int* cfg) {
   if (bad_shape(B, S, H, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(backward != 0, dtype, B, S, H, D);
+  const Plan p = make_plan(backward != 0, dtype, mtt::grid_chunk_rows(B), S, H, D);
   const int c[10] = {p.route, p.threads, p.rows, p.keys, p.passes,
                      p.group, p.groups,  p.dp,   p.cols, p.split_dl};
   for (int i = 0; i < 10; ++i) cfg[i] = c[i];

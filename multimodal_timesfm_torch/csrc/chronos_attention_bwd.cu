@@ -911,6 +911,14 @@ cudaError_t dispatch_f32(const Plan& p, const float* qkv, const int* seg, const 
   return launch_f32_nds<5>(qkv, seg, bias, g, dqkv, stats, part, B, S, H, D, stream);
 }
 
+// dbias[e] += part[e]: a chunk's dbias added to the chunks' before it.
+__global__ void __launch_bounds__(256)
+    chronos_bwd_dbias_add_kernel(const float* __restrict__ part, float* __restrict__ dbias,
+                                 long long n) {
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e < n) dbias[e] += part[e];
+}
+
 // dbias[e] = sum over the partial planes, in order, of partials[p][e].
 __global__ void __launch_bounds__(256)
     chronos_bwd_dbias_kernel(const float* __restrict__ partials, float* __restrict__ dbias,
@@ -935,26 +943,28 @@ extern "C" int chronos_hopper_bwd(const void* qkv, const void* seg, const void* 
 extern "C" int chronos_tf32_bwd(const void* qkv, const void* seg, const void* bias, const void* g,
                                 void* dqkv, void* dbias, void* scratch, int B, int S, int H,
                                 void* stream);
+extern "C" long long chronos_tf32_scratch(int B, int S, int H);
+// Route 6, chronos_attention_bwd_short_tf32.cu.
+extern "C" int chronos_short_tf32_bwd(const void* qkv, const void* seg, const void* bias,
+                                      const void* g, void* dqkv, void* dbias, int groups, int B,
+                                      int S, int H, void* stream);
 
-// g (B, S, H*D) and dqkv (B, S, 3*H*D) contiguous in qkv's dtype, dqkv
-// written whole; stats: 3*B*H*Sp floats of scratch, Sp = S rounded up to 64
-// (route 5: chronos_tf32_scratch(B, S, H) floats, 16-byte aligned), or null
-// where the plan's route is 4 (refused on the other routes).
-// dbias (H, S, S) fp32 and partials are both null or both given: with them,
-// dbias is written whole,
-// and partials holds the (H, S, S) partial sums of dL when the plan has more
-// than one of them (chronos_attention_config's `groups` planes; one float
-// otherwise). Returns the CUDA error of the launches.
-extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const void* bias,
-                                     const void* g, void* dqkv, void* dbias, void* stats,
-                                     void* partials, int dtype, int B, int S, int H, int D,
-                                     void* stream) {
-  if (bad_shape(B, S, H, D) || (dbias == nullptr) != (partials == nullptr) ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+// The stats and the dbias partials (floats) a chunk of B rows needs.
+void rows_buffers(int dtype, int B, int S, int H, int D, long long* stats, long long* partials) {
   const Plan p = make_plan(true, dtype, B, S, H, D);
-  if (stats == nullptr && p.route != 4) return (int)cudaErrorInvalidValue;
+  *stats = p.route == 4 || p.route == 6 ? 0
+           : p.route == 5              ? chronos_tf32_scratch(B, S, H)
+                                       : 3LL * B * H * ((S + 63) / 64 * 64);
+  *partials = p.groups > 1 ? (long long)p.groups * H * S * S : 0;
+}
+
+// chronos_attention_bwd on B <= kGridRows batch rows.
+int bwd_rows(const void* qkv, const void* seg, const void* bias, const void* g, void* dqkv,
+             void* dbias, void* stats, void* partials, int dtype, int B, int S, int H, int D,
+             cudaStream_t st) {
+  const Plan p = make_plan(true, dtype, B, S, H, D);
   float* db = static_cast<float*>(dbias);
   // With one plane the kernels write dbias itself.
   float* part = db == nullptr ? nullptr : p.groups == 1 ? db : static_cast<float*>(partials);
@@ -962,15 +972,18 @@ extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const voi
   const float* bs = static_cast<const float*>(bias);
   float* sc = static_cast<float*>(stats);
   cudaError_t err =
-      p.route == 4
+      p.route == 6
           ? static_cast<cudaError_t>(
-                chronos_short_bwd(qkv, seg, bias, g, dqkv, part, p.groups, B, S, H, stream))
+                chronos_short_tf32_bwd(qkv, seg, bias, g, dqkv, part, p.groups, B, S, H, st))
+      : p.route == 4
+          ? static_cast<cudaError_t>(
+                chronos_short_bwd(qkv, seg, bias, g, dqkv, part, p.groups, B, S, H, st))
       : p.route == 3
           ? static_cast<cudaError_t>(
-                chronos_hopper_bwd(qkv, seg, bias, g, dqkv, part, stats, p.groups, B, S, H, stream))
+                chronos_hopper_bwd(qkv, seg, bias, g, dqkv, part, stats, p.groups, B, S, H, st))
       : p.route == 5
           ? static_cast<cudaError_t>(
-                chronos_tf32_bwd(qkv, seg, bias, g, dqkv, part, stats, B, S, H, stream))
+                chronos_tf32_bwd(qkv, seg, bias, g, dqkv, part, stats, B, S, H, st))
       : dtype == 0
           ? dispatch_f32(p, static_cast<const float*>(qkv), sg, bs, static_cast<const float*>(g),
                          static_cast<float*>(dqkv), sc, part, B, S, H, D, st)
@@ -980,4 +993,64 @@ extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const voi
   const long long n = (long long)H * S * S;
   chronos_bwd_dbias_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, db, p.groups, n);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of scratch chronos_attention_bwd needs at (dtype, B, S, H, D):
+// floats[0] the stats (0 on the persistent routes 4 and 6, where stats may be
+// null), floats[1] the dbias partials (0 when the plan writes dbias itself:
+// one float will do). Past kGridRows batch rows, the most any chunk needs,
+// and one more (H, S, S) plane for a chunk's own dbias. Returns 0, or
+// cudaErrorInvalidValue.
+extern "C" int chronos_attention_bwd_buffers(int dtype, int B, int S, int H, int D,
+                                             long long* floats) {
+  if (bad_shape(B, S, H, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const int rows = mtt::grid_chunk_rows(B);
+  const int last = B - (B - 1) / rows * rows;
+  long long stats[2], parts[2];
+  rows_buffers(dtype, rows, S, H, D, &stats[0], &parts[0]);
+  rows_buffers(dtype, last, S, H, D, &stats[1], &parts[1]);
+  floats[0] = std::max(stats[0], stats[1]);
+  floats[1] = std::max(parts[0], parts[1]) + (rows < B ? (long long)H * S * S : 0);
+  return 0;
+}
+
+// g (B, S, H*D) and dqkv (B, S, 3*H*D) contiguous in qkv's dtype, dqkv
+// written whole; stats and partials: chronos_attention_bwd_buffers' floats
+// of scratch (stats 16-byte aligned; null where that gives 0 stats: refused
+// otherwise). dbias (H, S, S) fp32 and partials are both null or both given:
+// with them, dbias is written whole. A batch of more than kGridRows rows runs
+// as chunks of rows (mtt::grid_chunk_rows), each a call of its own on
+// `stream`, in order, reusing stats and partials: the first chunk writes
+// dbias, each later one its own into the last plane of partials, then adds
+// it to dbias, so dbias is the chunks' sums added in batch order. Returns the
+// CUDA error of the launches.
+extern "C" int chronos_attention_bwd(const void* qkv, const void* seg, const void* bias,
+                                     const void* g, void* dqkv, void* dbias, void* stats,
+                                     void* partials, int dtype, int B, int S, int H, int D,
+                                     void* stream) {
+  if (bad_shape(B, S, H, D) || (dbias == nullptr) != (partials == nullptr) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  long long floats[2];
+  chronos_attention_bwd_buffers(dtype, B, S, H, D, floats);
+  if (stats == nullptr && floats[0] > 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = mtt::grid_chunk_rows(B);
+  const long long n = (long long)H * S * S;
+  float* own = dbias == nullptr || rows == B ? nullptr : static_cast<float*>(partials) + floats[1] - n;
+  const long long row = (long long)S * H * D * (dtype == 0 ? 4 : 2);
+  for (int b0 = 0; b0 < B; b0 += rows) {
+    int err = bwd_rows(mtt::byte_at(qkv, 3 * row * b0), mtt::byte_at(seg, 4LL * S * b0), bias,
+                       mtt::byte_at(g, row * b0), mtt::byte_at(dqkv, 3 * row * b0),
+                       b0 == 0 ? dbias : own, stats, partials, dtype, std::min(rows, B - b0), S, H,
+                       D, st);
+    if (err != 0) return err;
+    if (b0 == 0 || dbias == nullptr) continue;
+    chronos_bwd_dbias_add_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        own, static_cast<float*>(dbias), n);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  return 0;
 }

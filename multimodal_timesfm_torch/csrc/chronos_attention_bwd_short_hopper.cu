@@ -337,10 +337,10 @@ extern "C" int mtt_chronos_route_override();
 
 // Whether make_plan gives a bf16 backward at (S, D) this route: head_dim 64,
 // S <= kShortTo; never under the route override (chronos_set_route) 1
-// (mma.sync) or 2 (wgmma).
+// (mma.sync) or 3 (wgmma).
 extern "C" int chronos_short_takes(int S, int D) {
   const int force = mtt_chronos_route_override();
-  return D == kD && S >= 1 && S <= kShortTo && force != 1 && force != 2;
+  return D == kD && S >= 1 && S <= kShortTo && force != 1 && force != 3;
 }
 
 extern "C" int chronos_short_threads(int S) { return 32 * (kGroups * ((S + 15) / 16) + 1); }

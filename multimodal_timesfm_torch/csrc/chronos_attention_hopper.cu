@@ -242,14 +242,20 @@ int route_override = 0;
 
 }  // namespace
 
-// Route override for measuring the border (chronos_set_route; chip_smoke.py's
-// [gate] lines): 0 the rule below, 1 never this route, 2 this route at every S
-// (bf16, head_dim 64). 1 and 2 also keep the one-pass persistent routes off
-// (chronos_attention_short_hopper.cu, chronos_attention_bwd_short_hopper.cu).
-// 3 keeps fp32 off the 3xTF32 route (chronos_attention_tf32.cu: the CUDA-core
-// route at every head_dim) and leaves bf16 to the rule. Process-wide.
+// Route override for measuring the borders (chronos_set_route; chip_smoke.py's
+// [gate] lines), numbered as the plan's routes (make_plan, chronos_common.cuh)
+// where it forces one: 0 the rules, 1 bf16 never on this route or a
+// persistent one (the mma.sync routes 1 and 2 by their own limits), 3 bf16 on
+// this route at every S (head_dim 64) and never on a persistent one, 4 fp32
+// never on a tensor-core route (route 0, the CUDA cores, at every head_dim;
+// 4 is the bf16 persistent route's number, which has no override of its own,
+// as the causal family's "cuda cores" takes its bf16 persistent route's), 5
+// fp32 on route 5 (chronos_attention_tf32.cu) at every S, never on route 6, 6
+// fp32 on route 6 (chronos_attention_short_tf32.cu,
+// chronos_attention_bwd_short_tf32.cu) at every S it is built for, route 5
+// past that. 4-6 leave bf16 to the rule, 1 and 3 fp32. Process-wide.
 extern "C" int chronos_set_route(int route) {
-  if (route < 0 || route > 3) return (int)cudaErrorInvalidValue;
+  if (route < 0 || route > 6 || route == 2) return (int)cudaErrorInvalidValue;
   route_override = route;
   return 0;
 }
@@ -270,7 +276,7 @@ constexpr int kBwdFrom = 97;
 
 extern "C" int chronos_hopper_takes(int backward, int S, int D) {
   if (route_override == 1 || D != kDim64) return 0;
-  return route_override == 2 || S >= (backward ? kBwdFrom : kFwdFrom);
+  return route_override == 3 || S >= (backward ? kBwdFrom : kFwdFrom);
 }
 
 // qkv (B, S, 3*H*64) and out (B, S, H*64) bf16, contiguous, qkv 16-byte

@@ -312,10 +312,10 @@ extern "C" int mtt_chronos_route_override();
 
 // Whether make_plan gives a bf16 forward at (S, D) this route: head_dim 64 and
 // S <= kShortFwdTo; never under the route override (chronos_set_route) 1
-// (mma.sync) or 2 (wgmma).
+// (mma.sync) or 3 (wgmma).
 extern "C" int chronos_short_fwd_takes(int S, int D) {
   const int force = mtt_chronos_route_override();
-  return D == kD && S >= 1 && S <= kShortFwdTo && force != 1 && force != 2;
+  return D == kD && S >= 1 && S <= kShortFwdTo && force != 1 && force != 3;
 }
 
 extern "C" int chronos_short_fwd_threads(int S) {

@@ -173,15 +173,15 @@ cudaError_t launch_fwd(const float* qkv, const int* seg, const float* bias, floa
 extern "C" int mtt_chronos_route_override();
 
 // Whether make_plan (chronos_common.cuh) gives an fp32 call at head_dim D
-// this route: head_dim 64 at every S, unless the route override
-// (chronos_set_route) 3 forces the CUDA-core route. No border in S:
+// this route: head_dim 64 at every S that route 6 leaves, unless the route
+// override (chronos_set_route) 4 forces the CUDA-core route. No border in S:
 // chip_smoke.py's fp32 [gate] lines (this route against the CUDA-core route
 // at B = 9,232 / S and 12 heads) found this route the faster by 1.7-4.6x at
 // every measured length, S = 16-577, forward and backward with and without
 // dbias; below 16 tokens it runs the same 16-row tile as at 16. The layout
 // rule (qkv and g 16-byte aligned, which ops/_kernels.py ensures) is the
 // caller's: an unaligned call is refused.
-extern "C" int chronos_tf32_takes(int D) { return D == kD && mtt_chronos_route_override() != 3; }
+extern "C" int chronos_tf32_takes(int D) { return D == kD && mtt_chronos_route_override() != 4; }
 
 // qkv (B, S, 3*H*64) and out (B, S, H*64) fp32, contiguous, qkv 16-byte
 // aligned, out 8-byte aligned; seg (B, S) int32; bias (H, S, S) fp32.

@@ -30,6 +30,15 @@ extern "C" int chronos_short_fwd_threads(int S);
 extern "C" int chronos_short_fwd_groups(int B, int S, int H);
 // Whether route 5 takes an fp32 call (chronos_attention_tf32.cu).
 extern "C" int chronos_tf32_takes(int D);
+// Whether route 6 takes an fp32 backward (chronos_attention_bwd_short_tf32.cu),
+// its block's threads and its dbias partials (blocks a head); and the same for
+// the forward (chronos_attention_short_tf32.cu).
+extern "C" int chronos_short_tf32_takes(int S, int D);
+extern "C" int chronos_short_tf32_threads(int S);
+extern "C" int chronos_short_tf32_groups(int B, int S, int H);
+extern "C" int chronos_short_tf32_fwd_takes(int S, int D);
+extern "C" int chronos_short_tf32_fwd_threads(int S);
+extern "C" int chronos_short_tf32_fwd_groups(int B, int S, int H);
 
 namespace {
 
@@ -70,7 +79,14 @@ constexpr int kMaxGroup = 8;          // batch rows per block of the one-pass ro
 // backward, for each chunk of batch rows, a dq kernel that writes W and dL to
 // a scratch, a dkdv kernel that reads them, and a dbias kernel that sums dL
 // over the batch), taken at head_dim 64 at every S (chronos_tf32_takes)
-// before route 0.
+// before route 0, 6 = fp32 3xTF32 on mma.sync m16n8k8 fed by TMA at head_dim
+// 64, for short sequences: route 4's persistent blocks in fp32 (the
+// backward's, chronos_attention_bwd_short_tf32.cu, W and dL in shared memory,
+// one dbias partial a block, where chronos_short_tf32_takes says so; the
+// forward's, chronos_attention_short_tf32.cu, where
+// chronos_short_tf32_fwd_takes says so), each before route 5. A batch of more
+// than kGridRows rows runs in chunks (attention_common.cuh); the plan is a
+// chunk's.
 struct Plan {
   int route;
   int threads;  // per block
@@ -101,6 +117,18 @@ inline int f32_tm(int S, int D, bool backward) {
 
 inline Plan make_plan(bool backward, int dtype, int B, int S, int H, int D) {
   Plan p{};
+  if (dtype == 0 && backward && chronos_short_tf32_takes(S, D)) {
+    const int sp = (S + 15) / 16 * 16;
+    const int groups = chronos_short_tf32_groups(B, S, H);
+    p = {6, chronos_short_tf32_threads(S), sp, sp, 1, (B + groups - 1) / groups, groups, 64, 64, 0};
+    return p;
+  }
+  if (dtype == 0 && !backward && chronos_short_tf32_fwd_takes(S, D)) {
+    const int sp = (S + 15) / 16 * 16;
+    const int groups = chronos_short_tf32_fwd_groups(B, S, H);
+    p = {6, chronos_short_tf32_fwd_threads(S), sp, sp, 1, (B + groups - 1) / groups, groups, 64, 64, 0};
+    return p;
+  }
   if (dtype == 0 && chronos_tf32_takes(D)) {
     // rows: query (and key) rows a tile; passes: the dq kernel's walks over
     // the keys; one block a batch row, no dbias partials.
@@ -147,7 +175,7 @@ inline Plan make_plan(bool backward, int dtype, int B, int S, int H, int D) {
 }
 
 inline bool bad_shape(int B, int S, int H, int D) {
-  return B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || B > 65535 || H > 65535;
+  return B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > kMaxDim || H > 65535;
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

@@ -34,7 +34,8 @@ SOURCES = tuple(
                  "chronos_attention_bwd_hopper.cu", "chronos_attention_short_hopper.cu",
                  "chronos_attention_bwd_short_hopper.cu", "chronos_attention_tf32.cu",
                  "chronos_attention_bwd_tf32.cu", "attention_fwd_tf32.cu", "attention_bwd_tf32.cu",
-                 "attention_fwd_tf32_hopper.cu", "attention_bwd_tf32_hopper.cu")
+                 "attention_fwd_tf32_hopper.cu", "attention_bwd_tf32_hopper.cu",
+                 "chronos_attention_short_tf32.cu", "chronos_attention_bwd_short_tf32.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -134,8 +135,8 @@ def library() -> ctypes.CDLL:
         fn.restype = i32
     lib.chronos_attention_config.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.chronos_attention_config.restype = i32
-    lib.chronos_tf32_scratch.argtypes = [i32] * 3
-    lib.chronos_tf32_scratch.restype = i64
+    lib.chronos_attention_bwd_buffers.argtypes = [i32] * 5 + [ctypes.POINTER(i64)]
+    lib.chronos_attention_bwd_buffers.restype = i32
     for fn in (lib.attention_set_route, lib.chronos_set_route):
         fn.argtypes = [i32]
         fn.restype = i32
@@ -146,13 +147,25 @@ _ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-
            "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass", "fp32 3xTF32 mma.sync m16n8k8",
            "fp32 3xTF32 wgmma m64nNk8 fed by TMA, warp-specialised")
 ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3, "tf32 mma.sync": 4, "tf32 wgmma": 5}
-CHRONOS_ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3}
+# The Chronos overrides carry the numbers of the plan's routes they force (``_CHRONOS_ROUTES``):
+# "mma.sync" route 1 (or 2 past its limits), "wgmma" 3, "tf32 mma.sync" 5, "tf32 persistent" 6;
+# "cuda cores" (route 0, whose number is the rule's) takes 4, the number of the bf16 persistent
+# route, which has no override of its own, as the causal family's "cuda cores" takes 3.
+CHRONOS_ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 3, "cuda cores": 4, "tf32 mma.sync": 5,
+                       "tf32 persistent": 6}
 # The lengths from which the library's dispatch gives an fp32 call at head_dim 80 route 5 (3xTF32
 # wgmma fed by TMA) in place of route 4 (3xTF32 mma.sync): ``kFwdFrom`` of
 # csrc/attention_fwd_tf32_hopper.cu and ``kBwdFrom`` of csrc/attention_bwd_tf32_hopper.cu, the
 # borders chip_smoke.py's ``[gate] causal fp32`` lines measure. :func:`causal_f32_route` follows
 # that rule without the library; chip_smoke.py holds the two to each other on the card.
 TF32_WGMMA_FROM = {"forward": 128, "backward": 128}
+# The lengths at which the library's dispatch gives an fp32 Chronos call at head_dim 64 route 6
+# (3xTF32 mma.sync fed by TMA, persistent) in place of route 5: from ``kShortFwdFrom`` to
+# ``kShortFwdTo`` of csrc/chronos_attention_short_tf32.cu, up to ``kShortTo`` of
+# csrc/chronos_attention_bwd_short_tf32.cu, the borders chip_smoke.py's ``[gate] chronos fp32
+# persistent`` lines measure. :func:`chronos_f32_route` follows that rule without the library.
+CHRONOS_TF32_SHORT_FROM = {"forward": 17, "backward": 1}
+CHRONOS_TF32_SHORT_TO = {"forward": 112, "backward": 80}
 
 
 def set_route(name: str) -> None:
@@ -173,12 +186,25 @@ def set_chronos_route(name: str) -> None:
     """Which route the Chronos attention kernels take at head_dim 64: ``"rule"`` (the
     library's dispatch rule, the default), ``"mma.sync"`` (bf16 never on the wgmma or a
     persistent route: the one-pass or tiled mma.sync route by their own limits), ``"wgmma"``
-    (bf16 on the wgmma route at every S; never a persistent route) or ``"cuda cores"`` (fp32
-    never on the 3xTF32 route; bf16 by the rule). For measuring the borders
-    (``chip_smoke.py``'s Chronos ``[gate]`` lines); process-wide, in the library."""
+    (bf16 on the wgmma route at every S; never a persistent route), ``"cuda cores"`` (fp32
+    never on a 3xTF32 route), ``"tf32 mma.sync"`` (fp32 on route 5 at every S, never on route
+    6) or ``"tf32 persistent"`` (fp32 on route 6 at every S it is built for, route 5 past
+    that); the first three leave fp32 to the rule, the last three bf16. For measuring the
+    borders (``chip_smoke.py``'s Chronos ``[gate]`` lines); process-wide, in the library."""
     err = library().chronos_set_route(CHRONOS_ROUTE_NAMES[name])
     if err != 0:
         raise RuntimeError(f"chronos_set_route({name!r}) failed with CUDA error {err}")
+
+
+def chronos_f32_route(backward: bool, seq: int, dim: int) -> int:
+    """The route the library's rule (no override) gives an fp32 Chronos call, by number: 6 at
+    head_dim 64 from :data:`CHRONOS_TF32_SHORT_FROM` to :data:`CHRONOS_TF32_SHORT_TO`, 5 at
+    head_dim 64 elsewhere, 0 (the CUDA cores) at other head dims. chip_smoke.py holds it to the
+    library's plan on the card."""
+    if dim != 64:
+        return 0
+    way = "backward" if backward else "forward"
+    return 6 if CHRONOS_TF32_SHORT_FROM[way] <= seq <= CHRONOS_TF32_SHORT_TO[way] else 5
 
 
 def _attention_config(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> list[int]:
@@ -254,7 +280,8 @@ def attention_route(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> s
 _CHRONOS_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16 one-pass", "bf16 mma.sync m16n8k16 tiled",
                    "bf16 wgmma + TMA, warp-specialised",
                    "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass",
-                   "fp32 3xTF32 mma.sync m16n8k8")
+                   "fp32 3xTF32 mma.sync m16n8k8",
+                   "fp32 3xTF32 mma.sync m16n8k8 fed by TMA, persistent, one pass")
 _CHRONOS_KEYS = ("route", "threads", "rows", "keys", "passes", "group", "groups", "padded", "cols", "split_dl")
 
 
@@ -275,6 +302,21 @@ def chronos_plan(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads
 def chronos_route(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads: int, dim: int) -> str:
     """:func:`chronos_plan` as one line of text."""
     p = chronos_plan(backward, dtype, batch, seq, heads, dim)
+    if p["route"] == 6:
+        consumers = p["threads"] // 32 - 1
+        groups = 1 if backward else consumers // (p["rows"] // 16)
+        text = (f"{_CHRONOS_ROUTES[6]}, persistent blocks of {p['threads']} threads "
+                f"({groups} consumer group(s) of {consumers // groups} warp(s) + 1 TMA "
+                f"producer warp), each one head and a range of about {p['group']} batch rows "
+                f"({p['groups']} blocks a head")
+        if not backward:
+            return text + (f"), {p['rows']} query rows x {p['keys']} keys a tile, 1 kernel (whole-row "
+                           f"softmax, O = W V from W in registers), head_dim {dim}, each product lo hi + "
+                           f"hi lo + hi hi")
+        return text + (f": the dbias partials), {p['rows']} query rows x {p['keys']} keys a tile, two warps a "
+                       f"16-row block (a half of the keys, then of the output columns), 1 kernel (dQ, dK and "
+                       f"dV of a batch row, W and dL in shared memory, no scratch), head_dim {dim}, each "
+                       f"product lo hi + hi lo + hi hi")
     if p["route"] == 4:
         warps = p["rows"] // 16  # a consumer group's
         text = (f"{_CHRONOS_ROUTES[4]}, persistent blocks of {p['threads']} threads "
@@ -507,10 +549,12 @@ def chronos_attention_bwd(
     qkv, seg, bias as for :func:`chronos_attention_fwd`; g: (B, S, H*D) and
     dqkv: (B, S, 3*H*D), contiguous in qkv's dtype, dqkv written whole;
     dbias: (H, S, S) fp32, written whole, or None to skip the bias gradient.
-    Allocates, off the plan's persistent route (4), a (3, B, H, S rounded up to 64) fp32
-    scratch for the row statistics (on the 3xTF32 route (5), the scratch for the W and dL
-    tiles of one chunk of batch rows, ``chronos_tf32_scratch``) and, with dbias, the (H, S, S) fp32 partial sums of
-    dL the plan needs (one per block along the batch; none when there is one). Raises
+    Allocates the scratch the library's ``chronos_attention_bwd_buffers`` asks for: off the
+    plan's persistent routes (4, 6), a (3, B, H, S rounded up to 64) fp32 one for the row
+    statistics (on the 3xTF32 route (5), one for the W and dL tiles of one chunk of batch
+    rows) and, with dbias, the (H, S, S) fp32 partial sums of dL the plan needs (one per
+    block along the batch; none when there is one; past 65,535 batch rows, which run in
+    chunks, the most a chunk needs and a plane for a chunk's own sum). Raises
     ``RuntimeError`` if a launch is refused.
     """
     lib = library()
@@ -519,20 +563,17 @@ def chronos_attention_bwd(
     if tuple(g.shape) != (batch, seq, heads * dim) or dqkv.shape != qkv.shape:
         raise ValueError(f"g {tuple(g.shape)} or dqkv {tuple(dqkv.shape)} does not match qkv")
     qkv, g = _aligned16(qkv), _aligned16(g)
-    plan = chronos_plan(True, qkv.dtype, batch, seq, heads, dim)
-    stats = None
-    if plan["route"] == 5:
-        stats = torch.empty(lib.chronos_tf32_scratch(batch, seq, heads), dtype=torch.float32, device=qkv.device)
-    elif plan["route"] != 4:
-        padded = -(-seq // 64) * 64
-        stats = torch.empty(3 * batch * heads * padded, dtype=torch.float32, device=qkv.device)
+    floats = (ctypes.c_longlong * 2)()
+    err = lib.chronos_attention_bwd_buffers(_DTYPE_CODES[qkv.dtype], batch, seq, heads, dim, floats)
+    if err != 0:
+        raise RuntimeError(f"chronos_attention_bwd_buffers failed with CUDA error {err}")
+    stats = torch.empty(floats[0], dtype=torch.float32, device=qkv.device) if floats[0] > 0 else None
     partials = None
     if dbias is not None:
         if dbias.device != qkv.device:
             raise ValueError(f"dbias is on {dbias.device}; the kernel needs it on {qkv.device}")
         _check_aux("dbias", dbias, torch.float32, (heads, seq, seq))
-        planes = plan["groups"] if plan["groups"] > 1 else 0
-        partials = torch.empty(max(1, planes * heads * seq * seq), dtype=torch.float32, device=qkv.device)
+        partials = torch.empty(max(1, floats[1]), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.chronos_attention_bwd(

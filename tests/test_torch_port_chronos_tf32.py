@@ -328,15 +328,15 @@ def test_dbias_chunks_sum_the_batch_rows_in_order():
 
 
 def test_plan_borders_and_tiles_read_from_the_sources():
-    """Route 5 takes fp32 at head_dim 64 at every S (the [gate] lines found it the faster at every
-    measured length, so there is no border), unless the route override 3 ("cuda cores") keeps
-    fp32 on the CUDA cores; the plan's tile rule is the kernels' (one tile of S padded to 16 up
+    """Route 5 takes fp32 at head_dim 64 at every S that route 6 leaves (the [gate] lines found it
+    the faster than the CUDA cores at every measured length, so there is no border), unless the
+    route override 4 ("cuda cores") keeps fp32 on the CUDA cores; the plan's tile rule is the kernels' (one tile of S padded to 16 up
     to kOneTileTo = 80, else 64 rows); the CUDA-core route keeps the other head dims."""
     fwd = (CSRC / "chronos_attention_tf32.cu").read_text()
     common = (CSRC / "chronos_common.cuh").read_text()
     assert (ONE_TILE_TO, TILE) == (80, 64)
     assert "kFwdFrom" not in fwd and "kBwdFrom" not in fwd
-    assert 'int chronos_tf32_takes(int D) { return D == kD && mtt_chronos_route_override() != 3; }' in fwd
+    assert 'int chronos_tf32_takes(int D) { return D == kD && mtt_chronos_route_override() != 4; }' in fwd
     assert f"const int tile = S <= {ONE_TILE_TO} ? (S + 15) / 16 * 16 : {TILE};" in common
     assert "if (dtype == 0 && chronos_tf32_takes(D)) {" in common
     assert "p = {5, 2 * tile, tile, tile, passes, 1, 1, 64, 64, 0};" in common
@@ -380,11 +380,12 @@ def test_chip_smoke_names_the_tf32_route_its_gate_lines_and_launches():
     dV's terms cancel, gives the route's rows the 3xTF32 bound as their bound (the CUDA cores'
     beside it) and requires HMMA.1688.F32.TF32 in the route's kernels that take products."""
     timed = inspect.getsource(chip_smoke.chronos_timed_rows)
-    assert 'tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] == 5' in timed
+    assert 'tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] in (5, 6)' in timed
     assert "three_tf32=tf32" in timed and 'row["bound_cuda_cores_ms"], _ = chronos_bound(' in timed
     assert chip_smoke.B4_ROUTES[5] == "tf32" and "tf32" in _kernels._CHRONOS_ROUTES[5].lower()
-    assert _kernels.CHRONOS_ROUTE_NAMES == {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3}
-    assert "if (route < 0 || route > 3) return (int)cudaErrorInvalidValue;" in (
+    assert _kernels.CHRONOS_ROUTE_NAMES == {"rule": 0, "mma.sync": 1, "wgmma": 3, "cuda cores": 4,
+                                            "tf32 mma.sync": 5, "tf32 persistent": 6}
+    assert "if (route < 0 || route > 6 || route == 2) return (int)cudaErrorInvalidValue;" in (
         CSRC / "chronos_attention_hopper.cu").read_text()
     assert "chronos_f32_borders" not in inspect.getsource(chip_smoke.main).split("def phase(")[1]
     assert chip_smoke.F32_BORDER_LENGTHS[0] == 16 and chip_smoke.F32_BORDER_LENGTHS[-1] == 577
@@ -395,12 +396,13 @@ def test_chip_smoke_names_the_tf32_route_its_gate_lines_and_launches():
         assert f"    {family}(" in "".join(
             (CSRC / n).read_text() for n in ("chronos_attention_tf32.cu", "chronos_attention_bwd_tf32.cu"))
     assert torch.float32 in chip_smoke.DV_CANCEL_DTYPES
-    shape = (128, 67, 12, 64)
+    # Route 6 takes fp32 B4b up to 80 tokens, so route 5's backward has no main-path launch and no
+    # entry; its forward keeps the serving lengths past 128 tokens.
+    shape = (16, 577, 12, 64)
     rows = {chip_smoke.row_key(key, shape, torch.float32): {"ms": 1.0 + i} for i, key in enumerate(("B4f", "B4b"))}
     entries = chip_smoke.tf32_route_entries(rows, {"B4f tf32": 5, "B4b tf32": 3, "B4f fp32": 1})
-    assert [(e["name"], e["launches"], e["ms"]) for e in entries] == [
-        ("fused_chronos_attention (3xTF32 route)", 5, 1.0), ("fused_chronos_attention_bwd (3xTF32 route)", 3, 2.0)]
-    assert [Path(e["source"]).name for e in entries] == ["chronos_attention_tf32.cu", "chronos_attention_bwd_tf32.cu"]
+    assert [(e["name"], e["launches"], e["ms"]) for e in entries] == [("fused_chronos_attention (3xTF32 route)", 5, 1.0)]
+    assert [Path(e["source"]).name for e in entries] == ["chronos_attention_tf32.cu"]
     bound, by = chip_smoke.chronos_bound(16, 577, 12, 64, torch.zeros(16, 577, dtype=torch.int32), torch.float32,
                                          backward=False, three_tf32=True)
     flops = 4 * 64 * 12 * 16 * 577 * 577
