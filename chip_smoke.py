@@ -77,9 +77,10 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    border between their two fp32 routes (``[gate] causal fp32``: route 4, 3xTF32 on
    mma.sync, against route 5, 3xTF32 on wgmma fed by TMA, forward and backward at S = 16 to
    2,100, D = 80, 16 heads, B = 8,192 / S, each checked against the plain version, held
-   times in turns) are measured only under ``--kernel-times``: the rule takes the 3xTF32
-   route at every S at head_dim 64, and at head_dim 80 route 5 from the border the causal
-   gate set, route 4 below it. In fp32 the causal kernels' rows are those of the route the
+   times in turns), and the borders of the Chronos fp32 routes 6 and 7 (``[gate] chronos
+   fp32 persistent``, ``[gate] chronos fp32 wgmma``) are measured only under
+   ``--kernel-times``: the rule takes a 3xTF32 route at every S at head_dim 64, and at
+   head_dim 80 route 5 from the border the causal gate set, route 4 below it. In fp32 the causal kernels' rows are those of the route the
    rule gives their shape, route 5's with route 4 checked and timed beside it, and B3b runs
    once past one chunk of route 4's scratch (8 x 2,100 x 16; route 5 where the rule sends
    that length). The kernel,
@@ -130,16 +131,17 @@ Phases (each prints its lines and its seconds; any failure exits non-zero):
    heads, 64 future patches) with the same fusion MLP, served at horizon 128
    through ``Forecaster.forecast_dataset`` at contexts 512, 2048 and 8192
    (97, 193 and 577 tokens) in fp32 and bf16, as in phase 3: 16 B4f
-   launches per batch, a profiled call, and the card against the port on
-   the CPU in fp32;
+   launches per batch (from 2048 on the wgmma route in bf16 and route 7 in
+   fp32, checked), a profiled call, and the card against the port on the CPU
+   in fp32;
 7. Chronos-2 training through ``MultimodalTrainer`` at the JAX bench's
    geometries (``bench.py:388-403``, context 32, horizon 32): multimodal at
    batch 128 (67 tokens) in fp32 and bf16 (the frozen encoder stored in
    bf16), baseline at batch 128 in fp32
    (dbias on the path), and multimodal with 2 future patches packed 16 to a
    row at batch 512 (segment masking on the path); then at context 8192 (577
-   tokens, batch 16) in bf16, multimodal and baseline, the path of B4b on the
-   wgmma route (its route checked); 16 B4f and 16 B4b
+   tokens, batch 16) in bf16 and fp32, multimodal and baseline, the paths of
+   B4b on the wgmma route and on route 7 (their routes checked); 16 B4f and 16 B4b
    launches per micro-batch; a profiled epoch per cell; and a one-step twin
    on the CPU in both modes, the baseline one holding the ``rel_pos_bias``
    gradient to the stated tolerance;
@@ -403,16 +405,24 @@ CU_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/attention_bwd_hopper.cu"
 # borders (Chronos-2 serving at contexts 2048 and 8192, the c8192 fine-tune).
 CU_CHRONOS_HOPPER_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_hopper.cu"
 CU_CHRONOS_HOPPER_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_hopper.cu"
-# The fp32 3xTF32 route the dispatch gives B4f and B4b at head_dim 64 past route 6's borders
-# (plan route 5), and its rows of the kernels line: (key, wrapper, source, TPU kernel, the
-# main-path shape it is timed at in fp32: Chronos-2 serving at context 8192, 577 tokens). Its
-# backward has no main-path launch since route 6 takes every fp32 B4b up to 80 tokens (no main
-# path runs fp32 B4b past that), so it has no row of its own; kernel_times still times it.
+# The fp32 3xTF32 route on mma.sync (plan route 5): routes 6 and 7 take every fp32 call at head_dim
+# 64 that Chronos-2's main paths make (67, 80 and 97 tokens; 193 and 577 forward, 577 backward), so it
+# keeps the lengths between their borders (the forward below 17 and at 113-159 tokens, the backward
+# at 81-384) and the override "tf32 mma.sync", no main-path launch, and no row of its own in the
+# kernels line; the [gate] lines and kernel_times (with --root, the parent's side) still time it.
 CU_CHRONOS_TF32_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_tf32.cu"
 CU_CHRONOS_TF32_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_tf32.cu"
-TF32_KERNELS = (
-    ("B4f", "fused_chronos_attention", CU_CHRONOS_TF32_SOURCE,
+# Route 7, the 3xTF32 route on wgmma fed by TMA the dispatch gives fp32 B4f and B4b at head_dim 64
+# from its borders (_kernels.CHRONOS_TF32_WGMMA_FROM), and its rows of the kernels line:
+# Chronos-2 serving at context 8192 and its fp32 fine-tunes there (577 tokens; B4b with dbias in
+# baseline mode).
+CU_CHRONOS_TF32W_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_tf32_hopper.cu"
+CU_CHRONOS_TF32W_BWD_SOURCE = "multimodal_timesfm_torch/csrc/chronos_attention_bwd_tf32_hopper.cu"
+TF32W_CHRONOS_KERNELS = (
+    ("B4f", "fused_chronos_attention", CU_CHRONOS_TF32W_SOURCE,
      "multimodal_timesfm_tpu/ops/chronos_attention.py:120", (16, 577, 12, 64)),
+    ("B4b", "fused_chronos_attention_bwd", CU_CHRONOS_TF32W_BWD_SOURCE,
+     "multimodal_timesfm_tpu/ops/chronos_attention.py:144", (16, 577, 12, 64)),
 )
 # Route 6, the persistent 3xTF32 route fed by TMA the dispatch gives fp32 B4f and B4b at head_dim
 # 64 up to their borders (_kernels.CHRONOS_TF32_SHORT_TO), and its rows of the kernels line, at
@@ -554,16 +564,16 @@ def wgmma_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[d
     return entries
 
 
-def tf32_route_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
-    """The ``kernels`` line's entries of the Chronos 3xTF32 route (TF32_KERNELS): this
-    process's counted launches on that route (``routes``, from route_launches) and the measured
-    row at the route's main-path shape in fp32."""
+def tf32w_chronos_entries(rows: dict[str, dict], routes: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line's entries of route 7 (TF32W_CHRONOS_KERNELS): this process's counted
+    launches on that route (``routes``, from route_launches) and the measured row at the route's
+    main-path shape in fp32."""
     entries = []
-    for key, name, cu, replaces, shape in TF32_KERNELS:
+    for key, name, cu, replaces, shape in TF32W_CHRONOS_KERNELS:
         batch, seq, heads, dim = shape
         entries.append({
-            "name": f"{name} (3xTF32 route)", "route": "cuda", "source": cu, "replaces": replaces,
-            "launches": routes.get(f"{key} tf32", 0),
+            "name": f"{name} (3xTF32 wgmma route)", "route": "cuda", "source": cu, "replaces": replaces,
+            "launches": routes.get(f"{key} tf32 wgmma", 0),
             "shape": f"B={batch} S={seq} H={heads} D={dim} float32",
             **rows[row_key(key, shape, torch.float32)],
         })
@@ -641,8 +651,9 @@ TF32_FAMILIES = ("chronos_fwd_tf32_kernel", "chronos_bwd_dq_tf32_kernel", "chron
 TF32_PERSISTENT_FAMILIES = ("chronos_fwd_short_tf32_kernel", "chronos_bwd_short_tf32_kernel")
 CAUSAL_TF32_FAMILIES = ("attention_fwd_tf32_kernel", "attention_bwd_dq_tf32_kernel", "attention_bwd_dkdv_tf32_kernel")
 # The kernel families of route 5, which must hold HGMMA on TF32 operands and UTMALDG, and spill
-# nothing.
+# nothing; and those of the Chronos kernels' route 7, held to the same.
 TF32W_FAMILIES = ("attention_fwd_tf32w_kernel", "attention_bwd_rows_tf32w_kernel", "attention_bwd_dkdv_tf32w_kernel")
+TF32W_CHRONOS_FAMILIES = ("chronos_fwd_tf32w_kernel", "chronos_bwd_rows_tf32w_kernel", "chronos_bwd_dkdv_tf32w_kernel")
 
 
 def sass_counts(lib_path) -> dict[str, list[dict[str, int]]] | None:
@@ -682,8 +693,9 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
     loads (UTMALDG), and the fewest they hold. With ``require_wgmma`` (a library of this
     checkout), raises if a family of the wgmma route is missing or holds no HGMMA or no
     UTMALDG, a family of the persistent route no HMMA or no UTMALDG, a family of the
-    3xTF32 route no HMMA.1688.F32.TF32, or one of route 6 no HMMA.1688.F32.TF32 or no
-    UTMALDG; a line naming no tool when the toolkit has no cuobjdump."""
+    3xTF32 route no HMMA.1688.F32.TF32, one of route 6 no HMMA.1688.F32.TF32 or no UTMALDG,
+    or one of route 5 or route 7 no HGMMA on TF32 operands or no UTMALDG; a line naming no
+    tool when the toolkit has no cuobjdump."""
     counts = sass_counts(lib_path)
     if counts is None:
         return ["no cuobjdump: SASS not read"]
@@ -709,7 +721,7 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
         if not found or any(c[SASS_TF32] == 0 or c["UTMALDG"] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run {SASS_TF32} and UTMALDG in every "
                                  f"instantiation: {found}")
-    for name in TF32W_FAMILIES if require_wgmma else ():
+    for name in TF32W_FAMILIES + TF32W_CHRONOS_FAMILIES if require_wgmma else ():
         found = counts.get(name, [])
         if not found or any(c[SASS_GMMA_TF32] == 0 or c["UTMALDG"] == 0 for c in found):
             raise AssertionError(f"SASS: {name} does not run HGMMA on TF32 operands and UTMALDG in every "
@@ -718,10 +730,17 @@ def sass_mma_report(lib_path, require_wgmma: bool = True) -> list[str]:
 
 
 def ptxas_report(log_text: str, require: bool = True) -> list[str]:
-    """From nvcc's ``-Xptxas=-v`` log of the library: for each route-5 kernel (TF32W_FAMILIES)
-    its spill stores and loads and its registers, one line each; raises when ``require`` and
-    one spills. (The dynamic shared memory a block takes is the library's to report.)"""
+    """From nvcc's ``-Xptxas=-v`` log of the library: for each kernel of route 5
+    (TF32W_FAMILIES) and of route 7 (TF32W_CHRONOS_FAMILIES) its spill stores and loads and its
+    registers, and any warning of ptxas's (C7510-C7520: wgmma serialised) that names one, one line
+    each, led by the route; raises when ``require`` and one spills. (The dynamic shared memory a
+    block takes is the library's to report.)"""
     import re
+
+    def route(name: str) -> str | None:
+        if any(f in name for f in TF32W_FAMILIES):
+            return "route 5"
+        return "route 7" if any(f in name for f in TF32W_CHRONOS_FAMILIES) else None
 
     lines, entry = [], None
     for line in log_text.splitlines():
@@ -729,16 +748,20 @@ def ptxas_report(log_text: str, require: bool = True) -> list[str]:
         if found:
             entry = found.group(1)
             continue
-        if entry is None or not any(f in entry for f in TF32W_FAMILIES):
+        warned = re.search(r"\((C75[01]\d|C7520)\).*function '(\S+)'", line)
+        if warned and route(warned.group(2)):
+            lines.append(f"{route(warned.group(2))} {warned.group(2)}: {line.strip()}")
+            continue
+        if entry is None or route(entry) is None:
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             if require and (int(spill.group(1)) or int(spill.group(2))):
                 raise AssertionError(f"ptxas: {entry} spills: {line.strip()}")
-            lines.append(f"{entry}: {line.strip()}")
+            lines.append(f"{route(entry)} {entry}: {line.strip()}")
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
-            lines.append(f"{entry}: {line.strip()}")
+            lines.append(f"{route(entry)} {entry}: {line.strip()}")
     return lines
 
 
@@ -1501,9 +1524,9 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
     err_f, err_b, err_db = errs
 
     def bound(backward: bool, dbias: bool = False) -> tuple[float, str]:
-        # The bound of the route the call takes: fp32 on a 3xTF32 route (plan route 5 or 6) at
+        # The bound of the route the call takes: fp32 on a 3xTF32 route (plan route 5, 6 or 7) at
         # the TF32 rate, else at the dtype's.
-        tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] in (5, 6)
+        tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] in (5, 6, 7)
         return chronos_bound(*shape, seg, dtype, backward, dbias, three_tf32=tf32)
 
     mask = chronos_sdpa_mask(seg, bias, dtype)
@@ -1535,7 +1558,7 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
         bound(True, dbias=True), iters, sdpa_db_name,
         held=True,
     )
-    if dtype == torch.float32 and _kernels.chronos_plan(True, dtype, batch, seq, heads, dim)["route"] in (5, 6):
+    if dtype == torch.float32 and _kernels.chronos_plan(True, dtype, batch, seq, heads, dim)["route"] in (5, 6, 7):
         # Beside the 3xTF32 route's bound (bound_ms), the same work's bound on the CUDA cores
         # (PEAK_FLOPS), the fp32 route the parent took.
         rows = (("B4f", fwd, False, False), ("B4b (no dbias)", bwd, True, False), ("B4b (with dbias)", bwd_db, True, True))
@@ -1544,7 +1567,8 @@ def chronos_timed_rows(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor,
             row["bound_cuda_cores_ms"], _ = chronos_bound(*shape, seg, dtype, backward, dbias)
             parts.append(f"{what} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} (3xTF32, {row['bound_by']}) / "
                          f"{row['bound_cuda_cores_ms']:.4f} (CUDA cores)")
-        print(f"[kernels] fp32 B={batch} S={seq} H={heads} D={dim} bounds: {'; '.join(parts)} | route: "
+        print(f"[kernels] fp32 B={batch} S={seq} H={heads} D={dim} bounds: {'; '.join(parts)} | routes: forward "
+              f"{_kernels.chronos_route(False, dtype, batch, seq, heads, dim).split(',')[0]}, backward "
               f"{_kernels.chronos_route(True, dtype, batch, seq, heads, dim).split(',')[0]}", flush=True)
     return fwd, bwd
 
@@ -1721,7 +1745,7 @@ def tf32_persistent_checks(gen: torch.Generator) -> None:
             count += 1
     finally:
         _kernels.set_chronos_route("rule")
-    for seq in range(1, 600):
+    for seq in (*range(1, 600), *F32_WGMMA_BORDER_LENGTHS):
         for d in (False, True):
             route = _kernels.chronos_plan(d, dtype, 64, seq, 12, dim)["route"]
             if route != _kernels.chronos_f32_route(d, seq, dim):
@@ -1731,9 +1755,59 @@ def tf32_persistent_checks(gen: torch.Generator) -> None:
           f"(backward 1-{TF32_PERSISTENT_BUILT_TO['backward']}), {count} shapes, variants "
           f"{list(TF32_PERSISTENT_VARIANTS)}: max |kernel - plain| forward {worst[0]:.3g}, dqkv {worst[1]:.3g}, "
           f"dbias {worst[2]:.3g}, within tolerance on every element; two launches bit-equal; the rule's route "
-          f"at S = 1-599 as chronos_f32_route gives it (route 6 forward at "
+          f"at S = 1-599 and 1,025 as chronos_f32_route gives it (route 6 forward at "
           f"{_kernels.CHRONOS_TF32_SHORT_FROM['forward']}-{_kernels.CHRONOS_TF32_SHORT_TO['forward']}, backward "
-          f"up to {_kernels.CHRONOS_TF32_SHORT_TO['backward']})", flush=True)
+          f"up to {_kernels.CHRONOS_TF32_SHORT_TO['backward']}; past them route 7 from "
+          f"{_kernels.CHRONOS_TF32_WGMMA_FROM['forward']} / {_kernels.CHRONOS_TF32_WGMMA_FROM['backward']})",
+          flush=True)
+
+
+# Route 7 (fp32, head_dim 64) checked forced by the library's override "tf32 wgmma" at the lengths
+# around its borders and its tiles' edges (81, 96, 97, 113, 128 = two 64-row warpgroups, 129: a
+# block whose second warpgroup's rows all lie past S, 193, 577 = 18 x 32 + 1, 1,025), the batch,
+# heads and segments taken in turn from these (odd batches, 12 heads and 6 as on a model axis of 2,
+# one segment, three with padded tokens).
+TF32W_LENGTHS = (81, 96, 97, 113, 128, 129, 193, 577, 1025)
+TF32W_VARIANTS = ((3, 12, 1, False), (5, 6, 3, True), (2, 12, 3, True), (7, 6, 1, False))
+# C4: rows past S in the last 32-row query tile, with the last bias row past where exp overflows
+# (88): (B, S, H, D), and what is added to that row.
+TF32W_LASTROW_SHAPE, TF32W_LASTROW_BIAS = (3, 577, 12, 64), 100.0
+
+
+def tf32w_checks(gen: torch.Generator) -> None:
+    """Route 7 at TF32W_LENGTHS, fp32, head_dim 64, forced by the override "tf32 wgmma", the
+    variants of TF32W_VARIANTS in turn, then at TF32W_LASTROW_SHAPE with TF32W_LASTROW_BIAS added
+    to the last bias row (C4: the rows past S that the dK/dV kernel reads): the plan's route 7
+    both ways, every element finite and within KERNEL_TOL of the plain forward and BWD_TOL of the
+    plain backward with and without dbias, two launches bit-equal (check_chronos)."""
+    from multimodal_timesfm_torch.ops import _kernels
+
+    dtype, dim = torch.float32, 64
+    worst, shapes = [0.0, 0.0, 0.0], []
+    try:
+        _kernels.set_chronos_route("tf32 wgmma")
+        for i, seq in enumerate(TF32W_LENGTHS):
+            batch, heads, segments, padded = TF32W_VARIANTS[i % len(TF32W_VARIANTS)]
+            for d in (False, True):
+                if _kernels.chronos_plan(d, dtype, batch, seq, heads, dim)["route"] != 7:
+                    raise AssertionError(f"B4{'b' if d else 'f'} fp32 S={seq}: the forced route 7 is not the plan's")
+            shape = (batch, seq, heads, dim)
+            qkv, seg, bias, g = chronos_inputs(shape, segments, padded, dtype, gen)
+            errs = check_chronos(f"B4 route 7 {shape} {segments} segment(s){' padded' if padded else ''}",
+                                 qkv, seg, bias, g)
+            worst = [max(w, e) for w, e in zip(worst, errs)]
+            shapes.append(shape)
+        shape = TF32W_LASTROW_SHAPE
+        qkv, seg, bias, g = chronos_inputs(shape, 1, False, dtype, gen)
+        bias[:, -1] += TF32W_LASTROW_BIAS
+        errs = check_chronos(f"B4 route 7 {shape} last bias row + {TF32W_LASTROW_BIAS:g}", qkv, seg, bias, g)
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+        shapes.append(shape)
+    finally:
+        _kernels.set_chronos_route("rule")
+    print(f"[kernels] route 7 (fp32 3xTF32 wgmma, forced) at {shapes}: max |kernel - plain| forward "
+          f"{worst[0]:.3g}, dqkv {worst[1]:.3g}, dbias {worst[2]:.3g}, within tolerance on every element; two "
+          f"launches bit-equal", flush=True)
 
 
 # C3: more than kGridRows = 65,535 batch rows, which the entry points run in chunks. Each kernel
@@ -1845,6 +1919,7 @@ def chronos_kernel_phase(seed: int) -> dict[str, dict]:
     wgmma_route_checks(gen)
     persistent_forward_checks(gen, cases)
     tf32_persistent_checks(gen)
+    tf32w_checks(gen)
     chronos_dv_cancel_checks(gen)
     return rows
 
@@ -2149,7 +2224,7 @@ def chronos_f32_borders(seed: int) -> None:
     for name, wins in faster.items():
         measured = next((s for i, s in enumerate(F32_BORDER_LENGTHS) if all(wins[i:])), None)
         rule = next((s for s in F32_BORDER_LENGTHS if _kernels.chronos_plan(
-            name == "backward", dtype, max(1, CHRONOS_BORDER_TOKENS // s), s, heads, dim)["route"] in (5, 6)),
+            name == "backward", dtype, max(1, CHRONOS_BORDER_TOKENS // s), s, heads, dim)["route"] in (5, 6, 7)),
                     None)
         print(f"[gate] chronos fp32 {name} border: the 3xTF32 route is the faster (by "
               f"{1 - BORDER_MARGIN:.0%}) from S={measured} on (of {F32_BORDER_LENGTHS}); the dispatch "
@@ -2226,6 +2301,88 @@ def chronos_f32_persistent_borders(seed: int) -> None:
     persistent_border_line("chronos fp32 persistent forward", lengths, wins["forward"], rule["forward"])
     short = tuple(s for s in lengths if s <= 80)
     persistent_border_line("chronos fp32 persistent backward", short, wins["backward"], rule["backward"])
+
+
+# The lengths route 7's borders are measured at (fp32, head_dim 64, 12 heads, B = 9,232 // S):
+# from route 6's backward border (80) through Chronos-2's 97 (serving at context 512), 193 and 577
+# (contexts 2048 and 8192) to 1,025, with route 6 beside them where it is built (the forward up to
+# TF32_PERSISTENT_BUILT_TO's 128).
+F32_WGMMA_BORDER_LENGTHS = (81, 97, 113, 128, 160, 193, 256, 385, 577, 1025)
+
+
+def chronos_f32_wgmma_borders(seed: int) -> None:
+    """The fp32 borders of route 7 (3xTF32 wgmma fed by TMA; the library's override ``"tf32
+    wgmma"``) against route 5 (``"tf32 mma.sync"``) and, where route 6 is built, route 6
+    (``"tf32 persistent"``): at each of F32_WGMMA_BORDER_LENGTHS the forward, the backward
+    without dbias and with dbias on each route, checked against the plain versions and timed in
+    turns (route 5, route 6, route 7, route 7, route 6, route 5; held_ms); one ``[gate] chronos
+    fp32 wgmma`` line per length, then one per direction: the least S from which route 7 is the
+    faster by BORDER_MARGIN than every other route measured there (the backward in both modes)
+    at every measured length, beside the least S from which the dispatch rule gives route 7."""
+    from multimodal_timesfm_torch.ops import _kernels
+    from multimodal_timesfm_torch.ops.chronos_attention import (
+        fused_chronos_attention,
+        fused_chronos_attention_bwd,
+        plain_chronos_attention,
+        plain_chronos_attention_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    heads, dim, dtype = 12, 64, torch.float32
+    names = {"route 5": "tf32 mma.sync", "route 6": "tf32 persistent", "route 7": "tf32 wgmma"}
+    wins: dict[str, list[bool]] = {"forward": [], "backward": []}
+    try:
+        for seq in F32_WGMMA_BORDER_LENGTHS:
+            batch = max(1, CHRONOS_BORDER_TOKENS // seq)
+            qkv, seg, bias, g = chronos_inputs((batch, seq, heads, dim), 1, False, dtype, gen)
+            calls = (lambda: fused_chronos_attention(qkv, seg, bias),
+                     lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, False),
+                     lambda: fused_chronos_attention_bwd(qkv, seg, bias, g, True))
+            ref = plain_chronos_attention(qkv, seg, bias)
+            ref_b = plain_chronos_attention_bwd(qkv, seg, bias, g, True)
+            built = {"forward": seq <= TF32_PERSISTENT_BUILT_TO["forward"],
+                     "backward": seq <= TF32_PERSISTENT_BUILT_TO["backward"]}
+            order = ("route 5", "route 6", "route 7", "route 7", "route 6", "route 5")
+            times: dict[str, list[list[float | None]]] = {r: [] for r in names}
+            for route in order:
+                _kernels.set_chronos_route(names[route])
+                want = int(route[-1])
+                ways = [built[w] or route != "route 6" for w in ("forward", "backward", "backward")]
+                if _kernels.chronos_plan(False, dtype, batch, seq, heads, dim)["route"] != (want if ways[0] else 7):
+                    raise AssertionError(f"chronos fp32 S={seq}: the override {names[route]!r} is not the plan's")
+                if not times[route]:
+                    if ways[0]:
+                        compare(f"chronos fp32 {route} S={seq}", calls[0](), ref)
+                    if ways[1]:
+                        compare_bwd(f"chronos fp32 {route} S={seq} backward", calls[2](), ref_b)
+                times[route].append([held_ms(fn, 10)[0] if on else None for fn, on in zip(calls, ways)])
+            _kernels.set_chronos_route("rule")
+            mean = {r: [None if ts[0][i] is None else sum(t[i] for t in ts) / len(ts) for i in range(3)]
+                    for r, ts in times.items()}
+            won = [all(mean[r][i] is None or mean["route 7"][i] < BORDER_MARGIN * mean[r][i]
+                       for r in ("route 5", "route 6")) for i in range(3)]
+            wins["forward"].append(won[0])
+            wins["backward"].append(won[1] and won[2])
+
+            def part(what: str, i: int) -> str:
+                return f"{what} " + " / ".join("-" if mean[r][i] is None else f"{mean[r][i]:.4f}" for r in names)
+
+            print(f"[gate] chronos fp32 wgmma D={dim} H={heads} S={seq} B={batch}, held device ms (route 5 / "
+                  f"route 6 / route 7; - where route 6 is not built): {part('forward', 0)}, {part('backward', 1)}, "
+                  f"{part('with dbias', 2)} (every route within tolerance of the plain versions; the rule: forward "
+                  f"route {_kernels.chronos_plan(False, dtype, batch, seq, heads, dim)['route']}, backward route "
+                  f"{_kernels.chronos_plan(True, dtype, batch, seq, heads, dim)['route']})", flush=True)
+    finally:
+        _kernels.set_chronos_route("rule")
+    lengths = F32_WGMMA_BORDER_LENGTHS
+    for name, won in wins.items():
+        measured = next((s for i, s in enumerate(lengths) if all(won[i:])), None)
+        rule = next((s for s in lengths if _kernels.chronos_plan(
+            name == "backward", dtype, max(1, CHRONOS_BORDER_TOKENS // s), s, heads, dim)["route"] == 7), None)
+        print(f"[gate] chronos fp32 wgmma {name} border: route 7 is the faster (by {1 - BORDER_MARGIN:.0%}) than "
+              f"every other route measured from S={measured} on (of {lengths}; where route 6 takes a length by "
+              f"its own border, the rule keeps it there); the dispatch rule takes route 7 from S={rule}",
+              flush=True)
 
 
 def sdpa_graph_ms(qkv: torch.Tensor, seg: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
@@ -3360,7 +3517,7 @@ def launch_counts() -> dict[str, int]:
 
 # The Chronos plan's routes (chronos_attention_config), and the causal kernels'
 # (attention_fwd_config / attention_bwd_config), by number ("fp32": the CUDA cores).
-B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent", "tf32", "tf32 persistent")
+B4_ROUTES = ("fp32", "one-pass", "tiled", "wgmma", "persistent", "tf32", "tf32 persistent", "tf32 wgmma")
 B1_ROUTES = ("fp32", "mma.sync", "wgmma", "persistent", "tf32", "tf32 wgmma")
 # The wrappers whose launches route_launches splits by route: every one.
 ROUTED_KEYS = ("B1f", "B1b", "B2f", "B2b", "B3f", "B3b", "B4f", "B4b")
@@ -3395,18 +3552,19 @@ def expect_launches(label: str, before: dict[str, int], want: dict[str, int]) ->
     return {key: n for key, n in delta.items() if n}
 
 
-def expect_route(label: str, backward: bool, shape: tuple[int, int], route: str) -> None:
-    """B4f's (or B4b's) route at (B, S) = ``shape``, 12 x 64 heads, bf16, as the library's plan
-    gives it, must be ``route`` (one of B4_ROUTES); prints it."""
+def expect_route(label: str, backward: bool, shape: tuple[int, int], route: str,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+    """B4f's (or B4b's) route at (B, S) = ``shape``, 12 x 64 heads, in ``dtype``, as the library's
+    plan gives it, must be ``route`` (one of B4_ROUTES); prints it."""
     from multimodal_timesfm_torch.ops import _kernels
 
     batch, seq = shape
-    plan = _kernels.chronos_plan(backward, torch.bfloat16, batch, seq, 12, 64)
+    plan = _kernels.chronos_plan(backward, dtype, batch, seq, 12, 64)
     if B4_ROUTES[plan["route"]] != route:
         raise AssertionError(f"{label}: B4{'b' if backward else 'f'} at B={batch} S={seq} takes the "
                              f"{B4_ROUTES[plan['route']]} route, expected {route}")
     print(f"[route] {label}: B4{'b' if backward else 'f'} B={batch} S={seq}: "
-          f"{_kernels.chronos_route(backward, torch.bfloat16, batch, seq, 12, 64)}", flush=True)
+          f"{_kernels.chronos_route(backward, dtype, batch, seq, 12, 64)}", flush=True)
 
 
 def long_context_phase(seed: int, tree: dict, decoders: dict) -> None:
@@ -3505,8 +3663,9 @@ def chronos_serving_phase(seed: int) -> tuple[dict, dict, object]:
             preds[(dtype, ctx)] = out
         seen = expect_launches(f"chronos context {ctx} {dtype}", before,
                                {"B4f": 16 * -(-n // bs) * SERVE_REPEATS})
-        if dtype == torch.bfloat16 and ctx >= 2048:
-            expect_route(f"chronos context {ctx} {dtype}", False, (bs, ctx // 16 + 65), "wgmma")
+        if ctx >= 2048:  # the bf16 wgmma route and, in fp32, route 7
+            expect_route(f"chronos context {ctx} {dtype}", False, (bs, ctx // 16 + 65),
+                         "wgmma" if dtype == torch.bfloat16 else "tf32 wgmma", dtype)
         print(
             f"[chronos] context {ctx} ({ctx // 16 + 65} tokens) {str(dtype)[6:]}: {n} series, median of "
             f"{SERVE_REPEATS} calls {float(np.median(rates)):.1f} series/s "
@@ -3552,9 +3711,9 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
     # (workload, mode, dtype, decoder, context, batch, steps per epoch, trainer knobs);
     # horizon 32. The JAX bench's cells at context 32 (the bf16 one stores the frozen
     # encoder in bf16, as bench.py:317 does), then the fine-tune at context 8192 (577
-    # tokens, Chronos-2's longest served context), full width and depth, bf16, in both
-    # modes: the path of B4b past the one-pass route (the wgmma route; with dbias in
-    # baseline mode).
+    # tokens, Chronos-2's longest served context), full width and depth, in bf16 and in
+    # fp32 (Chronos-2's default compute dtype), in both modes: the paths of B4b past the
+    # one-pass route (bf16: the wgmma route; fp32: route 7; with dbias in baseline mode).
     cells = (
         ("chronos_mm_h32", "multimodal", torch.float32, decoders[torch.float32], 32, 128, 3, {}),
         ("chronos_mm_h32", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 32, 128, 3,
@@ -3564,6 +3723,8 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
         ("chronos_mm_c8192", "multimodal", torch.bfloat16, decoders[torch.bfloat16], 8192, 16, 2,
          {"frozen_cast_dtype": torch.bfloat16}),
         ("chronos_baseline_c8192", "baseline", torch.bfloat16, decoders[torch.bfloat16], 8192, 16, 2, {}),
+        ("chronos_mm_c8192", "multimodal", torch.float32, decoders[torch.float32], 8192, 16, 2, {}),
+        ("chronos_baseline_c8192", "baseline", torch.float32, decoders[torch.float32], 8192, 16, 2, {}),
     )
     with tempfile.TemporaryDirectory() as workdir:
         for name, mode, dtype, decoder, context, batch, steps, knobs in cells:
@@ -3600,7 +3761,8 @@ def chronos_training_phase(seed: int, tree: dict, decoders: dict, reference) -> 
             seen = expect_launches(label, before, {"B4f": 16 * (3 * steps + 1), "B4b": 16 * 3 * steps})
             if context == 8192:
                 for backward in (False, True):
-                    expect_route(label, backward, (batch, context // 16 + 65), "wgmma")
+                    expect_route(label, backward, (batch, context // 16 + 65),
+                                 "wgmma" if dtype == torch.bfloat16 else "tf32 wgmma", dtype)
             if not all(np.isfinite(x) for x in (warm, loss, val_loss)):
                 raise AssertionError(f"{label}: non-finite loss {warm}, {loss}, {val_loss}")
             moved = float((decoder.adapter.encoder.rel_pos_bias.detach() - table).abs().max())
@@ -4924,8 +5086,9 @@ def training_times(seed: int, epochs: int = 7) -> None:
 
 
 def fp32_times(seed: int, repeats: int = 5, epochs: int = 5) -> None:
-    """TimesFM-2.5 200M in fp32, its default compute dtype, where the causal kernels' fp32
-    route carries it, with the port imported from ``--root`` when given: served through
+    """TimesFM-2.5 200M and Chronos-2 120M in fp32, their default compute dtype, with the port
+    imported from ``--root`` when given. TimesFM, where the causal kernels' fp32 route carries it:
+    served through
     Forecaster (multimodal, horizon 128) at contexts 2048, 16384 and 67,200 (64, 512 and 2,100
     tokens: B1f, B2f, B3f; 200 series in batches of 64, 16 in batches of 8, 4 in batches of 2),
     the median series/s of ``repeats`` calls after a warm-up, then one profiled call; and the
@@ -4933,7 +5096,8 @@ def fp32_times(seed: int, repeats: int = 5, epochs: int = 5) -> None:
     train series/s of ``epochs`` epochs after one, a profiled epoch, and the most memory the
     card's allocator held over the fine-tune (``torch.cuda.max_memory_allocated``, from a reset
     before the trainer is built). Each profiled reading gives the device's busy time, its idle
-    share and the attention kernels' share of busy (``attention_fwd*``, ``attention_bwd*``)."""
+    share and the attention kernels' share of busy (``attention_fwd*``, ``attention_bwd*``).
+    Then Chronos-2 (chronos_fp32_times), where route 7 carries B4 past route 6's borders."""
     from multimodal_timesfm_torch.inference import Forecaster
     from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
     from multimodal_timesfm_torch.training_args import TrainingArguments
@@ -4986,6 +5150,86 @@ def fp32_times(seed: int, repeats: int = 5, epochs: int = 5) -> None:
           f"of {epochs} epochs {float(np.median(rates)):.1f} train series/s ({', '.join(f'{r:.1f}' for r in rates)}) "
           f"| profiled epoch: wall {wall:.3f} ms, {text}, idle {1 - busy / wall:.3f} | peak memory allocated "
           f"{peak / 2**30:.3f} GiB", flush=True)
+    del decoder, trainer
+    torch.cuda.empty_cache()
+    chronos_fp32_times(seed, repeats, epochs)
+
+
+def chronos_fp32_times(seed: int, repeats: int = 5, epochs: int = 5) -> None:
+    """Chronos-2 120M in fp32 (full width and depth, weights from ``seed``), where route 7 carries
+    B4 past route 6's borders: served through Forecaster (multimodal, horizon 128) at contexts 2048
+    and 8192 (193 and 577 tokens: B4f; 200 series in batches of 64, 16 in batches of 16), the median
+    series/s of ``repeats`` calls after a warm-up, then one profiled call; and the fine-tunes at
+    context 8192 (batch 16, 2 steps an epoch, horizon 32), ``chronos_mm_c8192`` (multimodal: B4f,
+    B4b) and ``chronos_baseline_c8192`` (baseline: B4b with dbias), the median train series/s of
+    ``epochs`` epochs after one, a profiled epoch, and the most memory the card's allocator held
+    over the fine-tune (``torch.cuda.max_memory_allocated``, from a reset before the trainer is
+    built). Each profiled reading gives the device's busy time, its idle share and B4f's and B4b's
+    shares of busy (``chronos_fwd_*``, ``chronos_bwd*``)."""
+    from multimodal_timesfm_torch.inference import Forecaster
+    from multimodal_timesfm_torch.models.bridge import load_jax_params, random_jax_params
+    from multimodal_timesfm_torch.models.chronos import Chronos2Adapter, Chronos2Config
+    from multimodal_timesfm_torch.models.decoder import MultimodalDecoder, MultimodalDecoderConfig
+    from multimodal_timesfm_torch.training.trainer import MultimodalTrainer
+    from multimodal_timesfm_torch.training_args import TrainingArguments
+
+    def shares(kernels) -> tuple[str, float]:
+        busy = sum(ms for _, ms in kernels)
+        fwd = sum(ms for k, ms in kernels if "chronos_fwd_" in k)
+        bwd = sum(ms for k, ms in kernels if "chronos_bwd" in k)
+        return f"device busy {busy:.3f} ms, B4f {fwd / busy:.3f} and B4b {bwd / busy:.3f} of busy", busy
+
+    dec_cfg = MultimodalDecoderConfig(text_embedding_dims=384, num_fusion_layers=1)
+    decoder = MultimodalDecoder(Chronos2Adapter(dataclasses.replace(Chronos2Config(), compute_dtype=torch.float32)),
+                                dec_cfg, device="cpu")
+    tree = random_jax_params(decoder, seed)
+    load_jax_params(decoder, tree)
+    decoder = decoder.cuda()
+    for ctx, (n, batch) in {2048: (200, 64), 8192: (16, 16)}.items():
+        data = make_samples(ctx, n, seed, HORIZON, patch=16)
+        fc = Forecaster(decoder, batch_size=batch, device="cuda")
+        fc.forecast_dataset(HORIZON, data, denormalize=True)
+        rates = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fc.forecast_dataset(HORIZON, data, denormalize=True)
+            rates.append(n / (time.perf_counter() - start))
+        wall, kernels = device_profile(lambda: fc.forecast_dataset(HORIZON, data, denormalize=True))
+        text, busy = shares(kernels)
+        print(f"[fp32-times] chronos serve context {ctx} ({ctx // 16 + 65} tokens) float32, {n} series in batches "
+              f"of {batch}: median of {repeats} calls {float(np.median(rates)):.1f} series/s "
+              f"({', '.join(f'{r:.1f}' for r in rates)}) | profiled call: wall {wall:.3f} ms, {text}, idle "
+              f"{1 - busy / wall:.3f}", flush=True)
+    ctx, batch, steps = 8192, 16, 2
+    train = make_samples(ctx, steps * batch, seed, CHRONOS_HORIZON, patch=16)
+    val = make_samples(ctx, batch, seed + 1, CHRONOS_HORIZON, patch=16)
+    for name, mode in (("chronos_mm_c8192", "multimodal"), ("chronos_baseline_c8192", "baseline")):
+        load_jax_params(decoder, tree)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as workdir:
+            args = TrainingArguments(
+                output_dir=workdir, per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+                num_train_epochs=3, learning_rate=TRAIN_LR if mode == "multimodal" else BASELINE_LR,
+                weight_decay=0.01, eval_strategy="epoch", save_strategy="no", logging_strategy="no", seed=seed)
+            trainer = MultimodalTrainer(decoder, args, train, val, mode, device="cuda")
+            rates = []
+            for epoch in range(epochs + 1):
+                loss = trainer.train_epoch()
+                if not np.isfinite(loss):
+                    raise AssertionError(f"fp32-times {name}: loss {loss}")
+                if epoch >= 1:
+                    rates.append(trainer.last_throughput)
+            wall, kernels = device_profile(trainer.train_epoch)
+            peak = torch.cuda.max_memory_allocated()
+        text, busy = shares(kernels)
+        print(f"[fp32-times] train {name} {mode} float32, context {ctx}, batch {batch}, {steps} steps an epoch: "
+              f"median of {epochs} epochs {float(np.median(rates)):.1f} train series/s "
+              f"({', '.join(f'{r:.1f}' for r in rates)}) | profiled epoch: wall {wall:.3f} ms, {text}, idle "
+              f"{1 - busy / wall:.3f} | peak memory allocated {peak / 2**30:.3f} GiB", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
 
 
 def dispatch_times(calls: int = 2000, repeats: int = 7) -> None:
@@ -5999,8 +6243,9 @@ def main() -> int:
                         help="only time three eager bf16 training cells (TimesFM c512, chronos_mm_h32, "
                              "chronos_baseline_h32) and their attention backward's share")
     parser.add_argument("--fp32-times", action="store_true",
-                        help="only time TimesFM fp32 serving at contexts 2048, 16384 and 67,200 and the "
-                             "c16384 fp32 fine-tune: series/s, attention shares, peak memory")
+                        help="only time fp32 end to end: TimesFM serving at contexts 2048, 16384 and 67,200 "
+                             "and its c16384 fine-tune, then Chronos-2 serving at contexts 2048 and 8192 and "
+                             "its c8192 fine-tunes in both modes: series/s, attention shares, peak memory")
     parser.add_argument("--dispatch-times", action="store_true",
                         help="only time one call of the B1 entry point: custom op against autograd.Function")
     parser.add_argument("--parallel-only", action="store_true",
@@ -6046,11 +6291,15 @@ def main() -> int:
         print(f"[build] SASS {line}")
     if log.exists() and hasattr(_kernels.library(), "tf32w_fwd_smem"):
         for line in ptxas_report(log.read_text(), require=args.root is None or args.kernel_times):
-            print(f"[build] ptxas route 5 {line}")
+            print(f"[build] ptxas {line}")
         lib = _kernels.library()
         print(f"[build] ptxas route 5 dynamic shared memory a block: forward {lib.tf32w_fwd_smem()} bytes (two "
               f"blocks an SM), backward statistics {lib.tf32w_bwd_smem(1)}, dq {lib.tf32w_bwd_smem(2)}, dkdv "
               f"{lib.tf32w_bwd_smem(3)} bytes (one block an SM)", flush=True)
+        if hasattr(lib, "chronos_tf32w_fwd_smem"):
+            print(f"[build] ptxas route 7 dynamic shared memory a block: forward {lib.chronos_tf32w_fwd_smem()} "
+                  f"bytes, backward statistics {lib.chronos_tf32w_bwd_smem(1)}, dq {lib.chronos_tf32w_bwd_smem(2)}, "
+                  f"dkdv {lib.chronos_tf32w_bwd_smem(3)} bytes (one block an SM each)", flush=True)
     gpu = gpu_line()
     print(f"[gpu] {gpu} | torch {torch.__version__} CUDA {torch.version.cuda} | port from "
           f"{_kernels.CSRC.parent if hasattr(_kernels, 'CSRC') else _kernels.SOURCES[0].parent.parent}",
@@ -6108,6 +6357,7 @@ def main() -> int:
         chronos_route_borders(args.seed)
         chronos_f32_borders(args.seed)
         chronos_f32_persistent_borders(args.seed)
+        chronos_f32_wgmma_borders(args.seed)
         if not args.chronos_only:
             causal_f32_borders(args.seed)
         persistent_route_borders(args.seed, args.chronos_only)
@@ -6184,7 +6434,7 @@ def main() -> int:
     idle = [key for key, n in launches.items() if n == 0]
     idle += [f"{key} wgmma" for key, *_ in CHRONOS_WGMMA_KERNELS if not routes.get(f"{key} wgmma")]
     idle += [f"{key} persistent" for key in ("B1f", "B1b", "B4f", "B4b") if not routes.get(f"{key} persistent")]
-    idle += [f"{key} tf32" for key, *_ in TF32_KERNELS if not routes.get(f"{key} tf32")]
+    idle += [f"{key} tf32 wgmma" for key, *_ in TF32W_CHRONOS_KERNELS if not routes.get(f"{key} tf32 wgmma")]
     idle += [f"{key} tf32 persistent" for key, *_ in TF32_PERSISTENT_KERNELS
              if not routes.get(f"{key} tf32 persistent")]
     idle += [f"{key} {causal_f32_label(key, shape[1])}" for key, *_, shape in CAUSAL_TF32_KERNELS
@@ -6196,7 +6446,7 @@ def main() -> int:
           f"not split): {routes}")
     print(f"[launches] every kernel by route and length, the same counts: {dict(sorted(lengths.items()))}")
     print(json.dumps({"kernels": kernel_entries(rows, launches) + wgmma_route_entries(rows, routes)
-                      + persistent_route_entries(rows, routes) + tf32_route_entries(rows, routes)
+                      + persistent_route_entries(rows, routes) + tf32w_chronos_entries(rows, routes)
                       + tf32_persistent_entries(rows, routes) + causal_tf32_entries(rows, routes)}))
     print(f"[gpu] {gpu}")
     print(json.dumps({

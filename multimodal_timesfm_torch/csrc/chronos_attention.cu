@@ -19,18 +19,23 @@
 // dqkv (B, S, 3*H*D) in the same layout. Any S, head_dim 1..256, no atomics:
 // two launches give bit-equal dqkv and dbias.
 //
-// Seven routes; make_plan (chronos_common.cuh) picks one from (dtype, B, S,
-// H, D), and chronos_attention_config reports it. Route 4 below (the wgmma
-// route, numbered 3 in the plan) comes first where chronos_hopper_takes says
-// so; routes 1 and 2 take the bf16 calls it leaves. In fp32 at head_dim 64
-// the 3xTF32 tensor-core route (plan route 5, chronos_attention_tf32.cu and
-// chronos_attention_bwd_tf32.cu, with its design in the first one's header)
-// comes first (chronos_tf32_takes); route 3 below takes the fp32 calls it
-// leaves. Ahead of it in fp32 at head_dim 64 for short sequences comes the
-// persistent 3xTF32 route fed by TMA (plan route 6: the forward's
-// chronos_attention_short_tf32.cu, the backward's
+// Eight routes, numbered 0-7 in the plan; make_plan (chronos_common.cuh)
+// picks one from (dtype, B, S, H, D), and chronos_attention_config reports it.
+// Route 4 below (the wgmma route, numbered 3 in the plan) comes first where
+// chronos_hopper_takes says so; routes 1 and 2 take the bf16 calls it leaves.
+// In fp32 at head_dim 64 three tensor-core routes come in this order: for
+// short sequences the persistent 3xTF32 route fed by TMA (plan route 6: the
+// forward's chronos_attention_short_tf32.cu, the backward's
 // chronos_attention_bwd_short_tf32.cu, their borders and design in their
-// headers). Ahead of all of them in
+// headers); past its borders the 3xTF32 route on wgmma fed by TMA (plan route
+// 7: chronos_attention_tf32_hopper.cu and chronos_attention_bwd_tf32_hopper.cu,
+// sharing chronos_tf32_hopper.cuh, from the borders kFwdFrom / kBwdFrom of
+// chronos_tf32w_takes: 160 and 385 tokens); then the 3xTF32 route on mma.sync (plan route 5,
+// chronos_attention_tf32.cu and chronos_attention_bwd_tf32.cu, with its design
+// in the first one's header: chronos_tf32_takes), which keeps what the other
+// two leave (the forward below 17 and at 113-159 tokens, the backward at
+// 81-384, and the route override "tf32 mma.sync"). Route 3 below takes the fp32 calls they leave (other head dims,
+// the override "cuda cores"). Ahead of all of them in
 // bf16 at head_dim 64 for short sequences comes the persistent one-pass
 // route (plan route 4): the forward's up to 128 tokens
 // (chronos_attention_short_hopper.cu), the backward's up to 80
@@ -287,7 +292,8 @@ cudaError_t launch_onepass_nq(int nq, const bf16* qkv, const int* seg, const flo
 }  // namespace
 
 // Route 3, chronos_attention_hopper.cu; route 4, chronos_attention_short_hopper.cu;
-// route 5, chronos_attention_tf32.cu.
+// route 5, chronos_attention_tf32.cu; route 7, chronos_attention_tf32_hopper.cu;
+// route 6, chronos_attention_short_tf32.cu.
 extern "C" int chronos_hopper_fwd(const void* qkv, const void* seg, const void* bias, void* out,
                                   int B, int S, int H, void* stream);
 extern "C" int chronos_tf32_fwd(const void* qkv, const void* seg, const void* bias, void* out,
@@ -295,6 +301,8 @@ extern "C" int chronos_tf32_fwd(const void* qkv, const void* seg, const void* bi
 extern "C" int chronos_short_fwd(const void* qkv, const void* seg, const void* bias, void* out,
                                  int B, int S, int H, void* stream);
 // Route 6, chronos_attention_short_tf32.cu.
+extern "C" int chronos_tf32w_fwd(const void* qkv, const void* seg, const void* bias, void* out,
+                                 int B, int S, int H, void* stream);
 extern "C" int chronos_short_tf32_fwd(const void* qkv, const void* seg, const void* bias, void* out,
                                       int B, int S, int H, void* stream);
 
@@ -635,6 +643,7 @@ int fwd_rows(const void* qkv, const void* seg, const void* bias, void* out, int 
   const float* bs = static_cast<const float*>(bias);
   const int route = dtype == 0 ? make_plan(false, 0, B, S, H, D).route : -1;
   if (route == 6) return chronos_short_tf32_fwd(qkv, seg, bias, out, B, S, H, stream);
+  if (route == 7) return chronos_tf32w_fwd(qkv, seg, bias, out, B, S, H, stream);
   if (route == 5) return chronos_tf32_fwd(qkv, seg, bias, out, B, S, H, stream);
   if (dtype == 0)
     return (int)dispatch_f32(static_cast<const float*>(qkv), sg, bs, static_cast<float*>(out), B,
@@ -670,8 +679,9 @@ extern "C" int chronos_attention_fwd(const void* qkv, const void* seg, const voi
 // mma.sync one-pass fed by TMA, persistent: the forward's and the
 // backward's routes for short sequences, 5: fp32 3xTF32 on mma.sync
 // m16n8k8, 6: fp32 3xTF32 mma.sync m16n8k8 fed by TMA, persistent: the
-// short forward's and backward's routes), threads,
-// query rows per block (per work item on routes 3 and 4; a tile on 6),
+// short forward's and backward's routes, 7: fp32 3xTF32 wgmma fed by TMA),
+// threads, query rows per block (per work item on routes 3 and 4; a tile on
+// 6; keys a block in route 7's dK/dV kernel),
 // keys per tile, passes over the keys, batch rows per block, blocks along
 // the batch (the (H, S, S) dbias partials the backward sums; route 4's
 // forward: its blocks a head), padded

@@ -944,6 +944,11 @@ extern "C" int chronos_tf32_bwd(const void* qkv, const void* seg, const void* bi
                                 void* dqkv, void* dbias, void* scratch, int B, int S, int H,
                                 void* stream);
 extern "C" long long chronos_tf32_scratch(int B, int S, int H);
+// Route 7, chronos_attention_bwd_tf32_hopper.cu.
+extern "C" int chronos_tf32w_bwd(const void* qkv, const void* seg, const void* bias, const void* g,
+                                 void* dqkv, void* dbias, void* scratch, int B, int S, int H,
+                                 void* stream);
+extern "C" long long chronos_tf32w_scratch(int B, int S, int H);
 // Route 6, chronos_attention_bwd_short_tf32.cu.
 extern "C" int chronos_short_tf32_bwd(const void* qkv, const void* seg, const void* bias,
                                       const void* g, void* dqkv, void* dbias, int groups, int B,
@@ -956,6 +961,7 @@ void rows_buffers(int dtype, int B, int S, int H, int D, long long* stats, long 
   const Plan p = make_plan(true, dtype, B, S, H, D);
   *stats = p.route == 4 || p.route == 6 ? 0
            : p.route == 5              ? chronos_tf32_scratch(B, S, H)
+           : p.route == 7              ? chronos_tf32w_scratch(B, S, H)
                                        : 3LL * B * H * ((S + 63) / 64 * 64);
   *partials = p.groups > 1 ? (long long)p.groups * H * S * S : 0;
 }
@@ -978,6 +984,9 @@ int bwd_rows(const void* qkv, const void* seg, const void* bias, const void* g, 
       : p.route == 4
           ? static_cast<cudaError_t>(
                 chronos_short_bwd(qkv, seg, bias, g, dqkv, part, p.groups, B, S, H, st))
+      : p.route == 7
+          ? static_cast<cudaError_t>(
+                chronos_tf32w_bwd(qkv, seg, bias, g, dqkv, part, stats, B, S, H, st))
       : p.route == 3
           ? static_cast<cudaError_t>(
                 chronos_hopper_bwd(qkv, seg, bias, g, dqkv, part, stats, p.groups, B, S, H, st))

@@ -349,10 +349,10 @@ extern "C" int mtt_chronos_route_override();
 // Whether make_plan (chronos_common.cuh) gives an fp32 backward at (S, D)
 // this route: head_dim 64 and S <= kShortTo; under the route override
 // (chronos_set_route) 6 at every S it is built for, never under 4 (the CUDA
-// cores) or 5 (route 5).
+// cores), 5 (route 5) or 7 (route 7).
 extern "C" int chronos_short_tf32_takes(int S, int D) {
   const int force = mtt_chronos_route_override();
-  return D == kD && S >= 1 && S <= kShortTo && force != 4 && force != 5;
+  return D == kD && S >= 1 && S <= kShortTo && force != 4 && force != 5 && force != 7;
 }
 
 extern "C" int chronos_short_tf32_threads(int S) { return 32 * (2 * ((S + 15) / 16) + 1); }

@@ -250,12 +250,15 @@ int route_override = 0;
 // never on a tensor-core route (route 0, the CUDA cores, at every head_dim;
 // 4 is the bf16 persistent route's number, which has no override of its own,
 // as the causal family's "cuda cores" takes its bf16 persistent route's), 5
-// fp32 on route 5 (chronos_attention_tf32.cu) at every S, never on route 6, 6
+// fp32 on route 5 (chronos_attention_tf32.cu) at every S, never on route 6 or
+// 7, 6
 // fp32 on route 6 (chronos_attention_short_tf32.cu,
-// chronos_attention_bwd_short_tf32.cu) at every S it is built for, route 5
-// past that. 4-6 leave bf16 to the rule, 1 and 3 fp32. Process-wide.
+// chronos_attention_bwd_short_tf32.cu) at every S it is built for, the rule's
+// route 7 or 5 past that, 7 fp32 on route 7 (chronos_attention_tf32_hopper.cu,
+// chronos_attention_bwd_tf32_hopper.cu) at every S, never on route 6. 4-7
+// leave bf16 to the rule, 1 and 3 fp32. Process-wide.
 extern "C" int chronos_set_route(int route) {
-  if (route < 0 || route > 6 || route == 2) return (int)cudaErrorInvalidValue;
+  if (route < 0 || route > 7 || route == 2) return (int)cudaErrorInvalidValue;
   route_override = route;
   return 0;
 }

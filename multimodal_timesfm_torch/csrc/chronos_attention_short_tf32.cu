@@ -240,10 +240,10 @@ extern "C" int mtt_chronos_route_override();
 // Whether make_plan (chronos_common.cuh) gives an fp32 forward at (S, D) this
 // route: head_dim 64 and kShortFwdFrom <= S <= kShortFwdTo; under the route
 // override (chronos_set_route) 6 at every S it is built for, never under 4
-// (the CUDA cores) or 5 (route 5).
+// (the CUDA cores), 5 (route 5) or 7 (route 7).
 extern "C" int chronos_short_tf32_fwd_takes(int S, int D) {
   const int force = mtt_chronos_route_override();
-  if (D != kD || S < 1 || S > kBuiltTo || force == 4 || force == 5) return 0;
+  if (D != kD || S < 1 || S > kBuiltTo || force == 4 || force == 5 || force == 7) return 0;
   return force == 6 || (S >= kShortFwdFrom && S <= kShortFwdTo);
 }
 

@@ -39,6 +39,10 @@ extern "C" int chronos_short_tf32_groups(int B, int S, int H);
 extern "C" int chronos_short_tf32_fwd_takes(int S, int D);
 extern "C" int chronos_short_tf32_fwd_threads(int S);
 extern "C" int chronos_short_tf32_fwd_groups(int B, int S, int H);
+// Whether route 7 takes an fp32 call (chronos_attention_tf32_hopper.cu), and
+// the batch rows of its backward's chunks (chronos_attention_bwd_tf32_hopper.cu).
+extern "C" int chronos_tf32w_takes(int backward, int S, int D);
+extern "C" int chronos_tf32w_chunk_rows(int B, int S, int H);
 
 namespace {
 
@@ -84,9 +88,16 @@ constexpr int kMaxGroup = 8;          // batch rows per block of the one-pass ro
 // backward's, chronos_attention_bwd_short_tf32.cu, W and dL in shared memory,
 // one dbias partial a block, where chronos_short_tf32_takes says so; the
 // forward's, chronos_attention_short_tf32.cu, where
-// chronos_short_tf32_fwd_takes says so), each before route 5. A batch of more
-// than kGridRows rows runs in chunks (attention_common.cuh); the plan is a
-// chunk's.
+// chronos_short_tf32_fwd_takes says so), each before route 7, 7 = fp32
+// 3xTF32 on wgmma fed by TMA at head_dim 64 (chronos_attention_tf32_hopper.cu,
+// chronos_attention_bwd_tf32_hopper.cu: route 5 of the causal kernels at head
+// dim 64, 128 query rows a forward block in two consumer warpgroups, 32-key
+// tiles; backward, per chunk of batch rows a statistics kernel and a dq kernel
+// of 128 query rows a block, the second writing W and dL to a scratch, a dK/dV
+// kernel reading them, and with dbias dL summed over the batch in order),
+// where chronos_tf32w_takes says so (from its measured borders), after route 6
+// and before route 5. A batch of more than kGridRows rows runs in chunks
+// (attention_common.cuh); the plan is a chunk's.
 struct Plan {
   int route;
   int threads;  // per block
@@ -127,6 +138,15 @@ inline Plan make_plan(bool backward, int dtype, int B, int S, int H, int D) {
     const int sp = (S + 15) / 16 * 16;
     const int groups = chronos_short_tf32_fwd_groups(B, S, H);
     p = {6, chronos_short_tf32_fwd_threads(S), sp, sp, 1, (B + groups - 1) / groups, groups, 64, 64, 0};
+    return p;
+  }
+  if (dtype == 0 && chronos_tf32w_takes(backward ? 1 : 0, S, D)) {
+    // rows: query rows a block (keys a block in the dK/dV kernel), two consumer
+    // warpgroups of 64 and a producer warpgroup each way; passes: the
+    // backward's three walks (statistics, dQ, dK and dV); group: batch rows a
+    // chunk of the backward's W and dL scratch; dbias written whole.
+    const int chunk = backward ? chronos_tf32w_chunk_rows(B, S, H) : 1;
+    p = {7, 384, 128, 32, backward ? 3 : 1, chunk, 1, 64, 64, 0};
     return p;
   }
   if (dtype == 0 && chronos_tf32_takes(D)) {

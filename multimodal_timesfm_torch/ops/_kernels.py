@@ -35,7 +35,8 @@ SOURCES = tuple(
                  "chronos_attention_bwd_short_hopper.cu", "chronos_attention_tf32.cu",
                  "chronos_attention_bwd_tf32.cu", "attention_fwd_tf32.cu", "attention_bwd_tf32.cu",
                  "attention_fwd_tf32_hopper.cu", "attention_bwd_tf32_hopper.cu",
-                 "chronos_attention_short_tf32.cu", "chronos_attention_bwd_short_tf32.cu")
+                 "chronos_attention_short_tf32.cu", "chronos_attention_bwd_short_tf32.cu",
+                 "chronos_attention_tf32_hopper.cu", "chronos_attention_bwd_tf32_hopper.cu")
 )
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -148,11 +149,12 @@ _ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16", "bf16 wgmma + TMA, warp-
            "fp32 3xTF32 wgmma m64nNk8 fed by TMA, warp-specialised")
 ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 2, "cuda cores": 3, "tf32 mma.sync": 4, "tf32 wgmma": 5}
 # The Chronos overrides carry the numbers of the plan's routes they force (``_CHRONOS_ROUTES``):
-# "mma.sync" route 1 (or 2 past its limits), "wgmma" 3, "tf32 mma.sync" 5, "tf32 persistent" 6;
-# "cuda cores" (route 0, whose number is the rule's) takes 4, the number of the bf16 persistent
-# route, which has no override of its own, as the causal family's "cuda cores" takes 3.
+# "mma.sync" route 1 (or 2 past its limits), "wgmma" 3, "tf32 mma.sync" 5, "tf32 persistent" 6,
+# "tf32 wgmma" 7; "cuda cores" (route 0, whose number is the rule's) takes 4, the number of the
+# bf16 persistent route, which has no override of its own, as the causal family's "cuda cores"
+# takes 3.
 CHRONOS_ROUTE_NAMES = {"rule": 0, "mma.sync": 1, "wgmma": 3, "cuda cores": 4, "tf32 mma.sync": 5,
-                       "tf32 persistent": 6}
+                       "tf32 persistent": 6, "tf32 wgmma": 7}
 # The lengths from which the library's dispatch gives an fp32 call at head_dim 80 route 5 (3xTF32
 # wgmma fed by TMA) in place of route 4 (3xTF32 mma.sync): ``kFwdFrom`` of
 # csrc/attention_fwd_tf32_hopper.cu and ``kBwdFrom`` of csrc/attention_bwd_tf32_hopper.cu, the
@@ -166,6 +168,11 @@ TF32_WGMMA_FROM = {"forward": 128, "backward": 128}
 # persistent`` lines measure. :func:`chronos_f32_route` follows that rule without the library.
 CHRONOS_TF32_SHORT_FROM = {"forward": 17, "backward": 1}
 CHRONOS_TF32_SHORT_TO = {"forward": 112, "backward": 80}
+# The lengths from which the library's dispatch gives an fp32 Chronos call at head_dim 64 that
+# route 6 leaves route 7 (3xTF32 wgmma fed by TMA) in place of route 5: ``kFwdFrom`` of
+# csrc/chronos_attention_tf32_hopper.cu and ``kBwdFrom`` of csrc/chronos_attention_bwd_tf32_hopper.cu,
+# the borders chip_smoke.py's ``[gate] chronos fp32 wgmma`` lines measure.
+CHRONOS_TF32_WGMMA_FROM = {"forward": 160, "backward": 385}
 
 
 def set_route(name: str) -> None:
@@ -188,8 +195,9 @@ def set_chronos_route(name: str) -> None:
     persistent route: the one-pass or tiled mma.sync route by their own limits), ``"wgmma"``
     (bf16 on the wgmma route at every S; never a persistent route), ``"cuda cores"`` (fp32
     never on a 3xTF32 route), ``"tf32 mma.sync"`` (fp32 on route 5 at every S, never on route
-    6) or ``"tf32 persistent"`` (fp32 on route 6 at every S it is built for, route 5 past
-    that); the first three leave fp32 to the rule, the last three bf16. For measuring the
+    6 or 7), ``"tf32 persistent"`` (fp32 on route 6 at every S it is built for, the rule's
+    route 7 or 5 past that) or ``"tf32 wgmma"`` (fp32 on route 7 at every S, never on route
+    6); the first three leave fp32 to the rule, the last four bf16. For measuring the
     borders (``chip_smoke.py``'s Chronos ``[gate]`` lines); process-wide, in the library."""
     err = library().chronos_set_route(CHRONOS_ROUTE_NAMES[name])
     if err != 0:
@@ -198,13 +206,15 @@ def set_chronos_route(name: str) -> None:
 
 def chronos_f32_route(backward: bool, seq: int, dim: int) -> int:
     """The route the library's rule (no override) gives an fp32 Chronos call, by number: 6 at
-    head_dim 64 from :data:`CHRONOS_TF32_SHORT_FROM` to :data:`CHRONOS_TF32_SHORT_TO`, 5 at
-    head_dim 64 elsewhere, 0 (the CUDA cores) at other head dims. chip_smoke.py holds it to the
-    library's plan on the card."""
+    head_dim 64 from :data:`CHRONOS_TF32_SHORT_FROM` to :data:`CHRONOS_TF32_SHORT_TO`, else 7 at
+    head_dim 64 from :data:`CHRONOS_TF32_WGMMA_FROM`, 5 at head_dim 64 below that, 0 (the CUDA
+    cores) at other head dims. chip_smoke.py holds it to the library's plan on the card."""
     if dim != 64:
         return 0
     way = "backward" if backward else "forward"
-    return 6 if CHRONOS_TF32_SHORT_FROM[way] <= seq <= CHRONOS_TF32_SHORT_TO[way] else 5
+    if CHRONOS_TF32_SHORT_FROM[way] <= seq <= CHRONOS_TF32_SHORT_TO[way]:
+        return 6
+    return 7 if seq >= CHRONOS_TF32_WGMMA_FROM[way] else 5
 
 
 def _attention_config(backward: bool, dtype: torch.dtype, seq: int, dim: int) -> list[int]:
@@ -281,7 +291,8 @@ _CHRONOS_ROUTES = ("fp32 CUDA cores", "bf16 mma.sync m16n8k16 one-pass", "bf16 m
                    "bf16 wgmma + TMA, warp-specialised",
                    "bf16 mma.sync m16n8k16 fed by TMA, persistent, one pass",
                    "fp32 3xTF32 mma.sync m16n8k8",
-                   "fp32 3xTF32 mma.sync m16n8k8 fed by TMA, persistent, one pass")
+                   "fp32 3xTF32 mma.sync m16n8k8 fed by TMA, persistent, one pass",
+                   "fp32 3xTF32 wgmma m64nNk8 fed by TMA, warp-specialised")
 _CHRONOS_KEYS = ("route", "threads", "rows", "keys", "passes", "group", "groups", "padded", "cols", "split_dl")
 
 
@@ -302,6 +313,17 @@ def chronos_plan(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads
 def chronos_route(backward: bool, dtype: torch.dtype, batch: int, seq: int, heads: int, dim: int) -> str:
     """:func:`chronos_plan` as one line of text."""
     p = chronos_plan(backward, dtype, batch, seq, heads, dim)
+    if p["route"] == 7:
+        text = (f"{_CHRONOS_ROUTES[7]}, {p['threads']} threads, {p['rows']} query rows a block x "
+                f"{p['keys']}-row walked tiles, head_dim {dim}, each product lo hi + hi lo + hi hi, operands "
+                f"split into hi and lo by the producers' converting warps (transposed for P X)")
+        if not backward:
+            return text + (", one pass (online softmax), 2 consumer warpgroups of 64 rows + 1 producer warpgroup "
+                           "(a TMA warp, 3 converting)")
+        return text + (f", per chunk of {p['group']} batch rows 3 kernels (row statistics; dQ, writing W and dL "
+                       f"to a scratch; dK and dV from them, W^T and dL^T split in registers) and a 4th for dbias "
+                       f"(dL summed over the batch in order), each 2 consumer warpgroups of 64 rows + 1 producer "
+                       f"warpgroup (a TMA warp, 3 converting)")
     if p["route"] == 6:
         consumers = p["threads"] // 32 - 1
         groups = 1 if backward else consumers // (p["rows"] // 16)
@@ -551,8 +573,8 @@ def chronos_attention_bwd(
     dbias: (H, S, S) fp32, written whole, or None to skip the bias gradient.
     Allocates the scratch the library's ``chronos_attention_bwd_buffers`` asks for: off the
     plan's persistent routes (4, 6), a (3, B, H, S rounded up to 64) fp32 one for the row
-    statistics (on the 3xTF32 route (5), one for the W and dL tiles of one chunk of batch
-    rows) and, with dbias, the (H, S, S) fp32 partial sums of dL the plan needs (one per
+    statistics (on the 3xTF32 route 5, one for the W and dL tiles of one chunk of batch rows;
+    on route 7, both) and, with dbias, the (H, S, S) fp32 partial sums of dL the plan needs (one per
     block along the batch; none when there is one; past 65,535 batch rows, which run in
     chunks, the most a chunk needs and a plane for a chunk's own sum). Raises
     ``RuntimeError`` if a launch is refused.

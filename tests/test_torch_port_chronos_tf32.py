@@ -160,16 +160,18 @@ def tf32_backward(qkv, seg, bias, g, terms=3):
 
 
 def _case(seq, kind, seed=0):
-    """fp32 qkv (entries of about dim^-1/4; "large": q times 4, logits of tens), a N(0, 1) bias,
-    (B, S) ids ("one" segment, "padded": three with a fifth of the tokens padded, "sixteen":
-    sixteen segments and the cotangent centred over each, times 8, so that dV keeps only W's
-    spread) and a cotangent."""
+    """fp32 qkv (entries of about dim^-1/4; "large": q times 4, logits of tens), a N(0, 1) bias
+    ("lastrow": its last row plus 100, past where exp overflows), (B, S) ids ("one" segment, as
+    "lastrow", "padded": three with a fifth of the tokens padded, "sixteen": sixteen segments and
+    the cotangent centred over each, times 8, so that dV keeps only W's spread) and a cotangent."""
     rng = np.random.default_rng(seed + seq)
     qkv = (rng.normal(size=(BATCH, seq, 3 * HEADS * DIM)) / DIM ** 0.25).astype(np.float32)
     if kind == "large":
         qkv[..., : HEADS * DIM] *= 4
     bias = rng.normal(size=(HEADS, seq, seq)).astype(np.float32)
-    seg = _segments(rng, {"large": "padded"}.get(kind, kind), BATCH, seq)
+    if kind == "lastrow":
+        bias[:, -1] += 100
+    seg = _segments(rng, {"large": "padded", "lastrow": "one"}.get(kind, kind), BATCH, seq)
     g = rng.normal(size=(BATCH, seq, HEADS * DIM)).astype(np.float32)
     if kind == "sixteen":
         same = (seg[:, :, None] == seg[:, None, :]).astype(np.float32)
@@ -380,12 +382,12 @@ def test_chip_smoke_names_the_tf32_route_its_gate_lines_and_launches():
     dV's terms cancel, gives the route's rows the 3xTF32 bound as their bound (the CUDA cores'
     beside it) and requires HMMA.1688.F32.TF32 in the route's kernels that take products."""
     timed = inspect.getsource(chip_smoke.chronos_timed_rows)
-    assert 'tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] in (5, 6)' in timed
+    assert 'tf32 = _kernels.chronos_plan(backward, dtype, batch, seq, heads, dim)["route"] in (5, 6, 7)' in timed
     assert "three_tf32=tf32" in timed and 'row["bound_cuda_cores_ms"], _ = chronos_bound(' in timed
     assert chip_smoke.B4_ROUTES[5] == "tf32" and "tf32" in _kernels._CHRONOS_ROUTES[5].lower()
     assert _kernels.CHRONOS_ROUTE_NAMES == {"rule": 0, "mma.sync": 1, "wgmma": 3, "cuda cores": 4,
-                                            "tf32 mma.sync": 5, "tf32 persistent": 6}
-    assert "if (route < 0 || route > 6 || route == 2) return (int)cudaErrorInvalidValue;" in (
+                                            "tf32 mma.sync": 5, "tf32 persistent": 6, "tf32 wgmma": 7}
+    assert "if (route < 0 || route > 7 || route == 2) return (int)cudaErrorInvalidValue;" in (
         CSRC / "chronos_attention_hopper.cu").read_text()
     assert "chronos_f32_borders" not in inspect.getsource(chip_smoke.main).split("def phase(")[1]
     assert chip_smoke.F32_BORDER_LENGTHS[0] == 16 and chip_smoke.F32_BORDER_LENGTHS[-1] == 577
@@ -396,13 +398,15 @@ def test_chip_smoke_names_the_tf32_route_its_gate_lines_and_launches():
         assert f"    {family}(" in "".join(
             (CSRC / n).read_text() for n in ("chronos_attention_tf32.cu", "chronos_attention_bwd_tf32.cu"))
     assert torch.float32 in chip_smoke.DV_CANCEL_DTYPES
-    # Route 6 takes fp32 B4b up to 80 tokens, so route 5's backward has no main-path launch and no
-    # entry; its forward keeps the serving lengths past 128 tokens.
+    # Routes 6 and 7 take every fp32 Chronos launch of Chronos-2's main paths (67, 80 and 97 tokens;
+    # 193 and 577), so route 5 has no main-path launch and no entry in the kernels line; route 7's
+    # rows stand there instead.
+    assert not hasattr(chip_smoke, "TF32_KERNELS") and not hasattr(chip_smoke, "tf32_route_entries")
     shape = (16, 577, 12, 64)
     rows = {chip_smoke.row_key(key, shape, torch.float32): {"ms": 1.0 + i} for i, key in enumerate(("B4f", "B4b"))}
-    entries = chip_smoke.tf32_route_entries(rows, {"B4f tf32": 5, "B4b tf32": 3, "B4f fp32": 1})
-    assert [(e["name"], e["launches"], e["ms"]) for e in entries] == [("fused_chronos_attention (3xTF32 route)", 5, 1.0)]
-    assert [Path(e["source"]).name for e in entries] == ["chronos_attention_tf32.cu"]
+    entries = chip_smoke.tf32w_chronos_entries(rows, {"B4f tf32": 5, "B4b tf32 wgmma": 3, "B4f tf32 wgmma": 2})
+    assert [(e["launches"], e["ms"]) for e in entries] == [(2, 1.0), (3, 2.0)]
+    assert all("chronos_attention_tf32.cu" not in e["source"] for e in entries)
     bound, by = chip_smoke.chronos_bound(16, 577, 12, 64, torch.zeros(16, 577, dtype=torch.int32), torch.float32,
                                          backward=False, three_tf32=True)
     flops = 4 * 64 * 12 * 16 * 577 * 577

@@ -242,20 +242,21 @@ def test_borders_follow_the_sources_and_route_6_comes_first():
     ``chronos_f32_route``) is the sources' ``kShortFwdFrom`` / ``kShortFwdTo`` / ``kShortTo``,
     which the ``[gate] chronos fp32 persistent`` lines set (the forward from 17 to 112 tokens,
     the backward up to 80, the lengths Chronos-2's fine-tune and serving at context 512 run);
-    make_plan asks route 6 before route 5; the overrides "cuda cores" (4) and "tf32 mma.sync"
-    (5) keep fp32 off route 6, "tf32 persistent" (6) forces it at every S it is built for."""
+    make_plan asks route 6 before route 5 (and route 7, which takes the lengths past route 6's
+    borders); the overrides "cuda cores" (4), "tf32 mma.sync" (5) and "tf32 wgmma" (7) keep fp32 off
+    route 6, "tf32 persistent" (6) forces it at every S it is built for."""
     assert _kernels.CHRONOS_TF32_SHORT_FROM == {"forward": SHORT_FWD_FROM, "backward": 1}
     assert _kernels.CHRONOS_TF32_SHORT_TO == {"forward": SHORT_FWD_TO, "backward": SHORT_TO}
     assert (SHORT_FWD_FROM, SHORT_FWD_TO, BUILT_FWD_TO, SHORT_TO) == (17, 112, 128, 80)
     for backward, lo, hi in ((False, SHORT_FWD_FROM, SHORT_FWD_TO), (True, 1, SHORT_TO)):
         assert _kernels.chronos_f32_route(backward, lo, 64) == _kernels.chronos_f32_route(backward, hi, 64) == 6
-        assert _kernels.chronos_f32_route(backward, hi + 1, 64) == 5
+        assert _kernels.chronos_f32_route(backward, hi + 1, 64) == 5  # route 7 from its own borders on
         assert _kernels.chronos_f32_route(backward, 16, 128) == 0
     assert _kernels.chronos_f32_route(False, SHORT_FWD_FROM - 1, 64) == 5
     assert {_kernels.chronos_f32_route(b, s, 64) for b, s in ((False, 67), (False, 97), (True, 67), (True, 80))} == {6}
-    assert "if (D != kD || S < 1 || S > kBuiltTo || force == 4 || force == 5) return 0;" in FWD_SRC
+    assert "if (D != kD || S < 1 || S > kBuiltTo || force == 4 || force == 5 || force == 7) return 0;" in FWD_SRC
     assert "return force == 6 || (S >= kShortFwdFrom && S <= kShortFwdTo);" in FWD_SRC
-    assert "return D == kD && S >= 1 && S <= kShortTo && force != 4 && force != 5;" in BWD_SRC
+    assert "return D == kD && S >= 1 && S <= kShortTo && force != 4 && force != 5 && force != 7;" in BWD_SRC
     common = (CSRC / "chronos_common.cuh").read_text()
     plan = common[common.index("inline Plan make_plan("):]
     assert plan.index("chronos_short_tf32_takes(S, D)") < plan.index("chronos_tf32_takes(D)")
